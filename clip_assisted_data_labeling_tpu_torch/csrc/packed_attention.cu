@@ -1,0 +1,431 @@
+// Packed multi-head softmax attention for Hopper (sm_90a), plain C interface.
+//
+// Replaces the TPU kernel _packed_kernel / fused_attention_packed
+// (clip_assisted_data_labeling_tpu/ops/attention.py, pallas_call at :1124).
+//
+// Computes, for qkv packed [B, S, 3w] exactly as the qkv projection wrote it
+// (head h's q, k, v are the column slices h*d, w + h*d, 2w + h*d):
+//   q' = q * scale            rounded to the input type (as the TPU kernel)
+//   s  = q' k^T               float32 accumulation; keys >= s_real get -inf
+//   p  = exp(s - max_row(s))  float32; sum over the unrounded p
+//   o  = (T(p) v) * (1/sum)   P rounded to v's type, float32 accumulation,
+//                             normalized after the product, rounded to T
+// an exact two-pass softmax: every P is exp(s - final row max), rounded at
+// the same point as on the TPU (an online softmax would round a rescaled P).
+//
+// What bounds it: at ViT-L-336 shapes (S=577, d=64) the work is ~4·B·H·S²·d
+// FLOPs against ~B·S·4w·sizeof(T) bytes — ~290 FLOP/byte in bf16, right at
+// the H100's ridge (~295), so both the tensor-core rate and device memory
+// bound it about equally; float32 has no tensor-core path that keeps float32
+// products (TF32 would round them), so it is bound by the CUDA-core FMA rate.
+//
+// bfloat16 (the main path): packed_attention_mma_kernel. One block of four
+// warps per (64 query rows, head, batch item); each warp owns 16 rows and
+// keeps its q fragments, scores and output accumulators in registers, with
+// mma.sync m16n8k16 (bf16 in, f32 accumulate) for both products. K, and V
+// transposed, are streamed through shared memory in 64-key chunks read in
+// place with head strides (16-byte loads, no layout copies). The exact
+// two-pass softmax recomputes the scores instead of storing them: pass 1
+// takes the row max, pass 2 recomputes the identical scores (same mma
+// sequence on the same data), exponentiates against the final max, sums the
+// float32 p, rounds P to bf16 in the registers that feed the P·V mma. That
+// costs one extra Q·K^T (1.5x the minimum FLOPs) and keeps shared memory at
+// ~28 KB a block, so many blocks fit an SM.
+//
+// float32: packed_attention_kernel. One block per (16 query rows, head,
+// batch item) keeps the tile's whole score block [16, S] in shared memory
+// (40 KB at S=577) and runs both products as float32 FMAs over K^T and V
+// chunks streamed through shared memory. Sequences whose score tile
+// overflows the 227 KB a block may use are refused (the wrapper checks).
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int QT = 16;    // query rows per block
+constexpr int KT = 64;    // keys per streamed chunk
+constexpr int NT = 256;   // threads per block
+constexpr int DMAX = 128; // largest head dim
+constexpr int EPT = QT * DMAX / NT;      // output elements per thread (max)
+constexpr int RPT = QT / (NT / KT);      // score rows per thread
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T> __device__ __forceinline__ T from_f(float x);
+template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT) packed_attention_kernel(
+    const T* __restrict__ qkv, T* __restrict__ out, int S, int s_real, int w,
+    int d, float scale, int s_chunks) {
+  extern __shared__ float smem[];
+  const int s_pad = s_chunks * KT;
+  float* q_s = smem;                  // [QT][d]  scaled q
+  float* kv_s = q_s + QT * d;         // K^T chunk [d][KT+1], then V chunk [KT][d]
+  float* sc = kv_s + d * (KT + 1);    // [QT][s_pad] scores, then P
+  float* inv_s = sc + QT * s_pad;     // [QT] 1/sum
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * QT;
+  const int h = blockIdx.y;
+  const size_t row_stride = 3 * (size_t)w;
+  const T* base = qkv + (size_t)blockIdx.z * S * row_stride;
+
+  // q * scale in the input type (the scale itself rounded to T first)
+  const float scale_t = to_f(from_f<T>(scale));
+  for (int idx = tid; idx < QT * d; idx += NT) {
+    const int r = idx / d, i = idx - (idx / d) * d;
+    const int qi = q0 + r;
+    float v = 0.f;
+    if (qi < S) v = to_f(from_f<T>(to_f(base[(size_t)qi * row_stride + h * d + i]) * scale_t));
+    q_s[idx] = v;
+  }
+
+  // --- pass 1: scores = q' k^T over streamed key chunks -------------------
+  const int kk = tid % KT;    // this thread's key within the chunk
+  const int rg = tid / KT;    // this thread's group of RPT rows
+  for (int c = 0; c < s_chunks; ++c) {
+    const int k0 = c * KT;
+    __syncthreads();  // kv_s free (and q_s written, on the first chunk)
+    for (int idx = tid; idx < KT * d; idx += NT) {
+      const int kr = idx / d, i = idx - (idx / d) * d;
+      const int key = k0 + kr;
+      kv_s[i * (KT + 1) + kr] =
+          key < S ? to_f(base[(size_t)key * row_stride + w + h * d + i]) : 0.f;
+    }
+    __syncthreads();
+    float acc[RPT];
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) acc[j] = 0.f;
+    for (int i = 0; i < d; ++i) {
+      const float kv = kv_s[i * (KT + 1) + kk];
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) acc[j] = fmaf(q_s[(rg * RPT + j) * d + i], kv, acc[j]);
+    }
+    const int key = k0 + kk;
+#pragma unroll
+    for (int j = 0; j < RPT; ++j)
+      sc[(rg * RPT + j) * s_pad + key] = key < s_real ? acc[j] : -INFINITY;
+  }
+  __syncthreads();
+
+  // --- softmax rows: max, exp, sum in float32; P rounded to T -------------
+  const int warp = tid / 32, lane = tid % 32;
+  for (int r = warp; r < QT; r += NT / 32) {
+    float* row = sc + r * s_pad;
+    float m = -INFINITY;
+    for (int k = lane; k < S; k += 32) m = fmaxf(m, row[k]);
+    m = warp_max(m);
+    float sum = 0.f;
+    for (int k = lane; k < S; k += 32) {
+      const float p = expf(row[k] - m);
+      sum += p;
+      row[k] = to_f(from_f<T>(p));
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) inv_s[r] = 1.0f / sum;
+  }
+
+  // --- pass 2: out = P v over streamed value chunks -----------------------
+  int er[EPT], ei[EPT];
+  float acc[EPT];
+#pragma unroll
+  for (int j = 0; j < EPT; ++j) {
+    const int e = tid + j * NT;
+    er[j] = e / d;
+    ei[j] = e - er[j] * d;
+    acc[j] = 0.f;
+  }
+  const int n_out = QT * d;
+  for (int c = 0; c < s_chunks; ++c) {
+    const int k0 = c * KT;
+    __syncthreads();  // kv_s free, P complete
+    for (int idx = tid; idx < KT * d; idx += NT) {
+      const int kr = idx / d, i = idx - (idx / d) * d;
+      const int key = k0 + kr;
+      kv_s[idx] = key < S ? to_f(base[(size_t)key * row_stride + 2 * w + h * d + i]) : 0.f;
+    }
+    __syncthreads();
+    const int kmax = min(KT, S - k0);
+    for (int k = 0; k < kmax; ++k) {
+#pragma unroll
+      for (int j = 0; j < EPT; ++j) {
+        if (tid + j * NT < n_out)
+          acc[j] = fmaf(sc[er[j] * s_pad + k0 + k], kv_s[k * d + ei[j]], acc[j]);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < EPT; ++j) {
+    const int qi = q0 + er[j];
+    if (tid + j * NT < n_out && qi < S)
+      out[((size_t)blockIdx.z * S + qi) * w + h * d + ei[j]] = from_f<T>(acc[j] * inv_s[er[j]]);
+  }
+}
+
+template <typename T>
+int launch(const void* qkv, void* out, int B, int S, int s_real, int w, int heads,
+           float scale, cudaStream_t stream) {
+  const int d = w / heads;
+  const int s_chunks = (S + KT - 1) / KT;
+  const size_t smem = sizeof(float) *
+      ((size_t)QT * d + (size_t)d * (KT + 1) + (size_t)QT * s_chunks * KT + QT);
+  cudaError_t err = cudaFuncSetAttribute(packed_attention_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((S + QT - 1) / QT, heads, B);
+  packed_attention_kernel<T><<<grid, NT, smem, stream>>>(
+      static_cast<const T*>(qkv), static_cast<T*>(out), S, s_real, w, d, scale, s_chunks);
+  return (int)cudaGetLastError();
+}
+
+// ---- bfloat16: tensor-core kernel ------------------------------------------
+
+constexpr int MQ = 64;    // query rows per block (4 warps x 16)
+constexpr int MK = 64;    // keys per streamed chunk
+constexpr int MNT = 128;  // threads per block
+constexpr int PAD = 8;    // bf16 elements of padding per shared-memory row
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <int DP>  // head dim padded to a multiple of 16
+constexpr size_t mma_smem_bytes() {
+  return sizeof(__nv_bfloat16) * ((size_t)(MQ + MK) * (DP + PAD) + (size_t)DP * (MK + PAD));
+}
+
+template <int DP>
+__global__ void __launch_bounds__(MNT) packed_attention_mma_kernel(
+    const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out, int S,
+    int s_real, int w, int d, float scale) {
+  constexpr int LDQ = DP + PAD;  // row stride of Qs and Ks
+  constexpr int LDV = MK + PAD;  // row stride of Vt
+  constexpr int NV = DP / 8;     // 16-byte vectors per padded head row
+  extern __shared__ __align__(16) unsigned char mma_smem[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(mma_smem);  // [MQ][LDQ]
+  __nv_bfloat16* Ks = Qs + MQ * LDQ;                                // [MK][LDQ]
+  __nv_bfloat16* Vt = Ks + MK * LDQ;                                // [DP][LDV], V^T
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;  // mma fragment coordinates
+  const int q0 = blockIdx.x * MQ, h = blockIdx.y;
+  const size_t rs = 3 * (size_t)w;
+  const __nv_bfloat16* base = qkv + (size_t)blockIdx.z * S * rs;
+  const int dv = d / 8;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+
+  // q tile scaled in bf16 (the scale itself rounded to bf16 first),
+  // zero-padded past d and past S
+  const float scale_t = __bfloat162float(__float2bfloat16_rn(scale));
+  for (int idx = tid; idx < MQ * NV; idx += MNT) {
+    const int r = idx / NV, c8 = idx % NV;
+    uint4 v = zero;
+    if (q0 + r < S && c8 < dv) {
+      v = *reinterpret_cast<const uint4*>(base + (size_t)(q0 + r) * rs + h * d + c8 * 8);
+      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * scale_t);
+    }
+    *reinterpret_cast<uint4*>(Qs + r * LDQ + c8 * 8) = v;
+  }
+  __syncthreads();
+  const int r0 = warp * 16;
+  uint32_t qa[DP / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < DP / 16; ++ks) {
+    qa[ks][0] = ld32(Qs + (r0 + g) * LDQ + ks * 16 + 2 * t);
+    qa[ks][1] = ld32(Qs + (r0 + g + 8) * LDQ + ks * 16 + 2 * t);
+    qa[ks][2] = ld32(Qs + (r0 + g) * LDQ + ks * 16 + 8 + 2 * t);
+    qa[ks][3] = ld32(Qs + (r0 + g + 8) * LDQ + ks * 16 + 8 + 2 * t);
+  }
+
+  auto load_k = [&](int k0) {
+    for (int idx = tid; idx < MK * NV; idx += MNT) {
+      const int r = idx / NV, c8 = idx % NV;
+      uint4 v = zero;
+      if (k0 + r < S && c8 < dv)
+        v = *reinterpret_cast<const uint4*>(base + (size_t)(k0 + r) * rs + w + h * d + c8 * 8);
+      *reinterpret_cast<uint4*>(Ks + r * LDQ + c8 * 8) = v;
+    }
+  };
+  auto load_vt = [&](int k0) {
+    for (int idx = tid; idx < MK * NV; idx += MNT) {
+      const int r = idx % MK, c8 = idx / MK;  // key fastest: spread the transposed stores
+      uint4 v = zero;
+      if (k0 + r < S && c8 < dv)
+        v = *reinterpret_cast<const uint4*>(base + (size_t)(k0 + r) * rs + 2 * w + h * d + c8 * 8);
+      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) Vt[(c8 * 8 + j) * LDV + r] = e[j];
+    }
+  };
+  // this warp's 16 x MK score block of one chunk: s[j] is keys 8j..8j+7,
+  // c0/c1 row g keys 2t/2t+1, c2/c3 row g+8 (the mma accumulator layout)
+  auto scores = [&](float (&s)[MK / 8][4], int k0) {
+#pragma unroll
+    for (int j = 0; j < MK / 8; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+      const __nv_bfloat16* kr = Ks + (j * 8 + g) * LDQ + 2 * t;
+#pragma unroll
+      for (int ks = 0; ks < DP / 16; ++ks)
+        mma_bf16(s[j], qa[ks], ld32(kr + ks * 16), ld32(kr + ks * 16 + 8));
+      const int key = k0 + j * 8 + 2 * t;
+      if (key >= s_real) s[j][0] = s[j][2] = -INFINITY;
+      if (key + 1 >= s_real) s[j][1] = s[j][3] = -INFINITY;
+    }
+  };
+
+  // --- pass 1: row max over all keys -----------------------------------
+  float m0 = -INFINITY, m1 = -INFINITY;  // rows g and g+8
+  for (int k0 = 0; k0 < S; k0 += MK) {
+    __syncthreads();
+    load_k(k0);
+    __syncthreads();
+    float s[MK / 8][4];
+    scores(s, k0);
+#pragma unroll
+    for (int j = 0; j < MK / 8; ++j) {
+      m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+      m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+    }
+  }
+  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+  m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+  m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+
+  // --- pass 2: recompute scores, P = bf16(exp(s - max)), O += P V ---------
+  float l0 = 0.f, l1 = 0.f;
+  float o[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int k0 = 0; k0 < S; k0 += MK) {
+    __syncthreads();
+    load_k(k0);
+    load_vt(k0);
+    __syncthreads();
+    float s[MK / 8][4];
+    scores(s, k0);
+    uint32_t pa[MK / 16][4];
+#pragma unroll
+    for (int j = 0; j < MK / 8; ++j) {
+      const float p0 = expf(s[j][0] - m0), p1 = expf(s[j][1] - m0);
+      const float p2 = expf(s[j][2] - m1), p3 = expf(s[j][3] - m1);
+      l0 += p0;
+      l0 += p1;
+      l1 += p2;
+      l1 += p3;
+      pa[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
+      pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+    }
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      const __nv_bfloat16* vr = Vt + (n * 8 + g) * LDV + 2 * t;
+#pragma unroll
+      for (int kk = 0; kk < MK / 16; ++kk)
+        mma_bf16(o[n], pa[kk], ld32(vr + kk * 16), ld32(vr + kk * 16 + 8));
+    }
+  }
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+  const int row0 = q0 + r0 + g, row1 = row0 + 8;
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (col >= d) continue;
+    if (row0 < S)
+      *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)blockIdx.z * S + row0) * w + h * d + col) =
+          __floats2bfloat162_rn(o[n][0] * inv0, o[n][1] * inv0);
+    if (row1 < S)
+      *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)blockIdx.z * S + row1) * w + h * d + col) =
+          __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
+  }
+}
+
+template <int DP>
+int launch_mma(const void* qkv, void* out, int B, int S, int s_real, int w, int heads,
+               float scale, cudaStream_t stream) {
+  const size_t smem = mma_smem_bytes<DP>();
+  cudaError_t err = cudaFuncSetAttribute(packed_attention_mma_kernel<DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((S + MQ - 1) / MQ, heads, B);
+  packed_attention_mma_kernel<DP><<<grid, MNT, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), S, s_real,
+      w, w / heads, scale);
+  return (int)cudaGetLastError();
+}
+
+int launch_bf16(const void* qkv, void* out, int B, int S, int s_real, int w, int heads,
+                float scale, cudaStream_t stream) {
+  const int d = w / heads;
+  if (d % 8 != 0) return (int)cudaErrorInvalidValue;  // 16-byte row loads
+  if (d <= 64) return launch_mma<64>(qkv, out, B, S, s_real, w, heads, scale, stream);
+  if (d <= 80) return launch_mma<80>(qkv, out, B, S, s_real, w, heads, scale, stream);
+  if (d <= 96) return launch_mma<96>(qkv, out, B, S, s_real, w, heads, scale, stream);
+  if (d <= 112) return launch_mma<112>(qkv, out, B, S, s_real, w, heads, scale, stream);
+  return launch_mma<128>(qkv, out, B, S, s_real, w, heads, scale, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Shared memory the float32 kernel needs for sequence length S and head dim
+// d; the wrapper refuses shapes above the 227 KB a block may use. (The
+// bfloat16 kernel's ~28-53 KB does not depend on S.)
+size_t packed_attention_smem_bytes(int S, int d) {
+  const int s_chunks = (S + KT - 1) / KT;
+  return sizeof(float) *
+      ((size_t)QT * d + (size_t)d * (KT + 1) + (size_t)QT * s_chunks * KT + QT);
+}
+
+// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() of the launch.
+int packed_attention(const void* qkv, void* out, int dtype, int B, int S, int s_real,
+                     int w, int heads, float scale, void* stream) {
+  if (heads <= 0 || w % heads != 0 || w / heads > DMAX || s_real < 1 || s_real > S)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch<float>(qkv, out, B, S, s_real, w, heads, scale, st);
+  if (dtype == 1) return launch_bf16(qkv, out, B, S, s_real, w, heads, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"
