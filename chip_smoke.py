@@ -6,16 +6,22 @@ Phases (any failure exits nonzero and prints no result line):
   1. print the card's name and power limit (nvidia-smi); no card → exit 2,
   2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel),
   3. hold each kernel against its plain PyTorch version on the card at the
-     main path's shapes and time kernel, plain version, the PyTorch library
+     main paths' shapes and time kernel, plain version, the PyTorch library
      yardstick and the roofline bound (CUDA events, warmed up),
   4. write 32 synthetic PNGs of mixed sizes from a seed,
   5. run the port's embed CLI on them: ViT-L-14-336/openai, int8_static,
      batch 8, full width and depth (24 layers), random weights from the
      model name — with the kernel launch counters zeroed just before,
   6. check sidecars, store and .calib.npz, finite unit-norm embeddings, and
-     that the launch counters equal layers × forwards; then time the same
-     device work in steady state and profile one batch by kernel,
+     that the launch counters equal layers × forwards (K1, K2; no K3, K5);
+     then time the same device work in steady state and profile one batch,
   7. run a few images through the float32 path (K1 in float32) and print the
+     cosine against the int8_static embeddings,
+  8. the embed CLI again on the same PNGs: ViT-SO400M-14-SigLIP-384/webli,
+     int8_static (the int8 attention wire: K3 in each of the 27 layers, no
+     K1, K2 or K5), batch 8, full width and depth, random weights; check
+     outputs and the .calib.npz's qkv_amax, steady state, profile,
+  9. four images through its bfloat16 path (K5 in every layer) and the
      cosine against the int8_static embeddings,
 then print one JSON line listing the kernels and, last, the device line.
 
@@ -39,16 +45,43 @@ H100_BF16_FLOPS = 989e12  # dense tensor-core bf16 (NVIDIA data sheet, SXM, 700 
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
 H100_BYTES = 3.35e12  # HBM3 bytes/s
 MODEL = "ViT-L-14-336/openai"
+SIGLIP = "ViT-SO400M-14-SigLIP-384/webli"
 N_IMAGES, BATCH = 32, 8
 K1_SRC = "clip_assisted_data_labeling_tpu_torch/csrc/packed_attention.cu"
 K2_SRC = "clip_assisted_data_labeling_tpu_torch/csrc/rowquant_static.cu"
+K3_SRC = "clip_assisted_data_labeling_tpu_torch/csrc/packed_attention_q8s.cu"
+K5_SRC = "clip_assisted_data_labeling_tpu_torch/csrc/flash_attention.cu"
 K1_TPU = "clip_assisted_data_labeling_tpu/ops/attention.py:860"
 K2_TPU = "clip_assisted_data_labeling_tpu/ops/quant_kernel.py:410"
+K3_TPU = "clip_assisted_data_labeling_tpu/ops/attention.py:746"
+K5_TPU = "clip_assisted_data_labeling_tpu/ops/attention.py:441"
 
 
 def fail(msg: str, code: int = 1):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr)
     sys.exit(code)
+
+
+def kernels() -> dict:
+    """The kernel wrappers by table number; each counts its launches."""
+    from clip_assisted_data_labeling_tpu_torch.ops.attention import (
+        flash_attention_packed,
+        fused_attention_packed,
+        fused_attention_packed_q8s,
+    )
+    from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import rowquant_static
+
+    return {"K1": fused_attention_packed, "K2": rowquant_static,
+            "K3": fused_attention_packed_q8s, "K5": flash_attention_packed}
+
+
+def reset_counts() -> None:
+    for fn in kernels().values():
+        fn.launches = 0
+
+
+def counts() -> dict:
+    return {k: fn.launches for k, fn in kernels().items()}
 
 
 def time_ms(fn, min_reps: int = 10, min_s: float = 0.2) -> float:
@@ -71,15 +104,26 @@ def time_ms(fn, min_reps: int = 10, min_s: float = 0.2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def bound(flops: float, peak: float, nbytes: float) -> dict:
+    """The least time the card could take: operations over the peak rate
+    for their type or bytes over the memory rate, whichever is larger."""
+    return {"bound_ms": 1e3 * max(flops / peak, nbytes / H100_BYTES),
+            "bound_by": "operations" if flops / peak > nbytes / H100_BYTES else "bytes"}
+
+
 def check_kernels(gen: torch.Generator) -> list[dict]:
-    """Phase 3: every kernel against its plain version at the main path's
+    """Phase 3: every kernel against its plain version at the main paths'
     shapes, with times. Launches here are comparisons and are not counted
-    (the counters are zeroed before the main path)."""
+    (the counters are zeroed before each main path)."""
     import torch.nn.functional as F
 
     from clip_assisted_data_labeling_tpu_torch.ops.attention import (
+        flash_attention_packed,
+        flash_attention_packed_plain,
         fused_attention_packed,
         fused_attention_packed_plain,
+        fused_attention_packed_q8s,
+        fused_attention_packed_q8s_plain,
     )
     from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import (
         rowquant_static,
@@ -112,8 +156,7 @@ def check_kernels(gen: torch.Generator) -> list[dict]:
                                 min_reps=3),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, scale=d ** -0.5)),
-            "bound_ms": 1e3 * max(flops / peak, nbytes / H100_BYTES),
-            "bound_by": "operations" if flops / peak > nbytes / H100_BYTES else "bytes",
+            **bound(flops, peak, nbytes),
         }
         rows.append(row)
         print(f"K1 {row['case']}: err {err:.3g} (tol {tol}) kernel {row['ms']:.3f} ms "
@@ -145,8 +188,7 @@ def check_kernels(gen: torch.Generator) -> list[dict]:
             "ms": time_ms(lambda: rowquant_static(x, g, bta, amax)),
             "plain_ms": time_ms(lambda: rowquant_static_plain(x, g, bta, amax)),
             "library_ms": time_ms(library),
-            "bound_ms": 1e3 * max(flops / H100_F32_FLOPS, nbytes / H100_BYTES),
-            "bound_by": "operations" if flops / H100_F32_FLOPS > nbytes / H100_BYTES else "bytes",
+            **bound(flops, H100_F32_FLOPS, nbytes),
         }
         rows.append(row)
         print(f"K2 {row['case']}: max |diff| {row['max_abs_err']} on {row['flip_share']:.2e} "
@@ -156,30 +198,92 @@ def check_kernels(gen: torch.Generator) -> list[dict]:
             fail(f"rowquant_static {row['case']}: ±1 flips on {row['flip_share']:.2e} of "
                  "entries (> 1e-3)")
         del x, diff
+
+    # ViT-SO400M-14-SigLIP-384 (S=729, 16 heads of 72): K5 bf16 at the
+    # bf16 path's 8 images x 4 crops and f32 at 2 x 4; K3 at int8_static's
+    heads, w, s = 16, 1152, 729
+    d = w // heads
+    for b, (dtype, tol, peak) in ((4 * BATCH, bf16), (8, f32)):
+        qkv = torch.randn((b, s, 3 * w), generator=gen, device="cuda").to(dtype)
+        err = (flash_attention_packed(qkv, heads, d ** -0.5).float()
+               - flash_attention_packed_plain(qkv, heads, d ** -0.5).float()).abs().max().item()
+        q, k, v = (t.reshape(b, s, heads, d).transpose(1, 2).contiguous()
+                   for t in qkv.split(w, dim=-1))
+        row = {
+            "name": "flash_attention", "route": "cuda", "source": K5_SRC, "replaces": K5_TPU,
+            "case": f"{str(dtype)[6:]} [{b},{s},{3 * w}] h={heads}", "max_abs_err": err,
+            "tol": tol, "ms": time_ms(lambda: flash_attention_packed(qkv, heads, d ** -0.5)),
+            "plain_ms": time_ms(lambda: flash_attention_packed_plain(qkv, heads, d ** -0.5),
+                                min_reps=3),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=d ** -0.5)),
+            **bound(4.0 * b * heads * s * s * d, peak, b * s * 4 * w * qkv.element_size()),
+        }
+        rows.append(row)
+        print(f"K5 {row['case']}: err {err:.3g} (tol {tol}) kernel {row['ms']:.3f} ms "
+              f"plain {row['plain_ms']:.3f} sdpa {row['library_ms']:.3f} "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+        del qkv, q, k, v
+        torch.cuda.empty_cache()
+
+    b = 4 * BATCH
+    qkv = torch.randint(-127, 128, (b, s, 3 * w), generator=gen, device="cuda",
+                        dtype=torch.int8)
+    # scores of std ~3, outputs over much of the int8 range (as the tests)
+    cs = torch.cat([torch.rand(2 * w, generator=gen, device="cuda") * 8e-3 + 4e-3,
+                    torch.rand(w, generator=gen, device="cuda") * 0.5 + 0.25])
+    diff = (fused_attention_packed_q8s(qkv, cs, heads).int()
+            - fused_attention_packed_q8s_plain(qkv, cs, heads).int()).abs()
+
+    def q8s_library():  # dequantize, SDPA, requantize
+        deq = (qkv.float() * cs).to(torch.bfloat16).view(b, s, 3, heads, d)
+        o = F.scaled_dot_product_attention(*deq.permute(2, 0, 3, 1, 4).unbind(0), scale=1.0)
+        return o.transpose(1, 2).reshape(b, s, w).float().round_().clamp_(-127, 127).to(
+            torch.int8)
+
+    row = {
+        "name": "packed_attention_q8s", "route": "cuda", "source": K3_SRC, "replaces": K3_TPU,
+        "case": f"int8 [{b},{s},{3 * w}] h={heads}", "max_abs_err": diff.max().item(),
+        "tol": 1, "flip_share": (diff > 0).float().mean().item(),
+        "ms": time_ms(lambda: fused_attention_packed_q8s(qkv, cs, heads)),
+        "plain_ms": time_ms(lambda: fused_attention_packed_q8s_plain(qkv, cs, heads),
+                            min_reps=3),
+        "library_ms": time_ms(q8s_library),
+        **bound(4.0 * b * heads * s * s * d, H100_BF16_FLOPS, b * s * 4 * w + 3 * w * 4),
+    }
+    rows.append(row)
+    print(f"K3 {row['case']}: max |diff| {row['max_abs_err']} on {row['flip_share']:.2e} of "
+          f"entries, kernel {row['ms']:.3f} ms plain {row['plain_ms']:.3f} dequant+sdpa+quant "
+          f"{row['library_ms']:.3f} bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
+          flush=True)
+    if row["flip_share"] > 1e-3:
+        fail(f"packed_attention_q8s: ±1 flips on {row['flip_share']:.2e} of entries (> 1e-3)")
+    del qkv, diff
+    torch.cuda.empty_cache()
     for r in rows:
         if not (r["max_abs_err"] <= r["tol"]):
             fail(f"{r['name']} {r['case']} disagrees with its plain version: {r['max_abs_err']}")
     return rows
 
 
-def profile_int8_static(root: str, calib: str, cfg) -> None:
-    """The main path's device work again, steady state: the int8_static
+def profile_int8_static(model: str, root: str, calib: str, cfg, per_batch: dict) -> None:
+    """A main path's device work again, steady state: the int8_static
     encoder with the saved calibration, all batches decoded up front, then
     (a) wall time over every batch (crops + ViT + image stats, H2D included,
     decode excluded) and (b) a torch.profiler trace of one batch, summed by
-    kernel name. Its launches are counted on their own."""
+    kernel name. Its launches are counted on their own and must be
+    ``per_batch`` per batch; a profiler that fails or sees no device time
+    fails the run."""
     from torch.profiler import ProfilerActivity, profile
 
     from clip_assisted_data_labeling_tpu_torch.data.loader import BatchedImageLoader, find_images
     from clip_assisted_data_labeling_tpu_torch.models.encoders import CLIPImageEncoder
-    from clip_assisted_data_labeling_tpu_torch.ops.attention import fused_attention_packed
     from clip_assisted_data_labeling_tpu_torch.ops.image_stats import image_stats_batch
-    from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import rowquant_static
 
-    enc = CLIPImageEncoder(MODEL, compute_dtype="int8_static", calibration_path=calib,
+    enc = CLIPImageEncoder(model, compute_dtype="int8_static", calibration_path=calib,
                            device="cuda")
     if not enc.load_calibration():
-        fail("the saved calibration did not load")
+        fail(f"{model}: the saved calibration did not load")
     batches = list(BatchedImageLoader(find_images(root), canvas_size=1024,
                                       out_size=cfg.image_size, batch_size=BATCH,
                                       num_workers=4, bucketed=True, sort_by_size=True))
@@ -193,37 +297,120 @@ def profile_int8_static(root: str, calib: str, cfg) -> None:
 
     run(batches[0])
     torch.cuda.synchronize()
-    fused_attention_packed.launches = rowquant_static.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     for b in batches:
         run(b)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k1, k2 = fused_attention_packed.launches, rowquant_static.launches
-    if (k1, k2) != (cfg.layers * len(batches), 2 * cfg.layers * len(batches)):
-        fail(f"steady-state launches K1 {k1} K2 {k2} for {len(batches)} batches")
+    got = counts()
+    want = {k: per_batch.get(k, 0) * len(batches) for k in got}
+    if got != want:
+        fail(f"{model} steady-state launches {got}, expected {want}")
     n = sum(b.n_valid for b in batches)
-    print(f"steady state: {n} images x 4 crops in {wall * 1e3:.1f} ms = {n / wall:.2f} imgs/s "
-          f"({len(batches)} batches of {BATCH}, canvas buckets "
+    print(f"steady state {model}: {n} images x 4 crops in {wall * 1e3:.1f} ms = "
+          f"{n / wall:.2f} imgs/s ({len(batches)} batches of {BATCH}, canvas buckets "
           f"{sorted({b.canvas.shape[1] for b in batches})})", flush=True)
 
-    try:  # the trace is a reading aid: a profiler that cannot trace the card is reported
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run(batches[-1])
-            torch.cuda.synchronize()
-        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    except Exception as e:  # noqa: BLE001
-        print(f"profile: torch.profiler failed ({e!r}); no per-kernel breakdown", flush=True)
-        events = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run(batches[-1])
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     total = sum(e.self_device_time_total for e in events)
-    print(f"profile of one batch ({BATCH} images, 4 crops, S={cfg.seq_len}): device time "
-          f"{total / 1e3:.2f} ms", flush=True)
+    if total <= 0:
+        fail(f"torch.profiler recorded no device time for {model}")
+    print(f"profile of one batch of {model} ({BATCH} images, 4 crops, S={cfg.seq_len}): "
+          f"device time {total / 1e3:.2f} ms", flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms "
-              f"{100 * e.self_device_time_total / max(total, 1):5.1f}% x{e.count:<4d} {e.key[:100]}",
+              f"{100 * e.self_device_time_total / total:5.1f}% x{e.count:<4d} {e.key[:100]}",
               flush=True)
     del enc, batches
     torch.cuda.empty_cache()
+
+
+def embed_and_check(root: str, model: str, cfg, per_forward: dict) -> dict:
+    """A main path through the user's entry point: the embed CLI on the PNGs
+    (int8_static, batch BATCH), with the launch counters zeroed just before
+    and read just after — ``per_forward`` for each batch's forward, none for
+    the calibration forward (its attention is the plain XLA-style path);
+    then its outputs, steady state and profile. Returns the launch counts,
+    the sidecar paths and their embeddings [N_IMAGES, 4, D]."""
+    from clip_assisted_data_labeling_tpu_torch.pipeline.embed import main as embed_main
+    from clip_assisted_data_labeling_tpu_torch.store.columnar import EmbeddingStore
+    from clip_assisted_data_labeling_tpu_torch.store.sidecar import read_sidecar
+
+    n_batches = math.ceil(N_IMAGES / BATCH)
+    reset_counts()
+    t0 = time.perf_counter()
+    stores = embed_main(["--root_dir", root, "--models_to_use", model,
+                         "--compute_dtype", "int8_static", "--batch_size", str(BATCH),
+                         "--num_workers", "4", "--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = counts()
+    want = {k: n_batches * per_forward.get(k, 0) for k in got}
+    print(f"main path {model}: {N_IMAGES} images x 4 crops in {wall:.2f} s "
+          f"({N_IMAGES / wall:.2f} imgs/s incl. model init and calibration); "
+          f"launches {got} (want {want})", flush=True)
+    if got != want:
+        fail(f"{model}: launch counters {got}, expected {want}")
+
+    store = stores[model]
+    pts = sorted(glob.glob(os.path.join(root, "*.pt")))
+    calib = os.path.join(root, model.replace("/", "-") + ".calib.npz")
+    if len(pts) != N_IMAGES or not os.path.exists(calib):
+        fail(f"{len(pts)} sidecars (want {N_IMAGES}), calib exists: {os.path.exists(calib)}")
+    with np.load(calib) as f:
+        shapes = {k: f[k].shape for k in ("act_amax", "qkv_amax")}
+    if shapes != {"act_amax": (cfg.layers, 4), "qkv_amax": (cfg.layers, 3 * cfg.width)}:
+        fail(f"{model}: calibration shapes {shapes}")
+    reopened = EmbeddingStore.open(root, model)
+    emb = np.asarray(reopened.embeddings, np.float32)
+    if emb.shape != (N_IMAGES, 4, cfg.embed_dim) or not np.asarray(reopened.valid).all():
+        fail(f"store shape {emb.shape}, valid {np.asarray(reopened.valid).sum()}")
+    side = np.stack([np.stack([read_sidecar(p)[model][c].reshape(-1)
+                               for c in store.meta["crop_names"]]) for p in pts])
+    norms = np.linalg.norm(side, axis=-1)
+    stats = np.asarray(reopened.img_stats)
+    if not (np.isfinite(side).all() and np.abs(norms - 1).max() < 1e-3
+            and np.isfinite(stats).all()):
+        fail(f"embeddings not finite unit vectors (norm range {norms.min()}..{norms.max()})")
+    print(f"outputs {model}: {len(pts)} sidecars, store {emb.shape}, calib "
+          f"{os.path.basename(calib)} {shapes}, |norm-1| max {np.abs(norms - 1).max():.2e}",
+          flush=True)
+    del stores, store, reopened
+    torch.cuda.empty_cache()
+    profile_int8_static(model, root, calib, cfg, per_forward)
+    return {"launches": got, "side": side, "pts": pts}
+
+
+def float_run(model: str, dtype: str, pts: list, side: np.ndarray, cfg, per_forward: dict) -> dict:
+    """Four images through a float path; its launches must be
+    ``per_forward``, and its embeddings near the int8_static ones. Returns
+    the launch counts."""
+    from clip_assisted_data_labeling_tpu_torch.data.loader import BatchedImageLoader
+    from clip_assisted_data_labeling_tpu_torch.models.encoders import CLIPImageEncoder
+
+    enc = CLIPImageEncoder(model, compute_dtype=dtype, device="cuda")
+    first = pts[:4]
+    loader = BatchedImageLoader([p[:-3] + ".png" for p in first], canvas_size=1024,
+                                out_size=cfg.image_size, batch_size=4, num_workers=4)
+    batch = next(iter(loader))
+    reset_counts()
+    emb = enc.embed_crops(batch.canvas, batch.crop_params)[: batch.n_valid].cpu().numpy()
+    got, want = counts(), {k: per_forward.get(k, 0) for k in kernels()}
+    if got != want:
+        fail(f"{model} {dtype} path launches {got}, expected {want}")
+    order = [first.index(p[:-4] + ".pt") for p in batch.paths]
+    cos = np.sum(emb * side[order], axis=-1)
+    print(f"{model} {dtype} vs int8_static cosine over {cos.size} crops: min {cos.min():.5f} "
+          f"mean {cos.mean():.5f}; launches {got}", flush=True)
+    if not (np.isfinite(emb).all() and cos.min() > 0.95):
+        fail(f"{dtype} and int8_static embeddings disagree (cosine min {cos.min()})")
+    del enc
+    torch.cuda.empty_cache()
+    return got
 
 
 def write_pngs(directory: str, seed: int = 0) -> None:
@@ -253,8 +440,7 @@ def main() -> None:
         from clip_assisted_data_labeling_tpu_torch.data.loader import decoder_name
         from clip_assisted_data_labeling_tpu_torch.models.vit import resolve_config
         from clip_assisted_data_labeling_tpu_torch.ops import _cuda_build
-        from clip_assisted_data_labeling_tpu_torch.ops.attention import fused_attention_packed
-        from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import rowquant_static
+        kernels()
     except ImportError as e:
         fail(f"the port is not importable next to this script ({e})")
     if any(m == "jax" or m.startswith(("jax.", "clip_assisted_data_labeling_tpu."))
@@ -278,84 +464,27 @@ def main() -> None:
     rows = check_kernels(gen)
     torch.cuda.empty_cache()
 
-    cfg = resolve_config(MODEL)
-    n_batches = math.ceil(N_IMAGES / BATCH)
-    from clip_assisted_data_labeling_tpu_torch.data.loader import BatchedImageLoader
-    from clip_assisted_data_labeling_tpu_torch.models.encoders import CLIPImageEncoder
-    from clip_assisted_data_labeling_tpu_torch.pipeline.embed import main as embed_main
-    from clip_assisted_data_labeling_tpu_torch.store.columnar import EmbeddingStore
-    from clip_assisted_data_labeling_tpu_torch.store.sidecar import read_sidecar
-
+    cfg, scfg = resolve_config(MODEL), resolve_config(SIGLIP)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         write_pngs(root)
 
-        # --- phase 5: the main path through the user's entry point ------------
-        fused_attention_packed.launches = 0
-        rowquant_static.launches = 0
-        t0 = time.perf_counter()
-        stores = embed_main(["--root_dir", root, "--models_to_use", MODEL,
-                             "--compute_dtype", "int8_static", "--batch_size", str(BATCH),
-                             "--num_workers", "4", "--device", "cuda"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        k1, k2 = fused_attention_packed.launches, rowquant_static.launches
+        # --- phases 5-6: ViT-L-14-336 int8_static: K1 once and K2 twice a
+        # layer; the calibration forward runs the XLA-style attention, no kernel
+        l336 = embed_and_check(root, MODEL, cfg, {"K1": cfg.layers, "K2": 2 * cfg.layers})
+        # --- phase 7: float32 path (K1 in float32) on a few images
+        float_run(MODEL, "float32", l336["pts"], l336["side"], cfg, {"K1": cfg.layers})
 
-        # --- phase 6: outputs and counters --------------------------------------
-        # int8_static: one calibration forward (K1 per layer, dynamic matmuls)
-        # then one forward per batch (K1 once and K2 twice per layer)
-        want_k1 = cfg.layers * (n_batches + 1)
-        want_k2 = 2 * cfg.layers * n_batches
-        print(f"main path: {N_IMAGES} images x 4 crops in {wall:.2f} s "
-              f"({N_IMAGES / wall:.2f} imgs/s incl. model init and calibration, "
-              f"{smi.splitlines()[0]}); launches K1 {k1} (want {want_k1}), "
-              f"K2 {k2} (want {want_k2})", flush=True)
-        if (k1, k2) != (want_k1, want_k2):
-            fail(f"launch counters K1={k1} K2={k2}, expected {want_k1}/{want_k2}")
-        rows = [dict(r, launches=k1 if r["name"] == "packed_attention" else k2) for r in rows]
+        # --- phases 8-9: ViT-SO400M-14-SigLIP-384 int8_static through the int8
+        # attention wire (K3 a layer), then bfloat16 (K5 a layer)
+        so400m = embed_and_check(root, SIGLIP, scfg, {"K3": scfg.layers})
+        bf16 = float_run(SIGLIP, "bfloat16", so400m["pts"], so400m["side"], scfg,
+                         {"K5": scfg.layers})
 
-        store = stores[MODEL]
-        pts = sorted(glob.glob(os.path.join(root, "*.pt")))
-        calib = os.path.join(root, MODEL.replace("/", "-") + ".calib.npz")
-        if len(pts) != N_IMAGES or not os.path.exists(calib):
-            fail(f"{len(pts)} sidecars (want {N_IMAGES}), calib exists: {os.path.exists(calib)}")
-        reopened = EmbeddingStore.open(root, MODEL)
-        emb = np.asarray(reopened.embeddings, np.float32)
-        if emb.shape != (N_IMAGES, 4, cfg.embed_dim) or not np.asarray(reopened.valid).all():
-            fail(f"store shape {emb.shape}, valid {np.asarray(reopened.valid).sum()}")
-        side = np.stack([np.stack([read_sidecar(p)[MODEL][c].reshape(-1)
-                                   for c in store.meta["crop_names"]]) for p in pts])
-        norms = np.linalg.norm(side, axis=-1)
-        stats = np.asarray(reopened.img_stats)
-        if not (np.isfinite(side).all() and np.abs(norms - 1).max() < 1e-3
-                and np.isfinite(stats).all()):
-            fail(f"embeddings not finite unit vectors (norm range {norms.min()}..{norms.max()})")
-        print(f"outputs: {len(pts)} sidecars, store {emb.shape}, calib "
-              f"{os.path.basename(calib)}, |norm-1| max {np.abs(norms - 1).max():.2e}", flush=True)
-        del stores, store, reopened
-        torch.cuda.empty_cache()
-
-        # --- phase 6b: steady state and where the device time goes ---------------
-        profile_int8_static(root, calib, cfg)
-
-        # --- phase 7: float32 path (K1 in float32) on a few images ---------------
-        enc = CLIPImageEncoder(MODEL, compute_dtype="float32", device="cuda")
-        first = pts[:4]
-        loader = BatchedImageLoader([p[:-3] + ".png" for p in first], canvas_size=1024,
-                                    out_size=cfg.image_size, batch_size=4, num_workers=4)
-        fused_attention_packed.launches = 0
-        rowquant_static.launches = 0
-        batch = next(iter(loader))
-        e32 = enc.embed_crops(batch.canvas, batch.crop_params)[: batch.n_valid].cpu().numpy()
-        if (fused_attention_packed.launches, rowquant_static.launches) != (cfg.layers, 0):
-            fail(f"float32 path launches K1 {fused_attention_packed.launches} K2 "
-                 f"{rowquant_static.launches}, expected {cfg.layers}/0")
-        order = [first.index(p[:-4] + ".pt") for p in batch.paths]
-        cos = np.sum(e32 * side[order], axis=-1)
-        print(f"float32 vs int8_static cosine over {cos.size} crops: min {cos.min():.5f} "
-              f"mean {cos.mean():.5f}", flush=True)
-        if not (np.isfinite(e32).all() and cos.min() > 0.95):
-            fail(f"float32 and int8_static embeddings disagree (cosine min {cos.min()})")
-
+    launches = {"packed_attention": l336["launches"]["K1"],
+                "rowquant_static": l336["launches"]["K2"],
+                "packed_attention_q8s": so400m["launches"]["K3"],
+                "flash_attention": bf16["K5"]}
+    rows = [dict(r, launches=launches[r["name"]]) for r in rows]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
 """Shared constants and the stage-1 config (port of the JAX package's
-``config.py``: the crop names and aliases, CLIP normalization, image
+``config.py``: the crop names and aliases, CLIP and SigLIP normalization, image
 extensions and ``EmbedConfig``)."""
 from __future__ import annotations
 
@@ -21,6 +21,9 @@ SUBCROP_AREA_FRACTIONS = (0.15, 0.1)
 # CLIP preprocessing normalization constants.
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+# SigLIP checkpoints normalize with 0.5/0.5 (open_clip's preprocess config).
+SIGLIP_MEAN = (0.5, 0.5, 0.5)
+SIGLIP_STD = (0.5, 0.5, 0.5)
 
 IMG_EXTENSIONS = (".png", ".jpg", ".jpeg", ".JPEG", ".JPG", ".PNG")
 

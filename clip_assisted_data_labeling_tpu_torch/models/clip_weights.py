@@ -1,13 +1,14 @@
 """Weights in and out of the port (port of the JAX package's
-``models/clip_weights.py`` for the plain CLIP towers).
+``models/clip_weights.py`` for the plain CLIP and the SigLIP towers).
 
   * ``save_params_npz`` / ``load_params_npz``: the JAX package's native
     ``.npz`` layout — top-level leaves by name, block leaves as
     ``blocks/<name>`` stacked ``[L, …]`` — so either package reads the other's
     file,
-  * ``convert_open_clip_visual`` / ``convert_hf_clip_vision``: torch
-    checkpoints (open_clip/OpenAI ``visual.*`` and HF
-    ``CLIPVisionModelWithProjection``) → that flat layout,
+  * ``convert_open_clip_visual`` / ``convert_hf_clip_vision`` /
+    ``convert_siglip_visual``: torch checkpoints (open_clip/OpenAI
+    ``visual.*``, HF ``CLIPVisionModelWithProjection`` and HF
+    ``SiglipVisionModel``) → that flat layout,
   * ``module_from_params``: THE function that carries weights across — a flat
     dict of arrays (as the JAX package's params or ``.npz`` give them) becomes
     the port's module state. The ``[in, out]`` kernel convention stays, so
@@ -56,25 +57,14 @@ def flatten_params(params: Mapping) -> dict:
     return flat
 
 
-def convert_hf_clip_vision(state_dict: Mapping, cfg: VitConfig) -> dict:
-    """HF CLIPVisionModelWithProjection state dict → flat params."""
-    pre = "vision_model."
-
+def _hf_blocks(sd: Mapping, pre: str, layers: int) -> dict:
+    """The stacked ``blocks/<name>`` leaves of an HF 'encoder.layers.N.'
+    transformer (the naming HF CLIPVisionModel and SiglipVisionModel share)."""
     def get(k):
-        return _t(state_dict[pre + k])
+        return _t(sd[pre + k])
 
-    out = {
-        "patch_kernel": _conv_to_patch_kernel(state_dict[pre + "embeddings.patch_embedding.weight"]),
-        "class_emb": get("embeddings.class_embedding"),
-        "pos_emb": get("embeddings.position_embedding.weight"),
-        "ln_pre_scale": get("pre_layrnorm.weight"),  # sic — HF's historical typo
-        "ln_pre_bias": get("pre_layrnorm.bias"),
-        "ln_post_scale": get("post_layernorm.weight"),
-        "ln_post_bias": get("post_layernorm.bias"),
-        "proj": _t(state_dict["visual_projection.weight"]).T,
-    }
     blocks: dict[str, list] = {k: [] for k in _BLOCK_KEYS}
-    for i in range(cfg.layers):
+    for i in range(layers):
         b = f"encoder.layers.{i}."
         blocks["ln1_scale"].append(get(b + "layer_norm1.weight"))
         blocks["ln1_bias"].append(get(b + "layer_norm1.bias"))
@@ -90,8 +80,62 @@ def convert_hf_clip_vision(state_dict: Mapping, cfg: VitConfig) -> dict:
         blocks["fc1_bias"].append(get(b + "mlp.fc1.bias"))
         blocks["fc2_kernel"].append(get(b + "mlp.fc2.weight").T)
         blocks["fc2_bias"].append(get(b + "mlp.fc2.bias"))
-    out.update({f"blocks/{k}": np.stack(v) for k, v in blocks.items()})
-    return out
+    return {f"blocks/{k}": np.stack(v) for k, v in blocks.items()}
+
+
+def convert_hf_clip_vision(state_dict: Mapping, cfg: VitConfig) -> dict:
+    """HF CLIPVisionModelWithProjection state dict → flat params."""
+    pre = "vision_model."
+
+    def get(k):
+        return _t(state_dict[pre + k])
+
+    return {
+        "patch_kernel": _conv_to_patch_kernel(state_dict[pre + "embeddings.patch_embedding.weight"]),
+        "class_emb": get("embeddings.class_embedding"),
+        "pos_emb": get("embeddings.position_embedding.weight"),
+        "ln_pre_scale": get("pre_layrnorm.weight"),  # sic — HF's historical typo
+        "ln_pre_bias": get("pre_layrnorm.bias"),
+        "ln_post_scale": get("post_layernorm.weight"),
+        "ln_post_bias": get("post_layernorm.bias"),
+        "proj": _t(state_dict["visual_projection.weight"]).T,
+        **_hf_blocks(state_dict, pre, cfg.layers),
+    }
+
+
+def convert_siglip_visual(state_dict: Mapping, cfg: VitConfig) -> dict:
+    """HF SiglipVisionModel state dict (with or without the 'vision_model.'
+    prefix) → flat params. HF CLIP's block naming, but a patch conv with
+    bias, no class embedding, no pre-layernorm, no projection, and the MAP
+    head under ``head.{probe,attention,layernorm,mlp}``."""
+    pre = "vision_model." if any(k.startswith("vision_model.") for k in state_dict) else ""
+
+    def get(k):
+        return _t(state_dict[pre + k])
+
+    patch_w = get("embeddings.patch_embedding.weight")
+    return {
+        # a 2-D weight is a Linear over (p, p, c)-flattened patches — the
+        # port's flatten order, so it only transposes; fixed-res towers use a Conv2d
+        "patch_kernel": patch_w.T if patch_w.ndim == 2 else _conv_to_patch_kernel(patch_w),
+        "patch_bias": get("embeddings.patch_embedding.bias"),
+        "pos_emb": get("embeddings.position_embedding.weight"),
+        **_hf_blocks(state_dict, pre, cfg.layers),
+        "ln_post_scale": get("post_layernorm.weight"),
+        "ln_post_bias": get("post_layernorm.bias"),
+        "pool_probe": get("head.probe").reshape(-1),
+        # nn.MultiheadAttention: in_proj [3w, w] row-ordered q|k|v → [w, 3w]
+        "pool_in_kernel": get("head.attention.in_proj_weight").T,
+        "pool_in_bias": get("head.attention.in_proj_bias"),
+        "pool_out_kernel": get("head.attention.out_proj.weight").T,
+        "pool_out_bias": get("head.attention.out_proj.bias"),
+        "pool_ln_scale": get("head.layernorm.weight"),
+        "pool_ln_bias": get("head.layernorm.bias"),
+        "pool_fc1_kernel": get("head.mlp.fc1.weight").T,
+        "pool_fc1_bias": get("head.mlp.fc1.bias"),
+        "pool_fc2_kernel": get("head.mlp.fc2.weight").T,
+        "pool_fc2_bias": get("head.mlp.fc2.bias"),
+    }
 
 
 def convert_open_clip_visual(state_dict: Mapping, cfg: VitConfig) -> dict:
@@ -130,13 +174,16 @@ def convert_open_clip_visual(state_dict: Mapping, cfg: VitConfig) -> dict:
 
 def convert_torch_state_dict(state_dict: Mapping, cfg: VitConfig) -> dict:
     keys = list(state_dict.keys())
+    if any(k.endswith("head.probe") for k in keys) or cfg.pool == "map":
+        # SigLIP's HF layout also starts with vision_model. — check first
+        return convert_siglip_visual(state_dict, cfg)
     if any(k.startswith("vision_model.") for k in keys):
         return convert_hf_clip_vision(state_dict, cfg)
     if any("resblocks" in k for k in keys):
         return convert_open_clip_visual(state_dict, cfg)
     raise ValueError(
-        "Unrecognized checkpoint layout; the port converts HF CLIP and "
-        "open_clip/OpenAI plain-ViT checkpoints (other families not ported yet)"
+        "Unrecognized checkpoint layout; the port converts HF CLIP, HF SigLIP "
+        "and open_clip/OpenAI plain-ViT checkpoints (other families not ported yet)"
     )
 
 
@@ -156,12 +203,34 @@ def _tensor(v, device) -> torch.Tensor:
     return t.to(device)
 
 
+_MAP_KEYS = ("pool_probe", "pool_in_kernel", "pool_in_bias", "pool_out_kernel",
+             "pool_out_bias", "pool_ln_scale", "pool_ln_bias", "pool_fc1_kernel",
+             "pool_fc1_bias", "pool_fc2_kernel", "pool_fc2_bias")
+
+
+def _top_keys(cfg: VitConfig) -> list[str]:
+    """The non-block leaves a tower of this config needs."""
+    keys = ["patch_kernel", "pos_emb", "ln_post_scale", "ln_post_bias"]
+    if cfg.use_cls_token:
+        keys.append("class_emb")
+    if cfg.use_ln_pre:
+        keys += ["ln_pre_scale", "ln_pre_bias"]
+    if cfg.use_proj:
+        keys.append("proj")
+    if cfg.patch_bias:
+        keys.append("patch_bias")
+    if cfg.pool == "map":
+        keys += _MAP_KEYS
+    return keys
+
+
 def module_from_params(params: Mapping, cfg: VitConfig,
                        device: torch.device | str = "cpu") -> VisionTransformer:
     """Flat (or JAX-nested) params → the port's VisionTransformer on
     ``device``. Float leaves keep their dtype; int8 block kernels
-    ([L, in, out]) are stored per layer as contiguous [out, in]; a
-    ``blocks/act_amax`` leaf (a calibrated pytree) is attached as is."""
+    ([L, in, out]) are stored per layer as contiguous [out, in];
+    ``blocks/act_amax`` and ``blocks/qkv_amax`` leaves (a calibrated pytree)
+    are attached as they are."""
     flat = flatten_params(params)
     top, stacked = {}, {}
     for k, v in flat.items():
@@ -169,8 +238,7 @@ def module_from_params(params: Mapping, cfg: VitConfig,
             stacked[k[len("blocks/"):]] = v
         elif k != "rope_half":
             top[k] = _tensor(v, device)
-    missing = [k for k in ("patch_kernel", "class_emb", "pos_emb", "ln_pre_scale",
-                           "ln_post_scale", "proj") if k not in top]
+    missing = [k for k in _top_keys(cfg) if k not in top]
     missing += [f"blocks/{k}" for k in _BLOCK_KEYS if k not in stacked]
     if missing:
         raise KeyError(f"params lack {missing} for {cfg}")

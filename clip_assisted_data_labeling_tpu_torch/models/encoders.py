@@ -1,5 +1,5 @@
 """The CLIP image encoder (port of the JAX package's ``models/encoders.py``
-for the plain CLIP ViT towers).
+for the plain CLIP and the fixed-resolution SigLIP ViT towers).
 
 A ``CLIPImageEncoder`` owns the ViT config and module and exposes:
 
@@ -10,7 +10,9 @@ A ``CLIPImageEncoder`` owns the ViT config and module and exposes:
 Modes: ``float32`` and ``bfloat16`` (strict parity) and ``int8_static``
 (W8A8 with per-layer activation scales calibrated on the first batch and
 persisted to ``.calib.npz`` in the JAX package's format, so either package
-reads the other's file). Dynamic ``int8`` is not ported yet and raises.
+reads the other's file). Where ``models.vit.int8_wire_enabled`` says so
+(SO400M-384), int8_static also attaches the per-channel ``qkv_amax`` and
+runs the int8 attention wire. Dynamic ``int8`` is not ported yet and raises.
 
 Weight resolution order (no network — only local files are read):
   1. explicit ``params`` argument (flat or JAX-nested dict of arrays),
@@ -32,6 +34,7 @@ from clip_assisted_data_labeling_tpu_torch.models.vit import (
     VitConfig,
     attach_act_amax,
     init_vit_params,
+    int8_wire_enabled,
     resolve_config,
     vit_act_amax,
     vit_encode_image,
@@ -114,11 +117,15 @@ class CLIPImageEncoder:
         parity_preprocess: bool = True,
         calibration_path: str | None = None,
         device: str | torch.device = "cuda",
+        wire: bool | None = None,
     ):
+        """``wire`` forces the int8_static attention wire on or off; None
+        takes the JAX package's per-shape rule."""
         self.model_name = model_name
         self.device = resolve_device(device)
         self.calibration_path = calibration_path
         self.cfg = resolve_config(model_name)
+        self.wire = int8_wire_enabled(self.cfg, wire)
         if compute_dtype == "int8":
             raise NotImplementedError(
                 "dynamic int8 is not ported yet; use int8_static, bfloat16 or float32"
@@ -197,8 +204,12 @@ class CLIPImageEncoder:
             return False
         amax = load_calibration(self.calibration_path)
         check_calibration(amax, self.cfg, self.calibration_path, self.model_name)
+        if self.wire and "qkv_amax" not in amax:
+            log.info("%s lacks qkv_amax (saved without the int8 wire); recalibrating",
+                     self.calibration_path)
+            return False
         log.info("Loaded static int8 calibration from %s", self.calibration_path)
-        attach_act_amax(self.model, amax)
+        attach_act_amax(self.model, amax, wire=self.wire)
         return True
 
     def _maybe_calibrate(self, images: torch.Tensor) -> None:
@@ -212,7 +223,7 @@ class CLIPImageEncoder:
         if self.calibration_path:
             save_calibration(self.calibration_path, amax, self.model_name)
             log.info("Saved static int8 calibration to %s", self.calibration_path)
-        attach_act_amax(self.model, amax)
+        attach_act_amax(self.model, amax, wire=self.wire)
 
     @torch.inference_mode()
     def embed_crops(self, canvas_u8, crop_params) -> torch.Tensor:

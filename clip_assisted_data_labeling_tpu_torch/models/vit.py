@@ -1,30 +1,52 @@
-"""CLIP ViT image tower in PyTorch (port of the JAX package's ``models/vit.py``
-for the plain CLIP towers).
+"""CLIP and SigLIP ViT image towers in PyTorch (port of the JAX package's
+``models/vit.py`` for the plain CLIP towers and the fixed-resolution
+SigLIP/SigLIP2 towers).
 
   * patch embedding as reshape + matmul (a stride-p Conv2d is exactly a
-    patchify-matmul; no cuDNN, so no TF32 enters a float32 run),
+    patchify-matmul; no cuDNN, so no TF32 enters a float32 run); SigLIP's
+    patch conv has a bias, and a non-patch-divisible resolution
+    (SO400M-14 @384 = 27·14 + 6) drops the trailing pixels as a valid conv,
   * pre-LN blocks with layernorm and softmax statistics in float32,
-  * attention through the packed kernel K1 (ops/attention.py) in every mode,
+  * float blocks' attention through ``ops/attention.packed_attention_auto``:
+    K1 (two-pass softmax) or K5 (flash), whichever arithmetic the JAX package
+    runs for the shape,
   * int8_static blocks through the layernorm+quantize kernel K2
-    (ops/quant_kernel.py) and int8 matmuls with float32 epilogues.
+    (ops/quant_kernel.py) and int8 matmuls with float32 epilogues, or — where
+    :func:`int8_wire_enabled` says so (SO400M-384) — the int8 attention wire
+    with K3,
+  * the cls readout (CLIP) or SigLIP's MAP head (probe attention + residual
+    MLP over the layernormed tokens, no projection).
 
 The module holds the JAX package's parameters leaf for leaf (same names, the
 same ``[in, out]`` kernels), one ``VitBlock`` per layer instead of the stacked
 ``[L, …]`` leaves; ``models/clip_weights.py`` carries weights across. Tokens
-are not padded: the kernel takes any sequence length, and the cls readout
-reads row 0 either way.
+are not padded: the kernels take any sequence length and mask the ragged
+tail themselves.
 """
 from __future__ import annotations
 
 import dataclasses
+import re
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from clip_assisted_data_labeling_tpu_torch.config import CLIP_MEAN, CLIP_STD
-from clip_assisted_data_labeling_tpu_torch.ops.attention import packed_attention_auto
+from clip_assisted_data_labeling_tpu_torch.config import (
+    CLIP_MEAN,
+    CLIP_STD,
+    SIGLIP_MEAN,
+    SIGLIP_STD,
+)
+from clip_assisted_data_labeling_tpu_torch.ops.attention import (
+    attention_xla,
+    fused_attention_packed_q8s,
+    grouped_attention_fits,
+    packed_attention_auto,
+    packed_attention_fits,
+    packed_q8s_fits,
+)
 from clip_assisted_data_labeling_tpu_torch.ops.quant import q_matmul, quant_static
 from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import (
     q_matmul_pre,
@@ -42,8 +64,14 @@ class VitConfig:
     embed_dim: int = 768  # output CLIP embedding dim
     mlp_ratio: int = 4
     mlp_hidden: int | None = None  # explicit MLP width (overrides mlp_ratio)
-    act: str = "quick_gelu"  # OpenAI; open-data "gelu"
+    act: str = "quick_gelu"  # OpenAI; open-data "gelu"; SigLIP "gelu_tanh"
     ln_eps: float = 1e-5
+    use_cls_token: bool = True
+    pool: str = "cls"  # 'cls' (CLIP) | 'map' (SigLIP MAP head)
+    attn_pooler_heads: int = 8
+    use_ln_pre: bool = True  # SigLIP towers have no pre-transformer layernorm
+    use_proj: bool = True  # SigLIP's embedding IS the pooled width (no proj)
+    patch_bias: bool = False  # SigLIP's patch conv has a bias term
     norm_mean: tuple = CLIP_MEAN
     norm_std: tuple = CLIP_STD
 
@@ -53,7 +81,7 @@ class VitConfig:
 
     @property
     def seq_len(self) -> int:
-        return self.grid * self.grid + 1  # + the class token
+        return self.grid * self.grid + (1 if self.use_cls_token else 0)
 
     @property
     def head_dim(self) -> int:
@@ -91,23 +119,110 @@ for _arch, _kw in _ARCHS.items():
     for _tag in _OPEN_TAGS:
         MODEL_REGISTRY[f"{_arch}/{_tag}"] = VitConfig(**_kw, **_OPEN)
 
+# SigLIP vision towers (open_clip '*-SigLIP*' archs / HF SiglipVisionModel):
+# no class token, no pre-transformer layernorm, a patch conv with bias,
+# tanh-approximate GELU, the MAP head instead of the cls readout, no output
+# projection (embedding dim == width), 0.5/0.5 normalization.
+_SIGLIP = dict(act="gelu_tanh", use_cls_token=False, use_ln_pre=False,
+               use_proj=False, patch_bias=True, pool="map", ln_eps=1e-6,
+               norm_mean=SIGLIP_MEAN, norm_std=SIGLIP_STD)
+_SIGLIP_ARCHS = {
+    "ViT-B-16-SigLIP": dict(width=768, layers=12, heads=12, patch_size=16,
+                            image_size=224, embed_dim=768,
+                            attn_pooler_heads=12, **_SIGLIP),
+    "ViT-B-16-SigLIP-384": dict(width=768, layers=12, heads=12, patch_size=16,
+                                image_size=384, embed_dim=768,
+                                attn_pooler_heads=12, **_SIGLIP),
+    "ViT-L-16-SigLIP-256": dict(width=1024, layers=24, heads=16, patch_size=16,
+                                image_size=256, embed_dim=1024,
+                                attn_pooler_heads=16, **_SIGLIP),
+    "ViT-L-16-SigLIP-384": dict(width=1024, layers=24, heads=16, patch_size=16,
+                                image_size=384, embed_dim=1024,
+                                attn_pooler_heads=16, **_SIGLIP),
+    # the shape-optimized SoViT-400M tower: mlp 4304 (not 4x), head_dim 72
+    "ViT-SO400M-14-SigLIP-384": dict(width=1152, layers=27, heads=16,
+                                     patch_size=14, image_size=384,
+                                     embed_dim=1152, mlp_hidden=4304,
+                                     attn_pooler_heads=16, **_SIGLIP),
+}
+for _arch, _kw in _SIGLIP_ARCHS.items():
+    MODEL_REGISTRY[f"{_arch}/webli"] = VitConfig(**_kw)
+# tiny SigLIP configs for tests; the ragged one (36 = 4·8 + 4) has the
+# SO400M-14 @384 geometry class, where the trailing pixels go unread
+MODEL_REGISTRY["SigLIP-Test/tiny"] = VitConfig(
+    width=64, layers=2, heads=4, patch_size=8, image_size=32, embed_dim=64,
+    attn_pooler_heads=4, mlp_hidden=224, **_SIGLIP)
+MODEL_REGISTRY["SigLIP-Test-Ragged/tiny"] = VitConfig(
+    width=64, layers=2, heads=4, patch_size=8, image_size=36, embed_dim=64,
+    attn_pooler_heads=4, mlp_hidden=224, **_SIGLIP)
+
+# trunk dims shared by every SigLIP/SigLIP2 tower of a size family
+_SIGLIP_FAMS = {
+    "B": dict(width=768, layers=12, heads=12, mlp_hidden=3072, attn_pooler_heads=12),
+    "L": dict(width=1024, layers=24, heads=16, mlp_hidden=4096, attn_pooler_heads=16),
+    "SO400M": dict(width=1152, layers=27, heads=16, mlp_hidden=4304, attn_pooler_heads=16),
+    "gopt": dict(width=1536, layers=40, heads=16, mlp_hidden=6144, attn_pooler_heads=16),
+}
+
+
+def _parse_siglip_name(arch: str) -> VitConfig | None:
+    """'ViT-{fam}-{patch}-SigLIP[2][-i18n][-{res}]' → config (default res 224),
+    as the JAX package parses it; the '-naflex' variable-aspect towers are not
+    ported and raise."""
+    m = re.fullmatch(
+        r"ViT-(B|L|SO400M|gopt)-(\d+)-SigLIP2?(?:-i18n)?(?:-(\d+|naflex))?", arch)
+    if m is None:
+        return None
+    if m.group(3) == "naflex":
+        raise ValueError(f"{arch}: the naflex towers are not ported yet — use the "
+                         "JAX package")
+    fam = _SIGLIP_FAMS[m.group(1)]
+    res = int(m.group(3)) if m.group(3) else 224
+    return VitConfig(patch_size=int(m.group(2)), image_size=res,
+                     embed_dim=fam["width"], **fam, **_SIGLIP)
+
 
 def resolve_config(model_name: str) -> VitConfig:
-    """Config of a registered plain CLIP tower; every other family the JAX
-    package resolves (PE, SigLIP, EVA, CoCa, CLIPA, ResNet, ConvNeXt, …)
+    """Config of a registered plain CLIP tower or of a fixed-resolution
+    SigLIP/SigLIP2 name (any pretrained tag); every other family the JAX
+    package resolves (PE, EVA, CoCa, CLIPA, ResNet, ConvNeXt, naflex, …)
     raises until it is ported."""
     if model_name in MODEL_REGISTRY:
         return MODEL_REGISTRY[model_name]
+    arch = model_name.split("/", 1)[0]
+    if arch in _SIGLIP_ARCHS:
+        return VitConfig(**_SIGLIP_ARCHS[arch])
+    sig = _parse_siglip_name(arch)
+    if sig is not None:
+        return sig
     raise ValueError(
         f"{model_name}: not ported yet — the PyTorch port serves the plain CLIP "
-        f"towers {sorted(MODEL_REGISTRY)}; use the JAX package for the others"
+        f"towers and the fixed-resolution SigLIP/SigLIP2 towers "
+        f"{sorted(MODEL_REGISTRY)}; use the JAX package for the others"
     )
+
+
+def int8_wire_enabled(cfg: VitConfig, wire: bool | None = None) -> bool:
+    """Whether int8_static runs the int8 attention wire (per-channel
+    ``qkv_amax`` + K3) for this tower. ``wire`` forces it; None takes the JAX
+    package's ``auto`` rule (models/vit.py:574): on exactly where the non-wire
+    route would fall to the flash kernel (neither the whole-block nor the
+    grouped gate takes the shape) while the wire kernel's gate does —
+    SO400M-384."""
+    if wire is not None:
+        return bool(wire)
+    s, w, h = cfg.seq_len, cfg.width, cfg.heads
+    if packed_attention_fits(s, w, 2) or grouped_attention_fits(s, w, h, 2):
+        return False
+    return packed_q8s_fits(s, w, h)
 
 
 def init_vit_params(cfg: VitConfig, generator: torch.Generator,
                     device: torch.device | str = "cpu") -> dict[str, torch.Tensor]:
     """Random-init flat parameter dict (open_clip-style scaled normal init) in
-    the JAX package's key layout: ``blocks/<name>`` leaves stacked ``[L, …]``."""
+    the JAX package's key layout: ``blocks/<name>`` leaves stacked ``[L, …]``;
+    the cls token, ln_pre, proj, patch bias and MAP-head leaves as the config
+    asks (JAX ``init_vit_params``)."""
     w, L, e, mlp = cfg.width, cfg.layers, cfg.embed_dim, cfg.mlp_dim
     scale = w ** -0.5
 
@@ -120,12 +235,9 @@ def init_vit_params(cfg: VitConfig, generator: torch.Generator,
     def zeros(shape):
         return torch.zeros(shape, device=device)
 
-    return {
+    params = {
         "patch_kernel": nrm((cfg.patch_size * cfg.patch_size * 3, w), scale),
-        "class_emb": nrm((w,), scale),
         "pos_emb": nrm((cfg.seq_len, w), scale),
-        "ln_pre_scale": ones((w,)),
-        "ln_pre_bias": zeros((w,)),
         "blocks/ln1_scale": ones((L, w)),
         "blocks/ln1_bias": zeros((L, w)),
         "blocks/qkv_kernel": nrm((L, w, 3 * w), scale),
@@ -140,15 +252,39 @@ def init_vit_params(cfg: VitConfig, generator: torch.Generator,
         "blocks/fc2_bias": zeros((L, w)),
         "ln_post_scale": ones((w,)),
         "ln_post_bias": zeros((w,)),
-        "proj": nrm((w, e), scale),
     }
+    if cfg.use_cls_token:
+        params["class_emb"] = nrm((w,), scale)
+    if cfg.use_ln_pre:
+        params["ln_pre_scale"] = ones((w,))
+        params["ln_pre_bias"] = zeros((w,))
+    if cfg.use_proj:
+        params["proj"] = nrm((w, e), scale)
+    if cfg.patch_bias:
+        params["patch_bias"] = zeros((w,))
+    if cfg.pool == "map":
+        params.update({
+            "pool_probe": nrm((w,), 0.02),
+            "pool_in_kernel": nrm((w, 3 * w), scale),
+            "pool_in_bias": zeros((3 * w,)),
+            "pool_out_kernel": nrm((w, w), scale),
+            "pool_out_bias": zeros((w,)),
+            "pool_ln_scale": ones((w,)),
+            "pool_ln_bias": zeros((w,)),
+            "pool_fc1_kernel": nrm((w, mlp), (2 * w) ** -0.5),
+            "pool_fc1_bias": zeros((mlp,)),
+            "pool_fc2_kernel": nrm((mlp, w), scale),
+            "pool_fc2_bias": zeros((w,)),
+        })
+    return params
 
 
 class VitBlock(nn.Module):
     """One transformer block's leaves as buffers. Quantized kernels are int8
     stored ``[out, in]`` (the layout ``torch._int_mm`` takes) beside their
     per-output-channel ``*_scale``; ``act_amax`` [4] is attached by
-    :func:`attach_act_amax` and selects the int8_static path."""
+    :func:`attach_act_amax` and selects the int8_static path, and a
+    per-channel ``qkv_amax`` [3w] beside it selects the int8 attention wire."""
 
     def __init__(self, tensors: dict[str, torch.Tensor]):
         super().__init__()
@@ -163,10 +299,14 @@ class VitBlock(nn.Module):
     def static(self) -> bool:
         return hasattr(self, "act_amax")
 
+    @property
+    def wire(self) -> bool:
+        return hasattr(self, "qkv_amax")
+
 
 class VisionTransformer(nn.Module):
-    """The CLIP ViT image tower: stem leaves + ``blocks`` (one VitBlock per
-    layer). Build it from a flat parameter dict with
+    """The ViT image tower: stem and readout leaves + ``blocks`` (one VitBlock
+    per layer). Build it from a flat parameter dict with
     ``models.clip_weights.module_from_params``."""
 
     def __init__(self, cfg: VitConfig, top: dict[str, torch.Tensor],
@@ -200,8 +340,12 @@ def _layernorm(x, scale, bias, eps):
 
 
 def _act(x, kind: str, quantized: bool = False):
-    if kind == "quick_gelu":  # OpenAI CLIP's x * sigmoid(1.702 x), in x's dtype
-        return x * torch.sigmoid(torch.tensor(1.702, dtype=x.dtype, device=x.device) * x)
+    if kind == "quick_gelu":
+        # OpenAI CLIP's x * sigmoid(1.702 x) in x's dtype, the sigmoid as XLA
+        # expands it: 1 / (1 + exp(-z)), each step rounded to x's dtype (in
+        # bf16 torch.sigmoid's single rounding differs on ~1/3 of elements)
+        z = torch.tensor(1.702, dtype=x.dtype, device=x.device) * x
+        return x * (1.0 / (1.0 + torch.exp(-z)))
     if kind == "gelu_tanh" or quantized:
         # int8 paths take the tanh form of gelu: its <=1e-3 absolute error is
         # far below the int8 step the output suffers next
@@ -221,7 +365,8 @@ def _linear(x, blk: VitBlock, name: str, residual=None):
 
 
 def _block_float(x, blk: VitBlock, cfg: VitConfig):
-    """Pre-LN block in float32 or bfloat16 with the packed attention kernel."""
+    """Pre-LN block in float32 or bfloat16 with the packed attention kernel
+    the JAX package's routing picks (K1 or K5)."""
     y = _layernorm(x, blk.ln1_scale, blk.ln1_bias, cfg.ln_eps)
     qkv = _linear(y, blk, "qkv_kernel")
     attn = packed_attention_auto(qkv, heads=cfg.heads, scale=cfg.head_dim ** -0.5)
@@ -233,8 +378,8 @@ def _block_float(x, blk: VitBlock, cfg: VitConfig):
 
 def _block_int8_static_lnk(x, blk: VitBlock, cfg: VitConfig):
     """int8_static block: layernorm + static quantize in one kernel (K2) for
-    ln1 and ln2, int8 matmuls with float32 epilogues, packed attention (K1)
-    on the bfloat16 qkv. Same op order and residual placement as the JAX
+    ln1 and ln2, int8 matmuls with float32 epilogues, packed attention (K1 or
+    K5) on the bfloat16 qkv. Same op order and residual placement as the JAX
     package's ``_block_int8_static_lnk``."""
     B, S, w = x.shape
     a = blk.act_amax
@@ -256,7 +401,41 @@ def _block_int8_static_lnk(x, blk: VitBlock, cfg: VitConfig):
     return x2.reshape(B, S, w)
 
 
+def _block_int8_static_wire(x, blk: VitBlock, cfg: VitConfig):
+    """int8_static block with the int8 attention wire (JAX
+    ``_block_int8_static_wire``, models/vit.py:920): ln1 and ln2 as the plain
+    layernorm in x's dtype then the static quantize; the qkv projection's
+    float32 output quantized per channel with ``qkv_amax``; K3 on the int8
+    qkv, every scale folded into its channel scales (q: × the attention
+    scale, v: × 127/attn_out_amax, so K3's output is int8 under a[1]);
+    fc1 → tanh-gelu → fc2 with the residual in fc2's epilogue."""
+    B, S, w = x.shape
+    a, qa = blk.act_amax, blk.qkv_amax
+    inv127 = 1.0 / 127.0
+    y = _layernorm(x, blk.ln1_scale, blk.ln1_bias, cfg.ln_eps)
+    yq = quant_static(y, a[0]).reshape(B * S, w)
+    qkv_f = q_matmul_pre(yq, a[0] * inv127, blk.qkv_kernel, blk.qkv_kernel_scale,
+                         blk.qkv_bias, out_dtype=torch.float32)
+    qkv_q = quant_static(qkv_f, qa).reshape(B, S, 3 * w)
+    # in float32 as in the JAX package; qa[2w:] / a[1] is one tensor division
+    cs = torch.cat([qa[:w] * (inv127 * cfg.head_dim ** -0.5), qa[w:2 * w] * inv127,
+                    qa[2 * w:] / a[1]])
+    attn_q = fused_attention_packed_q8s(qkv_q, cs, heads=cfg.heads)
+    x = x + q_matmul_pre(attn_q.reshape(B * S, w), a[1] * inv127, blk.out_kernel,
+                         blk.out_kernel_scale, blk.out_bias, out_dtype=x.dtype).reshape(B, S, w)
+    y = _layernorm(x, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
+    h = q_matmul_pre(quant_static(y, a[2]).reshape(B * S, w), a[2] * inv127, blk.fc1_kernel,
+                     blk.fc1_kernel_scale, blk.fc1_bias, out_dtype=x.dtype)
+    g = _act(h, cfg.act, quantized=True)
+    x2 = q_matmul_pre(quant_static(g, a[3]), a[3] * inv127, blk.fc2_kernel,
+                      blk.fc2_kernel_scale, blk.fc2_bias, residual=x.reshape(B * S, w),
+                      out_dtype=x.dtype)
+    return x2.reshape(B, S, w)
+
+
 def _block(x, blk: VitBlock, cfg: VitConfig):
+    if blk.wire:
+        return _block_int8_static_wire(x, blk, cfg)
     if blk.static:
         return _block_int8_static_lnk(x, blk, cfg)
     if blk.quantized:
@@ -269,8 +448,10 @@ def _block(x, blk: VitBlock, cfg: VitConfig):
 
 def _patch_embed(model: VisionTransformer, images: torch.Tensor, compute_dtype) -> torch.Tensor:
     """[B, R, R, 3] NHWC images → [B, N, width] as reshape + matmul (patch
-    flatten order (row, col, channel), matching the converted Conv2d weight).
-    int8 checkpoints dequantize the small [p·p·3, w] kernel on the fly."""
+    flatten order (row, col, channel), matching the converted Conv2d weight),
+    plus SigLIP's patch bias. A resolution that p does not divide drops the
+    trailing pixels, as a stride-p valid conv. int8 checkpoints dequantize
+    the small [p·p·3, w] kernel on the fly."""
     if model.quantized:
         w_patch = (model.patch_kernel.to(torch.float32)
                    * model.patch_kernel_scale.to(torch.float32)).to(compute_dtype)
@@ -281,31 +462,77 @@ def _patch_embed(model: VisionTransformer, images: torch.Tensor, compute_dtype) 
     gh, gw = H // p, W // p
     x = images[:, : gh * p, : gw * p].to(compute_dtype)
     x = x.reshape(b, gh, p, gw, p, c).permute(0, 1, 3, 2, 4, 5).reshape(b, gh * gw, p * p * c)
-    return x @ w_patch
+    x = x @ w_patch
+    return x + model.patch_bias.to(compute_dtype) if model.cfg.patch_bias else x
 
 
 def _stem(model: VisionTransformer, images: torch.Tensor, compute_dtype) -> torch.Tensor:
-    """Patch embed, class token, positional embedding, ln_pre — one
-    implementation for inference and calibration."""
+    """Patch embed, class token, positional embedding, ln_pre (each as the
+    config asks) — one implementation for inference and calibration."""
     cfg = model.cfg
     x = _patch_embed(model, images, compute_dtype)
-    cls = model.class_emb.to(compute_dtype).expand(x.shape[0], 1, cfg.width)
-    x = torch.cat([cls, x], dim=1)
+    if cfg.use_cls_token:
+        cls = model.class_emb.to(compute_dtype).expand(x.shape[0], 1, cfg.width)
+        x = torch.cat([cls, x], dim=1)
     x = x + model.pos_emb.to(compute_dtype)
-    return _layernorm(x, model.ln_pre_scale, model.ln_pre_bias, cfg.ln_eps)
+    if cfg.use_ln_pre:
+        x = _layernorm(x, model.ln_pre_scale, model.ln_pre_bias, cfg.ln_eps)
+    return x
+
+
+def _probe_mha(x: torch.Tensor, model: VisionTransformer, heads: int) -> torch.Tensor:
+    """SigLIP's probe multi-head attention (JAX ``_probe_mha``): one learned
+    query attends over all tokens through an nn.MultiheadAttention-equivalent
+    in_proj + softmax + out_proj, in x's dtype with a float32 softmax.
+    x: [B, S, w] → [B, w]."""
+    B, S, w = x.shape
+    d = w // heads
+    dt = x.dtype
+    wq, wk, wv = model.pool_in_kernel.to(dt).split(w, dim=1)
+    bq, bk, bv = model.pool_in_bias.to(dt).split(w)
+    q = (model.pool_probe.to(dt) @ wq + bq).reshape(heads, 1, d)
+    k = (x @ wk + bk).reshape(B, S, heads, d).permute(0, 2, 1, 3)
+    v = (x @ wv + bv).reshape(B, S, heads, d).permute(0, 2, 1, 3)
+    # the scale rounds to x's dtype first, as a weakly typed constant in JAX
+    scores = torch.einsum("hqd,bhsd->bhqs", q, k) * torch.tensor(d ** -0.5, dtype=dt)
+    probs = torch.softmax(scores.to(torch.float32), dim=-1).to(dt)
+    pooled = torch.einsum("bhqs,bhsd->bhqd", probs, v).permute(0, 2, 1, 3)
+    pooled = pooled.reshape(B, w) @ model.pool_out_kernel.to(dt)
+    return pooled + model.pool_out_bias.to(dt)
+
+
+def _map_pool(x: torch.Tensor, model: VisionTransformer) -> torch.Tensor:
+    """SigLIP's MAP head (HF SiglipMultiheadAttentionPoolingHead, JAX
+    ``_map_pool``): ``h + mlp(ln(h))`` where h is the probe attention's
+    output."""
+    cfg = model.cfg
+    h = _probe_mha(x, model, cfg.attn_pooler_heads)
+    dt = h.dtype
+    y = _layernorm(h, model.pool_ln_scale, model.pool_ln_bias, cfg.ln_eps)
+    y = _act(y @ model.pool_fc1_kernel.to(dt) + model.pool_fc1_bias.to(dt), cfg.act)
+    return h + (y @ model.pool_fc2_kernel.to(dt) + model.pool_fc2_bias.to(dt))
 
 
 @torch.inference_mode()
 def vit_encode_image(model: VisionTransformer, images: torch.Tensor,
                      compute_dtype=torch.bfloat16, normalize: bool = True) -> torch.Tensor:
-    """[B, R, R, 3] preprocessed (CLIP-normalized) NHWC images → [B, embed_dim]
-    float32, L2-normalized like the reference's encode_image."""
+    """[B, R, R, 3] preprocessed (normalized) NHWC images → [B, embed_dim]
+    float32, L2-normalized like the reference's encode_image. The readout is
+    ln_post of the cls row then proj (CLIP) or ln_post over all tokens then
+    the MAP head, with no projection (SigLIP)."""
     cfg = model.cfg
     x = _stem(model, images, compute_dtype)
     for blk in model.blocks:
         x = _block(x, blk, cfg)
-    pooled = _layernorm(x[:, 0], model.ln_post_scale, model.ln_post_bias, cfg.ln_eps)
-    emb = (pooled @ model.proj.to(compute_dtype)).to(torch.float32)
+    if cfg.pool == "map":
+        x = _layernorm(x, model.ln_post_scale, model.ln_post_bias, cfg.ln_eps)
+        pooled = _map_pool(x, model)
+    else:
+        pooled = _layernorm(x[:, 0], model.ln_post_scale, model.ln_post_bias, cfg.ln_eps)
+    if cfg.use_proj:
+        emb = (pooled @ model.proj.to(compute_dtype)).to(torch.float32)
+    else:
+        emb = pooled.to(torch.float32)
     if normalize:
         emb = emb / torch.linalg.vector_norm(emb, dim=-1, keepdim=True)
     return emb
@@ -319,13 +546,12 @@ def vit_act_amax(model: VisionTransformer, images: torch.Tensor,
 
     act_amax columns are the four per-tensor quantized-activation sites of a
     block (qkv input, attention output, fc1 input, gelu output); qkv_amax is
-    the per-channel amax of the qkv projection output (kept in the
-    calibration file for the JAX package's int8 attention wire). Quantized
-    matmuls run dynamic per-row here; attention runs the packed kernel K1
-    (the JAX package runs its XLA attention here — same function, other
-    rounding of q·scale)."""
+    the per-channel amax of the qkv projection output (the int8 attention
+    wire's grid). Quantized matmuls run dynamic per-row here, and attention
+    runs :func:`attention_xla`, as in the JAX package."""
     cfg = model.cfg
     x = _stem(model, images, compute_dtype)
+    B, S = x.shape[:2]
     quantized = model.quantized
     act, qkv_ch = [], []
     for blk in model.blocks:
@@ -333,7 +559,10 @@ def vit_act_amax(model: VisionTransformer, images: torch.Tensor,
         s_qkv = y.to(torch.float32).abs().amax()
         qkv = _linear(y, blk, "qkv_kernel")
         qkv_ch.append(qkv.to(torch.float32).abs().amax(dim=(0, 1)))
-        attn = packed_attention_auto(qkv, heads=cfg.heads, scale=cfg.head_dim ** -0.5)
+        q, k, v = (t.reshape(B, S, cfg.heads, cfg.head_dim).permute(0, 2, 1, 3)
+                   for t in qkv.split(cfg.width, dim=-1))
+        attn = attention_xla(q, k, v, scale=cfg.head_dim ** -0.5)
+        attn = attn.permute(0, 2, 1, 3).reshape(B, S, cfg.width)
         s_attn = attn.to(torch.float32).abs().amax()
         x = x + _linear(attn, blk, "out_kernel")
         y = _layernorm(x, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
@@ -348,12 +577,19 @@ def vit_act_amax(model: VisionTransformer, images: torch.Tensor,
     }
 
 
-def attach_act_amax(model: VisionTransformer, amax, margin: float = 1.1) -> None:
+def attach_act_amax(model: VisionTransformer, amax, margin: float = 1.1,
+                    wire: bool = False) -> None:
     """Attach calibrated static-activation scales (× margin, which covers
     batch-to-batch drift) to every block, in place. ``amax``: the dict from
-    :func:`vit_act_amax` or a bare [layers, 4] array. Only ``act_amax`` is
-    attached: the port has no int8 attention wire."""
-    a = amax["act_amax"] if isinstance(amax, dict) else amax
-    a = np.asarray(a, np.float32) * np.float32(margin)
-    for i, blk in enumerate(model.blocks):
-        blk.register_buffer("act_amax", torch.from_numpy(a[i].copy()).to(blk.ln1_scale.device))
+    :func:`vit_act_amax` or a bare [layers, 4] array. With ``wire`` the
+    per-channel ``qkv_amax`` is attached too, and the blocks take the int8
+    attention wire (see :func:`int8_wire_enabled`)."""
+    sites = {"act_amax": amax["act_amax"] if isinstance(amax, dict) else amax}
+    if wire:
+        if not isinstance(amax, dict) or "qkv_amax" not in amax:
+            raise ValueError("the int8 attention wire needs the per-channel qkv_amax")
+        sites["qkv_amax"] = amax["qkv_amax"]
+    for name, v in sites.items():
+        v = np.asarray(v, np.float32) * np.float32(margin)
+        for i, blk in enumerate(model.blocks):
+            blk.register_buffer(name, torch.from_numpy(v[i].copy()).to(blk.ln1_scale.device))

@@ -1,18 +1,32 @@
-"""Packed multi-head attention — kernel K1 (port of the JAX package's
-``ops/attention.py`` packed path).
+"""Packed multi-head attention — kernels K1, K3 and K5 — and the rule that
+routes between them (port of the JAX package's ``ops/attention.py``).
 
-``fused_attention_packed`` replaces the TPU kernel ``_packed_kernel`` /
-``fused_attention_packed`` (clip_assisted_data_labeling_tpu/ops/attention.py,
-``pallas_call`` at :1124) with the hand-written CUDA kernel in
-``csrc/packed_attention.cu``; its header says what bounds the kernel on the
-H100 and how the design answers that. The TPU's VMEM routing (whole-block /
-head-grouped / flash fallbacks, query-row tiles, token padding) does not
-carry over: bfloat16 (tensor cores) takes any sequence length; float32 (CUDA
-cores) any whose [16, S] float32 score tile fits a block's 227 KB of shared
-memory (S up to ~3000 at head dim 64).
+  * ``fused_attention_packed`` (K1) replaces the TPU kernel ``_packed_kernel``
+    (clip_assisted_data_labeling_tpu/ops/attention.py, ``pallas_call`` at
+    :1124) with ``csrc/packed_attention.cu``: exact two-pass softmax per head.
+  * ``flash_attention_packed`` (K5) replaces ``_flash_kernel`` (``pallas_call``
+    at :599) with ``csrc/flash_attention.cu``: online softmax over k panels.
+  * ``fused_attention_packed_q8s`` (K3) replaces ``_packed_q8s_kernel``
+    (``pallas_call`` at :834) with ``csrc/packed_attention_q8s.cu``: the
+    static-scale int8 attention wire of the int8_static blocks.
+  * ``attention_xla`` is the JAX package's materializing reference path, which
+    its calibration forward runs; plain ``torch.matmul`` products here too.
 
-Dispatch: a CPU tensor goes to the plain PyTorch version beside the kernel;
-a CUDA tensor launches the kernel or raises.
+Each kernel's header says what bounds it on the H100 and how the design
+answers that. Dispatch: a CPU tensor goes to the plain PyTorch version beside
+the kernel; a CUDA tensor launches the kernel or raises.
+
+Routing. The JAX package picks a kernel by its TPU VMEM budget
+(``packed_attention_fits`` → whole-block, ``grouped_attention_fits`` →
+head-grouped, else flash). The kernels round differently: whole-block and
+grouped run the exact two-pass softmax, flash rounds P against a running max
+at its k-panel boundaries. So the port keeps the JAX package's gate
+arithmetic verbatim (``_round_up`` … ``_flash_tiles`` below), not as a memory
+budget — the H100 kernels take every shape either way — but as the rule that
+picks which arithmetic runs for ``(S, width, heads, dtype)``: the one the JAX
+package would run. Whole-block and grouped both go to K1; flash goes to K5,
+with the JAX package's panel boundaries. Tokens stay unpadded in the port
+(the kernels mask keys at or beyond ``s_real`` and the ragged last tile).
 """
 from __future__ import annotations
 
@@ -25,20 +39,153 @@ from clip_assisted_data_labeling_tpu_torch.ops import _cuda_build
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
+# ---- the JAX package's gate arithmetic (attention.py:48-147, :384-397,
+# :514-525), kept as the rule that picks the arithmetic ------------------------
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _dividing_tile(s_pad: int, lo: int, hi: int, key) -> int | None:
+    """The 8-multiple divisor of ``s_pad`` in [lo, hi] minimizing ``key``
+    (ties → smallest), or None."""
+    cands = [t for t in range(lo, hi + 1, 8) if s_pad % t == 0]
+    return min(cands, key=key) if cands else None
+
+
+def _q_tile(s_pad: int) -> int:
+    if s_pad <= 448:
+        return s_pad
+    return _dividing_tile(s_pad, 128, 448, key=lambda t: -t) or 256
+
+
+def _pad_for_tiling(s: int) -> int:
+    base = _round_up(s, 8)
+    if base <= 448:
+        return base
+    for extra in range(0, 65, 8):
+        sp = base + extra
+        if sp % _q_tile(sp) == 0:
+            return sp
+    return base
+
+
+def packed_attention_fits(s: int, width: int, itemsize: int = 2) -> bool:
+    """The JAX package's whole-block gate (its ~14 MB VMEM budget)."""
+    s_pad = _pad_for_tiling(s)
+    q_tile = _q_tile(s_pad)
+    blocks = 2 * s_pad * 4 * width * itemsize
+    working = 2 * q_tile * s_pad * 4 + 4 * s_pad * width
+    return blocks + working <= 14 * 2**20
+
+
+def grouped_attention_fits(s: int, width: int, heads: int, itemsize: int = 2) -> bool:
+    """The JAX package's head-grouped gate."""
+    s_pad = _pad_for_tiling(s)
+    d = width // heads
+    wg = d
+    while wg % 128 != 0:
+        wg += d
+    q_tile = _q_tile(s_pad)
+    blocks = 2 * (3 * s_pad * wg + s_pad * wg) * itemsize
+    working = 2 * q_tile * s_pad * 4
+    return blocks + working <= 14 * 2**20
+
+
+def packed_q8s_fits(s: int, width: int, heads: int) -> bool:
+    """The JAX package's gate for the int8 wire kernel (K3)."""
+    d = width // heads
+    s_pad = _pad_for_tiling(s)
+    q_tile = _q_tile(s_pad)
+    blocks = 2 * (s_pad * 4 * width)
+    kv = heads * 2 * s_pad * d * 2
+    working = 2 * q_tile * s_pad * 4 + 3 * q_tile * d * 4
+    return blocks + working + kv <= 14 * 2**20
+
+
+def _flash_tiles(s_pad: int) -> tuple[int, int, int]:
+    """(padded S, q_tile, k_panel) of the JAX package's flash kernel."""
+    cand = _dividing_tile(s_pad, 128, 768, key=lambda t: abs(t - 384))
+    if cand is not None:
+        return s_pad, cand, cand
+    if s_pad <= 768:
+        return s_pad, s_pad, s_pad
+    s2 = _round_up(s_pad, 256)
+    return s2, 256, 256
+
+
+def flash_panel(s: int) -> int:
+    """Keys per k panel where the JAX package's flash kernel would run S
+    tokens (368 at S=729): the boundaries at which K5 rescales."""
+    return _flash_tiles(_round_up(s, 8))[2]
+
+
+def attention_route(s: int, width: int, heads: int, itemsize: int) -> str:
+    """'packed' (K1: the JAX package's whole-block or grouped kernel) or
+    'flash' (K5), as the JAX package's ``packed_attention_auto`` decides for
+    S tokens of ``itemsize``-byte qkv."""
+    if packed_attention_fits(s, width, itemsize) or grouped_attention_fits(
+            s, width, heads, itemsize):
+        return "packed"
+    return "flash"
+
+
+def packed_attention_auto(qkv: torch.Tensor, heads: int, scale: float,
+                          s_real: int | None = None) -> torch.Tensor:
+    """The attention of every float block: K1 or K5 by :func:`attention_route`."""
+    b, s, w3 = qkv.shape
+    if attention_route(s, w3 // 3, heads, qkv.element_size()) == "flash":
+        return flash_attention_packed(qkv, heads, scale, s_real)
+    return fused_attention_packed(qkv, heads, scale, s_real)
+
+
+def _split_heads(qkv: torch.Tensor, heads: int):
+    b, s, w3 = qkv.shape
+    w = w3 // 3
+    return tuple(t.reshape(b, s, heads, w // heads).permute(0, 2, 1, 3)
+                 for t in qkv.split(w, dim=-1))
+
+
+def _merge_heads(x: torch.Tensor) -> torch.Tensor:
+    b, h, s, d = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b, s, h * d)
+
+
+def _check_packed(what: str, qkv: torch.Tensor, heads: int, s_real: int, dtypes) -> None:
+    if qkv.dim() != 3 or qkv.dtype not in dtypes or not qkv.is_contiguous():
+        raise ValueError(
+            f"{what} wants a contiguous [B, S, 3w] tensor of {sorted(map(str, dtypes))}, "
+            f"got {tuple(qkv.shape)} {qkv.dtype} contiguous={qkv.is_contiguous()}"
+        )
+    s, w3 = qkv.shape[1:]
+    w = w3 // 3
+    if w3 % 3 or w % heads or w // heads > 128 or not 1 <= s_real <= s:
+        raise ValueError(
+            f"{what}: bad shape {tuple(qkv.shape)} for {heads} heads, "
+            f"s_real={s_real} (head dim must be <= 128)"
+        )
+
+
+def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float) -> torch.Tensor:
+    """The JAX package's reference path (attention.py:159), [B, h, S, d]:
+    float32 scores from the input-dtype q and k, softmax of scores·scale in
+    float32, probabilities cast to v's dtype, P·V in the input dtype."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    probs = torch.softmax(scores * scale, dim=-1).to(v.dtype)
+    return torch.matmul(probs, v)
+
+
+# ---- K1: exact two-pass softmax --------------------------------------------
+
 def fused_attention_packed_plain(qkv: torch.Tensor, heads: int, scale: float,
                                  s_real: int | None = None) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: q·scale in the input dtype,
     float32 scores with an exact -inf mask on keys ≥ s_real, float32 softmax
     statistics, P cast to v's dtype before P·V, 1/sum applied after."""
-    b, s, w3 = qkv.shape
-    w = w3 // 3
-    d = w // heads
+    s = qkv.shape[1]
     s_real = s if s_real is None else s_real
-
-    def split(t):
-        return t.reshape(b, s, heads, d).permute(0, 2, 1, 3)
-
-    q, k, v = (split(t) for t in qkv.split(w, dim=-1))
+    q, k, v = _split_heads(qkv, heads)
     q = q * torch.tensor(scale, dtype=qkv.dtype, device=qkv.device)
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if s_real < s:
@@ -47,7 +194,7 @@ def fused_attention_packed_plain(qkv: torch.Tensor, heads: int, scale: float,
     probs = torch.exp(scores - m)
     inv_norm = 1.0 / probs.sum(dim=-1, keepdim=True)
     out = torch.matmul(probs.to(v.dtype).float(), v.float()) * inv_norm
-    return out.to(qkv.dtype).permute(0, 2, 1, 3).reshape(b, s, w)
+    return _merge_heads(out.to(qkv.dtype))
 
 
 def _lib() -> ctypes.CDLL:
@@ -73,20 +220,10 @@ def fused_attention_packed(qkv: torch.Tensor, heads: int, scale: float,
         return fused_attention_packed_plain(qkv, heads, scale, s_real)
     if not qkv.is_cuda:
         raise ValueError(f"fused_attention_packed: unsupported device {qkv.device}")
-    if qkv.dim() != 3 or qkv.dtype not in _DTYPE_CODE or not qkv.is_contiguous():
-        raise ValueError(
-            "fused_attention_packed wants a contiguous [B, S, 3w] float32 or "
-            f"bfloat16 tensor, got {tuple(qkv.shape)} {qkv.dtype} "
-            f"contiguous={qkv.is_contiguous()}"
-        )
     b, s, w3 = qkv.shape
-    w = w3 // 3
     s_real = s if s_real is None else s_real
-    if w3 % 3 or w % heads or w // heads > 128 or not 1 <= s_real <= s:
-        raise ValueError(
-            f"fused_attention_packed: bad shape {tuple(qkv.shape)} for {heads} "
-            f"heads, s_real={s_real} (head dim must be <= 128)"
-        )
+    _check_packed("fused_attention_packed", qkv, heads, s_real, _DTYPE_CODE)
+    w = w3 // 3
     lib = _lib()
     if qkv.dtype == torch.float32:
         smem = lib.packed_attention_smem_bytes(s, w // heads)
@@ -113,8 +250,159 @@ def fused_attention_packed(qkv: torch.Tensor, heads: int, scale: float,
 fused_attention_packed.launches = 0
 
 
-def packed_attention_auto(qkv: torch.Tensor, heads: int, scale: float,
-                          s_real: int | None = None) -> torch.Tensor:
-    """The JAX package routes by VMEM budget between three kernels; on the
-    H100 the packed kernel serves every sequence of the CLIP ViT family."""
-    return fused_attention_packed(qkv, heads, scale, s_real)
+# ---- K5: online softmax over k panels ---------------------------------------
+
+def flash_attention_packed_plain(qkv: torch.Tensor, heads: int, scale: float,
+                                 s_real: int | None = None) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch (the JAX ``_flash_kernel``,
+    attention.py:441-511): q·scale in the input dtype (the scale itself cast
+    to it first), and per k panel of :func:`flash_panel` keys
+    ``m' = max(m, rowmax(s))``, ``α = exp(m − m')``, ``p = exp(s − m')``,
+    ``l = l·α + Σp`` over the unrounded float32 p,
+    ``acc = acc·α + T(p)·v``; at the end ``acc / l``."""
+    s = qkv.shape[1]
+    s_real = s if s_real is None else s_real
+    q, k, v = _split_heads(qkv, heads)
+    qf = (q * torch.tensor(scale, dtype=qkv.dtype, device=qkv.device)).float()
+    shape = qf.shape[:-1] + (1,)
+    m = torch.full(shape, float("-inf"), device=qkv.device)
+    l = torch.zeros(shape, device=qkv.device)
+    acc = torch.zeros(qf.shape, device=qkv.device)
+    panel = flash_panel(s)
+    for p0 in range(0, s, panel):
+        p1 = min(p0 + panel, s)
+        sc = torch.matmul(qf, k[:, :, p0:p1].float().transpose(-1, -2))
+        if s_real < p1:
+            sc[..., max(s_real - p0, 0):] = float("-inf")
+        m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.exp(sc - m_new)
+        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + torch.matmul(p.to(v.dtype).float(), v[:, :, p0:p1].float())
+        m = m_new
+    return _merge_heads((acc / l).to(qkv.dtype))
+
+
+def _flash_lib() -> ctypes.CDLL:
+    lib = _cuda_build.load("flash_attention")
+    if lib.flash_attention.argtypes is None:
+        lib.flash_attention.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+            ctypes.c_void_p,
+        ]
+        lib.flash_attention.restype = ctypes.c_int
+        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+def flash_attention_packed(qkv: torch.Tensor, heads: int, scale: float,
+                           s_real: int | None = None) -> torch.Tensor:
+    """Online-softmax attention on the packed qkv tensor [B, S, 3w] → [B, S, w],
+    rescaling at the JAX flash kernel's k-panel boundaries."""
+    if qkv.device.type == "cpu":
+        return flash_attention_packed_plain(qkv, heads, scale, s_real)
+    if not qkv.is_cuda:
+        raise ValueError(f"flash_attention_packed: unsupported device {qkv.device}")
+    b, s, w3 = qkv.shape
+    s_real = s if s_real is None else s_real
+    _check_packed("flash_attention_packed", qkv, heads, s_real, _DTYPE_CODE)
+    w = w3 // 3
+    d = w // heads
+    panel = flash_panel(s)
+    lib = _flash_lib()
+    if qkv.dtype == torch.float32:
+        smem = lib.flash_attention_smem_bytes(panel, d)
+        if smem > _cuda_build.SMEM_LIMIT:
+            raise ValueError(f"flash_attention_packed: a {panel}-key panel needs {smem} B "
+                             "of shared memory")
+    elif d % 8 or qkv.data_ptr() % 16:
+        raise ValueError(
+            "flash_attention_packed: the bfloat16 kernel reads 16-byte vectors — "
+            f"head dim {d} must be a multiple of 8 and the data 16-byte aligned"
+        )
+    out = torch.empty((b, s, w), dtype=qkv.dtype, device=qkv.device)
+    err = lib.flash_attention(
+        qkv.data_ptr(), out.data_ptr(), _DTYPE_CODE[qkv.dtype], b, s, s_real, w,
+        heads, float(scale), panel, torch.cuda.current_stream(qkv.device).cuda_stream,
+    )
+    _cuda_build.check(err, "flash_attention")
+    flash_attention_packed.launches += 1
+    return out
+
+
+flash_attention_packed.launches = 0
+
+
+# ---- K3: the static-scale int8 attention wire --------------------------------
+
+def fused_attention_packed_q8s_plain(qkv_q: torch.Tensor, ch_scale: torch.Tensor,
+                                     heads: int, s_real: int | None = None) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch (the JAX ``_packed_q8s_kernel``,
+    attention.py:765-808): q, k, v become ``bf16(f32(int8)·cs)`` per channel
+    (cs[:w] carries the attention scale, cs[2w:] the 127/attn_out_amax
+    requantize), float32 scores with an exact -inf mask on keys ≥ s_real,
+    exponentials against the final row max, the sum over the unrounded float32
+    P, P cast to bf16 for P·V, the head output DIVIDED by the sum, then
+    round half to even and clip to ±127."""
+    s = qkv_q.shape[1]
+    s_real = s if s_real is None else s_real
+    deq = (qkv_q.float() * ch_scale.float()).to(torch.bfloat16)
+    q, k, v = _split_heads(deq, heads)
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if s_real < s:
+        scores[..., s_real:] = float("-inf")
+    probs = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+    denom = probs.sum(dim=-1, keepdim=True)
+    out = torch.matmul(probs.to(torch.bfloat16).float(), v.float()) / denom
+    return _merge_heads(out.round_().clamp_(-127, 127).to(torch.int8))
+
+
+def _q8s_lib() -> ctypes.CDLL:
+    lib = _cuda_build.load("packed_attention_q8s")
+    if lib.packed_attention_q8s.argtypes is None:
+        lib.packed_attention_q8s.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.packed_attention_q8s.restype = ctypes.c_int
+    return lib
+
+
+def fused_attention_packed_q8s(qkv_q: torch.Tensor, ch_scale: torch.Tensor, heads: int,
+                               s_real: int | None = None) -> torch.Tensor:
+    """Static-wire attention: int8 qkv [B, S, 3w] with the pre-folded float32
+    channel scales ``ch_scale`` [3w] → int8 [B, S, w] (dequant scale
+    attn_out_amax/127, held by the caller)."""
+    if qkv_q.device.type == "cpu":
+        return fused_attention_packed_q8s_plain(qkv_q, ch_scale, heads, s_real)
+    if not qkv_q.is_cuda:
+        raise ValueError(f"fused_attention_packed_q8s: unsupported device {qkv_q.device}")
+    b, s, w3 = qkv_q.shape
+    s_real = s if s_real is None else s_real
+    _check_packed("fused_attention_packed_q8s", qkv_q, heads, s_real, (torch.int8,))
+    w = w3 // 3
+    if (w // heads) % 8 or qkv_q.data_ptr() % 8:
+        raise ValueError(
+            "fused_attention_packed_q8s: the kernel reads 8-byte vectors — head dim "
+            f"{w // heads} must be a multiple of 8 and the data 8-byte aligned"
+        )
+    if (ch_scale.device != qkv_q.device or ch_scale.dtype != torch.float32
+            or ch_scale.numel() != w3 or not ch_scale.is_contiguous()):
+        raise ValueError(
+            f"fused_attention_packed_q8s: ch_scale must be a contiguous float32 tensor of "
+            f"{w3} elements on {qkv_q.device}, got {tuple(ch_scale.shape)} "
+            f"{ch_scale.dtype} on {ch_scale.device}"
+        )
+    out = torch.empty((b, s, w), dtype=torch.int8, device=qkv_q.device)
+    err = _q8s_lib().packed_attention_q8s(
+        qkv_q.data_ptr(), ch_scale.data_ptr(), out.data_ptr(), b, s, s_real, w, heads,
+        torch.cuda.current_stream(qkv_q.device).cuda_stream,
+    )
+    _cuda_build.check(err, "packed_attention_q8s")
+    fused_attention_packed_q8s.launches += 1
+    return out
+
+
+fused_attention_packed_q8s.launches = 0

@@ -108,10 +108,13 @@ def q_matmul(x: torch.Tensor, wq_t: torch.Tensor, w_scale: torch.Tensor,
 
 
 def quant_static(x: torch.Tensor, amax) -> torch.Tensor:
-    """Symmetric int8 quantization with a FIXED (calibrated) scale; the amax
-    is floored at 1e-8 so a dead site quantizes to zeros, not NaN."""
+    """Symmetric int8 quantization with a FIXED (calibrated) scale: one
+    per-tensor amax, or one per channel of x's last axis (the int8 attention
+    wire's qkv). The amax is floored at 1e-8 so a dead site quantizes to
+    zeros, not NaN."""
     amax = torch.as_tensor(amax, dtype=torch.float32, device=x.device)
+    inv = _num(127.0) / torch.clamp(amax, min=1e-8)
     # a 1-element (not 0-d) factor makes x * inv promote to float32 inside
     # the multiply, so bf16 x needs no separate conversion pass
-    inv = (_num(127.0) / torch.clamp(amax, min=1e-8)).reshape(1)
+    inv = inv.reshape(1) if inv.dim() == 0 else inv
     return (x * inv).round_().clamp_(-127, 127).to(torch.int8)

@@ -8,8 +8,12 @@ import pytest
 import torch
 
 from clip_assisted_data_labeling_tpu_torch.ops.attention import (
+    flash_attention_packed,
+    flash_attention_packed_plain,
     fused_attention_packed,
     fused_attention_packed_plain,
+    fused_attention_packed_q8s,
+    fused_attention_packed_q8s_plain,
 )
 from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import (
     rowquant_static,
@@ -64,6 +68,50 @@ def test_rowquant_static_kernel_matches_plain(card, dtype, m, k):
     assert (diff > 0).float().mean().item() <= 1e-3
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,s_real,w,heads", [
+    (2, 17, 17, 128, 2),  # one 24-key panel
+    (2, 50, 43, 144, 2),  # head dim 72, masked tail
+    (2, 729, 729, 1152, 16),  # ViT-SO400M-14-SigLIP-384: two 368-key panels
+    (1, 1100, 1000, 256, 2),  # three 368-key panels, the last partly masked
+])
+def test_flash_attention_kernel_matches_plain(card, dtype, b, s, s_real, w, heads):
+    qkv = _normal((b, s, 3 * w), seed=s).to(card, dtype)
+    before = flash_attention_packed.launches
+    got = flash_attention_packed(qkv, heads, (w // heads) ** -0.5, s_real)
+    torch.cuda.synchronize()
+    assert flash_attention_packed.launches == before + 1
+    ref = flash_attention_packed_plain(qkv, heads, (w // heads) ** -0.5, s_real)
+    err = (got.float() - ref.float())[:, :s_real].abs().max().item()
+    assert err <= TOL[dtype], f"max abs err {err}"
+
+
+def _q8s_inputs(b, s, w, seed, device):
+    """int8 qkv and folded channel scales that give scores of std ~3 and
+    outputs over much of the int8 range."""
+    rng = np.random.default_rng(seed)
+    qkv = torch.from_numpy(rng.integers(-127, 128, (b, s, 3 * w), dtype=np.int8))
+    cs = np.concatenate([rng.uniform(0.5, 1.5, 2 * w) * 8e-3,
+                         rng.uniform(0.5, 1.5, w) * 0.5]).astype(np.float32)
+    return qkv.to(device), torch.from_numpy(cs).to(device)
+
+
+@pytest.mark.parametrize("b,s,s_real,w,heads", [
+    (2, 50, 43, 144, 2), (2, 729, 729, 1152, 16), (1, 300, 300, 1024, 16),
+])
+def test_q8s_attention_kernel_matches_plain(card, b, s, s_real, w, heads):
+    qkv, cs = _q8s_inputs(b, s, w, seed=s, device=card)
+    before = fused_attention_packed_q8s.launches
+    got = fused_attention_packed_q8s(qkv, cs, heads, s_real)
+    torch.cuda.synchronize()
+    assert fused_attention_packed_q8s.launches == before + 1
+    ref = fused_attention_packed_q8s_plain(qkv, cs, heads, s_real)
+    diff = (got.int() - ref.int())[:, :s_real].abs()
+    assert diff.max().item() <= 1
+    assert (diff > 0).float().mean().item() <= 1e-3
+    assert ref.abs().float().mean().item() > 5  # the outputs use the int8 range
+
+
 def test_wrappers_refuse_bad_inputs(card):
     qkv = torch.zeros((1, 8, 6 * 128), device=card)[..., ::2]  # not contiguous
     with pytest.raises(ValueError):
@@ -73,7 +121,49 @@ def test_wrappers_refuse_bad_inputs(card):
     with pytest.raises(ValueError):  # bfloat16 needs head dim % 8 == 0
         fused_attention_packed(torch.zeros((1, 8, 3 * 36), device=card, dtype=torch.bfloat16),
                                3, 0.125)
+    with pytest.raises(ValueError):  # float16 is not a flash dtype
+        flash_attention_packed(torch.zeros((1, 8, 3 * 128), device=card, dtype=torch.float16),
+                               2, 0.125)
+    q8 = torch.zeros((1, 8, 3 * 128), device=card, dtype=torch.int8)
+    with pytest.raises(ValueError):  # channel scales of the wrong length
+        fused_attention_packed_q8s(q8, torch.ones(128, device=card), 2)
+    with pytest.raises(ValueError):  # head dim 12 is not a multiple of 8
+        fused_attention_packed_q8s(torch.zeros((1, 8, 3 * 36), device=card, dtype=torch.int8),
+                                   torch.ones(108, device=card), 3)
     x = torch.zeros((4, 128), device=card, dtype=torch.float16)
     with pytest.raises(ValueError):
         rowquant_static(x, torch.ones(128, device=card), torch.zeros(128, device=card),
                         torch.ones(1, device=card))
+
+
+@pytest.mark.parametrize("mode", ["int8_static", "bfloat16"])
+def test_so400m_two_layers_on_card_matches_cpu(card, mode):
+    """ViT-SO400M-14-SigLIP-384 cut to 2 layers (S=729, w=1152, 16 heads of
+    72): the tower on the card (K3 through the int8 wire, or K5, as the
+    routing picks for this shape) against the same weights, calibration and
+    images on the CPU (the plain versions)."""
+    import dataclasses
+
+    from clip_assisted_data_labeling_tpu_torch.models import vit
+    from clip_assisted_data_labeling_tpu_torch.models.clip_weights import module_from_params
+    from clip_assisted_data_labeling_tpu_torch.ops.attention import attention_route
+    from clip_assisted_data_labeling_tpu_torch.ops.quant import quantize_vit_params
+
+    cfg = dataclasses.replace(vit.resolve_config("ViT-SO400M-14-SigLIP-384/webli"), layers=2)
+    assert attention_route(cfg.seq_len, cfg.width, cfg.heads, 2) == "flash"
+    params = vit.init_vit_params(cfg, torch.Generator().manual_seed(0))
+    images = _normal((2, 384, 384, 3), seed=3)
+    if mode == "int8_static":
+        params = quantize_vit_params(params)
+    cpu = module_from_params(params, cfg)
+    gpu = module_from_params(params, cfg, card)
+    if mode == "int8_static":
+        amax = vit.vit_act_amax(cpu, images)
+        for m in (cpu, gpu):
+            vit.attach_act_amax(m, amax, wire=True)
+    kernel = flash_attention_packed if mode == "bfloat16" else fused_attention_packed_q8s
+    before = kernel.launches
+    got = vit.vit_encode_image(gpu, images.to(card), torch.bfloat16).cpu().numpy()
+    assert kernel.launches == before + cfg.layers
+    ref = vit.vit_encode_image(cpu, images, torch.bfloat16).numpy()
+    assert 1.0 - np.min(np.sum(got * ref, axis=-1)) <= 2e-3

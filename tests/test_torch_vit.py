@@ -79,19 +79,28 @@ def test_int8_static_and_calibration_match_jax(rng, monkeypatch):
     x = rng.normal(0, 1, (4, 32, 32, 3)).astype(np.float32)
     qparams = jax_quantize(params)
     model = module_from_params(quantize_vit_params(flatten_params(params)), TCFG)
-    # calibration forward (dynamic per-row int8 matmuls; the JAX package's
-    # attention here is its XLA path, the port's is K1). In float32 every
-    # site agrees to 1e-2. In bfloat16 a 1-ulp difference in a row's amax
-    # moves that row's whole int8 grid, so only the per-tensor sites are held
-    # to 1e-2 (the per-channel qkv_amax drifts ~2% through layer 2).
-    for tdt, jdt, keys in ((torch.float32, jnp.float32, ("act_amax", "qkv_amax")),
-                           (torch.bfloat16, jnp.bfloat16, ("act_amax",))):
+    # calibration forward: dynamic per-row int8 matmuls and, in both
+    # packages, the XLA attention path. Against the jitted JAX function every
+    # per-tensor site is within 1e-2 in both dtypes, and the per-channel
+    # qkv_amax in float32. In bfloat16 a 1-ulp change in a row's amax moves
+    # that row's whole dynamic int8 grid, and under jit XLA feeds some bf16
+    # sums to the next layernorm unrounded (the stem's x + pos_emb, the
+    # residual before ln2): the jitted and the op-by-op JAX runs of this
+    # function differ by 2.3% in qkv_amax at layer 2. The port computes the
+    # JAX code as written, op by op, so bf16 is also held, at every site,
+    # against the JAX function run without jit.
+    for tdt, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
         jamax = jax.tree.map(np.asarray, jvit.vit_act_amax(
             qparams, jnp.asarray(x), JCFG, compute_dtype=jdt))
         tamax = tvit.vit_act_amax(model, torch.from_numpy(x), tdt)
-        for k in keys:
+        for k in ("act_amax", "qkv_amax") if tdt == torch.float32 else ("act_amax",):
             assert tamax[k].shape == jamax[k].shape
             np.testing.assert_allclose(tamax[k], jamax[k], rtol=1e-2, err_msg=f"{tdt} {k}")
+    with jax.disable_jit():
+        eager = jax.tree.map(np.asarray, jvit.vit_act_amax(
+            qparams, jnp.asarray(x), JCFG, compute_dtype=jnp.bfloat16))
+    for k in ("act_amax", "qkv_amax"):
+        np.testing.assert_allclose(tamax[k], eager[k], rtol=1e-2, err_msg=f"bf16 op by op {k}")
 
     # the same act_amax into both: the JAX lnk path (Pallas, interpret) vs
     # the port's lnk path (K2 + K1 plain versions on the CPU)
