@@ -7,7 +7,9 @@ Phases (any failure exits nonzero and prints no result line):
   2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel),
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes and time kernel, plain version, the PyTorch library
-     yardstick and the roofline bound (CUDA events, warmed up),
+     yardstick and the roofline bound (CUDA events, warmed up): K1 (also with
+     PE's RoPE), K2, K4 (bf16 with RoPE at PE-Core-G14-448's shape, f32 at
+     the 336-pixel towers' float32 shapes), K5, K3,
   4. write 32 synthetic PNGs of mixed sizes from a seed,
   5. run the port's embed CLI on them: ViT-L-14-336/openai, int8_static,
      batch 8, full width and depth (24 layers), random weights from the
@@ -15,14 +17,23 @@ Phases (any failure exits nonzero and prints no result line):
   6. check sidecars, store and .calib.npz, finite unit-norm embeddings, and
      that the launch counters equal layers × forwards (K1, K2; no K3, K5);
      then time the same device work in steady state and profile one batch,
-  7. run a few images through the float32 path (K1 in float32) and print the
-     cosine against the int8_static embeddings,
+  7. run a few images through the float32 path (K4 in float32: the JAX
+     package's grouped route) and print the cosine against the int8_static
+     embeddings,
   8. the embed CLI again on the same PNGs: ViT-SO400M-14-SigLIP-384/webli,
      int8_static (the int8 attention wire: K3 in each of the 27 layers, no
      K1, K2 or K5), batch 8, full width and depth, random weights; check
      outputs and the .calib.npz's qkv_amax, steady state, profile,
   9. four images through its bfloat16 path (K5 in every layer) and the
      cosine against the int8_static embeddings,
+ 10. the embed CLI on the same PNGs: PE-Core-L14-336, int8_static (K1 with
+     RoPE once and K2 twice in each of the 24 layers; no K3, K4, K5), batch
+     8, full width and depth, random weights; outputs, steady state, profile,
+ 11. four images through its bfloat16 path (K1 with RoPE in every layer) and
+     its float32 path (K4 with RoPE in every layer), each against the
+     int8_static embeddings,
+ 12. PE-Core-G14-448 in bfloat16 on four images at full width and all 50
+     layers (K4 with RoPE in every layer, no K1): finite unit embeddings,
 then print one JSON line listing the kernels and, last, the device line.
 
 Imports torch and the port only, never JAX.
@@ -46,14 +57,18 @@ H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
 H100_BYTES = 3.35e12  # HBM3 bytes/s
 MODEL = "ViT-L-14-336/openai"
 SIGLIP = "ViT-SO400M-14-SigLIP-384/webli"
+PE_L = "PE-Core-L14-336"
+PE_G = "PE-Core-G14-448"
 N_IMAGES, BATCH = 32, 8
 K1_SRC = "clip_assisted_data_labeling_tpu_torch/csrc/packed_attention.cu"
 K2_SRC = "clip_assisted_data_labeling_tpu_torch/csrc/rowquant_static.cu"
 K3_SRC = "clip_assisted_data_labeling_tpu_torch/csrc/packed_attention_q8s.cu"
+K4_SRC = "clip_assisted_data_labeling_tpu_torch/csrc/packed_attention_grouped.cu"
 K5_SRC = "clip_assisted_data_labeling_tpu_torch/csrc/flash_attention.cu"
 K1_TPU = "clip_assisted_data_labeling_tpu/ops/attention.py:860"
 K2_TPU = "clip_assisted_data_labeling_tpu/ops/quant_kernel.py:410"
 K3_TPU = "clip_assisted_data_labeling_tpu/ops/attention.py:746"
+K4_TPU = "clip_assisted_data_labeling_tpu/ops/attention.py:166"
 K5_TPU = "clip_assisted_data_labeling_tpu/ops/attention.py:441"
 
 
@@ -67,12 +82,14 @@ def kernels() -> dict:
     from clip_assisted_data_labeling_tpu_torch.ops.attention import (
         flash_attention_packed,
         fused_attention_packed,
+        fused_attention_packed_grouped,
         fused_attention_packed_q8s,
     )
     from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import rowquant_static
 
     return {"K1": fused_attention_packed, "K2": rowquant_static,
-            "K3": fused_attention_packed_q8s, "K5": flash_attention_packed}
+            "K3": fused_attention_packed_q8s, "K4": fused_attention_packed_grouped,
+            "K5": flash_attention_packed}
 
 
 def reset_counts() -> None:
@@ -164,6 +181,8 @@ def check_kernels(gen: torch.Generator) -> list[dict]:
               f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
         del qkv, q, k, v
         torch.cuda.empty_cache()
+
+    rows += check_rope_and_grouped(gen)
 
     k = 1024
     g = 1 + 0.1 * torch.randn((k,), generator=gen, device="cuda")
@@ -263,6 +282,70 @@ def check_kernels(gen: torch.Generator) -> list[dict]:
     for r in rows:
         if not (r["max_abs_err"] <= r["tol"]):
             fail(f"{r['name']} {r['case']} disagrees with its plain version: {r['max_abs_err']}")
+    return rows
+
+
+def check_rope_and_grouped(gen: torch.Generator) -> list[dict]:
+    """Phase 3, the PE slice's kernels: K1 with RoPE at PE-Core-L14-336's
+    int8_static shape, and K4 at the shapes its routes give it — bf16 with
+    RoPE at PE-Core-G14-448's (8 images x 4 crops), float32 without RoPE at
+    ViT-L-14-336's float32 path (4 images), float32 with RoPE at G14's
+    (1 image). K4's yardstick is SDPA on q and k already rotated: it leaves
+    the rotation out."""
+    import torch.nn.functional as F
+
+    from clip_assisted_data_labeling_tpu_torch.models.vit import _rope_on, resolve_config
+    from clip_assisted_data_labeling_tpu_torch.ops.attention import (
+        _rot_half,
+        fused_attention_packed,
+        fused_attention_packed_grouped,
+        fused_attention_packed_grouped_plain,
+        fused_attention_packed_plain,
+    )
+
+    pe_l, pe_g = resolve_config(PE_L), resolve_config(PE_G)
+    cases = (  # (kernel, config, batch, dtype, tolerance, peak rate, RoPE)
+        ("K1", pe_l, 4 * BATCH, torch.bfloat16, 2e-2, H100_BF16_FLOPS, True),
+        ("K4", pe_g, 4 * BATCH, torch.bfloat16, 2e-2, H100_BF16_FLOPS, True),
+        ("K4", resolve_config(MODEL), 16, torch.float32, 1e-5, H100_F32_FLOPS, False),
+        ("K4", pe_g, 4, torch.float32, 1e-5, H100_F32_FLOPS, True),
+    )
+    rows = []
+    for kname, cfg, b, dtype, tol, peak, with_rope in cases:
+        s, w, heads, d = cfg.seq_len, cfg.width, cfg.heads, cfg.head_dim
+        kernel, plain, name, src, tpu = (
+            (fused_attention_packed, fused_attention_packed_plain, "packed_attention", K1_SRC,
+             K1_TPU) if kname == "K1" else
+            (fused_attention_packed_grouped, fused_attention_packed_grouped_plain,
+             "packed_attention_grouped", K4_SRC, K4_TPU))
+        rope = _rope_on(cfg, torch.device("cuda")) if with_rope else None
+        qkv = torch.randn((b, s, 3 * w), generator=gen, device="cuda").to(dtype)
+        err = (kernel(qkv, heads, d ** -0.5, None, rope).float()
+               - plain(qkv, heads, d ** -0.5, None, rope).float()).abs().max().item()
+        q, k, v = (t.reshape(b, s, heads, d).transpose(1, 2).contiguous()
+                   for t in qkv.split(w, dim=-1))
+        if rope is not None:
+            cos, sin = (t.to(dtype) for t in rope)
+            q, k = _rot_half(q, cos, sin).contiguous(), _rot_half(k, cos, sin).contiguous()
+        nbytes = b * s * 4 * w * qkv.element_size() + (2 * s * d // 2 * qkv.element_size()
+                                                       if rope is not None else 0)
+        row = {
+            "name": name, "route": "cuda", "source": src, "replaces": tpu,
+            "case": f"{str(dtype)[6:]} [{b},{s},{3 * w}] h={heads}"
+                    + (" RoPE" if rope is not None else ""),
+            "max_abs_err": err, "tol": tol,
+            "ms": time_ms(lambda: kernel(qkv, heads, d ** -0.5, None, rope)),
+            "plain_ms": time_ms(lambda: plain(qkv, heads, d ** -0.5, None, rope), min_reps=3),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, scale=d ** -0.5)),
+            **bound(4.0 * b * heads * s * s * d, peak, nbytes),
+        }
+        rows.append(row)
+        print(f"{kname} {row['case']}: err {err:.3g} (tol {tol}) kernel {row['ms']:.3f} ms "
+              f"plain {row['plain_ms']:.3f} sdpa(rotated q,k) {row['library_ms']:.3f} "
+              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+        del qkv, q, k, v
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -385,10 +468,10 @@ def embed_and_check(root: str, model: str, cfg, per_forward: dict) -> dict:
     return {"launches": got, "side": side, "pts": pts}
 
 
-def float_run(model: str, dtype: str, pts: list, side: np.ndarray, cfg, per_forward: dict) -> dict:
+def float_run(model: str, dtype: str, pts: list, side, cfg, per_forward: dict) -> dict:
     """Four images through a float path; its launches must be
-    ``per_forward``, and its embeddings near the int8_static ones. Returns
-    the launch counts."""
+    ``per_forward``, its embeddings finite unit vectors and, where ``side``
+    holds the int8_static ones, near them. Returns the launch counts."""
     from clip_assisted_data_labeling_tpu_torch.data.loader import BatchedImageLoader
     from clip_assisted_data_labeling_tpu_torch.models.encoders import CLIPImageEncoder
 
@@ -402,12 +485,19 @@ def float_run(model: str, dtype: str, pts: list, side: np.ndarray, cfg, per_forw
     got, want = counts(), {k: per_forward.get(k, 0) for k in kernels()}
     if got != want:
         fail(f"{model} {dtype} path launches {got}, expected {want}")
-    order = [first.index(p[:-4] + ".pt") for p in batch.paths]
-    cos = np.sum(emb * side[order], axis=-1)
-    print(f"{model} {dtype} vs int8_static cosine over {cos.size} crops: min {cos.min():.5f} "
-          f"mean {cos.mean():.5f}; launches {got}", flush=True)
-    if not (np.isfinite(emb).all() and cos.min() > 0.95):
-        fail(f"{dtype} and int8_static embeddings disagree (cosine min {cos.min()})")
+    norms = np.linalg.norm(emb, axis=-1)
+    if not (np.isfinite(emb).all() and np.abs(norms - 1).max() < 1e-3):
+        fail(f"{model} {dtype}: embeddings not finite unit vectors ({norms.min()}..{norms.max()})")
+    if side is None:
+        print(f"{model} {dtype}: {emb.shape[0]} images x {emb.shape[1]} crops, finite, "
+              f"|norm-1| max {np.abs(norms - 1).max():.2e}; launches {got}", flush=True)
+    else:
+        order = [first.index(p[:-4] + ".pt") for p in batch.paths]
+        cos = np.sum(emb * side[order], axis=-1)
+        print(f"{model} {dtype} vs int8_static cosine over {cos.size} crops: min "
+              f"{cos.min():.5f} mean {cos.mean():.5f}; launches {got}", flush=True)
+        if not cos.min() > 0.95:
+            fail(f"{dtype} and int8_static embeddings disagree (cosine min {cos.min()})")
     del enc
     torch.cuda.empty_cache()
     return got
@@ -465,14 +555,16 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     cfg, scfg = resolve_config(MODEL), resolve_config(SIGLIP)
+    pcfg, gcfg = resolve_config(PE_L), resolve_config(PE_G)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
         write_pngs(root)
 
         # --- phases 5-6: ViT-L-14-336 int8_static: K1 once and K2 twice a
         # layer; the calibration forward runs the XLA-style attention, no kernel
         l336 = embed_and_check(root, MODEL, cfg, {"K1": cfg.layers, "K2": 2 * cfg.layers})
-        # --- phase 7: float32 path (K1 in float32) on a few images
-        float_run(MODEL, "float32", l336["pts"], l336["side"], cfg, {"K1": cfg.layers})
+        # --- phase 7: float32 path on a few images: K4, the JAX package's
+        # grouped route for this shape
+        float_run(MODEL, "float32", l336["pts"], l336["side"], cfg, {"K4": cfg.layers})
 
         # --- phases 8-9: ViT-SO400M-14-SigLIP-384 int8_static through the int8
         # attention wire (K3 a layer), then bfloat16 (K5 a layer)
@@ -480,9 +572,18 @@ def main() -> None:
         bf16 = float_run(SIGLIP, "bfloat16", so400m["pts"], so400m["side"], scfg,
                          {"K5": scfg.layers})
 
-    launches = {"packed_attention": l336["launches"]["K1"],
-                "rowquant_static": l336["launches"]["K2"],
+        # --- phases 10-11: PE-Core-L14-336 int8_static (K1 with RoPE once and
+        # K2 twice a layer), then its bf16 (K1) and float32 (K4) paths
+        pe = embed_and_check(root, PE_L, pcfg, {"K1": pcfg.layers, "K2": 2 * pcfg.layers})
+        float_run(PE_L, "bfloat16", pe["pts"], pe["side"], pcfg, {"K1": pcfg.layers})
+        float_run(PE_L, "float32", pe["pts"], pe["side"], pcfg, {"K4": pcfg.layers})
+        # --- phase 12: PE-Core-G14-448 bf16, all 50 layers (K4 with RoPE)
+        g14 = float_run(PE_G, "bfloat16", pe["pts"], None, gcfg, {"K4": gcfg.layers})
+
+    launches = {"packed_attention": pe["launches"]["K1"],
+                "rowquant_static": pe["launches"]["K2"],
                 "packed_attention_q8s": so400m["launches"]["K3"],
+                "packed_attention_grouped": g14["K4"],
                 "flash_attention": bf16["K5"]}
     rows = [dict(r, launches=launches[r["name"]]) for r in rows]
     print(json.dumps({"kernels": rows}))

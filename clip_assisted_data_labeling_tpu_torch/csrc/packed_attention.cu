@@ -6,6 +6,11 @@
 // Computes, for qkv packed [B, S, 3w] exactly as the qkv projection wrote it
 // (head h's q, k, v are the column slices h*d, w + h*d, 2w + h*d):
 //   q' = q * scale            rounded to the input type (as the TPU kernel)
+//   q' = rot(q'), k' = rot(k) only with RoPE tables (PE towers): the
+//                             half-split pairs (i, i + d/2),
+//                             [x1·cos − x2·sin, x1·sin + x2·cos], each
+//                             product and then the sum rounded to T
+//                             (attention_common.cuh rot_pair); k unscaled
 //   s  = q' k^T               float32 accumulation; keys >= s_real get -inf
 //   p  = exp(s - max_row(s))  float32; sum over the unrounded p
 //   o  = (T(p) v) * (1/sum)   P rounded to v's type, float32 accumulation,
@@ -30,18 +35,19 @@
 // sequence on the same data), exponentiates against the final max, sums the
 // float32 p, rounds P to bf16 in the registers that feed the P·V mma. That
 // costs one extra Q·K^T (1.5x the minimum FLOPs) and keeps shared memory at
-// ~28 KB a block, so many blocks fit an SM.
+// ~28 KB a block, so many blocks fit an SM. With RoPE each 16-byte vector of
+// a head row's first half is loaded with its partner in the second half and
+// the pair rotated in registers on the way into shared memory (q once, k in
+// both passes), so the rotation costs no extra pass or synchronisation.
 //
 // float32: packed_attention_kernel. One block per (16 query rows, head,
 // batch item) keeps the tile's whole score block [16, S] in shared memory
 // (40 KB at S=577) and runs both products as float32 FMAs over K^T and V
 // chunks streamed through shared memory. Sequences whose score tile
-// overflows the 227 KB a block may use are refused (the wrapper checks).
+// overflows the 227 KB a block may use are refused (the wrapper checks);
+// K4 (packed_attention_grouped.cu) streams the keys instead.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
 
@@ -52,32 +58,13 @@ constexpr int DMAX = 128; // largest head dim
 constexpr int EPT = QT * DMAX / NT;      // output elements per thread (max)
 constexpr int RPT = QT / (NT / KT);      // score rows per thread
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(NT) packed_attention_kernel(
     const T* __restrict__ qkv, T* __restrict__ out, int S, int s_real, int w,
-    int d, float scale, int s_chunks) {
+    int d, float scale, int s_chunks, const T* __restrict__ cos, const T* __restrict__ sin) {
   extern __shared__ float smem[];
   const int s_pad = s_chunks * KT;
-  float* q_s = smem;                  // [QT][d]  scaled q
+  float* q_s = smem;                  // [QT][d]  scaled (and rotated) q
   float* kv_s = q_s + QT * d;         // K^T chunk [d][KT+1], then V chunk [KT][d]
   float* sc = kv_s + d * (KT + 1);    // [QT][s_pad] scores, then P
   float* inv_s = sc + QT * s_pad;     // [QT] 1/sum
@@ -88,15 +75,11 @@ __global__ void __launch_bounds__(NT) packed_attention_kernel(
   const size_t row_stride = 3 * (size_t)w;
   const T* base = qkv + (size_t)blockIdx.z * S * row_stride;
 
-  // q * scale in the input type (the scale itself rounded to T first)
+  // q * scale in the input type (the scale itself rounded to T first), then
+  // rotated; k is rotated as each chunk is staged
   const float scale_t = to_f(from_f<T>(scale));
-  for (int idx = tid; idx < QT * d; idx += NT) {
-    const int r = idx / d, i = idx - (idx / d) * d;
-    const int qi = q0 + r;
-    float v = 0.f;
-    if (qi < S) v = to_f(from_f<T>(to_f(base[(size_t)qi * row_stride + h * d + i]) * scale_t));
-    q_s[idx] = v;
-  }
+  stage_rows_f<T, NT, QT>(q_s, d, 1, base, q0, S, row_stride, h * d, d, true, scale_t, cos,
+                          sin);
 
   // --- pass 1: scores = q' k^T over streamed key chunks -------------------
   const int kk = tid % KT;    // this thread's key within the chunk
@@ -104,12 +87,8 @@ __global__ void __launch_bounds__(NT) packed_attention_kernel(
   for (int c = 0; c < s_chunks; ++c) {
     const int k0 = c * KT;
     __syncthreads();  // kv_s free (and q_s written, on the first chunk)
-    for (int idx = tid; idx < KT * d; idx += NT) {
-      const int kr = idx / d, i = idx - (idx / d) * d;
-      const int key = k0 + kr;
-      kv_s[i * (KT + 1) + kr] =
-          key < S ? to_f(base[(size_t)key * row_stride + w + h * d + i]) : 0.f;
-    }
+    stage_rows_f<T, NT, KT>(kv_s, 1, KT + 1, base, k0, S, row_stride, w + h * d, d, false,
+                            0.f, cos, sin);
     __syncthreads();
     float acc[RPT];
 #pragma unroll
@@ -182,7 +161,7 @@ __global__ void __launch_bounds__(NT) packed_attention_kernel(
 
 template <typename T>
 int launch(const void* qkv, void* out, int B, int S, int s_real, int w, int heads,
-           float scale, cudaStream_t stream) {
+           float scale, const void* cos, const void* sin, cudaStream_t stream) {
   const int d = w / heads;
   const int s_chunks = (S + KT - 1) / KT;
   const size_t smem = sizeof(float) *
@@ -193,7 +172,8 @@ int launch(const void* qkv, void* out, int B, int S, int s_real, int w, int head
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + QT - 1) / QT, heads, B);
   packed_attention_kernel<T><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), S, s_real, w, d, scale, s_chunks);
+      static_cast<const T*>(qkv), static_cast<T*>(out), S, s_real, w, d, scale, s_chunks,
+      static_cast<const T*>(cos), static_cast<const T*>(sin));
   return (int)cudaGetLastError();
 }
 
@@ -202,25 +182,6 @@ int launch(const void* qkv, void* out, int B, int S, int s_real, int w, int head
 constexpr int MQ = 64;    // query rows per block (4 warps x 16)
 constexpr int MK = 64;    // keys per streamed chunk
 constexpr int MNT = 128;  // threads per block
-constexpr int PAD = 8;    // bf16 elements of padding per shared-memory row
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 template <int DP>  // head dim padded to a multiple of 16
 constexpr size_t mma_smem_bytes() {
@@ -230,10 +191,10 @@ constexpr size_t mma_smem_bytes() {
 template <int DP>
 __global__ void __launch_bounds__(MNT) packed_attention_mma_kernel(
     const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out, int S,
-    int s_real, int w, int d, float scale) {
+    int s_real, int w, int d, float scale, const __nv_bfloat16* __restrict__ cos,
+    const __nv_bfloat16* __restrict__ sin) {
   constexpr int LDQ = DP + PAD;  // row stride of Qs and Ks
   constexpr int LDV = MK + PAD;  // row stride of Vt
-  constexpr int NV = DP / 8;     // 16-byte vectors per padded head row
   extern __shared__ __align__(16) unsigned char mma_smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(mma_smem);  // [MQ][LDQ]
   __nv_bfloat16* Ks = Qs + MQ * LDQ;                                // [MK][LDQ]
@@ -244,23 +205,11 @@ __global__ void __launch_bounds__(MNT) packed_attention_mma_kernel(
   const int q0 = blockIdx.x * MQ, h = blockIdx.y;
   const size_t rs = 3 * (size_t)w;
   const __nv_bfloat16* base = qkv + (size_t)blockIdx.z * S * rs;
-  const int dv = d / 8;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
 
-  // q tile scaled in bf16 (the scale itself rounded to bf16 first),
-  // zero-padded past d and past S
+  // q tile scaled in bf16 (the scale itself rounded to bf16 first), then
+  // rotated; zero-padded past d and past S
   const float scale_t = __bfloat162float(__float2bfloat16_rn(scale));
-  for (int idx = tid; idx < MQ * NV; idx += MNT) {
-    const int r = idx / NV, c8 = idx % NV;
-    uint4 v = zero;
-    if (q0 + r < S && c8 < dv) {
-      v = *reinterpret_cast<const uint4*>(base + (size_t)(q0 + r) * rs + h * d + c8 * 8);
-      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * scale_t);
-    }
-    *reinterpret_cast<uint4*>(Qs + r * LDQ + c8 * 8) = v;
-  }
+  stage_rows_bf16<MNT, MQ, DP, LDQ>(Qs, base, q0, S, rs, h * d, d, true, scale_t, cos, sin);
   __syncthreads();
   const int r0 = warp * 16;
   uint32_t qa[DP / 16][4];
@@ -272,25 +221,9 @@ __global__ void __launch_bounds__(MNT) packed_attention_mma_kernel(
     qa[ks][3] = ld32(Qs + (r0 + g + 8) * LDQ + ks * 16 + 8 + 2 * t);
   }
 
+  // k rotated (not scaled) as each chunk is staged
   auto load_k = [&](int k0) {
-    for (int idx = tid; idx < MK * NV; idx += MNT) {
-      const int r = idx / NV, c8 = idx % NV;
-      uint4 v = zero;
-      if (k0 + r < S && c8 < dv)
-        v = *reinterpret_cast<const uint4*>(base + (size_t)(k0 + r) * rs + w + h * d + c8 * 8);
-      *reinterpret_cast<uint4*>(Ks + r * LDQ + c8 * 8) = v;
-    }
-  };
-  auto load_vt = [&](int k0) {
-    for (int idx = tid; idx < MK * NV; idx += MNT) {
-      const int r = idx % MK, c8 = idx / MK;  // key fastest: spread the transposed stores
-      uint4 v = zero;
-      if (k0 + r < S && c8 < dv)
-        v = *reinterpret_cast<const uint4*>(base + (size_t)(k0 + r) * rs + 2 * w + h * d + c8 * 8);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Vt[(c8 * 8 + j) * LDV + r] = e[j];
-    }
+    stage_rows_bf16<MNT, MK, DP, LDQ>(Ks, base, k0, S, rs, w + h * d, d, false, 0.f, cos, sin);
   };
   // this warp's 16 x MK score block of one chunk: s[j] is keys 8j..8j+7,
   // c0/c1 row g keys 2t/2t+1, c2/c3 row g+8 (the mma accumulator layout)
@@ -335,7 +268,7 @@ __global__ void __launch_bounds__(MNT) packed_attention_mma_kernel(
   for (int k0 = 0; k0 < S; k0 += MK) {
     __syncthreads();
     load_k(k0);
-    load_vt(k0);
+    stage_vt_bf16<MNT, MK, DP, LDV>(Vt, base, k0, S, rs, 2 * w + h * d, d);
     __syncthreads();
     float s[MK / 8][4];
     scores(s, k0);
@@ -380,7 +313,7 @@ __global__ void __launch_bounds__(MNT) packed_attention_mma_kernel(
 
 template <int DP>
 int launch_mma(const void* qkv, void* out, int B, int S, int s_real, int w, int heads,
-               float scale, cudaStream_t stream) {
+               float scale, const void* cos, const void* sin, cudaStream_t stream) {
   const size_t smem = mma_smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(packed_attention_mma_kernel<DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -389,19 +322,22 @@ int launch_mma(const void* qkv, void* out, int B, int S, int s_real, int w, int 
   dim3 grid((S + MQ - 1) / MQ, heads, B);
   packed_attention_mma_kernel<DP><<<grid, MNT, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), S, s_real,
-      w, w / heads, scale);
+      w, w / heads, scale, static_cast<const __nv_bfloat16*>(cos),
+      static_cast<const __nv_bfloat16*>(sin));
   return (int)cudaGetLastError();
 }
 
 int launch_bf16(const void* qkv, void* out, int B, int S, int s_real, int w, int heads,
-                float scale, cudaStream_t stream) {
+                float scale, const void* cos, const void* sin, cudaStream_t stream) {
   const int d = w / heads;
   if (d % 8 != 0) return (int)cudaErrorInvalidValue;  // 16-byte row loads
-  if (d <= 64) return launch_mma<64>(qkv, out, B, S, s_real, w, heads, scale, stream);
-  if (d <= 80) return launch_mma<80>(qkv, out, B, S, s_real, w, heads, scale, stream);
-  if (d <= 96) return launch_mma<96>(qkv, out, B, S, s_real, w, heads, scale, stream);
-  if (d <= 112) return launch_mma<112>(qkv, out, B, S, s_real, w, heads, scale, stream);
-  return launch_mma<128>(qkv, out, B, S, s_real, w, heads, scale, stream);
+  if (cos != nullptr && d % 16 != 0) return (int)cudaErrorInvalidValue;  // paired half vectors
+  if (d <= 64) return launch_mma<64>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, stream);
+  if (d <= 80) return launch_mma<80>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, stream);
+  if (d <= 96) return launch_mma<96>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, stream);
+  if (d <= 112)
+    return launch_mma<112>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, stream);
+  return launch_mma<128>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, stream);
 }
 
 }  // namespace
@@ -417,14 +353,18 @@ size_t packed_attention_smem_bytes(int S, int d) {
       ((size_t)QT * d + (size_t)d * (KT + 1) + (size_t)QT * s_chunks * KT + QT);
 }
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() of the launch.
+// dtype: 0 = float32, 1 = bfloat16. cos, sin: RoPE tables [S, d/2] of the
+// same dtype (half-split pairs), or both null for no rotation. Returns
+// cudaGetLastError() of the launch.
 int packed_attention(const void* qkv, void* out, int dtype, int B, int S, int s_real,
-                     int w, int heads, float scale, void* stream) {
-  if (heads <= 0 || w % heads != 0 || w / heads > DMAX || s_real < 1 || s_real > S)
+                     int w, int heads, float scale, const void* cos, const void* sin,
+                     void* stream) {
+  if (heads <= 0 || w % heads != 0 || w / heads > DMAX || s_real < 1 || s_real > S ||
+      (cos == nullptr) != (sin == nullptr) || (cos != nullptr && (w / heads) % 2 != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(qkv, out, B, S, s_real, w, heads, scale, st);
-  if (dtype == 1) return launch_bf16(qkv, out, B, S, s_real, w, heads, scale, st);
+  if (dtype == 0) return launch<float>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, st);
+  if (dtype == 1) return launch_bf16(qkv, out, B, S, s_real, w, heads, scale, cos, sin, st);
   return (int)cudaErrorInvalidValue;
 }
 

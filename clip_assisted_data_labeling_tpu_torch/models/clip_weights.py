@@ -1,14 +1,19 @@
 """Weights in and out of the port (port of the JAX package's
-``models/clip_weights.py`` for the plain CLIP and the SigLIP towers).
+``models/clip_weights.py`` for the plain CLIP, SigLIP and PE towers).
 
   * ``save_params_npz`` / ``load_params_npz``: the JAX package's native
     ``.npz`` layout — top-level leaves by name, block leaves as
     ``blocks/<name>`` stacked ``[L, …]`` — so either package reads the other's
     file,
   * ``convert_open_clip_visual`` / ``convert_hf_clip_vision`` /
-    ``convert_siglip_visual``: torch checkpoints (open_clip/OpenAI
-    ``visual.*``, HF ``CLIPVisionModelWithProjection`` and HF
-    ``SiglipVisionModel``) → that flat layout,
+    ``convert_siglip_visual`` / ``convert_pe_visual``: torch checkpoints
+    (open_clip/OpenAI ``visual.*``, HF ``CLIPVisionModelWithProjection``, HF
+    ``SiglipVisionModel`` and Meta's Perception Encoder ``visual.*``) → that
+    flat layout,
+  * ``rope_interleaved_to_half`` / ``ensure_rope_half``: PE checkpoints pair
+    RoPE features interleaved; the port (like the JAX package) pairs halves,
+    so the q/k projection columns are permuted once and the params marked
+    with a ``rope_half`` leaf,
   * ``module_from_params``: THE function that carries weights across — a flat
     dict of arrays (as the JAX package's params or ``.npz`` give them) becomes
     the port's module state. The ``[in, out]`` kernel convention stays, so
@@ -160,7 +165,6 @@ def convert_open_clip_visual(state_dict: Mapping, cfg: VitConfig) -> dict:
         blocks["fc2_bias"].append(_t(sd[b + "mlp.c_proj.bias"]))
     out = {
         "patch_kernel": _conv_to_patch_kernel(sd["conv1.weight"]),
-        "class_emb": _t(sd["class_embedding"]),
         "pos_emb": _t(sd["positional_embedding"]),
         "ln_pre_scale": _t(sd["ln_pre.weight"]),
         "ln_pre_bias": _t(sd["ln_pre.bias"]),
@@ -168,8 +172,68 @@ def convert_open_clip_visual(state_dict: Mapping, cfg: VitConfig) -> dict:
         "ln_post_bias": _t(sd["ln_post.bias"]),
         "proj": _t(sd["proj"]),
     }
+    if "class_embedding" in sd:  # absent for cls-token-free towers (PE G14)
+        out["class_emb"] = _t(sd["class_embedding"])
     out.update({f"blocks/{k}": np.stack(v) for k, v in blocks.items()})
     return out
+
+
+def rope_interleaved_to_half(params: Mapping, cfg: VitConfig) -> dict:
+    """Permute each head's q and k projection columns from the interleaved
+    RoPE pairing (q[2i], q[2i+1]) to the half-split one (q[i], q[i+d/2]) and
+    mark the params with a ``rope_half`` leaf (JAX
+    ``rope_interleaved_to_half``, models/clip_weights.py:358). Scores are
+    unchanged under one permutation of both q and k of a head, so the two
+    conventions give the same attention. A quantized checkpoint's per-column
+    ``qkv_kernel_scale`` and a calibrated one's ``qkv_amax`` follow the same
+    permutation. Returns flat params."""
+    d, w = cfg.head_dim, cfg.width
+    perm_head = np.concatenate([np.arange(0, d, 2), np.arange(1, d, 2)])
+    perm = np.concatenate([h * d + perm_head for h in range(cfg.heads)])
+    qkv_perm = np.concatenate([perm, w + perm, 2 * w + np.arange(w)])
+    out = flatten_params(params)
+    out["blocks/qkv_kernel"] = np.asarray(out["blocks/qkv_kernel"])[:, :, qkv_perm]
+    for key in ("qkv_bias", "qkv_kernel_scale", "qkv_amax"):
+        if f"blocks/{key}" in out:
+            out[f"blocks/{key}"] = np.asarray(out[f"blocks/{key}"])[:, qkv_perm]
+    out["rope_half"] = np.ones((), np.int8)
+    return out
+
+
+def ensure_rope_half(params: Mapping, cfg: VitConfig) -> Mapping:
+    """Upgrade loaded params to the half-split RoPE pairing if they predate
+    the ``rope_half`` marker (JAX ``ensure_rope_half``); params of a tower
+    without RoPE, or already marked, come back as they are."""
+    flat = flatten_params(params)
+    if not cfg.use_rope2d or "rope_half" in flat:
+        return params
+    return rope_interleaved_to_half(flat, cfg)
+
+
+def convert_pe_visual(state_dict: Mapping, cfg: VitConfig) -> dict:
+    """Meta Perception Encoder 'visual.*' state dict → flat params (JAX
+    ``convert_pe_visual``, models/clip_weights.py:179): CLIP's transformer
+    naming, plus the probe attention pool (``attn_pool.probe``, one
+    nn.MultiheadAttention, a layernorm), no class token on G14, and the q/k
+    columns brought to the half-split RoPE pairing. RoPE itself has no
+    weights: the tables come from the config."""
+    base = rope_interleaved_to_half(convert_open_clip_visual(state_dict, cfg), cfg)
+    sd = {k[len("visual."):]: v for k, v in state_dict.items() if k.startswith("visual.")}
+    if not sd:
+        sd = dict(state_dict)
+    if not cfg.use_cls_token:
+        base.pop("class_emb", None)
+    if cfg.pool == "attn":
+        base.update({
+            "pool_probe": _t(sd["attn_pool.probe"]).reshape(-1),
+            "pool_in_kernel": _t(sd["attn_pool.attn.in_proj_weight"]).T,
+            "pool_in_bias": _t(sd["attn_pool.attn.in_proj_bias"]),
+            "pool_out_kernel": _t(sd["attn_pool.attn.out_proj.weight"]).T,
+            "pool_out_bias": _t(sd["attn_pool.attn.out_proj.bias"]),
+            "pool_ln_scale": _t(sd["attn_pool.layernorm.weight"]),
+            "pool_ln_bias": _t(sd["attn_pool.layernorm.bias"]),
+        })
+    return base
 
 
 def convert_torch_state_dict(state_dict: Mapping, cfg: VitConfig) -> dict:
@@ -179,11 +243,13 @@ def convert_torch_state_dict(state_dict: Mapping, cfg: VitConfig) -> dict:
         return convert_siglip_visual(state_dict, cfg)
     if any(k.startswith("vision_model.") for k in keys):
         return convert_hf_clip_vision(state_dict, cfg)
+    if any("attn_pool." in k for k in keys) or cfg.pool == "attn":
+        return convert_pe_visual(state_dict, cfg)
     if any("resblocks" in k for k in keys):
         return convert_open_clip_visual(state_dict, cfg)
     raise ValueError(
-        "Unrecognized checkpoint layout; the port converts HF CLIP, HF SigLIP "
-        "and open_clip/OpenAI plain-ViT checkpoints (other families not ported yet)"
+        "Unrecognized checkpoint layout; the port converts HF CLIP, HF SigLIP, "
+        "PE and open_clip/OpenAI plain-ViT checkpoints (other families not ported yet)"
     )
 
 
@@ -203,9 +269,10 @@ def _tensor(v, device) -> torch.Tensor:
     return t.to(device)
 
 
-_MAP_KEYS = ("pool_probe", "pool_in_kernel", "pool_in_bias", "pool_out_kernel",
-             "pool_out_bias", "pool_ln_scale", "pool_ln_bias", "pool_fc1_kernel",
-             "pool_fc1_bias", "pool_fc2_kernel", "pool_fc2_bias")
+_POOL_KEYS = ("pool_probe", "pool_in_kernel", "pool_in_bias", "pool_out_kernel",
+              "pool_out_bias", "pool_ln_scale", "pool_ln_bias")
+_MAP_KEYS = _POOL_KEYS + ("pool_fc1_kernel", "pool_fc1_bias", "pool_fc2_kernel",
+                          "pool_fc2_bias")
 
 
 def _top_keys(cfg: VitConfig) -> list[str]:
@@ -219,8 +286,9 @@ def _top_keys(cfg: VitConfig) -> list[str]:
         keys.append("proj")
     if cfg.patch_bias:
         keys.append("patch_bias")
-    if cfg.pool == "map":
-        keys += _MAP_KEYS
+    if cfg.use_rope2d:  # params must say which RoPE pairing their q/k columns use
+        keys.append("rope_half")
+    keys += {"map": _MAP_KEYS, "attn": _POOL_KEYS}.get(cfg.pool, ())
     return keys
 
 
@@ -230,13 +298,14 @@ def module_from_params(params: Mapping, cfg: VitConfig,
     ``device``. Float leaves keep their dtype; int8 block kernels
     ([L, in, out]) are stored per layer as contiguous [out, in];
     ``blocks/act_amax`` and ``blocks/qkv_amax`` leaves (a calibrated pytree)
-    are attached as they are."""
+    are attached as they are. A RoPE tower's params must carry the
+    ``rope_half`` marker (:func:`ensure_rope_half` adds it to older ones)."""
     flat = flatten_params(params)
     top, stacked = {}, {}
     for k, v in flat.items():
         if k.startswith("blocks/"):
             stacked[k[len("blocks/"):]] = v
-        elif k != "rope_half":
+        else:
             top[k] = _tensor(v, device)
     missing = [k for k in _top_keys(cfg) if k not in top]
     missing += [f"blocks/{k}" for k in _BLOCK_KEYS if k not in stacked]

@@ -1,5 +1,5 @@
 """The CLIP image encoder (port of the JAX package's ``models/encoders.py``
-for the plain CLIP and the fixed-resolution SigLIP ViT towers).
+for the plain CLIP, the fixed-resolution SigLIP and the PE ViT towers).
 
 A ``CLIPImageEncoder`` owns the ViT config and module and exposes:
 
@@ -12,11 +12,14 @@ Modes: ``float32`` and ``bfloat16`` (strict parity) and ``int8_static``
 persisted to ``.calib.npz`` in the JAX package's format, so either package
 reads the other's file). Where ``models.vit.int8_wire_enabled`` says so
 (SO400M-384), int8_static also attaches the per-channel ``qkv_amax`` and
-runs the int8 attention wire. Dynamic ``int8`` is not ported yet and raises.
+runs the int8 attention wire (never for a RoPE tower). Dynamic ``int8`` is
+not ported yet and raises.
 
 Weight resolution order (no network — only local files are read):
   1. explicit ``params`` argument (flat or JAX-nested dict of arrays),
-  2. ``<model_path>/<model-name-with-slashes-as-dashes>.npz`` (or an .npz file),
+  2. ``<model_path>/<model-name-with-slashes-as-dashes>.npz`` (or an .npz
+     file); a RoPE tower's ``.npz`` saved before the ``rope_half`` marker is
+     brought to the half-split pairing (``clip_weights.ensure_rope_half``),
   3. ``<model_path>/*.{pt,pth,bin}`` torch checkpoints (converted),
   4. deterministic random init (seeded by model name) with a loud warning.
 """
@@ -159,14 +162,14 @@ class CLIPImageEncoder:
             raise FileNotFoundError(f"--model_path {model_path} does not exist")
         if model_path and os.path.isfile(model_path):
             if model_path.endswith(".npz"):
-                return clip_weights.load_params_npz(model_path)
+                return self._load_npz(model_path)
             return self._convert_torch_file(model_path)
         if model_path and os.path.isdir(model_path):
             safe = self.model_name.replace("/", "-")
             npz = os.path.join(model_path, f"{safe}.npz")
             if os.path.exists(npz):
                 log.info("Loading %s weights from %s", self.model_name, npz)
-                return clip_weights.load_params_npz(npz)
+                return self._load_npz(npz)
             candidates = [f for f in sorted(os.listdir(model_path))
                           if f.endswith((".pt", ".pth", ".bin"))]
             arch = self.model_name.split("/")[0]
@@ -186,6 +189,9 @@ class CLIPImageEncoder:
         )
         gen = torch.Generator(device=self.device).manual_seed(_stable_seed(self.model_name))
         return init_vit_params(self.cfg, gen, self.device)
+
+    def _load_npz(self, path: str) -> dict:
+        return clip_weights.ensure_rope_half(clip_weights.load_params_npz(path), self.cfg)
 
     def _convert_torch_file(self, path: str) -> dict:
         log.info("Converting torch checkpoint %s", path)

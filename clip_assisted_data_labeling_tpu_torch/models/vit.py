@@ -1,6 +1,6 @@
-"""CLIP and SigLIP ViT image towers in PyTorch (port of the JAX package's
-``models/vit.py`` for the plain CLIP towers and the fixed-resolution
-SigLIP/SigLIP2 towers).
+"""CLIP, SigLIP and PE ViT image towers in PyTorch (port of the JAX
+package's ``models/vit.py`` for the plain CLIP towers, the fixed-resolution
+SigLIP/SigLIP2 towers and the Perception Encoder cores).
 
   * patch embedding as reshape + matmul (a stride-p Conv2d is exactly a
     patchify-matmul; no cuDNN, so no TF32 enters a float32 run); SigLIP's
@@ -8,14 +8,18 @@ SigLIP/SigLIP2 towers).
     (SO400M-14 @384 = 27·14 + 6) drops the trailing pixels as a valid conv,
   * pre-LN blocks with layernorm and softmax statistics in float32,
   * float blocks' attention through ``ops/attention.packed_attention_auto``:
-    K1 (two-pass softmax) or K5 (flash), whichever arithmetic the JAX package
-    runs for the shape,
+    K1 or K4 (the exact two-pass softmax) or K5 (flash), whichever kernel the
+    JAX package runs for the shape,
+  * PE's 2-D axial RoPE (half-split pairs, tables from
+    :func:`_rope2d_tables`) inside K1/K4, or as :func:`_apply_rope` on the
+    XLA-style path the calibration forward runs,
   * int8_static blocks through the layernorm+quantize kernel K2
     (ops/quant_kernel.py) and int8 matmuls with float32 epilogues, or — where
     :func:`int8_wire_enabled` says so (SO400M-384) — the int8 attention wire
     with K3,
-  * the cls readout (CLIP) or SigLIP's MAP head (probe attention + residual
-    MLP over the layernormed tokens, no projection).
+  * the cls readout (CLIP), SigLIP's MAP head (probe attention + residual
+    MLP over the layernormed tokens, no projection), or PE's attention pool
+    (probe attention + layernorm, then the projection).
 
 The module holds the JAX package's parameters leaf for leaf (same names, the
 same ``[in, out]`` kernels), one ``VitBlock`` per layer instead of the stacked
@@ -26,6 +30,7 @@ tail themselves.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
 
 import numpy as np
@@ -40,6 +45,7 @@ from clip_assisted_data_labeling_tpu_torch.config import (
     SIGLIP_STD,
 )
 from clip_assisted_data_labeling_tpu_torch.ops.attention import (
+    _rot_half,
     attention_xla,
     fused_attention_packed_q8s,
     grouped_attention_fits,
@@ -67,7 +73,9 @@ class VitConfig:
     act: str = "quick_gelu"  # OpenAI; open-data "gelu"; SigLIP "gelu_tanh"
     ln_eps: float = 1e-5
     use_cls_token: bool = True
-    pool: str = "cls"  # 'cls' (CLIP) | 'map' (SigLIP MAP head)
+    use_rope2d: bool = False  # PE: 2-D axial rotary embeddings on q/k in every block
+    rope_theta: float = 10000.0
+    pool: str = "cls"  # 'cls' (CLIP) | 'attn' (PE probe) | 'map' (SigLIP MAP head)
     attn_pooler_heads: int = 8
     use_ln_pre: bool = True  # SigLIP towers have no pre-transformer layernorm
     use_proj: bool = True  # SigLIP's embedding IS the pooled width (no proj)
@@ -118,6 +126,28 @@ for _arch, _kw in _ARCHS.items():
     MODEL_REGISTRY[f"{_arch}/openai"] = VitConfig(**_kw, **_OPENAI)
     for _tag in _OPEN_TAGS:
         MODEL_REGISTRY[f"{_arch}/{_tag}"] = VitConfig(**_kw, **_OPEN)
+
+# Meta's Perception Encoder cores, named without a pretrained tag: 2-D axial
+# RoPE on q/k in every block, GELU MLPs, and a probe attention pool (probe
+# MHA + layernorm, then the projection) instead of the cls readout; G14 also
+# drops the class token and widens the MLP to 8960.
+_PE = dict(act="gelu", use_rope2d=True, pool="attn", attn_pooler_heads=8)
+_PE_ARCHS = {
+    "PE-Core-B16-224": dict(width=768, layers=12, heads=12, patch_size=16,
+                            image_size=224, embed_dim=1024, **_PE),
+    "PE-Core-L14-336": dict(width=1024, layers=24, heads=16, patch_size=14,
+                            image_size=336, embed_dim=1024, **_PE),
+    "PE-Core-G14-448": dict(width=1536, layers=50, heads=16, patch_size=14,
+                            image_size=448, embed_dim=1280, mlp_hidden=8960,
+                            use_cls_token=False, **_PE),
+}
+for _arch, _kw in _PE_ARCHS.items():
+    MODEL_REGISTRY[_arch] = VitConfig(**_kw)
+# tiny PE config for tests (RoPE + attention pool, no cls token)
+MODEL_REGISTRY["PE-Test/tiny"] = VitConfig(
+    width=64, layers=2, heads=4, patch_size=8, image_size=32, embed_dim=16,
+    act="gelu", use_rope2d=True, pool="attn", attn_pooler_heads=2,
+    use_cls_token=False)
 
 # SigLIP vision towers (open_clip '*-SigLIP*' archs / HF SiglipVisionModel):
 # no class token, no pre-transformer layernorm, a patch conv with bias,
@@ -183,10 +213,10 @@ def _parse_siglip_name(arch: str) -> VitConfig | None:
 
 
 def resolve_config(model_name: str) -> VitConfig:
-    """Config of a registered plain CLIP tower or of a fixed-resolution
+    """Config of a registered plain CLIP or PE tower or of a fixed-resolution
     SigLIP/SigLIP2 name (any pretrained tag); every other family the JAX
-    package resolves (PE, EVA, CoCa, CLIPA, ResNet, ConvNeXt, naflex, …)
-    raises until it is ported."""
+    package resolves (EVA, CoCa, CLIPA, ResNet, ConvNeXt, naflex, …) raises
+    until it is ported."""
     if model_name in MODEL_REGISTRY:
         return MODEL_REGISTRY[model_name]
     arch = model_name.split("/", 1)[0]
@@ -197,7 +227,7 @@ def resolve_config(model_name: str) -> VitConfig:
         return sig
     raise ValueError(
         f"{model_name}: not ported yet — the PyTorch port serves the plain CLIP "
-        f"towers and the fixed-resolution SigLIP/SigLIP2 towers "
+        f"towers, the fixed-resolution SigLIP/SigLIP2 towers and the PE cores "
         f"{sorted(MODEL_REGISTRY)}; use the JAX package for the others"
     )
 
@@ -208,9 +238,13 @@ def int8_wire_enabled(cfg: VitConfig, wire: bool | None = None) -> bool:
     package's ``auto`` rule (models/vit.py:574): on exactly where the non-wire
     route would fall to the flash kernel (neither the whole-block nor the
     grouped gate takes the shape) while the wire kernel's gate does —
-    SO400M-384."""
+    SO400M-384. RoPE towers have no wire formulation (K3 has no rotation):
+    the auto rule keeps it off for them, and :func:`_block` skips the wire
+    for a RoPE tower even where it is forced on."""
     if wire is not None:
         return bool(wire)
+    if cfg.use_rope2d:
+        return False
     s, w, h = cfg.seq_len, cfg.width, cfg.heads
     if packed_attention_fits(s, w, 2) or grouped_attention_fits(s, w, h, 2):
         return False
@@ -221,8 +255,8 @@ def init_vit_params(cfg: VitConfig, generator: torch.Generator,
                     device: torch.device | str = "cpu") -> dict[str, torch.Tensor]:
     """Random-init flat parameter dict (open_clip-style scaled normal init) in
     the JAX package's key layout: ``blocks/<name>`` leaves stacked ``[L, …]``;
-    the cls token, ln_pre, proj, patch bias and MAP-head leaves as the config
-    asks (JAX ``init_vit_params``)."""
+    the cls token, ln_pre, proj, patch bias, RoPE marker and pool leaves as
+    the config asks (JAX ``init_vit_params``)."""
     w, L, e, mlp = cfg.width, cfg.layers, cfg.embed_dim, cfg.mlp_dim
     scale = w ** -0.5
 
@@ -262,7 +296,12 @@ def init_vit_params(cfg: VitConfig, generator: torch.Generator,
         params["proj"] = nrm((w, e), scale)
     if cfg.patch_bias:
         params["patch_bias"] = zeros((w,))
-    if cfg.pool == "map":
+    if cfg.use_rope2d:
+        # random weights have no pairing convention: mark them half-split so
+        # a save/load round trip skips the legacy-checkpoint upgrade
+        params["rope_half"] = torch.ones((), dtype=torch.int8, device=device)
+    if cfg.pool in ("attn", "map"):
+        # the probe MHA + layernorm shared by PE's pool and SigLIP's MAP head
         params.update({
             "pool_probe": nrm((w,), 0.02),
             "pool_in_kernel": nrm((w, 3 * w), scale),
@@ -271,6 +310,9 @@ def init_vit_params(cfg: VitConfig, generator: torch.Generator,
             "pool_out_bias": zeros((w,)),
             "pool_ln_scale": ones((w,)),
             "pool_ln_bias": zeros((w,)),
+        })
+    if cfg.pool == "map":
+        params.update({
             "pool_fc1_kernel": nrm((w, mlp), (2 * w) ** -0.5),
             "pool_fc1_bias": zeros((mlp,)),
             "pool_fc2_kernel": nrm((mlp, w), scale),
@@ -349,8 +391,24 @@ def _act(x, kind: str, quantized: bool = False):
     if kind == "gelu_tanh" or quantized:
         # int8 paths take the tanh form of gelu: its <=1e-3 absolute error is
         # far below the int8 step the output suffers next
-        return F.gelu(x, approximate="tanh")
+        return _gelu_tanh(x)
     return F.gelu(x, approximate="none")
+
+
+def _gelu_tanh(x):
+    """jax.nn.gelu(approximate=True) as XLA computes it, jitted or not:
+    x · (0.5 · (1 + tanh(√(2/π) · (x + 0.044715 · x³)))) with every step
+    rounded to x's dtype and the constants cast to it. In bf16 this equals
+    the JAX function bit for bit; torch's fused F.gelu rounds once and
+    differed on 39% of bf16 outputs."""
+    def c(v):  # a constant in x's dtype, as a 0-d CPU tensor (no device copy)
+        return torch.tensor(v, dtype=x.dtype)
+
+    inner = c(_SQRT_2_OVER_PI) * (x + c(0.044715) * (x * x * x))
+    return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
+
+
+_SQRT_2_OVER_PI = float(np.sqrt(2 / np.pi).astype(np.float32))
 
 
 def _linear(x, blk: VitBlock, name: str, residual=None):
@@ -364,23 +422,23 @@ def _linear(x, blk: VitBlock, name: str, residual=None):
     return y if residual is None else residual + y
 
 
-def _block_float(x, blk: VitBlock, cfg: VitConfig):
+def _block_float(x, blk: VitBlock, cfg: VitConfig, rope=None):
     """Pre-LN block in float32 or bfloat16 with the packed attention kernel
-    the JAX package's routing picks (K1 or K5)."""
+    the JAX package's routing picks (K1, K4 or K5), RoPE inside it."""
     y = _layernorm(x, blk.ln1_scale, blk.ln1_bias, cfg.ln_eps)
     qkv = _linear(y, blk, "qkv_kernel")
-    attn = packed_attention_auto(qkv, heads=cfg.heads, scale=cfg.head_dim ** -0.5)
+    attn = packed_attention_auto(qkv, heads=cfg.heads, scale=cfg.head_dim ** -0.5, rope=rope)
     x = x + _linear(attn, blk, "out_kernel")
     y = _layernorm(x, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
     y = _act(_linear(y, blk, "fc1_kernel"), cfg.act)
     return x + _linear(y, blk, "fc2_kernel")
 
 
-def _block_int8_static_lnk(x, blk: VitBlock, cfg: VitConfig):
+def _block_int8_static_lnk(x, blk: VitBlock, cfg: VitConfig, rope=None):
     """int8_static block: layernorm + static quantize in one kernel (K2) for
-    ln1 and ln2, int8 matmuls with float32 epilogues, packed attention (K1 or
-    K5) on the bfloat16 qkv. Same op order and residual placement as the JAX
-    package's ``_block_int8_static_lnk``."""
+    ln1 and ln2, int8 matmuls with float32 epilogues, packed attention (K1, K4
+    or K5, RoPE inside it) on the bfloat16 qkv, tanh-gelu. Same op order and
+    residual placement as the JAX package's ``_block_int8_static_lnk``."""
     B, S, w = x.shape
     a = blk.act_amax
     inv127 = 1.0 / 127.0
@@ -389,7 +447,7 @@ def _block_int8_static_lnk(x, blk: VitBlock, cfg: VitConfig):
     qkv = q_matmul_pre(xq, a[0] * inv127, blk.qkv_kernel, blk.qkv_kernel_scale,
                        blk.qkv_bias)
     attn = packed_attention_auto(qkv.reshape(B, S, 3 * w), heads=cfg.heads,
-                                 scale=cfg.head_dim ** -0.5)
+                                 scale=cfg.head_dim ** -0.5, rope=rope)
     attn_q = quant_static(attn, a[1]).reshape(B * S, w)
     x2 = x2 + q_matmul_pre(attn_q, a[1] * inv127, blk.out_kernel, blk.out_kernel_scale,
                            blk.out_bias, out_dtype=x.dtype)
@@ -433,17 +491,54 @@ def _block_int8_static_wire(x, blk: VitBlock, cfg: VitConfig):
     return x2.reshape(B, S, w)
 
 
-def _block(x, blk: VitBlock, cfg: VitConfig):
-    if blk.wire:
+def _block(x, blk: VitBlock, cfg: VitConfig, rope=None):
+    """One block. ``rope``: the (cos, sin) tables of a RoPE tower, or None.
+    The int8 wire runs only without RoPE (JAX ``_block``, models/vit.py:1095):
+    K3 has no rotation, so a RoPE tower's wire-calibrated blocks take the lnk
+    path."""
+    if blk.wire and rope is None:
         return _block_int8_static_wire(x, blk, cfg)
     if blk.static:
-        return _block_int8_static_lnk(x, blk, cfg)
+        return _block_int8_static_lnk(x, blk, cfg, rope)
     if blk.quantized:
         raise NotImplementedError(
             "dynamic int8 (compute_dtype 'int8') is not ported yet; use "
             "int8_static, bfloat16 or float32"
         )
-    return _block_float(x, blk, cfg)
+    return _block_float(x, blk, cfg, rope)
+
+
+@functools.lru_cache(maxsize=8)
+def _rope2d_tables(grid: int, head_dim: int, theta: float,
+                   cls_token: bool) -> tuple[np.ndarray, np.ndarray]:
+    """2-D axial RoPE cos/sin tables [S, head_dim/2] (JAX ``_rope2d_tables``,
+    models/vit.py:733): the first head_dim/4 complex lanes rotate by the
+    patch's column, the next head_dim/4 by its row; a leading cls token gets
+    the identity rotation. Lane i pairs features (i, i + d/2), the half-split
+    convention (``models/clip_weights.rope_interleaved_to_half`` brings PE
+    checkpoints' interleaved pairs to it). The angles reach ~31 rad, so they
+    are computed in float64 and cast to float32, as the JAX package does."""
+    quarter = head_dim // 4
+    freqs = 1.0 / (theta ** (np.arange(0, head_dim, 4)[:quarter] / head_dim))
+    idx = np.arange(grid * grid)
+    t_x, t_y = (idx % grid).astype(np.float64), (idx // grid).astype(np.float64)
+    ang = np.concatenate([np.outer(t_x, freqs), np.outer(t_y, freqs)], axis=-1)
+    if cls_token:
+        ang = np.concatenate([np.zeros((1, ang.shape[1])), ang], axis=0)
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=8)
+def _rope_on(cfg: VitConfig, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The tower's float32 RoPE tables on ``device``, made once."""
+    return tuple(torch.from_numpy(t).to(device) for t in _rope2d_tables(
+        cfg.grid, cfg.head_dim, cfg.rope_theta, cfg.use_cls_token))
+
+
+def _apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """The XLA-form rotation (JAX ``_apply_rope``, models/vit.py:756) of
+    unscaled q or k [B, h, S, d], with the tables cast to x's dtype."""
+    return _rot_half(x, cos.to(x.dtype), sin.to(x.dtype))
 
 
 def _patch_embed(model: VisionTransformer, images: torch.Tensor, compute_dtype) -> torch.Tensor:
@@ -466,9 +561,10 @@ def _patch_embed(model: VisionTransformer, images: torch.Tensor, compute_dtype) 
     return x + model.patch_bias.to(compute_dtype) if model.cfg.patch_bias else x
 
 
-def _stem(model: VisionTransformer, images: torch.Tensor, compute_dtype) -> torch.Tensor:
+def _stem(model: VisionTransformer, images: torch.Tensor, compute_dtype):
     """Patch embed, class token, positional embedding, ln_pre (each as the
-    config asks) — one implementation for inference and calibration."""
+    config asks), and the RoPE tables (or None) — one implementation for
+    inference and calibration. Returns (x, rope)."""
     cfg = model.cfg
     x = _patch_embed(model, images, compute_dtype)
     if cfg.use_cls_token:
@@ -477,11 +573,12 @@ def _stem(model: VisionTransformer, images: torch.Tensor, compute_dtype) -> torc
     x = x + model.pos_emb.to(compute_dtype)
     if cfg.use_ln_pre:
         x = _layernorm(x, model.ln_pre_scale, model.ln_pre_bias, cfg.ln_eps)
-    return x
+    return x, (_rope_on(cfg, x.device) if cfg.use_rope2d else None)
 
 
 def _probe_mha(x: torch.Tensor, model: VisionTransformer, heads: int) -> torch.Tensor:
-    """SigLIP's probe multi-head attention (JAX ``_probe_mha``): one learned
+    """The probe multi-head attention of SigLIP's and PE's pools (JAX
+    ``_probe_mha``): one learned
     query attends over all tokens through an nn.MultiheadAttention-equivalent
     in_proj + softmax + out_proj, in x's dtype with a float32 softmax.
     x: [B, S, w] → [B, w]."""
@@ -513,20 +610,29 @@ def _map_pool(x: torch.Tensor, model: VisionTransformer) -> torch.Tensor:
     return h + (y @ model.pool_fc2_kernel.to(dt) + model.pool_fc2_bias.to(dt))
 
 
+def _attention_pool(x: torch.Tensor, model: VisionTransformer) -> torch.Tensor:
+    """PE's attention pool (JAX ``_attention_pool``, models/vit.py:791): the
+    probe attention, then the pool layernorm."""
+    cfg = model.cfg
+    return _layernorm(_probe_mha(x, model, cfg.attn_pooler_heads), model.pool_ln_scale,
+                      model.pool_ln_bias, cfg.ln_eps)
+
+
 @torch.inference_mode()
 def vit_encode_image(model: VisionTransformer, images: torch.Tensor,
                      compute_dtype=torch.bfloat16, normalize: bool = True) -> torch.Tensor:
     """[B, R, R, 3] preprocessed (normalized) NHWC images → [B, embed_dim]
     float32, L2-normalized like the reference's encode_image. The readout is
-    ln_post of the cls row then proj (CLIP) or ln_post over all tokens then
-    the MAP head, with no projection (SigLIP)."""
+    ln_post of the cls row then proj (CLIP), ln_post over all tokens then the
+    MAP head, with no projection (SigLIP), or ln_post over all tokens, the
+    attention pool, then proj (PE)."""
     cfg = model.cfg
-    x = _stem(model, images, compute_dtype)
+    x, rope = _stem(model, images, compute_dtype)
     for blk in model.blocks:
-        x = _block(x, blk, cfg)
-    if cfg.pool == "map":
+        x = _block(x, blk, cfg, rope)
+    if cfg.pool in ("attn", "map"):
         x = _layernorm(x, model.ln_post_scale, model.ln_post_bias, cfg.ln_eps)
-        pooled = _map_pool(x, model)
+        pooled = _map_pool(x, model) if cfg.pool == "map" else _attention_pool(x, model)
     else:
         pooled = _layernorm(x[:, 0], model.ln_post_scale, model.ln_post_bias, cfg.ln_eps)
     if cfg.use_proj:
@@ -548,9 +654,10 @@ def vit_act_amax(model: VisionTransformer, images: torch.Tensor,
     block (qkv input, attention output, fc1 input, gelu output); qkv_amax is
     the per-channel amax of the qkv projection output (the int8 attention
     wire's grid). Quantized matmuls run dynamic per-row here, and attention
-    runs :func:`attention_xla`, as in the JAX package."""
+    runs :func:`attention_xla` after :func:`_apply_rope` on the unscaled q
+    and k, as in the JAX package."""
     cfg = model.cfg
-    x = _stem(model, images, compute_dtype)
+    x, rope = _stem(model, images, compute_dtype)
     B, S = x.shape[:2]
     quantized = model.quantized
     act, qkv_ch = [], []
@@ -561,6 +668,8 @@ def vit_act_amax(model: VisionTransformer, images: torch.Tensor,
         qkv_ch.append(qkv.to(torch.float32).abs().amax(dim=(0, 1)))
         q, k, v = (t.reshape(B, S, cfg.heads, cfg.head_dim).permute(0, 2, 1, 3)
                    for t in qkv.split(cfg.width, dim=-1))
+        if rope is not None:
+            q, k = _apply_rope(q, *rope), _apply_rope(k, *rope)
         attn = attention_xla(q, k, v, scale=cfg.head_dim ** -0.5)
         attn = attn.permute(0, 2, 1, 3).reshape(B, S, cfg.width)
         s_attn = attn.to(torch.float32).abs().amax()

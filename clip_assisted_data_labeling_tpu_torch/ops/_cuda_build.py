@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` into its own shared library with a plain
 C interface for ``sm_90a`` and loaded with ``ctypes`` (no PyTorch headers, so
 a build takes seconds). Builds run at first use into ``_build/`` next to this
-package (listed in ``.gitignore``), keyed by a hash of the source and flags so
-an edited kernel is rebuilt and a stale library is never loaded.
+package (listed in ``.gitignore``), keyed by a hash of the source, the shared
+headers and the flags, so an edited kernel is rebuilt and a stale library is
+never loaded.
 ``build_all()`` starts one ``nvcc`` per source at once and waits for all.
 
 Nothing here runs at import: the CPU test suite imports every module on a
@@ -49,9 +50,14 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        h = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"lib{name}_{h}.so")
+    """The library's path, keyed by the source, every shared header in
+    ``csrc/`` (``*.cuh``) and the flags."""
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in [name + ".cu", *headers]:
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}_{h.hexdigest()[:12]}.so")
 
 
 def _start(name: str):

@@ -1,9 +1,14 @@
-"""Packed multi-head attention — kernels K1, K3 and K5 — and the rule that
-routes between them (port of the JAX package's ``ops/attention.py``).
+"""Packed multi-head attention — kernels K1, K3, K4 and K5 — and the rule
+that routes between them (port of the JAX package's ``ops/attention.py``).
 
   * ``fused_attention_packed`` (K1) replaces the TPU kernel ``_packed_kernel``
     (clip_assisted_data_labeling_tpu/ops/attention.py, ``pallas_call`` at
-    :1124) with ``csrc/packed_attention.cu``: exact two-pass softmax per head.
+    :1124) with ``csrc/packed_attention.cu``: exact two-pass softmax per head,
+    with the optional in-kernel half-split RoPE of the PE towers.
+  * ``fused_attention_packed_grouped`` (K4) replaces ``_packed_grouped_kernel``
+    (``pallas_call`` at :342) with ``csrc/packed_attention_grouped.cu``: the
+    same exact two-pass softmax (and RoPE), with the keys streamed in both
+    passes so no sequence length bounds it.
   * ``flash_attention_packed`` (K5) replaces ``_flash_kernel`` (``pallas_call``
     at :599) with ``csrc/flash_attention.cu``: online softmax over k panels.
   * ``fused_attention_packed_q8s`` (K3) replaces ``_packed_q8s_kernel``
@@ -23,10 +28,22 @@ grouped run the exact two-pass softmax, flash rounds P against a running max
 at its k-panel boundaries. So the port keeps the JAX package's gate
 arithmetic verbatim (``_round_up`` … ``_flash_tiles`` below), not as a memory
 budget — the H100 kernels take every shape either way — but as the rule that
-picks which arithmetic runs for ``(S, width, heads, dtype)``: the one the JAX
-package would run. Whole-block and grouped both go to K1; flash goes to K5,
-with the JAX package's panel boundaries. Tokens stay unpadded in the port
-(the kernels mask keys at or beyond ``s_real`` and the ragged last tile).
+picks the kernel for ``(S, width, heads, dtype)``: the one the JAX package
+would run, K1 for whole-block, K4 for grouped, K5 (with the JAX package's
+panel boundaries) for flash. The grouped kernel's ``whole_scores`` schedule
+(on by default in the JAX package for long sequences) computes the same
+arithmetic as its row-tiled mode in another order on the TPU; it has no
+counterpart here, and ``_wholescore_group`` stays TPU-only. Tokens stay
+unpadded in the port (the kernels mask keys at or beyond ``s_real`` and the
+ragged last tile), so the RoPE tables have exactly S rows.
+
+RoPE (PE towers): ``rope = (cos, sin)``, each ``[S, d/2]`` float32, pairs the
+features (i, i + d/2) of every head (``models/vit._rope2d_tables``). K1 and
+K4 scale q in the input dtype and then rotate it, and rotate k unscaled, with
+the tables cast to the input dtype — the TPU kernels' order. The XLA-style
+path (``models/vit._apply_rope`` then :func:`attention_xla`) rotates unscaled
+q instead; the two round differently in bf16, and each side of the port
+copies its own JAX counterpart.
 """
 from __future__ import annotations
 
@@ -121,22 +138,33 @@ def flash_panel(s: int) -> int:
 
 
 def attention_route(s: int, width: int, heads: int, itemsize: int) -> str:
-    """'packed' (K1: the JAX package's whole-block or grouped kernel) or
-    'flash' (K5), as the JAX package's ``packed_attention_auto`` decides for
-    S tokens of ``itemsize``-byte qkv."""
-    if packed_attention_fits(s, width, itemsize) or grouped_attention_fits(
-            s, width, heads, itemsize):
+    """'packed' (K1), 'grouped' (K4) or 'flash' (K5), as the JAX package's
+    ``packed_attention_auto`` decides for S tokens of ``itemsize``-byte qkv
+    (with its default knobs)."""
+    if packed_attention_fits(s, width, itemsize):
         return "packed"
+    if grouped_attention_fits(s, width, heads, itemsize):
+        return "grouped"
     return "flash"
 
 
 def packed_attention_auto(qkv: torch.Tensor, heads: int, scale: float,
-                          s_real: int | None = None) -> torch.Tensor:
-    """The attention of every float block: K1 or K5 by :func:`attention_route`."""
+                          s_real: int | None = None, rope=None) -> torch.Tensor:
+    """The attention of every float block and of the int8_static lnk block:
+    K1, K4 or K5 by :func:`attention_route`. ``rope``: (cos, sin) tables
+    [S, d/2] or None."""
     b, s, w3 = qkv.shape
-    if attention_route(s, w3 // 3, heads, qkv.element_size()) == "flash":
-        return flash_attention_packed(qkv, heads, scale, s_real)
-    return fused_attention_packed(qkv, heads, scale, s_real)
+    route = attention_route(s, w3 // 3, heads, qkv.element_size())
+    if route == "packed":
+        return fused_attention_packed(qkv, heads, scale, s_real, rope)
+    if route == "grouped":
+        return fused_attention_packed_grouped(qkv, heads, scale, s_real, rope)
+    if rope is not None:
+        raise NotImplementedError(
+            f"S={s}, width {w3 // 3}: the JAX package runs flash attention with RoPE "
+            "here, and K5's RoPE option is not ported yet (no registered tower reaches it)"
+        )
+    return flash_attention_packed(qkv, heads, scale, s_real)
 
 
 def _split_heads(qkv: torch.Tensor, heads: int):
@@ -166,6 +194,18 @@ def _check_packed(what: str, qkv: torch.Tensor, heads: int, s_real: int, dtypes)
         )
 
 
+def _rot_half(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """Half-split RoPE (the JAX ``_rot_half``, attention.py:850, and
+    ``models/vit._apply_rope``): pairs (i, i + d/2) of the last dim,
+    ``[x1·cos − x2·sin, x1·sin + x2·cos]`` with tables [S, d/2] in x's dtype.
+    Each product and then the sum rounds to x's dtype: the JAX code does so
+    under jit and op by op, and the interpret-mode Pallas kernels equal this
+    bit for bit in bf16."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
 def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> torch.Tensor:
     """The JAX package's reference path (attention.py:159), [B, h, S, d]:
@@ -176,17 +216,35 @@ def attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(probs, v)
 
 
-# ---- K1: exact two-pass softmax --------------------------------------------
+def _rope_tables(what: str, qkv: torch.Tensor, heads: int, rope):
+    """(cos, sin) cast to qkv's dtype on its device, contiguous, after
+    checking their shape [S, d/2]; (None, None) without RoPE."""
+    if rope is None:
+        return None, None
+    s, w3 = qkv.shape[1:]
+    d = w3 // 3 // heads
+    cos, sin = rope
+    if d % 2 or tuple(cos.shape) != (s, d // 2) or tuple(sin.shape) != (s, d // 2):
+        raise ValueError(f"{what}: RoPE tables must be [{s}, {d // 2}] each for head dim {d}, "
+                         f"got {tuple(cos.shape)} and {tuple(sin.shape)}")
+    return (cos.to(qkv.device, qkv.dtype).contiguous(),
+            sin.to(qkv.device, qkv.dtype).contiguous())
 
-def fused_attention_packed_plain(qkv: torch.Tensor, heads: int, scale: float,
-                                 s_real: int | None = None) -> torch.Tensor:
-    """The kernel's arithmetic in plain PyTorch: q·scale in the input dtype,
-    float32 scores with an exact -inf mask on keys ≥ s_real, float32 softmax
-    statistics, P cast to v's dtype before P·V, 1/sum applied after."""
+
+def _exact_softmax_plain(qkv: torch.Tensor, heads: int, scale: float, s_real: int | None,
+                         rope) -> torch.Tensor:
+    """The arithmetic of the TPU's whole-block and head-grouped kernels (K1
+    and K4 compute the same function): q·scale in the input dtype (the scale
+    cast to it first), then q and k rotated with the tables in the input
+    dtype, float32 scores with an exact -inf mask on keys ≥ s_real, float32
+    softmax statistics, P cast to v's dtype before P·V, 1/sum applied after."""
     s = qkv.shape[1]
     s_real = s if s_real is None else s_real
     q, k, v = _split_heads(qkv, heads)
     q = q * torch.tensor(scale, dtype=qkv.dtype, device=qkv.device)
+    cos, sin = _rope_tables("attention", qkv, heads, rope)
+    if cos is not None:
+        q, k = _rot_half(q, cos, sin), _rot_half(k, cos, sin)
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
     if s_real < s:
         scores[..., s_real:] = float("-inf")
@@ -197,13 +255,58 @@ def fused_attention_packed_plain(qkv: torch.Tensor, heads: int, scale: float,
     return _merge_heads(out.to(qkv.dtype))
 
 
+def _launch_packed(what: str, lib_fn, qkv: torch.Tensor, heads: int, scale: float,
+                   s_real: int | None, rope, f32_smem=None) -> torch.Tensor:
+    """Check the inputs of K1 or K4 and launch its C entry on the current
+    stream; returns the [B, S, w] output. ``f32_smem(S, d)``: the shared
+    memory a float32 block needs, where that grows with S."""
+    b, s, w3 = qkv.shape
+    s_real = s if s_real is None else s_real
+    _check_packed(what, qkv, heads, s_real, _DTYPE_CODE)
+    w = w3 // 3
+    d = w // heads
+    if qkv.dtype == torch.float32 and f32_smem is not None:
+        smem = f32_smem(s, d)
+        if smem > _cuda_build.SMEM_LIMIT:
+            raise ValueError(
+                f"{what}: float32 S={s} needs {smem} B of shared memory for its score "
+                f"tile, over the {_cuda_build.SMEM_LIMIT} B a block may use"
+            )
+    if qkv.dtype == torch.bfloat16 and (d % 8 or qkv.data_ptr() % 16
+                                        or (rope is not None and d % 16)):
+        raise ValueError(
+            f"{what}: the bfloat16 kernel reads 16-byte vectors — head dim {d} must be a "
+            "multiple of 8 (of 16 with RoPE) and the data 16-byte aligned"
+        )
+    cos, sin = _rope_tables(what, qkv, heads, rope)
+    out = torch.empty((b, s, w), dtype=qkv.dtype, device=qkv.device)
+    err = lib_fn(
+        qkv.data_ptr(), out.data_ptr(), _DTYPE_CODE[qkv.dtype], b, s, s_real, w, heads,
+        float(scale), None if cos is None else cos.data_ptr(),
+        None if sin is None else sin.data_ptr(),
+        torch.cuda.current_stream(qkv.device).cuda_stream,
+    )
+    _cuda_build.check(err, what)
+    return out
+
+
+# ---- K1: exact two-pass softmax, whole score row per tile ----------------------
+
+def fused_attention_packed_plain(qkv: torch.Tensor, heads: int, scale: float,
+                                 s_real: int | None = None, rope=None) -> torch.Tensor:
+    """K1's arithmetic in plain PyTorch (see :func:`_exact_softmax_plain`)."""
+    return _exact_softmax_plain(qkv, heads, scale, s_real, rope)
+
+
+_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_void_p]
+
+
 def _lib() -> ctypes.CDLL:
     lib = _cuda_build.load("packed_attention")
     if lib.packed_attention.argtypes is None:
-        lib.packed_attention.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-        ]
+        lib.packed_attention.argtypes = _ARGTYPES
         lib.packed_attention.restype = ctypes.c_int
         lib.packed_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.packed_attention_smem_bytes.restype = ctypes.c_size_t
@@ -211,43 +314,63 @@ def _lib() -> ctypes.CDLL:
 
 
 def fused_attention_packed(qkv: torch.Tensor, heads: int, scale: float,
-                           s_real: int | None = None) -> torch.Tensor:
+                           s_real: int | None = None, rope=None) -> torch.Tensor:
     """Multi-head attention on the packed qkv tensor [B, S, 3w] → [B, S, w].
 
     ``s_real``: keys at or beyond it are masked out of the softmax (rows
-    there compute values nothing should read)."""
+    there compute values nothing should read). ``rope``: (cos, sin) tables
+    [S, d/2] rotating q and k inside the kernel, or None."""
     if qkv.device.type == "cpu":
-        return fused_attention_packed_plain(qkv, heads, scale, s_real)
+        return fused_attention_packed_plain(qkv, heads, scale, s_real, rope)
     if not qkv.is_cuda:
         raise ValueError(f"fused_attention_packed: unsupported device {qkv.device}")
-    b, s, w3 = qkv.shape
-    s_real = s if s_real is None else s_real
-    _check_packed("fused_attention_packed", qkv, heads, s_real, _DTYPE_CODE)
-    w = w3 // 3
     lib = _lib()
-    if qkv.dtype == torch.float32:
-        smem = lib.packed_attention_smem_bytes(s, w // heads)
-        if smem > _cuda_build.SMEM_LIMIT:
-            raise ValueError(
-                f"fused_attention_packed: float32 S={s} needs {smem} B of shared memory "
-                f"for its score tile, over the {_cuda_build.SMEM_LIMIT} B a block may use"
-            )
-    elif (w // heads) % 8 or qkv.data_ptr() % 16:
-        raise ValueError(
-            "fused_attention_packed: the bfloat16 kernel reads 16-byte vectors — "
-            f"head dim {w // heads} must be a multiple of 8 and the data 16-byte aligned"
-        )
-    out = torch.empty((b, s, w), dtype=qkv.dtype, device=qkv.device)
-    err = lib.packed_attention(
-        qkv.data_ptr(), out.data_ptr(), _DTYPE_CODE[qkv.dtype], b, s, s_real, w,
-        heads, float(scale), torch.cuda.current_stream(qkv.device).cuda_stream,
-    )
-    _cuda_build.check(err, "packed_attention")
+    out = _launch_packed("fused_attention_packed", lib.packed_attention, qkv, heads, scale,
+                         s_real, rope, f32_smem=lib.packed_attention_smem_bytes)
     fused_attention_packed.launches += 1
     return out
 
 
 fused_attention_packed.launches = 0
+
+
+# ---- K4: exact two-pass softmax, keys streamed (the head-grouped route) ---------
+
+def fused_attention_packed_grouped_plain(qkv: torch.Tensor, heads: int, scale: float,
+                                         s_real: int | None = None,
+                                         rope=None) -> torch.Tensor:
+    """K4's arithmetic in plain PyTorch: the TPU ``_packed_grouped_kernel``
+    (attention.py:166-274) computes K1's function, grouped by heads only for
+    its VMEM (see :func:`_exact_softmax_plain`)."""
+    return _exact_softmax_plain(qkv, heads, scale, s_real, rope)
+
+
+def _grouped_lib() -> ctypes.CDLL:
+    lib = _cuda_build.load("packed_attention_grouped")
+    if lib.packed_attention_grouped.argtypes is None:
+        lib.packed_attention_grouped.argtypes = _ARGTYPES
+        lib.packed_attention_grouped.restype = ctypes.c_int
+    return lib
+
+
+def fused_attention_packed_grouped(qkv: torch.Tensor, heads: int, scale: float,
+                                   s_real: int | None = None, rope=None) -> torch.Tensor:
+    """Multi-head attention on the packed qkv tensor [B, S, 3w] → [B, S, w]
+    where the JAX package runs its head-grouped kernel (PE-Core-G14-448 in
+    bf16; the float32 runs of the 336/384-pixel towers). Any S, head dim up
+    to 128; ``s_real`` and ``rope`` as in :func:`fused_attention_packed`."""
+    if qkv.device.type == "cpu":
+        return fused_attention_packed_grouped_plain(qkv, heads, scale, s_real, rope)
+    if not qkv.is_cuda:
+        raise ValueError(f"fused_attention_packed_grouped: unsupported device {qkv.device}")
+    out = _launch_packed("fused_attention_packed_grouped",
+                         _grouped_lib().packed_attention_grouped, qkv, heads, scale, s_real,
+                         rope)
+    fused_attention_packed_grouped.launches += 1
+    return out
+
+
+fused_attention_packed_grouped.launches = 0
 
 
 # ---- K5: online softmax over k panels ---------------------------------------

@@ -7,8 +7,9 @@ stats. Outputs go to the reference-compatible ``.pt`` sidecars (incremental
 per-model merge, skip-if-already-embedded) and the columnar store that later
 stages (the JAX package's dedup/train/predict/subset) read.
 
-Towers: the plain CLIP ViTs and the fixed-resolution SigLIP/SigLIP2 ViTs
-(``models/vit.resolve_config``); a SigLIP store's ``embed_dim`` is the
+Towers: the plain CLIP ViTs, the fixed-resolution SigLIP/SigLIP2 ViTs and
+the PE cores (``models/vit.resolve_config``; PE names take no pretrained
+tag, e.g. ``PE-Core-L14-336``); a SigLIP store's ``embed_dim`` is the
 tower's width (1152 for ViT-SO400M-14-SigLIP-384).
 
 CLI: the JAX stage's flags plus ``--device`` (default ``cuda``; ``cpu`` for
@@ -212,7 +213,8 @@ def main(argv=None):
                         help="Root directory of the dataset (can contain subdirectories)")
     parser.add_argument("--models_to_use", type=str, nargs="+",
                         default=["ViT-L-14-336/openai"],
-                        help="CLIP or SigLIP (Arch/pretrained) models to use")
+                        help="CLIP or SigLIP (Arch/pretrained) or PE (e.g. "
+                        "PE-Core-L14-336) models to use")
     parser.add_argument("--batch_size", type=int, default=64)
     parser.add_argument("--num_workers", type=int, default=8)
     parser.add_argument("--force_reencode", action="store_true")

@@ -7,10 +7,13 @@ import numpy as np
 import pytest
 import torch
 
+from clip_assisted_data_labeling_tpu_torch.models.vit import _rope2d_tables
 from clip_assisted_data_labeling_tpu_torch.ops.attention import (
     flash_attention_packed,
     flash_attention_packed_plain,
     fused_attention_packed,
+    fused_attention_packed_grouped,
+    fused_attention_packed_grouped_plain,
     fused_attention_packed_plain,
     fused_attention_packed_q8s,
     fused_attention_packed_q8s_plain,
@@ -50,6 +53,77 @@ def test_packed_attention_kernel_matches_plain(card, dtype, b, s, s_real, w, hea
     ref = fused_attention_packed_plain(qkv, heads, (w // heads) ** -0.5, s_real)
     err = (got.float() - ref.float())[:, :s_real].abs().max().item()
     assert err <= TOL[dtype], f"max abs err {err}"
+
+
+def _rope(grid, cls, d, device):
+    """PE's float32 RoPE tables for a grid x grid tower (+ a cls row)."""
+    return tuple(torch.from_numpy(t).to(device) for t in _rope2d_tables(grid, d, 10000.0, cls))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,grid,cls,s_real,w,heads", [
+    (2, 7, True, 43, 128, 2),      # S = 50, masked tail
+    (2, 24, True, 577, 1024, 16),  # PE-Core-L14-336
+    (1, 10, False, 100, 192, 2),   # head dim 96, no cls row
+])
+def test_packed_attention_rope_kernel_matches_plain(card, dtype, b, grid, cls, s_real, w, heads):
+    """K1 with RoPE inside the kernel (each product and the sum rounded to
+    the input type, as the plain version and the TPU kernel round them)."""
+    s, d = grid * grid + cls, w // heads
+    qkv = _normal((b, s, 3 * w), seed=s).to(card, dtype)
+    rope = _rope(grid, cls, d, card)
+    before = fused_attention_packed.launches
+    got = fused_attention_packed(qkv, heads, d ** -0.5, s_real, rope)
+    torch.cuda.synchronize()
+    assert fused_attention_packed.launches == before + 1
+    ref = fused_attention_packed_plain(qkv, heads, d ** -0.5, s_real, rope)
+    err = (got.float() - ref.float())[:, :s_real].abs().max().item()
+    assert err <= TOL[dtype], f"max abs err {err}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,grid,cls,s_real,w,heads,rope", [
+    (2, 7, True, 43, 128, 2, False),      # S = 50, masked tail
+    (2, 7, True, 43, 128, 2, True),
+    (2, 24, True, 577, 1024, 16, False),  # ViT-L-14-336 (its float32 route)
+    (2, 24, True, 577, 1024, 16, True),   # PE-Core-L14-336 (its float32 route)
+    (1, 32, False, 1024, 1536, 16, True),  # PE-Core-G14-448: S = 1024, head dim 96
+    (1, 32, False, 1000, 1536, 16, True),
+    (1, 10, False, 100, 128, 1, False),   # head dim 128
+    (1, 66, False, 4356, 128, 2, False),  # past K1's float32 shared-memory limit
+])
+def test_grouped_attention_kernel_matches_plain(card, dtype, b, grid, cls, s_real, w, heads,
+                                                rope):
+    """K4 against its plain version: both types, RoPE on and off, ragged
+    s_real, and sequences no whole-row kernel can hold."""
+    s, d = grid * grid + cls, w // heads
+    qkv = _normal((b, s, 3 * w), seed=s).to(card, dtype)
+    tables = _rope(grid, cls, d, card) if rope else None
+    before = fused_attention_packed_grouped.launches
+    got = fused_attention_packed_grouped(qkv, heads, d ** -0.5, s_real, tables)
+    torch.cuda.synchronize()
+    assert fused_attention_packed_grouped.launches == before + 1
+    ref = fused_attention_packed_grouped_plain(qkv, heads, d ** -0.5, s_real, tables)
+    err = (got.float() - ref.float())[:, :s_real].abs().max().item()
+    assert err <= TOL[dtype], f"max abs err {err}"
+
+
+def test_grouped_wrapper_refuses_bad_inputs(card):
+    with pytest.raises(ValueError):  # not contiguous
+        fused_attention_packed_grouped(torch.zeros((1, 8, 6 * 128), device=card)[..., ::2], 2,
+                                       0.1)
+    with pytest.raises(ValueError):  # float16 is not a K4 dtype
+        fused_attention_packed_grouped(
+            torch.zeros((1, 8, 3 * 128), device=card, dtype=torch.float16), 2, 0.1)
+    with pytest.raises(ValueError):  # head dim 136 is over 128
+        fused_attention_packed_grouped(torch.zeros((1, 8, 3 * 272), device=card), 2, 0.1)
+    bf = torch.zeros((1, 4, 3 * 96), device=card, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # bf16 RoPE pairs 16-byte vectors: head dim 24 % 16
+        fused_attention_packed_grouped(bf, 4, 0.1, rope=_rope(2, False, 24, card))
+    with pytest.raises(ValueError):  # tables of the wrong length
+        fused_attention_packed_grouped(bf.float(), 1, 0.1, rope=_rope(3, False, 96, card))
+    with pytest.raises(ValueError):  # s_real past S
+        fused_attention_packed_grouped(bf, 1, 0.1, s_real=9)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -134,6 +208,41 @@ def test_wrappers_refuse_bad_inputs(card):
     with pytest.raises(ValueError):
         rowquant_static(x, torch.ones(128, device=card), torch.zeros(128, device=card),
                         torch.ones(1, device=card))
+
+
+@pytest.mark.parametrize("mode,kernel", [
+    ("int8_static", fused_attention_packed),  # K1 with RoPE, K2
+    ("bfloat16", fused_attention_packed),
+    ("float32", fused_attention_packed_grouped),  # K4 with RoPE
+])
+def test_pe_l14_two_layers_on_card_matches_cpu(card, mode, kernel):
+    """PE-Core-L14-336 cut to 2 layers (S=577, w=1024, 16 heads of 64, RoPE,
+    attention pool): the tower on the card against the same weights,
+    calibration and images on the CPU (the plain versions)."""
+    import dataclasses
+
+    from clip_assisted_data_labeling_tpu_torch.models import vit
+    from clip_assisted_data_labeling_tpu_torch.models.clip_weights import module_from_params
+    from clip_assisted_data_labeling_tpu_torch.ops.quant import quantize_vit_params
+
+    cfg = dataclasses.replace(vit.resolve_config("PE-Core-L14-336"), layers=2)
+    params = vit.init_vit_params(cfg, torch.Generator().manual_seed(0))
+    images = _normal((2, 336, 336, 3), seed=4)
+    if mode == "int8_static":
+        params = quantize_vit_params(params)
+    cpu = module_from_params(params, cfg)
+    gpu = module_from_params(params, cfg, card)
+    if mode == "int8_static":
+        amax = vit.vit_act_amax(cpu, images)
+        for m in (cpu, gpu):
+            vit.attach_act_amax(m, amax)
+    dtype = torch.float32 if mode == "float32" else torch.bfloat16
+    before = kernel.launches
+    got = vit.vit_encode_image(gpu, images.to(card), dtype).cpu().numpy()
+    assert kernel.launches == before + cfg.layers
+    ref = vit.vit_encode_image(cpu, images, dtype).numpy()
+    limit = {"int8_static": 2e-3, "bfloat16": 1e-3, "float32": 1e-5}[mode]
+    assert 1.0 - np.min(np.sum(got * ref, axis=-1)) <= limit
 
 
 @pytest.mark.parametrize("mode", ["int8_static", "bfloat16"])

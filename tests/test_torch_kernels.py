@@ -1,9 +1,11 @@
 """The port's kernel plain versions against the JAX package's Pallas kernels
-(run in interpret mode on the CPU): K1 packed attention, K2 layernorm +
-static int8 quantize, K3 the int8 attention wire, K5 flash attention; and
-the port's calibration attention against the JAX package's XLA path. On a
-CPU tensor each port wrapper takes its plain version, so these tests also
-pin the dispatch."""
+(run in interpret mode on the CPU): K1 packed attention (with and without
+RoPE), K2 layernorm + static int8 quantize, K3 the int8 attention wire, K4
+head-grouped attention, K5 flash attention; the port's calibration attention
+against the JAX package's XLA path; and the port's attention route against
+the JAX package's choice. On a CPU tensor each port wrapper takes its plain
+version, so these tests also pin the dispatch."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,8 +15,12 @@ from clip_assisted_data_labeling_tpu.ops.attention import attention_xla as jax_a
 from clip_assisted_data_labeling_tpu.ops.attention import (
     flash_attention_packed as jax_flash_attention_packed,
 )
+from clip_assisted_data_labeling_tpu.ops import attention as jattn
 from clip_assisted_data_labeling_tpu.ops.attention import (
     fused_attention_packed as jax_fused_attention_packed,
+)
+from clip_assisted_data_labeling_tpu.ops.attention import (
+    fused_attention_packed_grouped as jax_fused_attention_packed_grouped,
 )
 from clip_assisted_data_labeling_tpu.ops.attention import (
     fused_attention_packed_q8s as jax_fused_attention_packed_q8s,
@@ -23,12 +29,17 @@ from clip_assisted_data_labeling_tpu.ops.quant import quant_static as jax_quant_
 from clip_assisted_data_labeling_tpu.ops.quant_kernel import (
     rowquant_static as jax_rowquant_static,
 )
+from clip_assisted_data_labeling_tpu_torch.models import vit as tvit
 from clip_assisted_data_labeling_tpu_torch.ops.attention import (
+    attention_route,
     attention_xla,
     flash_attention_packed,
     fused_attention_packed,
+    fused_attention_packed_grouped,
+    fused_attention_packed_grouped_plain,
     fused_attention_packed_plain,
     fused_attention_packed_q8s,
+    packed_attention_auto,
 )
 from clip_assisted_data_labeling_tpu_torch.ops.quant import quant_static
 from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import (
@@ -61,6 +72,129 @@ def test_packed_attention_plain_matches_pallas(rng, dtype, b, s, s_real):
     # rows past s_real are never read downstream; compare the real ones
     err = np.abs(got.float().numpy()[:, :s_real] - ref[:, :s_real]).max()
     assert err <= TOL[dtype], f"{dtype} S={s}: max abs err {err}"
+
+
+def _rope(s, d):
+    """PE's RoPE tables for S tokens (a square grid, with a cls row when S is
+    one more than a square), float32 [S, d/2] each."""
+    cls = round((s - 1) ** 0.5) ** 2 == s - 1
+    cos, sin = tvit._rope2d_tables(round((s - cls) ** 0.5), d, 10000.0, cls)
+    assert cos.shape == (s, d // 2)
+    return cos, sin
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,s_real,heads,d", [
+    (2, 50, 43, 2, 64),    # 7x7 + cls, masked tail
+    (1, 577, 577, 2, 64),  # PE-Core-L14-336's grid: two 296-row tiles in the TPU kernel
+    (2, 100, 100, 2, 96),  # head dim 96 (PE-Core-G14-448), no cls row
+    (1, 16, 16, 4, 16),    # PE-Test/tiny
+])
+def test_packed_attention_rope_plain_matches_pallas(rng, dtype, b, s, s_real, heads, d):
+    """K1 with RoPE: q scaled in the input dtype, then q and k rotated with
+    tables in the input dtype, as the TPU kernel does."""
+    w = heads * d
+    cos, sin = _rope(s, d)
+    qkv_t = torch.from_numpy(rng.normal(0, 1, (b, s, 3 * w)).astype(np.float32)).to(dtype)
+    got = fused_attention_packed(qkv_t, heads, d ** -0.5, s_real,
+                                 rope=(torch.from_numpy(cos), torch.from_numpy(sin)))
+    assert got.dtype == dtype and got.shape == (b, s, w)
+    ref = np.asarray(jax_fused_attention_packed(
+        jnp.asarray(qkv_t.float().numpy()).astype(JNP[dtype]), heads=heads, scale=d ** -0.5,
+        s_real=s_real, rope=(jnp.asarray(cos), jnp.asarray(sin)),
+        interpret=True).astype(jnp.float32))
+    err = np.abs(got.float().numpy()[:, :s_real] - ref[:, :s_real]).max()
+    assert err <= TOL[dtype], f"{dtype} S={s}: max abs err {err}"
+    # the rotation matters: without it the outputs move far past the tolerance
+    plain = fused_attention_packed(qkv_t, heads, d ** -0.5, s_real)
+    assert np.abs(plain.float().numpy()[:, :s_real] - ref[:, :s_real]).max() > 10 * TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,s_real,heads,d,rope,whole_scores", [
+    (2, 50, 43, 2, 64, False, False),
+    (2, 50, 43, 2, 64, True, False),
+    (1, 577, 577, 2, 64, True, False),   # row-tiled: two 296-row tiles
+    (1, 577, 577, 2, 64, True, True),    # the pipelined whole-scores schedule
+    (1, 577, 530, 2, 64, False, True),
+    (2, 100, 91, 2, 96, True, False),    # head dim 96, PE-Core-G14-448's
+])
+def test_grouped_attention_plain_matches_pallas(rng, dtype, b, s, s_real, heads, d, rope,
+                                                whole_scores):
+    """K4: the plain version against ``fused_attention_packed_grouped`` in
+    interpret mode, with and without RoPE, a masked tail, and both of the
+    TPU kernel's schedules (the same arithmetic)."""
+    w = heads * d
+    qkv_t = torch.from_numpy(rng.normal(0, 1, (b, s, 3 * w)).astype(np.float32)).to(dtype)
+    tables = _rope(s, d) if rope else None
+    got = fused_attention_packed_grouped(
+        qkv_t, heads, d ** -0.5, s_real,
+        rope=None if tables is None else tuple(map(torch.from_numpy, tables)))
+    assert got.dtype == dtype and got.shape == (b, s, w)
+    ref = np.asarray(jax_fused_attention_packed_grouped(
+        jnp.asarray(qkv_t.float().numpy()).astype(JNP[dtype]), heads=heads, scale=d ** -0.5,
+        s_real=s_real, rope=None if tables is None else tuple(map(jnp.asarray, tables)),
+        whole_scores=whole_scores, head_group=heads if whole_scores else None,
+        interpret=True).astype(jnp.float32))
+    err = np.abs(got.float().numpy()[:, :s_real] - ref[:, :s_real]).max()
+    assert err <= TOL[dtype], f"{dtype} S={s}: max abs err {err}"
+
+
+def _jax_choice(s, w, heads, itemsize, monkeypatch):
+    """Which kernel the JAX package's packed_attention_auto calls for this
+    shape (its three kernels replaced by name tags; nothing runs)."""
+    for fn, tag in (("fused_attention_packed", "packed"),
+                    ("fused_attention_packed_grouped", "grouped"),
+                    ("flash_attention_packed", "flash")):
+        monkeypatch.setattr(jattn, fn, lambda *a, tag=tag, **k: tag)
+    dtype = {2: jnp.bfloat16, 4: jnp.float32}[itemsize]
+    return jattn.packed_attention_auto(jax.ShapeDtypeStruct((1, s, 3 * w), dtype),
+                                       heads=heads, scale=0.1)
+
+
+@pytest.mark.parametrize("name", sorted(set(tvit.MODEL_REGISTRY) | {
+    "ViT-B-16-SigLIP2-384/webli", "ViT-SO400M-14-SigLIP2-378/webli",
+    "ViT-L-16-SigLIP2-512/webli", "ViT-gopt-16-SigLIP2-384/webli"}))
+def test_attention_route_is_the_jax_choice(monkeypatch, name):
+    """For every tower the port resolves, in bf16 and f32: K1, K4 or K5
+    exactly where the JAX package runs whole-block, grouped or flash."""
+    cfg = tvit.resolve_config(name)
+    for itemsize in (2, 4):
+        assert attention_route(cfg.seq_len, cfg.width, cfg.heads, itemsize) == _jax_choice(
+            cfg.seq_len, cfg.width, cfg.heads, itemsize, monkeypatch), itemsize
+
+
+def test_pe_routes():
+    """The routes the PE slice rests on: PE-L14 bf16 (the int8_static path's
+    qkv) → K1, f32 → K4; PE-G14 in both → K4; ViT-L-14-336 f32 → K4."""
+    route = {n: tvit.resolve_config(n) for n in ("PE-Core-L14-336", "PE-Core-G14-448",
+                                                 "PE-Core-B16-224", "ViT-L-14-336/openai")}
+    got = {n: tuple(attention_route(c.seq_len, c.width, c.heads, i) for i in (2, 4))
+           for n, c in route.items()}
+    assert got == {"PE-Core-L14-336": ("packed", "grouped"),
+                   "PE-Core-G14-448": ("grouped", "grouped"),
+                   "PE-Core-B16-224": ("packed", "packed"),
+                   "ViT-L-14-336/openai": ("packed", "grouped")}
+
+
+def test_auto_refuses_rope_on_the_flash_route(rng):
+    """No registered RoPE tower reaches flash; a shape that would is refused
+    rather than run without its rotation (K5's RoPE option is not ported)."""
+    s, heads, d = 729, 16, 72  # SO400M-384's float32 shape
+    assert attention_route(s, heads * d, heads, 4) == "flash"
+    qkv = torch.zeros((1, s, 3 * heads * d))
+    tables = tuple(torch.zeros((s, d // 2)) for _ in range(2))
+    with pytest.raises(NotImplementedError, match="RoPE"):
+        packed_attention_auto(qkv, heads, 0.1, rope=tables)
+
+
+def test_grouped_wrapper_uses_plain_on_cpu(rng):
+    qkv = torch.from_numpy(rng.normal(0, 1, (1, 9, 3 * W)).astype(np.float32))
+    before = fused_attention_packed_grouped.launches
+    a = fused_attention_packed_grouped(qkv, heads=HEADS, scale=0.125)
+    b = fused_attention_packed_grouped_plain(qkv, heads=HEADS, scale=0.125)
+    assert torch.equal(a, b)
+    assert fused_attention_packed_grouped.launches == before  # no kernel launch on the CPU
 
 
 def test_packed_attention_wrapper_uses_plain_on_cpu(rng):

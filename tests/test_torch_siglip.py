@@ -63,17 +63,19 @@ def _cos_err(a, b):
 
 
 def _jax_route(s, w, heads, itemsize):
-    if jattn.packed_attention_fits(s, w, itemsize) or jattn.grouped_attention_fits(
-            s, w, heads, itemsize):
+    if jattn.packed_attention_fits(s, w, itemsize):
         return "packed"
+    if jattn.grouped_attention_fits(s, w, heads, itemsize):
+        return "grouped"
     return "flash"
 
 
 @pytest.mark.parametrize("name", sorted(set(SIGLIP_NAMES) | set(tvit.MODEL_REGISTRY)))
 def test_config_route_and_wire_match_jax(name):
     """Every name the port resolves: the same tower, the same attention
-    arithmetic in bf16 and f32 (K1 where the JAX package runs its whole-block
-    or grouped kernel, K5 where it runs flash), the same int8 wire rule."""
+    kernel in bf16 and f32 (K1 where the JAX package runs its whole-block
+    kernel, K4 where it runs grouped, K5 where it runs flash), the same int8
+    wire rule."""
     j, t = jvit.resolve_config(name), tvit.resolve_config(name)
     assert {f: getattr(t, f) for f in FIELDS} == {f: getattr(j, f) for f in FIELDS}
     for itemsize in (2, 4):

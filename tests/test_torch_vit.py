@@ -130,4 +130,4 @@ def test_registry_and_unported_families():
                 j.mlp_dim, j.act) == (t.width, t.layers, t.heads, t.patch_size,
                                       t.image_size, t.embed_dim, t.mlp_dim, t.act)
     with pytest.raises(ValueError, match="not ported yet"):
-        tvit.resolve_config("PE-Core-L14-336")
+        tvit.resolve_config("EVA02-L-14-336/merged2b_s6b_b61k")
