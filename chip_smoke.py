@@ -9,7 +9,9 @@ Phases (any failure exits nonzero and prints no result line):
      main paths' shapes and time kernel, plain version, the PyTorch library
      yardstick and the roofline bound (CUDA events, warmed up): K1 (also with
      PE's RoPE), K2, K4 (bf16 with RoPE at PE-Core-G14-448's shape, f32 at
-     the 336-pixel towers' float32 shapes), K5, K3,
+     the 336-pixel towers' float32 shapes), K5, K3, and dynamic int8's K6
+     (ln at [18464, 1024], quick_gelu at [18464, 4096], bf16 and f32 in), K9
+     (ViT-L's four products at M = 18464) and K1's quant_out option,
   4. write 32 synthetic PNGs of mixed sizes from a seed,
   5. run the port's embed CLI on them: ViT-L-14-336/openai, int8_static,
      batch 8, full width and depth (24 layers), random weights from the
@@ -20,6 +22,18 @@ Phases (any failure exits nonzero and prints no result line):
   7. run a few images through the float32 path (K4 in float32: the JAX
      package's grouped route) and print the cosine against the int8_static
      embeddings,
+  7a. the embed CLI on copies of the PNGs in a fresh directory (the CLI skips
+     images already embedded): ViT-L-14-336/openai in dynamic int8
+     (--compute_dtype int8) with CTPU_INT8_BLOCK=hybrid, batch 8, full width
+     and depth — K1 with quant_out once and K6 three times a layer, nothing
+     else counted (K1's quant_out counts as one K1 launch: its row quantize
+     runs K6's C entry inside it); no .calib.npz; the cosine against the
+     int8_static embeddings; steady state and profile,
+  7b. four images through CLIPImageEncoder(compute_dtype="int8") in the other
+     routes, each with exact counters and the cosine against the hybrid
+     embeddings: xla-plain (K1), xla (K1 with quant_out), xla-plain with
+     CTPU_FUSED_QMATMUL=1 (K1 and K9 four times a layer); then the knobs
+     are read again from the restored environment,
   8. the embed CLI again on the same PNGs: ViT-SO400M-14-SigLIP-384/webli,
      int8_static (the int8 attention wire: K3 in each of the 27 layers, no
      K1, K2 or K5), batch 8, full width and depth, random weights; check
@@ -40,10 +54,12 @@ Imports torch and the port only, never JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -54,6 +70,7 @@ import torch
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16 (NVIDIA data sheet, SXM, 700 W)
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
+H100_INT8_OPS = 1979e12  # dense tensor-core int8
 H100_BYTES = 3.35e12  # HBM3 bytes/s
 MODEL = "ViT-L-14-336/openai"
 SIGLIP = "ViT-SO400M-14-SigLIP-384/webli"
@@ -65,11 +82,15 @@ K2_SRC = "clip_assisted_data_labeling_tpu_torch/csrc/rowquant_static.cu"
 K3_SRC = "clip_assisted_data_labeling_tpu_torch/csrc/packed_attention_q8s.cu"
 K4_SRC = "clip_assisted_data_labeling_tpu_torch/csrc/packed_attention_grouped.cu"
 K5_SRC = "clip_assisted_data_labeling_tpu_torch/csrc/flash_attention.cu"
+K6_SRC = "clip_assisted_data_labeling_tpu_torch/csrc/rowquant.cu"
+K9_SRC = "clip_assisted_data_labeling_tpu_torch/csrc/q_linear_fused.cu"
 K1_TPU = "clip_assisted_data_labeling_tpu/ops/attention.py:860"
 K2_TPU = "clip_assisted_data_labeling_tpu/ops/quant_kernel.py:410"
 K3_TPU = "clip_assisted_data_labeling_tpu/ops/attention.py:746"
 K4_TPU = "clip_assisted_data_labeling_tpu/ops/attention.py:166"
 K5_TPU = "clip_assisted_data_labeling_tpu/ops/attention.py:441"
+K6_TPU = "clip_assisted_data_labeling_tpu/ops/quant_kernel.py:327"
+K9_TPU = "clip_assisted_data_labeling_tpu/ops/quant_kernel.py:34"
 
 
 def fail(msg: str, code: int = 1):
@@ -78,18 +99,43 @@ def fail(msg: str, code: int = 1):
 
 
 def kernels() -> dict:
-    """The kernel wrappers by table number; each counts its launches."""
+    """The kernel wrappers by table number; each counts its launches (K1
+    with quant_out counts one K1 launch, its row quantize none)."""
     from clip_assisted_data_labeling_tpu_torch.ops.attention import (
         flash_attention_packed,
         fused_attention_packed,
         fused_attention_packed_grouped,
         fused_attention_packed_q8s,
     )
-    from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import rowquant_static
+    from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import (
+        q_linear_fused,
+        rowquant,
+        rowquant_static,
+    )
 
     return {"K1": fused_attention_packed, "K2": rowquant_static,
             "K3": fused_attention_packed_q8s, "K4": fused_attention_packed_grouped,
-            "K5": flash_attention_packed}
+            "K5": flash_attention_packed, "K6": rowquant, "K9": q_linear_fused}
+
+
+@contextlib.contextmanager
+def int8_knobs(**env):
+    """CTPU_* variables set and the port's knobs read again for the block;
+    the environment restored and the knobs re-read after it."""
+    from clip_assisted_data_labeling_tpu_torch.ops import knobs
+
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    knobs.reload()
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        knobs.reload()
 
 
 def reset_counts() -> None:
@@ -183,6 +229,7 @@ def check_kernels(gen: torch.Generator) -> list[dict]:
         torch.cuda.empty_cache()
 
     rows += check_rope_and_grouped(gen)
+    rows += check_int8_kernels(gen)
 
     k = 1024
     g = 1 + 0.1 * torch.randn((k,), generator=gen, device="cuda")
@@ -349,9 +396,162 @@ def check_rope_and_grouped(gen: torch.Generator) -> list[dict]:
     return rows
 
 
-def profile_int8_static(model: str, root: str, calib: str, cfg, per_batch: dict) -> None:
-    """A main path's device work again, steady state: the int8_static
-    encoder with the saved calibration, all batches decoded up front, then
+def row_quant_torch(y: torch.Tensor):
+    """The library yardstick's dynamic per-row quantize, in torch ops."""
+    amax = y.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
+    return (y * (127.0 / amax)).round_().clamp_(-127, 127).to(torch.int8), amax / 127.0
+
+
+def check_int8_kernels(gen: torch.Generator) -> list[dict]:
+    """Phase 3, the dynamic-int8 slice's kernels at ViT-L-14-336's shapes (8
+    images x 4 crops: M = 18464 token rows): K6 with ln (ln1, ln2; [M, 1024])
+    and with quick_gelu (the MLP hidden; [M, 4096]), bf16 and f32 in; K9 at
+    the four products of a layer; K1 with quant_out at [32, 577, 3072]."""
+    import torch.nn.functional as F
+
+    from clip_assisted_data_labeling_tpu_torch.ops.attention import (
+        fused_attention_packed,
+        fused_attention_packed_plain,
+    )
+    from clip_assisted_data_labeling_tpu_torch.ops.quant import quantize_weight
+    from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import (
+        q_linear_fused,
+        q_linear_fused_plain,
+        rowquant,
+        rowquant_plain,
+    )
+
+    rows = []
+    m = 4 * BATCH * 577
+    for k, act, dtype in ((1024, None, torch.bfloat16), (1024, None, torch.float32),
+                          (4096, "quick_gelu", torch.bfloat16),
+                          (4096, "quick_gelu", torch.float32)):
+        x = (torch.randn((m, k), generator=gen, device="cuda") * 2).to(dtype)
+        ln = () if act else (1 + 0.1 * torch.randn((k,), generator=gen, device="cuda"),
+                             0.1 * torch.randn((k,), generator=gen, device="cuda"))
+        def call():
+            return rowquant(x, *ln, act=act)
+
+        def plain():
+            return rowquant_plain(x, *ln, act=act)
+
+        (q, s), (rq, rs) = call(), plain()
+        diff = (q.int() - rq.int()).abs()
+        scale_err = ((s - rs).abs() / rs).max().item()
+
+        def library():
+            y = (F.layer_norm(x.float(), (k,), *ln, 1e-5) if ln
+                 else x.float() * torch.sigmoid(1.702 * x.float()))
+            return row_quant_torch(y)
+
+        nbytes = m * k * (x.element_size() + 1) + m * 4 + (2 * k * 4 if ln else 0)
+        row = {
+            "name": "rowquant", "route": "cuda", "source": K6_SRC, "replaces": K6_TPU,
+            "case": f"{str(dtype)[6:]} [{m},{k}] " + ("ln" if ln else act),
+            "max_abs_err": diff.max().item(), "tol": 1,
+            "flip_share": (diff > 0).float().mean().item(), "scale_rel_err": scale_err,
+            "ms": time_ms(call), "plain_ms": time_ms(plain), "library_ms": time_ms(library),
+            **bound((12.0 if ln else 10.0) * m * k, H100_F32_FLOPS, nbytes),
+        }
+        rows.append(row)
+        print(f"K6 {row['case']}: max |diff| {row['max_abs_err']} on {row['flip_share']:.2e} "
+              f"of entries, scale rel err {scale_err:.2e}; kernel {row['ms']:.3f} ms plain "
+              f"{row['plain_ms']:.3f} torch {row['library_ms']:.3f} bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+        if row["flip_share"] > 1e-3 or scale_err > 1e-6:
+            fail(f"rowquant {row['case']}: ±1 flips on {row['flip_share']:.2e} of entries, "
+                 f"scale rel err {scale_err:.2e}")
+        del x, q, s, rq, rs, diff
+        torch.cuda.empty_cache()
+
+    x = torch.randn((m, 4096), generator=gen, device="cuda").to(torch.bfloat16)
+    for k, n in ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)):
+        xk = x[:, :k].contiguous()
+        wq, ws = quantize_weight(torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5)
+        wq_t = wq.t().contiguous()
+        b = 0.1 * torch.randn((n,), generator=gen, device="cuda")
+        got = q_linear_fused(xk, wq_t, ws, b)
+        ref = q_linear_fused_plain(xk, wq_t, ws, b)
+        err = (got.float() - ref.float()).abs()
+        flip_rows = (err > 2.0 ** -7 * ref.float().abs() + 1e-6).any(dim=1).sum().item()
+        xq_t = torch.empty((m, k), dtype=torch.int8, device="cuda")
+
+        def library():  # the port's torch q_matmul: quantize, _int_mm, epilogue
+            xf = xk.float()
+            amax = xf.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
+            xq_t.copy_((xf * (127.0 / amax)).round_().clamp_(-127, 127))
+            acc = torch._int_mm(xq_t, wq_t.t())
+            return ((acc * (amax / 127.0)) * ws + b).to(torch.bfloat16)
+
+        row = {
+            "name": "q_linear_fused", "route": "cuda", "source": K9_SRC, "replaces": K9_TPU,
+            "case": f"bfloat16 [{m},{k}] x int8 [{k},{n}] -> bfloat16",
+            "max_abs_err": err.max().item(), "tol": 2.0 ** -7 * ref.float().abs().max().item(),
+            "flip_rows": flip_rows,
+            "ms": time_ms(lambda: q_linear_fused(xk, wq_t, ws, b)),
+            "plain_ms": time_ms(lambda: q_linear_fused_plain(xk, wq_t, ws, b)),
+            "library_ms": time_ms(library),
+            **bound(2.0 * m * n * k, H100_INT8_OPS, m * k * 2 + n * k + m * n * 2 + 2 * n * 4),
+        }
+        rows.append(row)
+        print(f"K9 {row['case']}: max |err| {row['max_abs_err']:.3g} (tol {row['tol']:.3g}), "
+              f"{flip_rows} rows off; kernel {row['ms']:.3f} ms plain {row['plain_ms']:.3f} "
+              f"quant+_int_mm+epilogue {row['library_ms']:.3f} bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})", flush=True)
+        if flip_rows > 1e-3 * m:
+            fail(f"q_linear_fused {row['case']}: {flip_rows} rows off by more than a bf16 step")
+        del xk, wq, wq_t, got, ref, err, xq_t
+        torch.cuda.empty_cache()
+    del x
+
+    b, s, heads, w = 4 * BATCH, 577, 16, 1024
+    d = w // heads
+    qkv = torch.randn((b, s, 3 * w), generator=gen, device="cuda").to(torch.bfloat16)
+    (q, sc), (rq, rsc) = (fused_attention_packed(qkv, heads, d ** -0.5, quant_out=True),
+                          fused_attention_packed_plain(qkv, heads, d ** -0.5, quant_out=True))
+    diff = (q.int() - rq.int()).abs()
+    # scores sum in another order than torch's, so a few bf16 P values round
+    # to the other neighbour and move their token's scale by up to one bf16
+    # step of that p: ≤ 2^-8 on all tokens, ≤ 1e-5 on all but ≤ 5%
+    rel = (sc / rsc - 1).abs()
+    scale_err, scale_off = rel.max().item(), (rel > 1e-5).float().mean().item()
+    qh, kh, vh = (t.reshape(b, s, heads, d).transpose(1, 2).contiguous()
+                  for t in qkv.split(w, dim=-1))
+
+    def q_library():  # SDPA, then a torch row quantize
+        o = F.scaled_dot_product_attention(qh, kh, vh, scale=d ** -0.5)
+        return row_quant_torch(o.transpose(1, 2).reshape(b * s, w).float())
+
+    row = {
+        "name": "packed_attention", "route": "cuda", "source": K1_SRC, "replaces": K1_TPU,
+        "case": f"bfloat16 [{b},{s},{3 * w}] h={heads} quant_out", "quant_out": True,
+        "max_abs_err": diff.max().item(), "tol": 1,
+        "flip_share": (diff > 0).float().mean().item(), "scale_rel_err": scale_err,
+        "scale_off_share": scale_off,
+        "ms": time_ms(lambda: fused_attention_packed(qkv, heads, d ** -0.5, quant_out=True)),
+        "plain_ms": time_ms(lambda: fused_attention_packed_plain(qkv, heads, d ** -0.5,
+                                                                 quant_out=True), min_reps=3),
+        "library_ms": time_ms(q_library),
+        **bound(4.0 * b * heads * s * s * d, H100_BF16_FLOPS, b * s * (3 * w * 2 + w + 4)),
+    }
+    rows.append(row)
+    print(f"K1 {row['case']}: max |diff| {row['max_abs_err']} on {row['flip_share']:.2e} of "
+          f"entries, scale rel err {scale_err:.2e} (> 1e-5 on {scale_off:.2e} of tokens); "
+          f"kernel {row['ms']:.3f} ms plain {row['plain_ms']:.3f} sdpa+quant "
+          f"{row['library_ms']:.3f} bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
+          flush=True)
+    if row["flip_share"] > 1e-3 or scale_err > 2.0 ** -8 or scale_off > 5e-2:
+        fail(f"K1 quant_out: ±1 flips on {row['flip_share']:.2e} of entries, scale rel err "
+             f"{scale_err:.2e}, > 1e-5 on {scale_off:.2e} of tokens")
+    del qkv, q, sc, rq, rsc, diff, qh, kh, vh
+    torch.cuda.empty_cache()
+    return rows
+
+
+def profile_steady(model: str, root: str, calib: str, cfg, per_batch: dict,
+                   dtype: str) -> None:
+    """A main path's device work again, steady state: the encoder (with the
+    saved calibration, for int8_static), all batches decoded up front, then
     (a) wall time over every batch (crops + ViT + image stats, H2D included,
     decode excluded) and (b) a torch.profiler trace of one batch, summed by
     kernel name. Its launches are counted on their own and must be
@@ -363,9 +563,8 @@ def profile_int8_static(model: str, root: str, calib: str, cfg, per_batch: dict)
     from clip_assisted_data_labeling_tpu_torch.models.encoders import CLIPImageEncoder
     from clip_assisted_data_labeling_tpu_torch.ops.image_stats import image_stats_batch
 
-    enc = CLIPImageEncoder(model, compute_dtype="int8_static", calibration_path=calib,
-                           device="cuda")
-    if not enc.load_calibration():
+    enc = CLIPImageEncoder(model, compute_dtype=dtype, calibration_path=calib, device="cuda")
+    if dtype == "int8_static" and not enc.load_calibration():
         fail(f"{model}: the saved calibration did not load")
     batches = list(BatchedImageLoader(find_images(root), canvas_size=1024,
                                       out_size=cfg.image_size, batch_size=BATCH,
@@ -391,7 +590,7 @@ def profile_int8_static(model: str, root: str, calib: str, cfg, per_batch: dict)
     if got != want:
         fail(f"{model} steady-state launches {got}, expected {want}")
     n = sum(b.n_valid for b in batches)
-    print(f"steady state {model}: {n} images x 4 crops in {wall * 1e3:.1f} ms = "
+    print(f"steady state {model} {dtype}: {n} images x 4 crops in {wall * 1e3:.1f} ms = "
           f"{n / wall:.2f} imgs/s ({len(batches)} batches of {BATCH}, canvas buckets "
           f"{sorted({b.canvas.shape[1] for b in batches})})", flush=True)
 
@@ -402,7 +601,8 @@ def profile_int8_static(model: str, root: str, calib: str, cfg, per_batch: dict)
     total = sum(e.self_device_time_total for e in events)
     if total <= 0:
         fail(f"torch.profiler recorded no device time for {model}")
-    print(f"profile of one batch of {model} ({BATCH} images, 4 crops, S={cfg.seq_len}): "
+    print(f"profile of one batch of {model} {dtype} ({BATCH} images, 4 crops, "
+          f"S={cfg.seq_len}): "
           f"device time {total / 1e3:.2f} ms", flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms "
@@ -412,13 +612,15 @@ def profile_int8_static(model: str, root: str, calib: str, cfg, per_batch: dict)
     torch.cuda.empty_cache()
 
 
-def embed_and_check(root: str, model: str, cfg, per_forward: dict) -> dict:
+def embed_and_check(root: str, model: str, cfg, per_forward: dict,
+                    dtype: str = "int8_static") -> dict:
     """A main path through the user's entry point: the embed CLI on the PNGs
-    (int8_static, batch BATCH), with the launch counters zeroed just before
+    (``dtype``, batch BATCH), with the launch counters zeroed just before
     and read just after — ``per_forward`` for each batch's forward, none for
-    the calibration forward (its attention is the plain XLA-style path);
-    then its outputs, steady state and profile. Returns the launch counts,
-    the sidecar paths and their embeddings [N_IMAGES, 4, D]."""
+    int8_static's calibration forward (its attention is the plain XLA-style
+    path); then its outputs (a .calib.npz exactly for int8_static), steady
+    state and profile. Returns the launch counts, the sidecar paths and their
+    embeddings [N_IMAGES, 4, D]."""
     from clip_assisted_data_labeling_tpu_torch.pipeline.embed import main as embed_main
     from clip_assisted_data_labeling_tpu_torch.store.columnar import EmbeddingStore
     from clip_assisted_data_labeling_tpu_torch.store.sidecar import read_sidecar
@@ -427,13 +629,13 @@ def embed_and_check(root: str, model: str, cfg, per_forward: dict) -> dict:
     reset_counts()
     t0 = time.perf_counter()
     stores = embed_main(["--root_dir", root, "--models_to_use", model,
-                         "--compute_dtype", "int8_static", "--batch_size", str(BATCH),
+                         "--compute_dtype", dtype, "--batch_size", str(BATCH),
                          "--num_workers", "4", "--device", "cuda"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = counts()
     want = {k: n_batches * per_forward.get(k, 0) for k in got}
-    print(f"main path {model}: {N_IMAGES} images x 4 crops in {wall:.2f} s "
+    print(f"main path {model} {dtype}: {N_IMAGES} images x 4 crops in {wall:.2f} s "
           f"({N_IMAGES / wall:.2f} imgs/s incl. model init and calibration); "
           f"launches {got} (want {want})", flush=True)
     if got != want:
@@ -442,12 +644,15 @@ def embed_and_check(root: str, model: str, cfg, per_forward: dict) -> dict:
     store = stores[model]
     pts = sorted(glob.glob(os.path.join(root, "*.pt")))
     calib = os.path.join(root, model.replace("/", "-") + ".calib.npz")
-    if len(pts) != N_IMAGES or not os.path.exists(calib):
+    static = dtype == "int8_static"
+    if len(pts) != N_IMAGES or os.path.exists(calib) != static:
         fail(f"{len(pts)} sidecars (want {N_IMAGES}), calib exists: {os.path.exists(calib)}")
-    with np.load(calib) as f:
-        shapes = {k: f[k].shape for k in ("act_amax", "qkv_amax")}
-    if shapes != {"act_amax": (cfg.layers, 4), "qkv_amax": (cfg.layers, 3 * cfg.width)}:
-        fail(f"{model}: calibration shapes {shapes}")
+    shapes = None
+    if static:
+        with np.load(calib) as f:
+            shapes = {k: f[k].shape for k in ("act_amax", "qkv_amax")}
+        if shapes != {"act_amax": (cfg.layers, 4), "qkv_amax": (cfg.layers, 3 * cfg.width)}:
+            fail(f"{model}: calibration shapes {shapes}")
     reopened = EmbeddingStore.open(root, model)
     emb = np.asarray(reopened.embeddings, np.float32)
     if emb.shape != (N_IMAGES, 4, cfg.embed_dim) or not np.asarray(reopened.valid).all():
@@ -459,19 +664,21 @@ def embed_and_check(root: str, model: str, cfg, per_forward: dict) -> dict:
     if not (np.isfinite(side).all() and np.abs(norms - 1).max() < 1e-3
             and np.isfinite(stats).all()):
         fail(f"embeddings not finite unit vectors (norm range {norms.min()}..{norms.max()})")
-    print(f"outputs {model}: {len(pts)} sidecars, store {emb.shape}, calib "
-          f"{os.path.basename(calib)} {shapes}, |norm-1| max {np.abs(norms - 1).max():.2e}",
-          flush=True)
+    print(f"outputs {model} {dtype}: {len(pts)} sidecars, store {emb.shape}, calib "
+          f"{os.path.basename(calib) if static else 'none'} {shapes}, |norm-1| max "
+          f"{np.abs(norms - 1).max():.2e}", flush=True)
     del stores, store, reopened
     torch.cuda.empty_cache()
-    profile_int8_static(model, root, calib, cfg, per_forward)
+    profile_steady(model, root, calib, cfg, per_forward, dtype)
     return {"launches": got, "side": side, "pts": pts}
 
 
-def float_run(model: str, dtype: str, pts: list, side, cfg, per_forward: dict) -> dict:
-    """Four images through a float path; its launches must be
+def encoder_run(model: str, dtype: str, pts: list, side, cfg, per_forward: dict,
+              side_name: str = "int8_static") -> dict:
+    """Four images through the encoder in ``dtype``; its launches must be
     ``per_forward``, its embeddings finite unit vectors and, where ``side``
-    holds the int8_static ones, near them. Returns the launch counts."""
+    holds those of another run (``side_name``) of the same images, near
+    them. Returns the launch counts."""
     from clip_assisted_data_labeling_tpu_torch.data.loader import BatchedImageLoader
     from clip_assisted_data_labeling_tpu_torch.models.encoders import CLIPImageEncoder
 
@@ -494,13 +701,45 @@ def float_run(model: str, dtype: str, pts: list, side, cfg, per_forward: dict) -
     else:
         order = [first.index(p[:-4] + ".pt") for p in batch.paths]
         cos = np.sum(emb * side[order], axis=-1)
-        print(f"{model} {dtype} vs int8_static cosine over {cos.size} crops: min "
+        print(f"{model} {dtype} vs {side_name} cosine over {cos.size} crops: min "
               f"{cos.min():.5f} mean {cos.mean():.5f}; launches {got}", flush=True)
         if not cos.min() > 0.95:
-            fail(f"{dtype} and int8_static embeddings disagree (cosine min {cos.min()})")
+            fail(f"{dtype} and {side_name} embeddings disagree (cosine min {cos.min()})")
     del enc
     torch.cuda.empty_cache()
     return got
+
+
+def dynamic_int8(root: str, cfg, l336: dict) -> tuple[dict, dict]:
+    """Phases 7a-7b: ViT-L-14-336 in dynamic int8. The embed CLI with
+    CTPU_INT8_BLOCK=hybrid on copies of the PNGs in a fresh directory (K1
+    with quant_out once and K6 three times a layer; no .calib.npz), its
+    cosine against the int8_static embeddings; then four images through the
+    encoder in each other route against the hybrid embeddings. Returns the
+    hybrid path's results and the CTPU_FUSED_QMATMUL run's counts."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_int8_") as droot:
+        for p in l336["pts"]:
+            shutil.copy(p[:-3] + ".png", droot)
+        with int8_knobs(CTPU_INT8_BLOCK="hybrid", CTPU_FUSED_QMATMUL="0"):
+            dyn = embed_and_check(droot, MODEL, cfg, {"K1": cfg.layers, "K6": 3 * cfg.layers},
+                                  dtype="int8")
+        if [os.path.basename(p) for p in dyn["pts"]] != [os.path.basename(p)
+                                                        for p in l336["pts"]]:
+            fail("the dynamic-int8 run embedded other files than the int8_static run")
+        cos = np.sum(dyn["side"] * l336["side"], axis=-1)
+        print(f"{MODEL} int8 (hybrid) vs int8_static cosine over {cos.size} crops: min "
+              f"{cos.min():.5f} mean {cos.mean():.5f}", flush=True)
+        if not cos.min() > 0.95:
+            fail(f"dynamic int8 and int8_static embeddings disagree (cosine min {cos.min()})")
+        for block, fused_mm, want in (("xla-plain", "0", {"K1": cfg.layers}),
+                                      ("xla", "0", {"K1": cfg.layers}),
+                                      ("xla-plain", "1", {"K1": cfg.layers,
+                                                          "K9": 4 * cfg.layers})):
+            with int8_knobs(CTPU_INT8_BLOCK=block, CTPU_FUSED_QMATMUL=fused_mm):
+                got = encoder_run(MODEL, "int8", dyn["pts"], dyn["side"], cfg, want,
+                                side_name=f"int8 hybrid (this run: {block}, "
+                                          f"CTPU_FUSED_QMATMUL={fused_mm})")
+    return dyn, got
 
 
 def write_pngs(directory: str, seed: int = 0) -> None:
@@ -564,28 +803,35 @@ def main() -> None:
         l336 = embed_and_check(root, MODEL, cfg, {"K1": cfg.layers, "K2": 2 * cfg.layers})
         # --- phase 7: float32 path on a few images: K4, the JAX package's
         # grouped route for this shape
-        float_run(MODEL, "float32", l336["pts"], l336["side"], cfg, {"K4": cfg.layers})
+        encoder_run(MODEL, "float32", l336["pts"], l336["side"], cfg, {"K4": cfg.layers})
+
+        # --- phases 7a-7b: ViT-L-14-336 dynamic int8 in every block route
+        dyn, fused = dynamic_int8(root, cfg, l336)
 
         # --- phases 8-9: ViT-SO400M-14-SigLIP-384 int8_static through the int8
         # attention wire (K3 a layer), then bfloat16 (K5 a layer)
         so400m = embed_and_check(root, SIGLIP, scfg, {"K3": scfg.layers})
-        bf16 = float_run(SIGLIP, "bfloat16", so400m["pts"], so400m["side"], scfg,
+        bf16 = encoder_run(SIGLIP, "bfloat16", so400m["pts"], so400m["side"], scfg,
                          {"K5": scfg.layers})
 
         # --- phases 10-11: PE-Core-L14-336 int8_static (K1 with RoPE once and
         # K2 twice a layer), then its bf16 (K1) and float32 (K4) paths
         pe = embed_and_check(root, PE_L, pcfg, {"K1": pcfg.layers, "K2": 2 * pcfg.layers})
-        float_run(PE_L, "bfloat16", pe["pts"], pe["side"], pcfg, {"K1": pcfg.layers})
-        float_run(PE_L, "float32", pe["pts"], pe["side"], pcfg, {"K4": pcfg.layers})
+        encoder_run(PE_L, "bfloat16", pe["pts"], pe["side"], pcfg, {"K1": pcfg.layers})
+        encoder_run(PE_L, "float32", pe["pts"], pe["side"], pcfg, {"K4": pcfg.layers})
         # --- phase 12: PE-Core-G14-448 bf16, all 50 layers (K4 with RoPE)
-        g14 = float_run(PE_G, "bfloat16", pe["pts"], None, gcfg, {"K4": gcfg.layers})
+        g14 = encoder_run(PE_G, "bfloat16", pe["pts"], None, gcfg, {"K4": gcfg.layers})
 
     launches = {"packed_attention": pe["launches"]["K1"],
                 "rowquant_static": pe["launches"]["K2"],
                 "packed_attention_q8s": so400m["launches"]["K3"],
                 "packed_attention_grouped": g14["K4"],
-                "flash_attention": bf16["K5"]}
-    rows = [dict(r, launches=launches[r["name"]]) for r in rows]
+                "flash_attention": bf16["K5"],
+                "rowquant": dyn["launches"]["K6"],
+                "q_linear_fused": fused["K9"]}
+    # K1's quant_out rows: the hybrid main path, where every K1 launch has it
+    rows = [dict(r, launches=dyn["launches"]["K1"] if r.get("quant_out")
+                 else launches[r["name"]]) for r in rows]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

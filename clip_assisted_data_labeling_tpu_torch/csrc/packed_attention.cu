@@ -40,6 +40,14 @@
 // the pair rotated in registers on the way into shared memory (q once, k in
 // both passes), so the rotation costs no extra pass or synchronisation.
 //
+// quant_out (packed_attention_f32out): the bfloat16 kernel stores the float32
+// head outputs o * (1/sum) instead of rounding them to bf16 (the TPU kernel
+// keeps them in an f32 VMEM scratch), and the wrapper quantizes each token's
+// whole [w] row — all heads, which no block of this grid owns — with the row
+// kernel of rowquant.cu: amax over the row floored at 1e-8, rint(o * (127 /
+// amax)), scale amax * f32(1/127), the TPU kernel's epilogue. The float32
+// round trip costs ~2 x 75 MB at [32, 577, 1024] (~45 us at 3.35 TB/s).
+//
 // float32: packed_attention_kernel. One block per (16 query rows, head,
 // batch item) keeps the tile's whole score block [16, S] in shared memory
 // (40 KB at S=577) and runs both products as float32 FMAs over K^T and V
@@ -188,9 +196,9 @@ constexpr size_t mma_smem_bytes() {
   return sizeof(__nv_bfloat16) * ((size_t)(MQ + MK) * (DP + PAD) + (size_t)DP * (MK + PAD));
 }
 
-template <int DP>
+template <int DP, bool F32OUT>
 __global__ void __launch_bounds__(MNT) packed_attention_mma_kernel(
-    const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out, int S,
+    const __nv_bfloat16* __restrict__ qkv, void* __restrict__ out, int S,
     int s_real, int w, int d, float scale, const __nv_bfloat16* __restrict__ cos,
     const __nv_bfloat16* __restrict__ sin) {
   constexpr int LDQ = DP + PAD;  // row stride of Qs and Ks
@@ -302,42 +310,52 @@ __global__ void __launch_bounds__(MNT) packed_attention_mma_kernel(
   for (int n = 0; n < DP / 8; ++n) {
     const int col = n * 8 + 2 * t;
     if (col >= d) continue;
-    if (row0 < S)
-      *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)blockIdx.z * S + row0) * w + h * d + col) =
-          __floats2bfloat162_rn(o[n][0] * inv0, o[n][1] * inv0);
-    if (row1 < S)
-      *reinterpret_cast<__nv_bfloat162*>(out + ((size_t)blockIdx.z * S + row1) * w + h * d + col) =
-          __floats2bfloat162_rn(o[n][2] * inv1, o[n][3] * inv1);
+    const size_t i0 = ((size_t)blockIdx.z * S + row0) * w + h * d + col;
+    const size_t i1 = i0 + 8 * (size_t)w;
+    const float y0 = o[n][0] * inv0, y1 = o[n][1] * inv0;
+    const float y2 = o[n][2] * inv1, y3 = o[n][3] * inv1;
+    if (F32OUT) {  // quant_out: the float32 head outputs, for the row quantize
+      float* of = static_cast<float*>(out);
+      if (row0 < S) *reinterpret_cast<float2*>(of + i0) = make_float2(y0, y1);
+      if (row1 < S) *reinterpret_cast<float2*>(of + i1) = make_float2(y2, y3);
+    } else {
+      __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
+      if (row0 < S) *reinterpret_cast<__nv_bfloat162*>(ob + i0) = __floats2bfloat162_rn(y0, y1);
+      if (row1 < S) *reinterpret_cast<__nv_bfloat162*>(ob + i1) = __floats2bfloat162_rn(y2, y3);
+    }
   }
 }
 
-template <int DP>
+template <int DP, bool F32OUT>
 int launch_mma(const void* qkv, void* out, int B, int S, int s_real, int w, int heads,
                float scale, const void* cos, const void* sin, cudaStream_t stream) {
   const size_t smem = mma_smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(packed_attention_mma_kernel<DP>,
+  cudaError_t err = cudaFuncSetAttribute(packed_attention_mma_kernel<DP, F32OUT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + MQ - 1) / MQ, heads, B);
-  packed_attention_mma_kernel<DP><<<grid, MNT, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), S, s_real,
-      w, w / heads, scale, static_cast<const __nv_bfloat16*>(cos),
-      static_cast<const __nv_bfloat16*>(sin));
+  packed_attention_mma_kernel<DP, F32OUT><<<grid, MNT, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(qkv), out, S, s_real, w, w / heads, scale,
+      static_cast<const __nv_bfloat16*>(cos), static_cast<const __nv_bfloat16*>(sin));
   return (int)cudaGetLastError();
 }
 
+template <bool F32OUT>
 int launch_bf16(const void* qkv, void* out, int B, int S, int s_real, int w, int heads,
                 float scale, const void* cos, const void* sin, cudaStream_t stream) {
   const int d = w / heads;
   if (d % 8 != 0) return (int)cudaErrorInvalidValue;  // 16-byte row loads
   if (cos != nullptr && d % 16 != 0) return (int)cudaErrorInvalidValue;  // paired half vectors
-  if (d <= 64) return launch_mma<64>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, stream);
-  if (d <= 80) return launch_mma<80>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, stream);
-  if (d <= 96) return launch_mma<96>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, stream);
+  if (d <= 64)
+    return launch_mma<64, F32OUT>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, stream);
+  if (d <= 80)
+    return launch_mma<80, F32OUT>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, stream);
+  if (d <= 96)
+    return launch_mma<96, F32OUT>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, stream);
   if (d <= 112)
-    return launch_mma<112>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, stream);
-  return launch_mma<128>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, stream);
+    return launch_mma<112, F32OUT>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, stream);
+  return launch_mma<128, F32OUT>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, stream);
 }
 
 }  // namespace
@@ -364,8 +382,25 @@ int packed_attention(const void* qkv, void* out, int dtype, int B, int S, int s_
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch<float>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, st);
-  if (dtype == 1) return launch_bf16(qkv, out, B, S, s_real, w, heads, scale, cos, sin, st);
+  if (dtype == 1)
+    return launch_bf16<false>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The same with a float32 output whatever the input type: the head outputs
+// acc * (1/sum) before any rounding to the input type, for quant_out (the
+// wrapper quantizes each [w] token row with rowquant.cu). For float32 input
+// that is packed_attention itself.
+int packed_attention_f32out(const void* qkv, void* out, int dtype, int B, int S, int s_real,
+                            int w, int heads, float scale, const void* cos, const void* sin,
+                            void* stream) {
+  if (dtype != 1)
+    return packed_attention(qkv, out, dtype, B, S, s_real, w, heads, scale, cos, sin, stream);
+  if (heads <= 0 || w % heads != 0 || w / heads > DMAX || s_real < 1 || s_real > S ||
+      (cos == nullptr) != (sin == nullptr) || (cos != nullptr && (w / heads) % 2 != 0))
+    return (int)cudaErrorInvalidValue;
+  return launch_bf16<true>(qkv, out, B, S, s_real, w, heads, scale, cos, sin,
+                           static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,0 +1,87 @@
+// Device helpers shared by the row kernels K2 (rowquant_static.cu) and K6
+// (rowquant.cu): one block of NT threads per row of x [M, K], the row staged
+// in shared memory as floats, block-wide sum and max, and the layernorm with
+// the TPU kernels' order of operations:
+//   mu  = sum(x) / K
+//   var = sum((x - mu)^2) / K                 two-pass, population variance
+//   y   = (x - mu) * (1 / sqrt(var + eps))
+//   y   = y * gamma + beta
+// Multiplies and adds of the per-element steps are rounded one at a time
+// (__fmul_rn/__fadd_rn) so no FMA contraction moves a value across a
+// rounding boundary that the plain PyTorch versions (one op per pass) keep.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int NT = 256;
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// Sum over the block; every thread gets the result.
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();  // red may still be read by an earlier reduction
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float t = lane < NT / 32 ? red[lane] : 0.f;
+  for (int o = 16; o > 0; o >>= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+  return t;
+}
+
+// Max over the block; every thread gets the result.
+__device__ __forceinline__ float block_max(float v, float* red) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  __syncthreads();
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  float t = lane < NT / 32 ? red[lane] : -INFINITY;
+  for (int o = 16; o > 0; o >>= 1) t = fmaxf(t, __shfl_xor_sync(0xffffffffu, t, o));
+  return t;
+}
+
+// Stage one row into xs as floats; returns this thread's part of its sum.
+// Thread t owns the entries k = t, t + NT, ... in every loop over the row.
+template <typename T>
+__device__ __forceinline__ float stage_row(const T* __restrict__ xr, float* xs, int K) {
+  float s = 0.f;
+  for (int k = threadIdx.x; k < K; k += NT) {
+    const float v = to_f(xr[k]);
+    xs[k] = v;
+    s += v;
+  }
+  return s;
+}
+
+// The staged row's layernorm statistics: mu and rs = 1 / sqrt(var + eps).
+__device__ __forceinline__ void ln_stats(const float* xs, int K, float partial_sum, float eps,
+                                         float* red, float& mu, float& rs) {
+  mu = block_sum(partial_sum, red) / (float)K;
+  float s2 = 0.f;
+  for (int k = threadIdx.x; k < K; k += NT) {
+    const float dv = xs[k] - mu;
+    s2 = fmaf(dv, dv, s2);
+  }
+  const float var = block_sum(s2, red) / (float)K;
+  rs = 1.0f / sqrtf(var + eps);
+}
+
+__device__ __forceinline__ float ln_apply(float x, float mu, float rs, float g, float b) {
+  const float y = __fmul_rn(__fsub_rn(x, mu), rs);
+  return __fadd_rn(__fmul_rn(y, g), b);
+}
+
+// round half to even, clip to ±127
+__device__ __forceinline__ int8_t quant_i8(float y, float inv) {
+  const float q = rintf(__fmul_rn(y, inv));
+  return (int8_t)fminf(fmaxf(q, -127.f), 127.f);
+}
+
+}  // namespace

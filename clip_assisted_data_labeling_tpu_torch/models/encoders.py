@@ -7,13 +7,15 @@ A ``CLIPImageEncoder`` owns the ViT config and module and exposes:
   * ``embed_crops(canvas, crop_params)`` — uint8 canvases → 4-crop
     preprocess → ViT → [B, n_crops, D] embeddings on the device.
 
-Modes: ``float32`` and ``bfloat16`` (strict parity) and ``int8_static``
-(W8A8 with per-layer activation scales calibrated on the first batch and
-persisted to ``.calib.npz`` in the JAX package's format, so either package
-reads the other's file). Where ``models.vit.int8_wire_enabled`` says so
-(SO400M-384), int8_static also attaches the per-channel ``qkv_amax`` and
-runs the int8 attention wire (never for a RoPE tower). Dynamic ``int8`` is
-not ported yet and raises.
+Modes: ``float32`` and ``bfloat16`` (strict parity), ``int8`` (W8A8 with
+dynamic per-row activation scales: quantized weights, bf16 compute, no
+calibration) and ``int8_static`` (W8A8 with per-layer activation scales
+calibrated on the first batch and persisted to ``.calib.npz`` in the JAX
+package's format, so either package reads the other's file). Where
+``models.vit.int8_wire_enabled`` says so (SO400M-384), int8_static also
+attaches the per-channel ``qkv_amax`` and runs the int8 attention wire (never
+for a RoPE tower). Dynamic int8 blocks run as ``CTPU_INT8_BLOCK`` selects
+(``models.vit.block_route``).
 
 Weight resolution order (no network — only local files are read):
   1. explicit ``params`` argument (flat or JAX-nested dict of arrays),
@@ -129,12 +131,12 @@ class CLIPImageEncoder:
         self.calibration_path = calibration_path
         self.cfg = resolve_config(model_name)
         self.wire = int8_wire_enabled(self.cfg, wire)
-        if compute_dtype == "int8":
-            raise NotImplementedError(
-                "dynamic int8 is not ported yet; use int8_static, bfloat16 or float32"
-            )
+        # "int8" quantizes the weights once here and the activations per row
+        # on the fly; "int8_static" also calibrates fixed activation scales
+        # on the first batch. Both compute the rest in bf16.
         self.static_quant = compute_dtype == "int8_static"
-        if self.static_quant:
+        self.quantized = compute_dtype in ("int8", "int8_static")
+        if self.quantized:
             self.compute_dtype = torch.bfloat16
         elif isinstance(compute_dtype, torch.dtype):
             self.compute_dtype = compute_dtype
@@ -143,7 +145,7 @@ class CLIPImageEncoder:
         self.parity_preprocess = parity_preprocess
         params = params if params is not None else self._load_params(model_path)
         params = clip_weights.flatten_params(params)
-        if self.static_quant and not is_quantized(params):
+        if self.quantized and not is_quantized(params):
             log.info("Quantizing %s weights to W8A8", model_name)
             params = quantize_vit_params(params)
         self.model = clip_weights.module_from_params(params, self.cfg, self.device)

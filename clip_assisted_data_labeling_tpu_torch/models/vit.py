@@ -17,6 +17,11 @@ SigLIP/SigLIP2 towers and the Perception Encoder cores).
     (ops/quant_kernel.py) and int8 matmuls with float32 epilogues, or — where
     :func:`int8_wire_enabled` says so (SO400M-384) — the int8 attention wire
     with K3,
+  * dynamic-int8 blocks (compute_dtype "int8") in the three forms the JAX
+    package selects with ``CTPU_INT8_BLOCK`` (:func:`block_route`): the
+    generic block with dynamic ``q_matmul`` (or K9 under
+    ``CTPU_FUSED_QMATMUL=1``), K1's ``quant_out`` (``xla``), or K6's
+    ln/gelu + quantize passes with K1's ``quant_out`` (``hybrid``),
   * the cls readout (CLIP), SigLIP's MAP head (probe attention + residual
     MLP over the layernormed tokens, no projection), or PE's attention pool
     (probe attention + layernorm, then the projection).
@@ -44,9 +49,12 @@ from clip_assisted_data_labeling_tpu_torch.config import (
     SIGLIP_MEAN,
     SIGLIP_STD,
 )
+from clip_assisted_data_labeling_tpu_torch.ops import knobs
+from clip_assisted_data_labeling_tpu_torch.ops.activations import gelu_tanh
 from clip_assisted_data_labeling_tpu_torch.ops.attention import (
     _rot_half,
     attention_xla,
+    fused_attention_packed,
     fused_attention_packed_q8s,
     grouped_attention_fits,
     packed_attention_auto,
@@ -56,6 +64,7 @@ from clip_assisted_data_labeling_tpu_torch.ops.attention import (
 from clip_assisted_data_labeling_tpu_torch.ops.quant import q_matmul, quant_static
 from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import (
     q_matmul_pre,
+    rowquant,
     rowquant_static,
 )
 
@@ -391,29 +400,14 @@ def _act(x, kind: str, quantized: bool = False):
     if kind == "gelu_tanh" or quantized:
         # int8 paths take the tanh form of gelu: its <=1e-3 absolute error is
         # far below the int8 step the output suffers next
-        return _gelu_tanh(x)
+        return gelu_tanh(x)
     return F.gelu(x, approximate="none")
-
-
-def _gelu_tanh(x):
-    """jax.nn.gelu(approximate=True) as XLA computes it, jitted or not:
-    x · (0.5 · (1 + tanh(√(2/π) · (x + 0.044715 · x³)))) with every step
-    rounded to x's dtype and the constants cast to it. In bf16 this equals
-    the JAX function bit for bit; torch's fused F.gelu rounds once and
-    differed on 39% of bf16 outputs."""
-    def c(v):  # a constant in x's dtype, as a 0-d CPU tensor (no device copy)
-        return torch.tensor(v, dtype=x.dtype)
-
-    inner = c(_SQRT_2_OVER_PI) * (x + c(0.044715) * (x * x * x))
-    return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
-
-
-_SQRT_2_OVER_PI = float(np.sqrt(2 / np.pi).astype(np.float32))
 
 
 def _linear(x, blk: VitBlock, name: str, residual=None):
     """Block matmul: float (x @ W + b in x's dtype) or, for a quantized block
-    without static scales (the calibration forward), dynamic per-row W8A8."""
+    without static scales (dynamic int8, and the calibration forward),
+    dynamic per-row W8A8."""
     bias = getattr(blk, name.replace("_kernel", "_bias"))
     if blk.quantized:
         return q_matmul(x, getattr(blk, name), getattr(blk, name + "_scale"), bias,
@@ -422,16 +416,61 @@ def _linear(x, blk: VitBlock, name: str, residual=None):
     return y if residual is None else residual + y
 
 
-def _block_float(x, blk: VitBlock, cfg: VitConfig, rope=None):
-    """Pre-LN block in float32 or bfloat16 with the packed attention kernel
-    the JAX package's routing picks (K1, K4 or K5), RoPE inside it."""
+def _block_generic(x, blk: VitBlock, cfg: VitConfig, rope=None):
+    """Pre-LN block in float32 or bfloat16, or in dynamic int8 (quantized
+    weights, bf16 compute, every matmul a dynamic ``q_matmul``), with the
+    packed attention kernel the JAX package's routing picks (K1, K4 or K5),
+    RoPE inside it. The residual adds run outside the matmuls, in x's dtype,
+    and int8 blocks take the tanh gelu, as in the JAX package's generic block
+    (models/vit.py:1124-1196)."""
     y = _layernorm(x, blk.ln1_scale, blk.ln1_bias, cfg.ln_eps)
     qkv = _linear(y, blk, "qkv_kernel")
     attn = packed_attention_auto(qkv, heads=cfg.heads, scale=cfg.head_dim ** -0.5, rope=rope)
     x = x + _linear(attn, blk, "out_kernel")
     y = _layernorm(x, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
-    y = _act(_linear(y, blk, "fc1_kernel"), cfg.act)
+    y = _act(_linear(y, blk, "fc1_kernel"), cfg.act, quantized=blk.quantized)
     return x + _linear(y, blk, "fc2_kernel")
+
+
+def _block_int8_xla(x, blk: VitBlock, cfg: VitConfig):
+    """Dynamic-int8 block with K1's ``quant_out`` (JAX ``_block_int8_xla``,
+    models/vit.py:1048): dynamic ``q_matmul`` for qkv, fc1 and fc2; the out
+    projection over K1's int8 output and per-token scales with the residual
+    in its float32 epilogue; ln1 and ln2 as plain layernorms; tanh gelu."""
+    B, S, w = x.shape
+    y = _layernorm(x, blk.ln1_scale, blk.ln1_bias, cfg.ln_eps)
+    qkv = q_matmul(y, blk.qkv_kernel, blk.qkv_kernel_scale, blk.qkv_bias, out_dtype=x.dtype)
+    attn_q, attn_s = fused_attention_packed(qkv, cfg.heads, cfg.head_dim ** -0.5,
+                                            quant_out=True)
+    x = q_matmul_pre(attn_q.reshape(B * S, w), attn_s.reshape(B * S, 1), blk.out_kernel,
+                     blk.out_kernel_scale, blk.out_bias,
+                     residual=x.reshape(B * S, w)).reshape(B, S, w)
+    y = _layernorm(x, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
+    y = _act(q_matmul(y, blk.fc1_kernel, blk.fc1_kernel_scale, blk.fc1_bias, out_dtype=x.dtype),
+             cfg.act, quantized=True)
+    return x + q_matmul(y, blk.fc2_kernel, blk.fc2_kernel_scale, blk.fc2_bias,
+                        out_dtype=x.dtype)
+
+
+def _block_int8_fused(x, blk: VitBlock, cfg: VitConfig):
+    """Dynamic-int8 "hybrid" block (JAX ``_block_int8_fused``,
+    models/vit.py:870): K6 for ln1 + quantize, ln2 + quantize and gelu +
+    quantize (the activation in float32, erf for the gelu towers); int8
+    matmuls over pre-quantized rows with bf16 outputs and the residuals in
+    the out-projection and fc2 epilogues; K1 with ``quant_out``."""
+    B, S, w = x.shape
+    x2 = x.reshape(B * S, w)
+    xq, xs = rowquant(x2, blk.ln1_scale, blk.ln1_bias, ln_eps=cfg.ln_eps)
+    qkv = q_matmul_pre(xq, xs, blk.qkv_kernel, blk.qkv_kernel_scale, blk.qkv_bias)
+    attn_q, attn_s = fused_attention_packed(qkv.reshape(B, S, 3 * w), cfg.heads,
+                                            cfg.head_dim ** -0.5, quant_out=True)
+    x2 = q_matmul_pre(attn_q.reshape(B * S, w), attn_s.reshape(B * S, 1), blk.out_kernel,
+                      blk.out_kernel_scale, blk.out_bias, residual=x2)
+    hq, hs = rowquant(x2, blk.ln2_scale, blk.ln2_bias, ln_eps=cfg.ln_eps)
+    h = q_matmul_pre(hq, hs, blk.fc1_kernel, blk.fc1_kernel_scale, blk.fc1_bias)
+    gq, gs = rowquant(h, act=cfg.act)
+    x2 = q_matmul_pre(gq, gs, blk.fc2_kernel, blk.fc2_kernel_scale, blk.fc2_bias, residual=x2)
+    return x2.reshape(B, S, w)
 
 
 def _block_int8_static_lnk(x, blk: VitBlock, cfg: VitConfig, rope=None):
@@ -491,21 +530,47 @@ def _block_int8_static_wire(x, blk: VitBlock, cfg: VitConfig):
     return x2.reshape(B, S, w)
 
 
-def _block(x, blk: VitBlock, cfg: VitConfig, rope=None):
-    """One block. ``rope``: the (cos, sin) tables of a RoPE tower, or None.
-    The int8 wire runs only without RoPE (JAX ``_block``, models/vit.py:1095):
-    K3 has no rotation, so a RoPE tower's wire-calibrated blocks take the lnk
-    path."""
+def _int8_block_mode() -> str:
+    """How a dynamic-int8 block runs (``CTPU_INT8_BLOCK``, read at import
+    into ``ops/knobs``): 'xla-plain' (the default) the generic block, 'xla'
+    :func:`_block_int8_xla`, 'hybrid' :func:`_block_int8_fused`."""
+    return knobs.INT8_BLOCK
+
+
+def block_route(blk: VitBlock, cfg: VitConfig, rope=None) -> str:
+    """Which block implementation runs, as the JAX package's ``_block``
+    dispatches (models/vit.py:1094-1123): 'wire' (int8_static with the int8
+    attention wire, never with RoPE: K3 has no rotation), 'lnk' (int8_static),
+    'hybrid' (dynamic int8 under CTPU_INT8_BLOCK=hybrid, only where the width
+    is a multiple of 128, else generic), 'xla' (dynamic int8 under
+    CTPU_INT8_BLOCK=xla, any width) or 'generic' (float, dynamic int8 by
+    default, and every RoPE tower's dynamic-int8 blocks)."""
     if blk.wire and rope is None:
-        return _block_int8_static_wire(x, blk, cfg)
+        return "wire"
     if blk.static:
+        return "lnk"
+    if blk.quantized and rope is None:
+        mode = _int8_block_mode()
+        if mode == "hybrid" and cfg.width % 128 == 0:
+            return "hybrid"
+        if mode == "xla":
+            return "xla"
+    return "generic"
+
+
+def _block(x, blk: VitBlock, cfg: VitConfig, rope=None):
+    """One block, by :func:`block_route`. ``rope``: the (cos, sin) tables of
+    a RoPE tower, or None."""
+    route = block_route(blk, cfg, rope)
+    if route == "wire":
+        return _block_int8_static_wire(x, blk, cfg)
+    if route == "lnk":
         return _block_int8_static_lnk(x, blk, cfg, rope)
-    if blk.quantized:
-        raise NotImplementedError(
-            "dynamic int8 (compute_dtype 'int8') is not ported yet; use "
-            "int8_static, bfloat16 or float32"
-        )
-    return _block_float(x, blk, cfg, rope)
+    if route == "hybrid":
+        return _block_int8_fused(x, blk, cfg)
+    if route == "xla":
+        return _block_int8_xla(x, blk, cfg)
+    return _block_generic(x, blk, cfg, rope)
 
 
 @functools.lru_cache(maxsize=8)

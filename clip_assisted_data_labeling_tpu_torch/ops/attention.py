@@ -4,7 +4,11 @@ that routes between them (port of the JAX package's ``ops/attention.py``).
   * ``fused_attention_packed`` (K1) replaces the TPU kernel ``_packed_kernel``
     (clip_assisted_data_labeling_tpu/ops/attention.py, ``pallas_call`` at
     :1124) with ``csrc/packed_attention.cu``: exact two-pass softmax per head,
-    with the optional in-kernel half-split RoPE of the PE towers.
+    with the optional in-kernel half-split RoPE of the PE towers and the
+    optional ``quant_out`` (int8 output with a float32 scale per token, for
+    the dynamic-int8 ``xla`` and ``hybrid`` blocks). K4 and K5 have no
+    ``quant_out``, as in the JAX package, whose int8 blocks call the
+    whole-block kernel directly.
   * ``fused_attention_packed_grouped`` (K4) replaces ``_packed_grouped_kernel``
     (``pallas_call`` at :342) with ``csrc/packed_attention_grouped.cu``: the
     same exact two-pass softmax (and RoPE), with the keys streamed in both
@@ -52,6 +56,10 @@ import ctypes
 import torch
 
 from clip_assisted_data_labeling_tpu_torch.ops import _cuda_build
+from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import (
+    _rowquant_launch,
+    rowquant_plain,
+)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -237,7 +245,15 @@ def _exact_softmax_plain(qkv: torch.Tensor, heads: int, scale: float, s_real: in
     and K4 compute the same function): q·scale in the input dtype (the scale
     cast to it first), then q and k rotated with the tables in the input
     dtype, float32 scores with an exact -inf mask on keys ≥ s_real, float32
-    softmax statistics, P cast to v's dtype before P·V, 1/sum applied after."""
+    softmax statistics, P cast to v's dtype before P·V, 1/sum applied after,
+    the result rounded to the input dtype."""
+    return _exact_softmax_f32(qkv, heads, scale, s_real, rope).to(qkv.dtype)
+
+
+def _exact_softmax_f32(qkv: torch.Tensor, heads: int, scale: float, s_real: int | None,
+                       rope) -> torch.Tensor:
+    """:func:`_exact_softmax_plain` before the last rounding: the float32
+    head outputs [B, S, w]."""
     s = qkv.shape[1]
     s_real = s if s_real is None else s_real
     q, k, v = _split_heads(qkv, heads)
@@ -251,15 +267,15 @@ def _exact_softmax_plain(qkv: torch.Tensor, heads: int, scale: float, s_real: in
     m = scores.amax(dim=-1, keepdim=True)
     probs = torch.exp(scores - m)
     inv_norm = 1.0 / probs.sum(dim=-1, keepdim=True)
-    out = torch.matmul(probs.to(v.dtype).float(), v.float()) * inv_norm
-    return _merge_heads(out.to(qkv.dtype))
+    return _merge_heads(torch.matmul(probs.to(v.dtype).float(), v.float()) * inv_norm)
 
 
 def _launch_packed(what: str, lib_fn, qkv: torch.Tensor, heads: int, scale: float,
-                   s_real: int | None, rope, f32_smem=None) -> torch.Tensor:
+                   s_real: int | None, rope, f32_smem=None, out_dtype=None) -> torch.Tensor:
     """Check the inputs of K1 or K4 and launch its C entry on the current
-    stream; returns the [B, S, w] output. ``f32_smem(S, d)``: the shared
-    memory a float32 block needs, where that grows with S."""
+    stream; returns the [B, S, w] output (of ``out_dtype``, by default the
+    input's). ``f32_smem(S, d)``: the shared memory a float32 block needs,
+    where that grows with S."""
     b, s, w3 = qkv.shape
     s_real = s if s_real is None else s_real
     _check_packed(what, qkv, heads, s_real, _DTYPE_CODE)
@@ -279,7 +295,7 @@ def _launch_packed(what: str, lib_fn, qkv: torch.Tensor, heads: int, scale: floa
             "multiple of 8 (of 16 with RoPE) and the data 16-byte aligned"
         )
     cos, sin = _rope_tables(what, qkv, heads, rope)
-    out = torch.empty((b, s, w), dtype=qkv.dtype, device=qkv.device)
+    out = torch.empty((b, s, w), dtype=out_dtype or qkv.dtype, device=qkv.device)
     err = lib_fn(
         qkv.data_ptr(), out.data_ptr(), _DTYPE_CODE[qkv.dtype], b, s, s_real, w, heads,
         float(scale), None if cos is None else cos.data_ptr(),
@@ -293,9 +309,18 @@ def _launch_packed(what: str, lib_fn, qkv: torch.Tensor, heads: int, scale: floa
 # ---- K1: exact two-pass softmax, whole score row per tile ----------------------
 
 def fused_attention_packed_plain(qkv: torch.Tensor, heads: int, scale: float,
-                                 s_real: int | None = None, rope=None) -> torch.Tensor:
-    """K1's arithmetic in plain PyTorch (see :func:`_exact_softmax_plain`)."""
-    return _exact_softmax_plain(qkv, heads, scale, s_real, rope)
+                                 s_real: int | None = None, rope=None, quant_out: bool = False):
+    """K1's arithmetic in plain PyTorch (see :func:`_exact_softmax_plain`).
+    With ``quant_out``, the TPU kernel's epilogue (attention.py:1018-1024):
+    each token's float32 head outputs over all heads, ``amax = max(max|o|,
+    1e-8)``, ``clip(round(o · (127/amax)))`` and ``amax · (1/127)`` — K6's
+    quantize with no layernorm and no activation."""
+    if not quant_out:
+        return _exact_softmax_plain(qkv, heads, scale, s_real, rope)
+    b, s, w3 = qkv.shape
+    q, sc = rowquant_plain(_exact_softmax_f32(qkv, heads, scale, s_real, rope).reshape(
+        b * s, w3 // 3))
+    return q.reshape(b, s, w3 // 3), sc.reshape(b, s, 1)
 
 
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
@@ -306,27 +331,43 @@ _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctype
 def _lib() -> ctypes.CDLL:
     lib = _cuda_build.load("packed_attention")
     if lib.packed_attention.argtypes is None:
-        lib.packed_attention.argtypes = _ARGTYPES
-        lib.packed_attention.restype = ctypes.c_int
+        for fn in (lib.packed_attention, lib.packed_attention_f32out):
+            fn.argtypes = _ARGTYPES
+            fn.restype = ctypes.c_int
         lib.packed_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.packed_attention_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
 def fused_attention_packed(qkv: torch.Tensor, heads: int, scale: float,
-                           s_real: int | None = None, rope=None) -> torch.Tensor:
-    """Multi-head attention on the packed qkv tensor [B, S, 3w] → [B, S, w].
+                           s_real: int | None = None, rope=None, quant_out: bool = False):
+    """Multi-head attention on the packed qkv tensor [B, S, 3w] → [B, S, w],
+    or with ``quant_out`` → (int8 [B, S, w], float32 [B, S, 1] per-token
+    scales).
 
     ``s_real``: keys at or beyond it are masked out of the softmax (rows
     there compute values nothing should read). ``rope``: (cos, sin) tables
-    [S, d/2] rotating q and k inside the kernel, or None."""
+    [S, d/2] rotating q and k inside the kernel, or None. ``quant_out``: the
+    kernel writes its float32 head outputs and K6's quantize pass (no
+    layernorm, no activation) turns each [w] token row into int8 and a scale;
+    the call counts as one K1 launch and no K6 launch."""
     if qkv.device.type == "cpu":
-        return fused_attention_packed_plain(qkv, heads, scale, s_real, rope)
+        return fused_attention_packed_plain(qkv, heads, scale, s_real, rope, quant_out)
     if not qkv.is_cuda:
         raise ValueError(f"fused_attention_packed: unsupported device {qkv.device}")
     lib = _lib()
-    out = _launch_packed("fused_attention_packed", lib.packed_attention, qkv, heads, scale,
-                         s_real, rope, f32_smem=lib.packed_attention_smem_bytes)
+    if quant_out:
+        b, s, w3 = qkv.shape
+        out32 = _launch_packed("fused_attention_packed", lib.packed_attention_f32out, qkv,
+                               heads, scale, s_real, rope,
+                               f32_smem=lib.packed_attention_smem_bytes,
+                               out_dtype=torch.float32)
+        q, sc = _rowquant_launch("fused_attention_packed", out32.view(b * s, w3 // 3), None,
+                                 None, None, 1e-5)
+        out = q.view(b, s, w3 // 3), sc.view(b, s, 1)
+    else:
+        out = _launch_packed("fused_attention_packed", lib.packed_attention, qkv, heads,
+                             scale, s_real, rope, f32_smem=lib.packed_attention_smem_bytes)
     fused_attention_packed.launches += 1
     return out
 

@@ -18,6 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from clip_assisted_data_labeling_tpu_torch.ops import knobs
+
 
 # Divisions by or of a constant are written tensor / tensor: PyTorch
 # evaluates ``c / t`` as ``t.reciprocal() * c`` and, on the card, ``t / c`` as
@@ -67,12 +69,14 @@ def int_matmul(xq: torch.Tensor, wq_t: torch.Tensor) -> torch.Tensor:
     """int8 [M, K] × int8 weights stored [N, K] → int32 [M, N].
 
     ``torch._int_mm`` takes the second operand column-major on the card
-    (``wq_t.t()`` of the contiguous [N, K] layout) and needs M > 16 there;
-    smaller M is padded with zero rows."""
-    m = xq.shape[0]
-    if xq.is_cuda and m <= 16:
-        pad = torch.zeros((17 - m, xq.shape[1]), dtype=xq.dtype, device=xq.device)
-        return torch._int_mm(torch.cat([xq, pad]), wq_t.t())[:m]
+    (``wq_t.t()`` of the contiguous [N, K] layout) and needs M > 16 and
+    N % 8 == 0 there; smaller M is padded with zero rows, other N with zero
+    weight rows."""
+    m, n = xq.shape[0], wq_t.shape[0]
+    if xq.is_cuda and (m <= 16 or n % 8):
+        xq = torch.cat([xq, xq.new_zeros((max(17 - m, 0), xq.shape[1]))])
+        wq_t = torch.cat([wq_t, wq_t.new_zeros((-n % 8, wq_t.shape[1]))])
+        return torch._int_mm(xq, wq_t.t())[:m, :n]
     return torch._int_mm(xq, wq_t.t())
 
 
@@ -94,9 +98,22 @@ def q_matmul(x: torch.Tensor, wq_t: torch.Tensor, w_scale: torch.Tensor,
              bias: torch.Tensor | None = None, out_dtype=torch.bfloat16,
              residual: torch.Tensor | None = None) -> torch.Tensor:
     """Dynamic per-row int8 × per-channel int8 → dequantized matmul.
-    x: [..., K] float; wq_t: [N, K] int8; w_scale: [N] f32."""
+    x: [..., K] float; wq_t: [N, K] int8; w_scale: [N] f32.
+
+    Under ``CTPU_FUSED_QMATMUL=1`` (``ops/knobs.FUSED_QMATMUL``) it runs K9,
+    ``ops/quant_kernel.q_linear_fused``, and adds the residual after the cast,
+    in ``out_dtype``, as the JAX package's route does. The JAX package takes
+    that route only on a TPU backend, where its Pallas kernel runs; here K9's
+    wrapper serves every device (its plain version on the CPU), so the knob
+    alone decides."""
     lead = x.shape[:-1]
     n = wq_t.shape[0]
+    if knobs.FUSED_QMATMUL:
+        from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import q_linear_fused
+
+        out = q_linear_fused(x.reshape(-1, x.shape[-1]), wq_t, w_scale, bias,
+                             out_dtype=out_dtype).reshape(lead + (n,))
+        return out if residual is None else residual + out
     xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
     amax = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8)
     x_scale = amax / torch.full_like(amax, 127.0)

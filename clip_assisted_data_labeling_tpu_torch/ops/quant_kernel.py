@@ -1,13 +1,26 @@
-"""LayerNorm + static int8 quantize — kernel K2 — and the int8 matmul over
-pre-quantized activations (port of the JAX package's ``ops/quant_kernel.py``
-static path).
+"""The row-quantize kernels K2 and K6, the fused W8A8 linear K9, and the int8
+matmul over pre-quantized activations (port of the JAX package's
+``ops/quant_kernel.py``).
 
-``rowquant_static`` replaces the TPU kernel ``_rowquant_static_kernel`` /
-``rowquant_static`` (clip_assisted_data_labeling_tpu/ops/quant_kernel.py,
-``pallas_call`` at :457) with the hand-written CUDA kernel in
-``csrc/rowquant_static.cu``; its header says what bounds the kernel on the
-H100 and how the design answers that. Unlike the TPU kernel it takes any row
-width whose float32 row fits shared memory (no K % 128 rule).
+  * ``rowquant_static`` (K2) replaces the TPU kernel
+    ``_rowquant_static_kernel`` / ``rowquant_static``
+    (clip_assisted_data_labeling_tpu/ops/quant_kernel.py, ``pallas_call`` at
+    :457) with ``csrc/rowquant_static.cu``: layernorm + static int8 quantize.
+  * ``rowquant`` (K6) replaces ``_rowquant_kernel`` / ``rowquant``
+    (``pallas_call`` at :390) with ``csrc/rowquant.cu``: optional layernorm,
+    optional activation (quick_gelu, gelu_tanh or erf-gelu, in float32),
+    then the dynamic per-row int8 quantize with float32 row scales.
+  * ``q_linear_fused`` (K9) replaces ``_kernel`` / ``q_linear_fused``
+    (``pallas_call`` at :102) with K6's quantize pass (no layernorm, no
+    activation) and the hand-written int8 tensor-core GEMM of
+    ``csrc/q_linear_fused.cu`` with the dequant + bias epilogue: one K9
+    launch per call. ``ops/quant.q_matmul`` runs it under
+    ``CTPU_FUSED_QMATMUL=1``.
+
+Each kernel's header says what bounds it on the H100 and how the design
+answers that. Unlike the TPU kernels, K2 and K6 take any row width whose
+float32 row fits shared memory (no K % 128 rule); the K9 GEMM needs
+K % 16 == 0 on the card.
 
 ``q_matmul_pre`` was plain XLA in the JAX package and is plain PyTorch here:
 ``torch._int_mm`` plus the float32 dequant epilogue.
@@ -22,9 +35,25 @@ import ctypes
 import torch
 
 from clip_assisted_data_labeling_tpu_torch.ops import _cuda_build
+from clip_assisted_data_labeling_tpu_torch.ops.activations import gelu_tanh
 from clip_assisted_data_labeling_tpu_torch.ops.quant import _dequant_epilogue, _num, int_matmul
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_ACT_CODE = {None: 0, "quick_gelu": 1, "gelu_tanh": 2, "gelu": 3}
+# amax * (1/127) with the constant as float32 of the double, as the JAX
+# package's weakly typed 1.0 / 127.0
+_INV127 = torch.tensor(1.0 / 127.0, dtype=torch.float32)
+
+
+def _layernorm_f32(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
+                   ln_eps: float) -> torch.Tensor:
+    """The row kernels' layernorm in float32: two-pass population variance,
+    ×1/sqrt(var + eps), then the affine."""
+    xf = x.to(torch.float32)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * (_num(1.0) / torch.sqrt(var + ln_eps))
+    return y * ln_scale.to(torch.float32) + ln_bias.to(torch.float32)
 
 
 def rowquant_static_plain(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tensor,
@@ -32,16 +61,32 @@ def rowquant_static_plain(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torc
     """The kernel's arithmetic in plain PyTorch: per row in float32, two-pass
     population variance, affine, ×127/amax (no floor), round half to even,
     clip to ±127."""
-    xf = x.to(torch.float32)
-    mu = xf.mean(dim=-1, keepdim=True)
-    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
-    y = (xf - mu) * (_num(1.0) / torch.sqrt(var + ln_eps))
-    y = y * ln_scale.to(torch.float32) + ln_bias.to(torch.float32)
+    y = _layernorm_f32(x, ln_scale, ln_bias, ln_eps)
     inv = _num(127.0) / torch.as_tensor(amax, dtype=torch.float32, device=x.device)
     return torch.clamp(torch.round(y * inv), -127, 127).to(torch.int8)
 
 
-def _lib() -> ctypes.CDLL:
+def _check_rows(what: str, x: torch.Tensor) -> None:
+    """x must be a contiguous [M, K] float32 or bfloat16 tensor whose float32
+    row fits shared memory (the row kernels hold one there)."""
+    if x.dim() != 2 or x.dtype not in _DTYPE_CODE or not x.is_contiguous():
+        raise ValueError(
+            f"{what} wants a contiguous [M, K] float32 or bfloat16 tensor, got "
+            f"{tuple(x.shape)} {x.dtype} contiguous={x.is_contiguous()}"
+        )
+    if 4 * x.shape[1] > _cuda_build.SMEM_LIMIT:
+        raise ValueError(f"{what}: K={x.shape[1]} row does not fit shared memory")
+
+
+def _check_vec(what: str, name: str, t: torch.Tensor, n: int, device) -> None:
+    if t.device != device or t.dtype != torch.float32 or t.numel() != n or not t.is_contiguous():
+        raise ValueError(
+            f"{what}: {name} must be a contiguous float32 tensor of {n} elements on "
+            f"{device}, got {tuple(t.shape)} {t.dtype} on {t.device}"
+        )
+
+
+def _static_lib() -> ctypes.CDLL:
     lib = _cuda_build.load("rowquant_static")
     if lib.rowquant_static.argtypes is None:
         lib.rowquant_static.argtypes = [
@@ -63,23 +108,12 @@ def rowquant_static(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tens
         return rowquant_static_plain(x, ln_scale, ln_bias, amax, ln_eps)
     if not x.is_cuda:
         raise ValueError(f"rowquant_static: unsupported device {x.device}")
-    if x.dim() != 2 or x.dtype not in _DTYPE_CODE or not x.is_contiguous():
-        raise ValueError(
-            "rowquant_static wants a contiguous [M, K] float32 or bfloat16 "
-            f"tensor, got {tuple(x.shape)} {x.dtype} contiguous={x.is_contiguous()}"
-        )
+    _check_rows("rowquant_static", x)
     m, k = x.shape
-    if 4 * k > _cuda_build.SMEM_LIMIT:  # the kernel holds one float32 row in shared memory
-        raise ValueError(f"rowquant_static: K={k} row does not fit shared memory")
     for name, t, n in (("ln_scale", ln_scale, k), ("ln_bias", ln_bias, k), ("amax", amax, 1)):
-        if (t.device != x.device or t.dtype != torch.float32 or t.numel() != n
-                or not t.is_contiguous()):
-            raise ValueError(
-                f"rowquant_static: {name} must be a contiguous float32 tensor of "
-                f"{n} elements on {x.device}, got {tuple(t.shape)} {t.dtype} on {t.device}"
-            )
+        _check_vec("rowquant_static", name, t, n, x.device)
     out = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    err = _lib().rowquant_static(
+    err = _static_lib().rowquant_static(
         x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), amax.data_ptr(),
         out.data_ptr(), _DTYPE_CODE[x.dtype], m, k, float(ln_eps),
         torch.cuda.current_stream(x.device).cuda_stream,
@@ -90,6 +124,166 @@ def rowquant_static(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tens
 
 
 rowquant_static.launches = 0
+
+
+# ---- K6: (layernorm | activation) + dynamic per-row int8 quantize ------------
+
+def _row_act(y: torch.Tensor, act: str | None) -> torch.Tensor:
+    """K6's activations in float32, as the TPU kernel writes them:
+    quick_gelu ``y · (1 / (1 + exp(-1.702·y)))``, gelu_tanh
+    ``jax.nn.gelu(approximate=True)`` step by step, gelu with erf
+    ``y · 0.5 · (1 + erf(y / √2))`` (the exact form, where the port's other
+    int8 paths take tanh)."""
+    if act not in _ACT_CODE:
+        raise ValueError(f"rowquant: unknown activation {act!r}")
+    if act == "quick_gelu":
+        return y * (_num(1.0) / (1.0 + torch.exp(-(1.702 * y))))
+    if act == "gelu_tanh":
+        return gelu_tanh(y)
+    if act == "gelu":
+        return y * 0.5 * (1.0 + torch.erf(y * 2.0 ** -0.5))
+    return y
+
+
+def rowquant_plain(x: torch.Tensor, ln_scale: torch.Tensor | None = None,
+                   ln_bias: torch.Tensor | None = None, act: str | None = None,
+                   ln_eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """K6's arithmetic in plain PyTorch, per row in float32: the optional
+    layernorm, the optional activation, ``amax = max(max|y|, 1e-8)``,
+    ``clip(round(y · (127/amax)))`` (one division, round half to even) and
+    the scale ``amax · (1/127)``. Returns (int8 [M, K], float32 [M, 1])."""
+    if (ln_scale is None) != (ln_bias is None):
+        raise ValueError("rowquant: pass both ln_scale and ln_bias, or neither")
+    y = (x.to(torch.float32) if ln_scale is None
+         else _layernorm_f32(x, ln_scale, ln_bias, ln_eps))
+    y = _row_act(y, act)
+    amax = torch.clamp(y.abs().amax(dim=-1, keepdim=True), min=1e-8)
+    q = torch.clamp(torch.round(y * (_num(127.0) / amax)), -127, 127).to(torch.int8)
+    return q, amax * _INV127
+
+
+def _row_lib() -> ctypes.CDLL:
+    lib = _cuda_build.load("rowquant")
+    if lib.rowquant.argtypes is None:
+        lib.rowquant.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_float, ctypes.c_void_p,
+        ]
+        lib.rowquant.restype = ctypes.c_int
+    return lib
+
+
+def _rowquant_launch(what: str, x: torch.Tensor, ln_scale, ln_bias, act: str | None,
+                     ln_eps: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """Check x [M, K] on the card and launch K6's C entry on the current
+    stream; returns (int8 [M, K], float32 [M, 1]). Counts nothing: K1's
+    quant_out and K9 run this pass inside their own launch."""
+    _check_rows(what, x)
+    if act not in _ACT_CODE:
+        raise ValueError(f"{what}: unknown activation {act!r}")
+    if (ln_scale is None) != (ln_bias is None):
+        raise ValueError(f"{what}: pass both ln_scale and ln_bias, or neither")
+    m, k = x.shape
+    if ln_scale is not None:
+        _check_vec(what, "ln_scale", ln_scale, k, x.device)
+        _check_vec(what, "ln_bias", ln_bias, k, x.device)
+    q = torch.empty((m, k), dtype=torch.int8, device=x.device)
+    scale = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    err = _row_lib().rowquant(
+        x.data_ptr(), None if ln_scale is None else ln_scale.data_ptr(),
+        None if ln_bias is None else ln_bias.data_ptr(), q.data_ptr(), scale.data_ptr(),
+        _DTYPE_CODE[x.dtype], _ACT_CODE[act], m, k, float(ln_eps),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _cuda_build.check(err, what)
+    return q, scale
+
+
+def rowquant(x: torch.Tensor, ln_scale: torch.Tensor | None = None,
+             ln_bias: torch.Tensor | None = None, act: str | None = None,
+             ln_eps: float = 1e-5) -> tuple[torch.Tensor, torch.Tensor]:
+    """(layernorm | activation) + per-row symmetric int8 quantization of x
+    [M, K] in one pass → (int8 [M, K], float32 [M, 1] row scales)."""
+    if x.device.type == "cpu":
+        return rowquant_plain(x, ln_scale, ln_bias, act, ln_eps)
+    if not x.is_cuda:
+        raise ValueError(f"rowquant: unsupported device {x.device}")
+    out = _rowquant_launch("rowquant", x, ln_scale, ln_bias, act, ln_eps)
+    rowquant.launches += 1
+    return out
+
+
+rowquant.launches = 0
+
+
+# ---- K9: dynamic quantize → int8 GEMM → dequant + bias ------------------------
+
+def q_linear_fused_plain(x: torch.Tensor, wq_t: torch.Tensor, w_scale: torch.Tensor,
+                         bias: torch.Tensor | None = None,
+                         out_dtype=torch.bfloat16) -> torch.Tensor:
+    """K9's arithmetic in plain PyTorch (the TPU ``_kernel``, quant_kernel.py
+    :34-43): per row ``amax = max(max|x|, 1e-8)``, ``xq = clip(round(x ·
+    (127/amax)))``, int32 product with the weight stored [N, K], then
+    ``((acc · amax·(1/127)) · w_scale) + bias`` in float32, cast to
+    ``out_dtype``. It rounds the quantize differently from
+    :func:`ops.quant.q_matmul` (which divides by amax/127)."""
+    xq, xs = rowquant_plain(x)
+    return _dequant_epilogue(int_matmul(xq, wq_t), xs, w_scale, bias, None, out_dtype)
+
+
+def _gemm_lib() -> ctypes.CDLL:
+    lib = _cuda_build.load("q_linear_fused")
+    if lib.q_linear_fused_gemm.argtypes is None:
+        lib.q_linear_fused_gemm.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.q_linear_fused_gemm.restype = ctypes.c_int
+    return lib
+
+
+def q_linear_fused(x: torch.Tensor, wq_t: torch.Tensor, w_scale: torch.Tensor,
+                   bias: torch.Tensor | None = None, out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Fused W8A8 linear: x [M, K] float32 or bfloat16, wq_t [N, K] int8 (the
+    [K, N] kernel stored transposed), w_scale [N] and bias [N] (or None)
+    float32 → [M, N] of ``out_dtype`` (float32 or bfloat16)."""
+    if x.device.type == "cpu":
+        return q_linear_fused_plain(x, wq_t, w_scale, bias, out_dtype)
+    if not x.is_cuda:
+        raise ValueError(f"q_linear_fused: unsupported device {x.device}")
+    _check_rows("q_linear_fused", x)
+    m, k = x.shape
+    n = wq_t.shape[0]
+    if (wq_t.dim() != 2 or wq_t.dtype != torch.int8 or wq_t.shape[1] != k
+            or not wq_t.is_contiguous() or wq_t.device != x.device):
+        raise ValueError(
+            f"q_linear_fused: wq_t must be a contiguous int8 [N, {k}] tensor on {x.device}, "
+            f"got {tuple(wq_t.shape)} {wq_t.dtype} on {wq_t.device}"
+        )
+    if k % 16 or wq_t.data_ptr() % 16 or out_dtype not in _DTYPE_CODE:
+        raise ValueError(
+            f"q_linear_fused: the GEMM reads 16-byte vectors — K={k} must be a multiple of "
+            "16 and the weight 16-byte aligned; out_dtype float32 or bfloat16, got "
+            f"{out_dtype}"
+        )
+    _check_vec("q_linear_fused", "w_scale", w_scale, n, x.device)
+    if bias is not None:
+        _check_vec("q_linear_fused", "bias", bias, n, x.device)
+    xq, xs = _rowquant_launch("q_linear_fused", x, None, None, None, 1e-5)
+    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+    err = _gemm_lib().q_linear_fused_gemm(
+        xq.data_ptr(), wq_t.data_ptr(), xs.data_ptr(), w_scale.data_ptr(),
+        None if bias is None else bias.data_ptr(), out.data_ptr(), _DTYPE_CODE[out_dtype],
+        m, n, k, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    _cuda_build.check(err, "q_linear_fused")
+    q_linear_fused.launches += 1
+    return out
+
+
+q_linear_fused.launches = 0
 
 
 def q_matmul_pre(

@@ -14,8 +14,8 @@ tower's width (1152 for ViT-SO400M-14-SigLIP-384).
 
 CLI: the JAX stage's flags plus ``--device`` (default ``cuda``; ``cpu`` for
 the CPU). Not ported yet, and refused: ``--host_count > 1``,
-``--distributed``, ``--aspect native``, ``--exact_stats``, ``--profile_dir``,
-``--debug_nans`` and ``--compute_dtype int8``.
+``--distributed``, ``--aspect native``, ``--exact_stats``, ``--profile_dir``
+and ``--debug_nans``.
 """
 from __future__ import annotations
 
@@ -225,8 +225,10 @@ def main(argv=None):
                         choices=["bfloat16", "float32", "int8", "int8_static"],
                         help="int8_static (default) = W8A8 with fixed activation "
                         "scales calibrated on the first batch and pinned to "
-                        "<root_dir>/<model>.calib.npz; bfloat16/float32 = "
-                        "strict-parity paths; int8 (dynamic) is not ported yet")
+                        "<root_dir>/<model>.calib.npz; int8 = W8A8 with dynamic "
+                        "per-token activation scales (no calibration; "
+                        "CTPU_INT8_BLOCK and CTPU_FUSED_QMATMUL pick its block "
+                        "form); bfloat16/float32 = strict-parity paths")
     parser.add_argument("--no_sidecars", action="store_true",
                         help="Skip per-image .pt sidecars (columnar store only)")
     parser.add_argument("--no_image_stats", action="store_true")
@@ -256,7 +258,6 @@ def main(argv=None):
         ("--exact_stats", args.exact_stats),
         ("--profile_dir", args.profile_dir is not None),
         ("--debug_nans", args.debug_nans),
-        ("--compute_dtype int8", args.compute_dtype == "int8"),
     ) if on]
     if refused:
         parser.error(f"{', '.join(refused)}: not ported yet to the PyTorch port "

@@ -19,6 +19,10 @@ from clip_assisted_data_labeling_tpu_torch.ops.attention import (
     fused_attention_packed_q8s_plain,
 )
 from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import (
+    q_linear_fused,
+    q_linear_fused_plain,
+    rowquant,
+    rowquant_plain,
     rowquant_static,
     rowquant_static_plain,
 )
@@ -275,4 +279,142 @@ def test_so400m_two_layers_on_card_matches_cpu(card, mode):
     got = vit.vit_encode_image(gpu, images.to(card), torch.bfloat16).cpu().numpy()
     assert kernel.launches == before + cfg.layers
     ref = vit.vit_encode_image(cpu, images, torch.bfloat16).numpy()
+    assert 1.0 - np.min(np.sum(got * ref, axis=-1)) <= 2e-3
+
+
+def _flips(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """Share of int8 entries that differ, after checking none differs by more
+    than 1."""
+    diff = (got.int() - ref.int()).abs()
+    assert diff.max().item() <= 1
+    return (diff > 0).float().mean().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ln,act", [
+    (True, None), (False, "quick_gelu"), (False, "gelu_tanh"), (False, "gelu"),
+    (True, "gelu"), (False, None),
+])
+@pytest.mark.parametrize("m,k", [(18, 128), (577, 1024), (300, 4096), (5, 72)])
+def test_rowquant_kernel_matches_plain(card, dtype, ln, act, m, k):
+    """K6: int8 ±1 on ≤ 0.1% of entries, row scales within rtol 1e-6."""
+    x = (_normal((m, k), seed=k) * 2).to(card, dtype)
+    g = (1 + 0.1 * _normal((k,), seed=1)).to(card) if ln else None
+    bta = (0.1 * _normal((k,), seed=2)).to(card) if ln else None
+    before = rowquant.launches
+    q, s = rowquant(x, g, bta, act=act)
+    torch.cuda.synchronize()
+    assert rowquant.launches == before + 1
+    rq, rs = rowquant_plain(x, g, bta, act=act)
+    assert _flips(q, rq) <= 1e-3
+    torch.testing.assert_close(s, rs, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("dtype,out_dtype", [
+    (torch.bfloat16, torch.bfloat16), (torch.float32, torch.float32),
+    (torch.bfloat16, torch.float32),
+])
+@pytest.mark.parametrize("m,k,n,with_bias", [
+    (300, 1024, 3072, True), (1000, 4096, 1024, True), (17, 64, 32, False),
+    (130, 48, 72, True),   # ragged tiles in M, N and K
+    (5, 32, 7, True),      # odd N: scalar stores
+])
+def test_q_linear_fused_kernel_matches_plain(card, dtype, out_dtype, m, k, n, with_bias):
+    """K9: the same int8 product and float32 epilogue; one bf16 (or 1e-6
+    float32) relative step apart at most, outside rows where a quantized
+    value flipped (none expected: the quantize pass is K6's)."""
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32)).to(card, dtype)
+    wq = torch.from_numpy(rng.integers(-127, 128, (n, k), dtype=np.int8)).to(card)
+    ws = torch.from_numpy(rng.uniform(1e-4, 1e-3, n).astype(np.float32)).to(card)
+    b = torch.from_numpy(rng.normal(0, 0.1, n).astype(np.float32)).to(card) if with_bias else None
+    before = q_linear_fused.launches
+    got = q_linear_fused(x, wq, ws, b, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert q_linear_fused.launches == before + 1 and got.dtype == out_dtype
+    ref = q_linear_fused_plain(x, wq, ws, b, out_dtype=out_dtype)
+    rel = 2.0 ** -7 if out_dtype == torch.bfloat16 else 1e-6
+    bad = ((got.float() - ref.float()).abs() > rel * ref.float().abs() + 1e-6).any(dim=1)
+    assert bad.float().mean().item() <= 1e-3, f"{int(bad.sum())} rows off"
+
+
+def test_q_linear_fused_refuses_bad_inputs(card):
+    x = torch.zeros((4, 40), device=card)
+    with pytest.raises(ValueError):  # K % 16 != 0
+        q_linear_fused(x, torch.zeros((8, 40), device=card, dtype=torch.int8),
+                       torch.ones(8, device=card))
+    x = torch.zeros((4, 32), device=card)
+    with pytest.raises(ValueError):  # weight of the wrong width
+        q_linear_fused(x, torch.zeros((8, 48), device=card, dtype=torch.int8),
+                       torch.ones(8, device=card))
+    with pytest.raises(ValueError):  # scales of the wrong length
+        q_linear_fused(x, torch.zeros((8, 32), device=card, dtype=torch.int8),
+                       torch.ones(4, device=card))
+    with pytest.raises(ValueError):  # unknown activation
+        rowquant(x, act="relu")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,s_real,w,heads", [
+    (2, 17, 17, 128, 2), (2, 50, 43, 128, 4), (2, 577, 577, 1024, 16),
+])
+def test_packed_attention_quant_out_matches_plain(card, dtype, b, s, s_real, w, heads):
+    """K1 with quant_out: int8 ±1 on ≤ 0.1% of the real tokens' entries,
+    per-token scales within rtol 1e-5 (in bf16 on all but ≤ 5% of the tokens,
+    which stay within 2^-8: the kernel's scores sum in another order than
+    torch's, so a few bf16 P values round to the other neighbour and move
+    their token's outputs by up to one bf16 step of that p); one K1 launch
+    and no K6 launch."""
+    qkv = _normal((b, s, 3 * w), seed=s).to(card, dtype)
+    k1, k6 = fused_attention_packed.launches, rowquant.launches
+    q, sc = fused_attention_packed(qkv, heads, (w // heads) ** -0.5, s_real, quant_out=True)
+    torch.cuda.synchronize()
+    assert (fused_attention_packed.launches, rowquant.launches) == (k1 + 1, k6)
+    assert q.dtype == torch.int8 and q.shape == (b, s, w) and sc.shape == (b, s, 1)
+    rq, rsc = fused_attention_packed_plain(qkv, heads, (w // heads) ** -0.5, s_real,
+                                           quant_out=True)
+    assert _flips(q[:, :s_real], rq[:, :s_real]) <= 1e-3
+    rel = (sc[:, :s_real] / rsc[:, :s_real] - 1).abs()
+    if dtype == torch.float32:
+        assert rel.max().item() <= 1e-5
+    else:
+        assert (rel > 1e-5).float().mean().item() <= 5e-2 and rel.max().item() <= 2.0 ** -8
+
+
+@pytest.mark.parametrize("mode,fused,counts", [
+    ("hybrid", "0", {"K1": 2, "K6": 6, "K9": 0}),
+    ("xla", "0", {"K1": 2, "K6": 0, "K9": 0}),
+    ("xla-plain", "0", {"K1": 2, "K6": 0, "K9": 0}),
+    ("xla-plain", "1", {"K1": 2, "K6": 0, "K9": 8}),
+])
+def test_vit_l336_two_layers_dynamic_int8_on_card_matches_cpu(card, monkeypatch, mode, fused,
+                                                              counts):
+    """ViT-L-14-336 cut to 2 layers in dynamic int8, each CTPU_INT8_BLOCK
+    route and CTPU_FUSED_QMATMUL: the tower on the card against the same
+    weights and images on the CPU (the plain versions), with the launches
+    of each kernel."""
+    import dataclasses
+
+    from clip_assisted_data_labeling_tpu_torch.models import vit
+    from clip_assisted_data_labeling_tpu_torch.models.clip_weights import module_from_params
+    from clip_assisted_data_labeling_tpu_torch.ops import knobs
+    from clip_assisted_data_labeling_tpu_torch.ops.quant import quantize_vit_params
+
+    cfg = dataclasses.replace(vit.resolve_config("ViT-L-14-336/openai"), layers=2)
+    params = quantize_vit_params(vit.init_vit_params(cfg, torch.Generator().manual_seed(0)))
+    images = _normal((2, 336, 336, 3), seed=5)
+    cpu = module_from_params(params, cfg)
+    gpu = module_from_params(params, cfg, card)
+    monkeypatch.setenv("CTPU_INT8_BLOCK", mode)
+    monkeypatch.setenv("CTPU_FUSED_QMATMUL", fused)
+    knobs.reload()
+    try:
+        kernels = {"K1": fused_attention_packed, "K6": rowquant, "K9": q_linear_fused}
+        before = {k: fn.launches for k, fn in kernels.items()}
+        got = vit.vit_encode_image(gpu, images.to(card), torch.bfloat16).cpu().numpy()
+        assert {k: fn.launches - before[k] for k, fn in kernels.items()} == counts
+        ref = vit.vit_encode_image(cpu, images, torch.bfloat16).numpy()
+    finally:
+        monkeypatch.undo()
+        knobs.reload()
     assert 1.0 - np.min(np.sum(got * ref, axis=-1)) <= 2e-3

@@ -1,7 +1,8 @@
 """End to end: the port's embed CLI on the CPU (ViT-Test/tiny, weights from
 a JAX-written .npz, int8_static), its outputs read by the JAX package's
 train and predict stages, and its store rows against a JAX embed of the same
-files with the same weights and the same calibration file."""
+files with the same weights and the same calibration file; and the CLI in
+dynamic int8, whose outputs (no calibration file) the JAX stages read too."""
 import os
 import shutil
 
@@ -29,9 +30,9 @@ MODEL = "ViT-Test/tiny"
 N = 8
 
 
-@pytest.fixture(scope="module")
-def embedded(tmp_path_factory):
-    base = tmp_path_factory.mktemp("torch_e2e")
+def _dataset(base):
+    """N distinguishable JPEGs under base/data/mydata and JAX-initialized
+    weights under base/weights; returns (root, weights)."""
     root = base / "data" / "mydata"
     root.mkdir(parents=True)
     rng = np.random.default_rng(5)
@@ -44,12 +45,23 @@ def embedded(tmp_path_factory):
     weights.mkdir()
     params = jvit.init_vit_params(jvit.resolve_config(MODEL), jax.random.key(7))
     jweights.save_params_npz(str(weights / "ViT-Test-tiny.npz"), params)
+    return root, weights
+
+
+def _port_embed(root, weights, *extra):
+    port_embed_main(["--root_dir", str(root), "--models_to_use", MODEL, "--device", "cpu",
+                     "--model_path", str(weights), "--batch_size", "4",
+                     "--num_workers", "2", "--canvas_size", "256", *extra])
+
+
+@pytest.fixture(scope="module")
+def embedded(tmp_path_factory):
+    base = tmp_path_factory.mktemp("torch_e2e")
+    root, weights = _dataset(base)
     # a clean copy of the images for the JAX embed (before the port writes)
     jroot = base / "jax_data" / "mydata"
     shutil.copytree(root, jroot)
-    port_embed_main(["--root_dir", str(root), "--models_to_use", MODEL, "--device", "cpu",
-                     "--model_path", str(weights), "--batch_size", "4",
-                     "--num_workers", "2", "--canvas_size", "256"])
+    _port_embed(root, weights)
     return base, root, jroot, weights
 
 
@@ -86,8 +98,7 @@ def test_store_rows_match_jax_embed(embedded):
                                    atol=3e-3)
 
 
-def test_jax_train_and_predict_read_port_output(embedded):
-    base, root, _jroot, _w = embedded
+def _jax_train_and_predict(base, root):
     db = LabelDatabase.load_or_create(str(root))
     uuids = sorted(f[:-4] for f in os.listdir(root) if f.endswith(".jpg"))
     for i, u in enumerate(uuids[:6]):
@@ -106,3 +117,27 @@ def test_jax_train_and_predict_read_port_output(embedded):
     assert predict_labels(str(root), path, batch_size=4, copy_imgs_fraction=0.0) == N
     preds = LabelDatabase.load_or_create(str(root)).df["predicted_label"].astype(float)
     assert preds.notna().sum() == N and np.isfinite(preds).all()
+
+
+def test_jax_train_and_predict_read_port_output(embedded):
+    base, root, _jroot, _w = embedded
+    _jax_train_and_predict(base, root)
+
+
+def test_port_cli_dynamic_int8_read_by_jax_train_and_predict(tmp_path):
+    """--compute_dtype int8 (dynamic W8A8: no calibration, so no .calib.npz)
+    writes sidecars and a store of finite unit vectors that the JAX
+    package's train and predict stages read."""
+    root, weights = _dataset(tmp_path)
+    _port_embed(root, weights, "--compute_dtype", "int8")
+    assert not any(f.endswith(".calib.npz") for f in os.listdir(root))
+    pts = sorted(f for f in os.listdir(root) if f.endswith(".pt"))
+    assert len(pts) == N
+    d = read_sidecar(str(root / pts[0]))[MODEL]
+    store = JaxStore.open(str(root), MODEL)
+    emb = np.asarray(store.embeddings, np.float32)
+    assert emb.shape == (N, 4, 16) and np.asarray(store.valid).all()
+    np.testing.assert_allclose(np.linalg.norm(emb, axis=-1), 1.0, atol=2e-3)
+    np.testing.assert_allclose(emb[store.index_of(pts[0][:-3]), 0],
+                               d["centre_crop"].reshape(-1), atol=2e-3)
+    _jax_train_and_predict(tmp_path, root)
