@@ -11,7 +11,10 @@ Phases (any failure exits nonzero and prints no result line):
      PE's RoPE), K2, K4 (bf16 with RoPE at PE-Core-G14-448's shape, f32 at
      the 336-pixel towers' float32 shapes), K5, K3, and dynamic int8's K6
      (ln at [18464, 1024], quick_gelu at [18464, 4096], bf16 and f32 in), K9
-     (ViT-L's four products at M = 18464) and K1's quant_out option,
+     (ViT-L's four products at M = 18464) and K1's quant_out option; then the
+     kernels no path of the JAX package reaches: K8 at ViT-L's four block
+     linears (M = 18464), K7 at int8 [32, 577, 3072] (bf16 and quant_out),
+     K10 at [32|8, 16, 577, 64], and K5 with RoPE at PE-Core-G14-448's shape,
   4. write 32 synthetic PNGs of mixed sizes from a seed,
   5. run the port's embed CLI on them: ViT-L-14-336/openai, int8_static,
      batch 8, full width and depth (24 layers), random weights from the
@@ -48,7 +51,17 @@ Phases (any failure exits nonzero and prints no result line):
      int8_static embeddings,
  12. PE-Core-G14-448 in bfloat16 on four images at full width and all 50
      layers (K4 with RoPE in every layer, no K1): finite unit embeddings,
-then print one JSON line listing the kernels and, last, the device line.
+ 13. the int8_static routes of the two knobs that pick the block, each
+     through the embed CLI on copies of four of the PNGs in a fresh
+     directory, full width and depth, exact counters, cosine against the
+     default route: ViT-L-14-336 with CTPU_LN_KERNEL=0 (the generic block
+     with static scales: K1, no K2), ViT-L-14-336 with CTPU_INT8_WIRE=1 (the
+     wire: K3, no K1 or K2), SO400M-384 with CTPU_INT8_WIRE=0 (lnk: K5 and
+     K2, no K3),
+then print one JSON line listing the kernels, each with its launches read
+from the counters of the main paths above (K7, K8, K10 and K5 with RoPE,
+which no path of the JAX package reaches, summed over all of them) and,
+last, the device line.
 
 Imports torch and the port only, never JAX.
 """
@@ -83,14 +96,24 @@ K3_SRC = "clip_assisted_data_labeling_tpu_torch/csrc/packed_attention_q8s.cu"
 K4_SRC = "clip_assisted_data_labeling_tpu_torch/csrc/packed_attention_grouped.cu"
 K5_SRC = "clip_assisted_data_labeling_tpu_torch/csrc/flash_attention.cu"
 K6_SRC = "clip_assisted_data_labeling_tpu_torch/csrc/rowquant.cu"
+K7_SRC = "clip_assisted_data_labeling_tpu_torch/csrc/packed_attention_q8.cu"
 K9_SRC = "clip_assisted_data_labeling_tpu_torch/csrc/q_linear_fused.cu"
+K8_SRC = K9_SRC  # K8's GEMM is K9's with the epilogue extended
+K10_SRC = K1_SRC  # K10 runs K1's kernels through unpacked strides
 K1_TPU = "clip_assisted_data_labeling_tpu/ops/attention.py:860"
 K2_TPU = "clip_assisted_data_labeling_tpu/ops/quant_kernel.py:410"
 K3_TPU = "clip_assisted_data_labeling_tpu/ops/attention.py:746"
 K4_TPU = "clip_assisted_data_labeling_tpu/ops/attention.py:166"
 K5_TPU = "clip_assisted_data_labeling_tpu/ops/attention.py:441"
 K6_TPU = "clip_assisted_data_labeling_tpu/ops/quant_kernel.py:327"
+K7_TPU = "clip_assisted_data_labeling_tpu/ops/attention.py:619"
+K8_TPU = "clip_assisted_data_labeling_tpu/ops/quant_kernel.py:138"
 K9_TPU = "clip_assisted_data_labeling_tpu/ops/quant_kernel.py:34"
+K10_TPU = "clip_assisted_data_labeling_tpu/ops/attention.py:25"
+# no entry point of the JAX package reaches K7, K8, K10 or K5's RoPE option:
+# they are held against their plain versions in phase 3, and their launches
+# are summed over every main path's counters
+NO_PATH = {"packed_attention_q8": "K7", "q_block_linear": "K8", "fused_attention": "K10"}
 
 
 def fail(msg: str, code: int = 1):
@@ -103,11 +126,14 @@ def kernels() -> dict:
     with quant_out counts one K1 launch, its row quantize none)."""
     from clip_assisted_data_labeling_tpu_torch.ops.attention import (
         flash_attention_packed,
+        fused_attention,
         fused_attention_packed,
         fused_attention_packed_grouped,
+        fused_attention_packed_q8,
         fused_attention_packed_q8s,
     )
     from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import (
+        q_block_linear,
         q_linear_fused,
         rowquant,
         rowquant_static,
@@ -115,7 +141,8 @@ def kernels() -> dict:
 
     return {"K1": fused_attention_packed, "K2": rowquant_static,
             "K3": fused_attention_packed_q8s, "K4": fused_attention_packed_grouped,
-            "K5": flash_attention_packed, "K6": rowquant, "K9": q_linear_fused}
+            "K5": flash_attention_packed, "K6": rowquant, "K7": fused_attention_packed_q8,
+            "K8": q_block_linear, "K9": q_linear_fused, "K10": fused_attention}
 
 
 @contextlib.contextmanager
@@ -138,13 +165,21 @@ def int8_knobs(**env):
         knobs.reload()
 
 
+def counters() -> dict:
+    """(wrapper, attribute) of each launch counter by table number; K5's
+    launches with RoPE tables have a counter of their own besides K5's."""
+    ks = kernels()
+    return {**{k: (fn, "launches") for k, fn in ks.items()},
+            "K5+RoPE": (ks["K5"], "rope_launches")}
+
+
 def reset_counts() -> None:
-    for fn in kernels().values():
-        fn.launches = 0
+    for fn, attr in counters().values():
+        setattr(fn, attr, 0)
 
 
 def counts() -> dict:
-    return {k: fn.launches for k, fn in kernels().items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in counters().items()}
 
 
 def time_ms(fn, min_reps: int = 10, min_s: float = 0.2) -> float:
@@ -230,6 +265,8 @@ def check_kernels(gen: torch.Generator) -> list[dict]:
 
     rows += check_rope_and_grouped(gen)
     rows += check_int8_kernels(gen)
+    rows += check_block_linear(gen)
+    rows += check_standalone_attention(gen)
 
     k = 1024
     g = 1 + 0.1 * torch.randn((k,), generator=gen, device="cuda")
@@ -548,6 +585,259 @@ def check_int8_kernels(gen: torch.Generator) -> list[dict]:
     return rows
 
 
+def check_block_linear(gen: torch.Generator) -> list[dict]:
+    """Phase 3, K8 at ViT-L-14-336's four block linears (8 images x 4 crops:
+    M = 18464): ln1 + quantize + qkv (1024→3072, bf16 out); the out
+    projection over int8 rows with the residual (1024→1024); ln2 + quantize
+    + fc1 + quick_gelu + requantize (1024→4096, quant_out); fc2 over those
+    int8 rows with the residual (4096→1024). The yardstick is the port's
+    torch chain for the same function: layer_norm and a row quantize, then
+    ``torch._int_mm``, then the epilogue as torch passes."""
+    import torch.nn.functional as F
+
+    from clip_assisted_data_labeling_tpu_torch.ops.quant import quantize_weight
+    from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import (
+        q_block_linear,
+        q_block_linear_plain,
+        rowquant,
+        rowquant_plain,
+    )
+
+    m = 4 * BATCH * 577
+    rows = []
+    x = (torch.randn((m, 1024), generator=gen, device="cuda") * 2).to(torch.bfloat16)
+    res = torch.randn((m, 1024), generator=gen, device="cuda").to(torch.bfloat16)
+    g = 1 + 0.1 * torch.randn((1024,), generator=gen, device="cuda")
+    bta = 0.1 * torch.randn((1024,), generator=gen, device="cuda")
+    xq8 = torch.randint(-127, 128, (m, 1024), generator=gen, device="cuda", dtype=torch.int8)
+    xs8 = torch.rand((m, 1), generator=gen, device="cuda") * 0.02 + 0.01
+    h_q = h_s = None
+    for label, k, n in (("ln1+qkv", 1024, 3072), ("out+residual", 1024, 1024),
+                        ("ln2+fc1+quick_gelu+quant_out", 1024, 4096),
+                        ("fc2+residual", 4096, 1024)):
+        wq, ws = quantize_weight(torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5)
+        wq_t = wq.t().contiguous()
+        bias = 0.1 * torch.randn((n,), generator=gen, device="cuda")
+        if label == "ln1+qkv":
+            args, kw = (x,), dict(ln_scale=g, ln_bias=bta)
+        elif label == "out+residual":
+            args, kw = (xq8,), dict(x_scale=xs8, residual=res)
+        elif label.startswith("ln2"):
+            args, kw = (x,), dict(ln_scale=g, ln_bias=bta, act="quick_gelu", quant_out=True)
+        else:
+            args, kw = (h_q,), dict(x_scale=h_s, residual=res)
+        x_in = args[0]
+
+        def call():
+            return q_block_linear(x_in, wq_t, ws, bias, **kw)
+
+        def plain():
+            return q_block_linear_plain(x_in, wq_t, ws, bias, **kw)
+
+        def library():  # layer_norm + row quantize, _int_mm, epilogue passes
+            if "x_scale" in kw:
+                xq, xs = x_in, kw["x_scale"]
+            else:
+                xq, xs = row_quant_torch(F.layer_norm(x_in.float(), (k,), g, bta, 1e-5))
+            y = torch._int_mm(xq, wq_t.t()) * xs * ws + bias
+            if kw.get("act"):
+                y = y * torch.sigmoid(1.702 * y)
+            if "residual" in kw:
+                y = y + kw["residual"]
+            return row_quant_torch(y) if kw.get("quant_out") else y.to(torch.bfloat16)
+
+        got, ref = call(), plain()
+        # rows where K6's prologue put an input value on the other side of a
+        # .5 boundary (its layernorm sums in another order than torch's):
+        # each flip moves the row's outputs by up to amax·w_scale, so those
+        # rows are held to tests/test_quant_kernel.py's flip-aware bound,
+        # 1.2·n_flips·amax·w_scale (the 1.2 for the activation's slope)
+        flip_bound = torch.zeros((m, 1), device="cuda")
+        if "ln_scale" in kw:
+            (xq, _), (rxq, rxs) = rowquant(x_in, g, bta), rowquant_plain(x_in, g, bta)
+            flip_bound = 1.2 * (xq != rxq).sum(dim=1, keepdim=True) * (rxs * 127) * ws.view(1, -1)
+            del xq, rxq
+        flipped = (flip_bound > 0).any(dim=1)
+        n_flip = int(flipped.sum())
+        if kw.get("quant_out"):
+            (q, sc), (rq, rsc) = got, ref
+            diff = (q.int() - rq.int()).abs()[~flipped]
+            err, tol = diff.max().item(), 1
+            share = (diff > 0).float().mean().item()
+            scale_err = ((sc - rsc).abs() / rsc)[~flipped].max().item()
+            # flipped rows: one output step plus the flip-aware bound
+            over = ((q.float() * sc - rq.float() * rsc).abs()
+                    > torch.maximum(sc, rsc) + flip_bound)[flipped].sum().item()
+            ok = (n_flip <= 1e-3 * m and err <= tol and share <= 1e-3 and scale_err <= 1e-6
+                  and over == 0)
+            h_q, h_s = q, sc
+            out_bytes = m * n + m * 4
+            detail = (f"int8 ±{err} on {share:.2e} of entries outside {n_flip} rows with a "
+                      f"flipped input, scale rel err {scale_err:.2e}; {over} entries of those "
+                      f"rows over the flip-aware bound")
+        else:
+            e, r = (got.float() - ref.float()).abs(), ref.float()
+            err, tol = e[~flipped].max().item(), 2.0 ** -7 * r[~flipped].abs().max().item()
+            off = (e > 2.0 ** -7 * r.abs() + 1e-6 + flip_bound).any(dim=1)
+            ok = n_flip <= 1e-3 * m and not off.any().item()
+            out_bytes = m * n * 2
+            detail = (f"max |err| {err:.3g} (tol {tol:.3g}) outside {n_flip} rows with a "
+                      f"flipped input, {int(off.sum())} rows over one bf16 step plus the "
+                      f"flip-aware bound")
+        in_bytes = (m * k + m * 4) if "x_scale" in kw else m * k * 2 + 2 * k * 4
+        nbytes = in_bytes + n * k + 2 * n * 4 + out_bytes + (m * n * 2 if "residual" in kw else 0)
+        row = {
+            "name": "q_block_linear", "route": "cuda", "source": K8_SRC, "replaces": K8_TPU,
+            "case": f"{label} M={m} {k}->{n}", "max_abs_err": err, "tol": tol,
+            "ms": time_ms(call), "plain_ms": time_ms(plain), "library_ms": time_ms(library),
+            **bound(2.0 * m * n * k, H100_INT8_OPS, nbytes),
+        }
+        rows.append(row)
+        print(f"K8 {row['case']}: {detail}; kernel {row['ms']:.3f} ms plain "
+              f"{row['plain_ms']:.3f} ln/quant+_int_mm+epilogue {row['library_ms']:.3f} bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+        if not ok:
+            fail(f"q_block_linear {row['case']} disagrees with its plain version: {detail}")
+        del wq, wq_t, got, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_standalone_attention(gen: torch.Generator) -> list[dict]:
+    """Phase 3, the attention kernels no path of the JAX package reaches: K7
+    at int8 [32,577,3072] (ViT-L-14-336, 16 heads) with bf16 and quant_out
+    outputs (yardstick: dequantize, SDPA, and a torch requantize); K10 at
+    bf16 [32,16,577,64] and f32 [8,16,577,64] (SDPA); K5 with RoPE at
+    PE-Core-G14-448's shape, bf16 [32,1024,4608] and f32 [4,1024,4608], 16
+    heads of 96 (yardstick: the torch rotation, then SDPA)."""
+    import torch.nn.functional as F
+
+    from clip_assisted_data_labeling_tpu_torch.models.vit import _rope_on, resolve_config
+    from clip_assisted_data_labeling_tpu_torch.ops.attention import (
+        _rot_half,
+        flash_attention_packed,
+        flash_attention_packed_plain,
+        fused_attention,
+        fused_attention_packed_q8,
+        fused_attention_packed_q8_plain,
+        fused_attention_plain,
+    )
+
+    rows = []
+    b, s, heads, w = 4 * BATCH, 577, 16, 1024
+    d = w // heads
+    src = torch.randn((b, s, 3 * w), generator=gen, device="cuda")
+    amax = src.abs().amax(dim=-1, keepdim=True)
+    qkv = torch.round(src * (127.0 / amax)).clamp_(-127, 127).to(torch.int8)
+    ts = amax / 127.0 * 1.7  # scores of std ~2
+    del src
+    for quant_out in (False, True):
+        kw = dict(quant_out=quant_out)
+
+        def call():
+            return fused_attention_packed_q8(qkv, ts, heads, d ** -0.5, **kw)
+
+        def plain():
+            return fused_attention_packed_q8_plain(qkv, ts, heads, d ** -0.5, **kw)
+
+        def library():  # dequantize, SDPA (+ a torch row requantize)
+            deq = (qkv.float() * ts).to(torch.bfloat16).view(b, s, 3, heads, d)
+            o = F.scaled_dot_product_attention(*deq.permute(2, 0, 3, 1, 4).unbind(0),
+                                               scale=d ** -0.5).transpose(1, 2).reshape(b, s, w)
+            return row_quant_torch(o.float()) if quant_out else o
+
+        got, ref = call(), plain()
+        if quant_out:
+            (q, sc), (rq, rsc) = got, ref
+            diff = (q.int() - rq.int()).abs()
+            rel = (sc / rsc - 1).abs()
+            err, tol = diff.max().item(), 1
+            share, off = (diff > 0).float().mean().item(), (rel > 1e-5).float().mean().item()
+            ok = share <= 1e-3 and rel.max().item() <= 2.0 ** -8 and off <= 5e-2
+            detail = (f"int8 ±{err} on {share:.2e} of entries, scale rel err "
+                      f"{rel.max().item():.2e} (> 1e-5 on {off:.2e} of tokens)")
+            out_bytes = b * s * (w + 4)
+        else:
+            err, tol = (got.float() - ref.float()).abs().max().item(), 2e-2
+            ok, detail, out_bytes = err <= tol, f"err {err:.3g} (tol {tol})", b * s * w * 2
+        row = {
+            "name": "packed_attention_q8", "route": "cuda", "source": K7_SRC, "replaces": K7_TPU,
+            "case": f"int8 [{b},{s},{3 * w}] h={heads} " + ("quant_out" if quant_out else "bf16"),
+            "max_abs_err": err, "tol": tol, "ms": time_ms(call),
+            "plain_ms": time_ms(plain, min_reps=3), "library_ms": time_ms(library),
+            **bound(4.0 * b * heads * s * s * d, H100_BF16_FLOPS, b * s * (3 * w + 4) + out_bytes),
+        }
+        rows.append(row)
+        print(f"K7 {row['case']}: {detail}; kernel {row['ms']:.3f} ms plain "
+              f"{row['plain_ms']:.3f} dequant+sdpa{'+quant' if quant_out else ''} "
+              f"{row['library_ms']:.3f} bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
+              flush=True)
+        if not ok:
+            fail(f"packed_attention_q8 {row['case']} disagrees with its plain version: {detail}")
+        del got, ref
+    del qkv, ts
+    torch.cuda.empty_cache()
+
+    for b, (dtype, tol, peak) in ((4 * BATCH, (torch.bfloat16, 2e-2, H100_BF16_FLOPS)),
+                                  (8, (torch.float32, 1e-5, H100_F32_FLOPS))):
+        q, k, v = (torch.randn((b, heads, s, d), generator=gen, device="cuda").to(dtype)
+                   for _ in range(3))
+        err = (fused_attention(q, k, v, d ** -0.5).float()
+               - fused_attention_plain(q, k, v, d ** -0.5).float()).abs().max().item()
+        row = {
+            "name": "fused_attention", "route": "cuda", "source": K10_SRC, "replaces": K10_TPU,
+            "case": f"{str(dtype)[6:]} [{b},{heads},{s},{d}]", "max_abs_err": err, "tol": tol,
+            "ms": time_ms(lambda: fused_attention(q, k, v, d ** -0.5)),
+            "plain_ms": time_ms(lambda: fused_attention_plain(q, k, v, d ** -0.5), min_reps=3),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v,
+                                                                          scale=d ** -0.5)),
+            **bound(4.0 * b * heads * s * s * d, peak, 4 * q.numel() * q.element_size()),
+        }
+        rows.append(row)
+        print(f"K10 {row['case']}: err {err:.3g} (tol {tol}) kernel {row['ms']:.3f} ms plain "
+              f"{row['plain_ms']:.3f} sdpa {row['library_ms']:.3f} bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
+
+    cfg = resolve_config(PE_G)
+    s, w, heads, d = cfg.seq_len, cfg.width, cfg.heads, cfg.head_dim
+    for b, (dtype, tol, peak) in ((4 * BATCH, (torch.bfloat16, 2e-2, H100_BF16_FLOPS)),
+                                  (4, (torch.float32, 1e-5, H100_F32_FLOPS))):
+        rope = _rope_on(cfg, torch.device("cuda"))
+        qkv = torch.randn((b, s, 3 * w), generator=gen, device="cuda").to(dtype)
+        err = (flash_attention_packed(qkv, heads, d ** -0.5, None, rope).float()
+               - flash_attention_packed_plain(qkv, heads, d ** -0.5, None, rope).float()
+               ).abs().max().item()
+        qh, kh, vh = (t.reshape(b, s, heads, d).transpose(1, 2).contiguous()
+                      for t in qkv.split(w, dim=-1))
+        cos, sin = (t.to(dtype) for t in rope)
+
+        def library():  # the torch rotation of q and k, then SDPA
+            return F.scaled_dot_product_attention(_rot_half(qh, cos, sin), _rot_half(kh, cos, sin),
+                                                  vh, scale=d ** -0.5)
+
+        row = {
+            "name": "flash_attention", "route": "cuda", "source": K5_SRC, "replaces": K5_TPU,
+            "case": f"{str(dtype)[6:]} [{b},{s},{3 * w}] h={heads} RoPE", "rope": True,
+            "max_abs_err": err,
+            "tol": tol, "ms": time_ms(lambda: flash_attention_packed(qkv, heads, d ** -0.5, None,
+                                                                      rope)),
+            "plain_ms": time_ms(lambda: flash_attention_packed_plain(qkv, heads, d ** -0.5, None,
+                                                                     rope), min_reps=3),
+            "library_ms": time_ms(library),
+            **bound(4.0 * b * heads * s * s * d, peak,
+                    b * s * 4 * w * qkv.element_size() + s * d * qkv.element_size()),
+        }
+        rows.append(row)
+        print(f"K5 {row['case']}: err {err:.3g} (tol {tol}) kernel {row['ms']:.3f} ms plain "
+              f"{row['plain_ms']:.3f} rotation+sdpa {row['library_ms']:.3f} bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+        del qkv, qh, kh, vh
+        torch.cuda.empty_cache()
+    return rows
+
+
 def profile_steady(model: str, root: str, calib: str, cfg, per_batch: dict,
                    dtype: str) -> None:
     """A main path's device work again, steady state: the encoder (with the
@@ -689,7 +979,8 @@ def encoder_run(model: str, dtype: str, pts: list, side, cfg, per_forward: dict,
     batch = next(iter(loader))
     reset_counts()
     emb = enc.embed_crops(batch.canvas, batch.crop_params)[: batch.n_valid].cpu().numpy()
-    got, want = counts(), {k: per_forward.get(k, 0) for k in kernels()}
+    got = counts()
+    want = {k: per_forward.get(k, 0) for k in got}
     if got != want:
         fail(f"{model} {dtype} path launches {got}, expected {want}")
     norms = np.linalg.norm(emb, axis=-1)
@@ -710,13 +1001,14 @@ def encoder_run(model: str, dtype: str, pts: list, side, cfg, per_forward: dict,
     return got
 
 
-def dynamic_int8(root: str, cfg, l336: dict) -> tuple[dict, dict]:
+def dynamic_int8(root: str, cfg, l336: dict) -> tuple[dict, list[dict]]:
     """Phases 7a-7b: ViT-L-14-336 in dynamic int8. The embed CLI with
     CTPU_INT8_BLOCK=hybrid on copies of the PNGs in a fresh directory (K1
     with quant_out once and K6 three times a layer; no .calib.npz), its
     cosine against the int8_static embeddings; then four images through the
     encoder in each other route against the hybrid embeddings. Returns the
-    hybrid path's results and the CTPU_FUSED_QMATMUL run's counts."""
+    hybrid path's results and the other routes' counts, the
+    CTPU_FUSED_QMATMUL run's last."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_int8_") as droot:
         for p in l336["pts"]:
             shutil.copy(p[:-3] + ".png", droot)
@@ -731,15 +1023,72 @@ def dynamic_int8(root: str, cfg, l336: dict) -> tuple[dict, dict]:
               f"{cos.min():.5f} mean {cos.mean():.5f}", flush=True)
         if not cos.min() > 0.95:
             fail(f"dynamic int8 and int8_static embeddings disagree (cosine min {cos.min()})")
+        routes = []
         for block, fused_mm, want in (("xla-plain", "0", {"K1": cfg.layers}),
                                       ("xla", "0", {"K1": cfg.layers}),
                                       ("xla-plain", "1", {"K1": cfg.layers,
                                                           "K9": 4 * cfg.layers})):
             with int8_knobs(CTPU_INT8_BLOCK=block, CTPU_FUSED_QMATMUL=fused_mm):
-                got = encoder_run(MODEL, "int8", dyn["pts"], dyn["side"], cfg, want,
-                                side_name=f"int8 hybrid (this run: {block}, "
-                                          f"CTPU_FUSED_QMATMUL={fused_mm})")
-    return dyn, got
+                routes.append(encoder_run(MODEL, "int8", dyn["pts"], dyn["side"], cfg, want,
+                                          side_name=f"int8 hybrid (this run: {block}, "
+                                                    f"CTPU_FUSED_QMATMUL={fused_mm})"))
+    return dyn, routes
+
+
+def knob_routes(l336: dict, so400m: dict, cfg, scfg) -> list[dict]:
+    """Phase 13: the int8_static routes that CTPU_LN_KERNEL and CTPU_INT8_WIRE
+    pick, each through the embed CLI on copies of 4 of the PNGs in a fresh
+    directory (the CLI skips embedded images, and the wire changes what
+    .calib.npz holds), at full width and depth, with exact launch counters
+    for the one forward (the calibration forward launches none), and the
+    cosine against the default route's embeddings of the same images:
+    ViT-L-14-336 with CTPU_LN_KERNEL=0 (the generic block with static
+    scales: K1 a layer, no K2), ViT-L-14-336 with CTPU_INT8_WIRE=1 (the wire
+    at S=577: K3 a layer, no K1 or K2), SO400M-384 with CTPU_INT8_WIRE=0
+    (lnk with K5: K5 once and K2 twice a layer, no K3). Returns each
+    route's counts."""
+    from clip_assisted_data_labeling_tpu_torch.pipeline.embed import main as embed_main
+    from clip_assisted_data_labeling_tpu_torch.store.sidecar import read_sidecar
+
+    runs = []
+
+    for model, mcfg, default, env, want in (
+            (MODEL, cfg, l336, {"CTPU_LN_KERNEL": "0"}, {"K1": cfg.layers}),
+            (MODEL, cfg, l336, {"CTPU_INT8_WIRE": "1"}, {"K3": cfg.layers}),
+            (SIGLIP, scfg, so400m, {"CTPU_INT8_WIRE": "0"},
+             {"K5": scfg.layers, "K2": 2 * scfg.layers})):
+        names = [os.path.basename(p) for p in default["pts"]]
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_route_") as rroot, \
+                int8_knobs(**env):
+            for p in default["pts"][:4]:
+                shutil.copy(p[:-3] + ".png", rroot)
+            reset_counts()
+            t0 = time.perf_counter()
+            stores = embed_main(["--root_dir", rroot, "--models_to_use", model,
+                                 "--compute_dtype", "int8_static", "--batch_size", str(BATCH),
+                                 "--num_workers", "4", "--device", "cuda"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = counts()
+            if got != {k: want.get(k, 0) for k in got}:
+                fail(f"{model} int8_static {env}: launches {got}, expected {want}")
+            runs.append(got)
+            crops = stores[model].meta["crop_names"]
+            pts = sorted(glob.glob(os.path.join(rroot, "*.pt")))
+            if len(pts) != 4:
+                fail(f"{model} int8_static {env}: {len(pts)} sidecars, want 4")
+            emb = np.stack([np.stack([read_sidecar(p)[model][c].reshape(-1) for c in crops])
+                            for p in pts])
+            ref = default["side"][[names.index(os.path.basename(p)) for p in pts]]
+        norms = np.linalg.norm(emb, axis=-1)
+        cos = np.sum(emb * ref, axis=-1)
+        print(f"route {model} int8_static {env}: 4 images x 4 crops in {wall:.2f} s (model "
+              f"init and calibration included); launches {got}; cosine against the default "
+              f"route min {cos.min():.5f} mean {cos.mean():.5f}", flush=True)
+        if not (np.isfinite(emb).all() and np.abs(norms - 1).max() < 1e-3 and cos.min() > 0.95):
+            fail(f"{model} int8_static {env}: embeddings not finite unit vectors near the "
+                 f"default route's (cosine min {cos.min()})")
+    return runs
 
 
 def write_pngs(directory: str, seed: int = 0) -> None:
@@ -803,10 +1152,11 @@ def main() -> None:
         l336 = embed_and_check(root, MODEL, cfg, {"K1": cfg.layers, "K2": 2 * cfg.layers})
         # --- phase 7: float32 path on a few images: K4, the JAX package's
         # grouped route for this shape
-        encoder_run(MODEL, "float32", l336["pts"], l336["side"], cfg, {"K4": cfg.layers})
+        l336_f32 = encoder_run(MODEL, "float32", l336["pts"], l336["side"], cfg,
+                               {"K4": cfg.layers})
 
         # --- phases 7a-7b: ViT-L-14-336 dynamic int8 in every block route
-        dyn, fused = dynamic_int8(root, cfg, l336)
+        dyn, dyn_routes = dynamic_int8(root, cfg, l336)
 
         # --- phases 8-9: ViT-SO400M-14-SigLIP-384 int8_static through the int8
         # attention wire (K3 a layer), then bfloat16 (K5 a layer)
@@ -817,21 +1167,36 @@ def main() -> None:
         # --- phases 10-11: PE-Core-L14-336 int8_static (K1 with RoPE once and
         # K2 twice a layer), then its bf16 (K1) and float32 (K4) paths
         pe = embed_and_check(root, PE_L, pcfg, {"K1": pcfg.layers, "K2": 2 * pcfg.layers})
-        encoder_run(PE_L, "bfloat16", pe["pts"], pe["side"], pcfg, {"K1": pcfg.layers})
-        encoder_run(PE_L, "float32", pe["pts"], pe["side"], pcfg, {"K4": pcfg.layers})
+        pe_bf16 = encoder_run(PE_L, "bfloat16", pe["pts"], pe["side"], pcfg,
+                              {"K1": pcfg.layers})
+        pe_f32 = encoder_run(PE_L, "float32", pe["pts"], pe["side"], pcfg, {"K4": pcfg.layers})
         # --- phase 12: PE-Core-G14-448 bf16, all 50 layers (K4 with RoPE)
         g14 = encoder_run(PE_G, "bfloat16", pe["pts"], None, gcfg, {"K4": gcfg.layers})
 
+        # --- phase 13: the int8_static routes of CTPU_LN_KERNEL and CTPU_INT8_WIRE
+        routes = knob_routes(l336, so400m, cfg, scfg)
+
+    # every main path's counters; a kernel that no path reaches gets the sum
+    # of its counter over all of them
+    paths = [l336["launches"], l336_f32, dyn["launches"], *dyn_routes, so400m["launches"],
+             bf16, pe["launches"], pe_bf16, pe_f32, g14, *routes]
     launches = {"packed_attention": pe["launches"]["K1"],
                 "rowquant_static": pe["launches"]["K2"],
                 "packed_attention_q8s": so400m["launches"]["K3"],
                 "packed_attention_grouped": g14["K4"],
                 "flash_attention": bf16["K5"],
                 "rowquant": dyn["launches"]["K6"],
-                "q_linear_fused": fused["K9"]}
-    # K1's quant_out rows: the hybrid main path, where every K1 launch has it
-    rows = [dict(r, launches=dyn["launches"]["K1"] if r.get("quant_out")
-                 else launches[r["name"]]) for r in rows]
+                "q_linear_fused": dyn_routes[-1]["K9"],
+                **{name: sum(p[k] for p in paths) for name, k in NO_PATH.items()}}
+
+    def path_launches(row: dict) -> int:
+        if row.get("quant_out"):  # the hybrid main path: every K1 launch has quant_out
+            return dyn["launches"]["K1"]
+        if row.get("rope"):  # K5's launches with RoPE tables, a counter of their own
+            return sum(p["K5+RoPE"] for p in paths)
+        return launches[row["name"]]
+
+    rows = [dict(r, launches=path_launches(r)) for r in rows]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -7,6 +7,11 @@
 // Computes, for qkv packed [B, S, 3w] exactly as the qkv projection wrote it
 // (head h's q, k, v are the column slices h*d, w + h*d, 2w + h*d):
 //   q' = q * T(scale)                rounded to the input type T
+//   q' = rot(q'), k' = rot(k)        only with RoPE tables (cos, sin [S, d/2]
+//                                    of T): K1's half-split rotation, each
+//                                    product and then the sum rounded to T
+//                                    (attention_common.cuh rot_pair, rot8);
+//                                    k unscaled, each key with its own row
 //   per k panel of `kp` keys, in order (keys >= s_real get -inf):
 //     s     = q' k^T                 float32 accumulation
 //     m'    = max(m, rowmax(s))
@@ -23,8 +28,11 @@
 // What bounds it: at SO400M-384 shapes ([32, 729, 3456] bf16, 16 heads, d=72)
 // the work is ~4·B·H·S²·d = 78.4 GFLOP (0.079 ms at 989 TFLOP/s) against
 // B·S·4w·2 = 215 MB of device memory (0.064 ms at 3.35 TB/s): bound by the
-// tensor-core rate. float32 has no tensor-core path that keeps float32
-// products (TF32 would round them), so it is bound by the CUDA-core FMA rate.
+// tensor-core rate. With RoPE at PE-Core-G14-448's shape ([32, 1024, 4608]
+// bf16, d=96) it is 206 GFLOP (0.208 ms) against 403 MB (0.120 ms): the
+// tensor-core rate again, the tables (192 KB) adding nothing that counts.
+// float32 has no tensor-core path that keeps float32 products (TF32 would
+// round them), so it is bound by the CUDA-core FMA rate.
 //
 // bfloat16: flash_mma_kernel. One block of four warps per (64 query rows,
 // head, batch item); each warp owns 16 rows and keeps its q fragments, scores
@@ -37,16 +45,20 @@
 // new max. A chunk that crosses a panel end masks the keys past it. The head
 // dim is zero-padded to a multiple of 16 (72 → 80) for the Q·K^T k-steps.
 //
+// RoPE: the q tile is rotated once as it is staged, and each K chunk as it
+// is staged, in both passes of its panel — in bf16 a 16-byte vector of a
+// row's first half with its partner in the second half, with bf16x2
+// round-to-nearest products and sums, as in K1 and K4 (d % 16 == 0). The
+// rotation adds no pass and no synchronisation; its cost is the table loads
+// and the two extra staging rotations of each K chunk.
+//
 // float32: flash_fma_kernel. One block per (16 query rows, head, batch item)
 // keeps one panel's [16, kp] score tile in shared memory and runs both
 // products as float32 FMAs over K^T and V chunks streamed through shared
 // memory, with the running m, l and per-panel alpha in shared memory and the
 // output accumulators in registers.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <math.h>
-#include <stdint.h>
+#include "attention_common.cuh"
 
 namespace {
 
@@ -57,25 +69,6 @@ constexpr int DMAX = 128; // largest head dim
 constexpr int EPT = QT * DMAX / NT;  // output elements per thread (max)
 constexpr int RPT = QT / (NT / KT);  // score rows per thread
 
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 size_t fma_smem_bytes(int kp, int d) {
   const int kp_pad = (kp + KT - 1) / KT * KT;
   return sizeof(float) *
@@ -85,7 +78,7 @@ size_t fma_smem_bytes(int kp, int d) {
 template <typename T>
 __global__ void __launch_bounds__(NT) flash_fma_kernel(
     const T* __restrict__ qkv, T* __restrict__ out, int S, int s_real, int w, int d,
-    float scale, int kp) {
+    float scale, int kp, const T* __restrict__ cos, const T* __restrict__ sin) {
   extern __shared__ float smem[];
   const int kp_pad = (kp + KT - 1) / KT * KT;
   float* q_s = smem;                  // [QT][d]  scaled q
@@ -102,13 +95,8 @@ __global__ void __launch_bounds__(NT) flash_fma_kernel(
   const T* base = qkv + (size_t)blockIdx.z * S * row_stride;
 
   const float scale_t = to_f(from_f<T>(scale));
-  for (int idx = tid; idx < QT * d; idx += NT) {
-    const int r = idx / d, i = idx - (idx / d) * d;
-    const int qi = q0 + r;
-    float v = 0.f;
-    if (qi < S) v = to_f(from_f<T>(to_f(base[(size_t)qi * row_stride + h * d + i]) * scale_t));
-    q_s[idx] = v;
-  }
+  stage_rows_f<T, NT, QT>(q_s, d, 1, base, q0, S, row_stride, h * d, d, true, scale_t, cos,
+                          sin);
   if (tid < QT) {
     m_s[tid] = -INFINITY;
     l_s[tid] = 0.f;
@@ -133,12 +121,9 @@ __global__ void __launch_bounds__(NT) flash_fma_kernel(
     // --- the panel's scores --------------------------------------------------
     for (int c0 = p0; c0 < pend; c0 += KT) {
       __syncthreads();  // kv_s free (q_s, m_s, l_s written on the first chunk)
-      for (int idx = tid; idx < KT * d; idx += NT) {
-        const int kr = idx / d, i = idx - (idx / d) * d;
-        const int key = c0 + kr;
-        kv_s[i * (KT + 1) + kr] =
-            key < pend ? to_f(base[(size_t)key * row_stride + w + h * d + i]) : 0.f;
-      }
+      // K^T of keys [c0, c0 + KT), zero at or past the panel's end
+      stage_rows_f<T, NT, KT>(kv_s, 1, KT + 1, base, c0, pend, row_stride, w + h * d, d, false,
+                              0.f, cos, sin);
       __syncthreads();
       float s[RPT];
 #pragma unroll
@@ -214,7 +199,7 @@ __global__ void __launch_bounds__(NT) flash_fma_kernel(
 
 template <typename T>
 int launch_fma(const void* qkv, void* out, int B, int S, int s_real, int w, int heads,
-               float scale, int kp, cudaStream_t stream) {
+               float scale, int kp, const void* cos, const void* sin, cudaStream_t stream) {
   const int d = w / heads;
   const size_t smem = fma_smem_bytes(kp, d);
   cudaError_t err = cudaFuncSetAttribute(flash_fma_kernel<T>,
@@ -223,7 +208,8 @@ int launch_fma(const void* qkv, void* out, int B, int S, int s_real, int w, int 
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + QT - 1) / QT, heads, B);
   flash_fma_kernel<T><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), S, s_real, w, d, scale, kp);
+      static_cast<const T*>(qkv), static_cast<T*>(out), S, s_real, w, d, scale, kp,
+      static_cast<const T*>(cos), static_cast<const T*>(sin));
   return (int)cudaGetLastError();
 }
 
@@ -232,25 +218,6 @@ int launch_fma(const void* qkv, void* out, int B, int S, int s_real, int w, int 
 constexpr int MQ = 64;    // query rows per block (4 warps x 16)
 constexpr int MK = 64;    // keys per streamed chunk
 constexpr int MNT = 128;  // threads per block
-constexpr int PAD = 8;    // bf16 elements of padding per shared-memory row
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
@@ -270,10 +237,10 @@ constexpr size_t mma_smem_bytes() {
 template <int DP>
 __global__ void __launch_bounds__(MNT) flash_mma_kernel(
     const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out, int S,
-    int s_real, int w, int d, float scale, int kp) {
+    int s_real, int w, int d, float scale, int kp, const __nv_bfloat16* __restrict__ cos,
+    const __nv_bfloat16* __restrict__ sin) {
   constexpr int LDQ = DP + PAD;  // row stride of Qs and Ks
   constexpr int LDV = MK + PAD;  // row stride of Vt
-  constexpr int NV = DP / 8;     // 16-byte vectors per padded head row
   extern __shared__ __align__(16) unsigned char mma_smem[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(mma_smem);  // [MQ][LDQ]
   __nv_bfloat16* Ks = Qs + MQ * LDQ;                                // [MK][LDQ]
@@ -284,23 +251,11 @@ __global__ void __launch_bounds__(MNT) flash_mma_kernel(
   const int q0 = blockIdx.x * MQ, h = blockIdx.y;
   const size_t rs = 3 * (size_t)w;
   const __nv_bfloat16* base = qkv + (size_t)blockIdx.z * S * rs;
-  const int dv = d / 8;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
 
-  // q tile scaled in bf16 (the scale itself rounded to bf16 first),
-  // zero-padded past d and past S
+  // q tile scaled in bf16 (the scale itself rounded to bf16 first), then
+  // rotated; zero-padded past d and past S
   const float scale_t = __bfloat162float(__float2bfloat16_rn(scale));
-  for (int idx = tid; idx < MQ * NV; idx += MNT) {
-    const int r = idx / NV, c8 = idx % NV;
-    uint4 v = zero;
-    if (q0 + r < S && c8 < dv) {
-      v = *reinterpret_cast<const uint4*>(base + (size_t)(q0 + r) * rs + h * d + c8 * 8);
-      __nv_bfloat16* e = reinterpret_cast<__nv_bfloat16*>(&v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) e[j] = __float2bfloat16_rn(__bfloat162float(e[j]) * scale_t);
-    }
-    *reinterpret_cast<uint4*>(Qs + r * LDQ + c8 * 8) = v;
-  }
+  stage_rows_bf16<MNT, MQ, DP, LDQ>(Qs, base, q0, S, rs, h * d, d, true, scale_t, cos, sin);
   __syncthreads();
   const int r0 = warp * 16;
   uint32_t qa[DP / 16][4];
@@ -312,26 +267,14 @@ __global__ void __launch_bounds__(MNT) flash_mma_kernel(
     qa[ks][3] = ld32(Qs + (r0 + g + 8) * LDQ + ks * 16 + 8 + 2 * t);
   }
 
-  // keys at or past `pend` (the panel's end) load as zeros
+  // keys at or past `pend` (the panel's end) load as zeros; k is rotated
+  // (not scaled) as it is staged
   auto load_k = [&](int k0, int pend) {
-    for (int idx = tid; idx < MK * NV; idx += MNT) {
-      const int r = idx / NV, c8 = idx % NV;
-      uint4 v = zero;
-      if (k0 + r < pend && c8 < dv)
-        v = *reinterpret_cast<const uint4*>(base + (size_t)(k0 + r) * rs + w + h * d + c8 * 8);
-      *reinterpret_cast<uint4*>(Ks + r * LDQ + c8 * 8) = v;
-    }
+    stage_rows_bf16<MNT, MK, DP, LDQ>(Ks, base, k0, pend, rs, w + h * d, d, false, 0.f, cos,
+                                      sin);
   };
   auto load_vt = [&](int k0, int pend) {
-    for (int idx = tid; idx < MK * NV; idx += MNT) {
-      const int r = idx % MK, c8 = idx / MK;  // key fastest: spread the transposed stores
-      uint4 v = zero;
-      if (k0 + r < pend && c8 < dv)
-        v = *reinterpret_cast<const uint4*>(base + (size_t)(k0 + r) * rs + 2 * w + h * d + c8 * 8);
-      const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Vt[(c8 * 8 + j) * LDV + r] = e[j];
-    }
+    stage_vt_bf16<MNT, MK, DP, LDV>(Vt, base, k0, pend, rs, 2 * w + h * d, d);
   };
   // this warp's 16 x MK score block of one chunk: s[j] is keys 8j..8j+7,
   // c0/c1 row g keys 2t/2t+1, c2/c3 row g+8 (the mma accumulator layout);
@@ -432,7 +375,7 @@ __global__ void __launch_bounds__(MNT) flash_mma_kernel(
 
 template <int DP>
 int launch_mma(const void* qkv, void* out, int B, int S, int s_real, int w, int heads,
-               float scale, int kp, cudaStream_t stream) {
+               float scale, int kp, const void* cos, const void* sin, cudaStream_t stream) {
   const size_t smem = mma_smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(flash_mma_kernel<DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -441,19 +384,25 @@ int launch_mma(const void* qkv, void* out, int B, int S, int s_real, int w, int 
   dim3 grid((S + MQ - 1) / MQ, heads, B);
   flash_mma_kernel<DP><<<grid, MNT, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), S, s_real,
-      w, w / heads, scale, kp);
+      w, w / heads, scale, kp, static_cast<const __nv_bfloat16*>(cos),
+      static_cast<const __nv_bfloat16*>(sin));
   return (int)cudaGetLastError();
 }
 
 int launch_bf16(const void* qkv, void* out, int B, int S, int s_real, int w, int heads,
-                float scale, int kp, cudaStream_t stream) {
+                float scale, int kp, const void* cos, const void* sin, cudaStream_t stream) {
   const int d = w / heads;
   if (d % 8 != 0) return (int)cudaErrorInvalidValue;  // 16-byte row loads
-  if (d <= 64) return launch_mma<64>(qkv, out, B, S, s_real, w, heads, scale, kp, stream);
-  if (d <= 80) return launch_mma<80>(qkv, out, B, S, s_real, w, heads, scale, kp, stream);
-  if (d <= 96) return launch_mma<96>(qkv, out, B, S, s_real, w, heads, scale, kp, stream);
-  if (d <= 112) return launch_mma<112>(qkv, out, B, S, s_real, w, heads, scale, kp, stream);
-  return launch_mma<128>(qkv, out, B, S, s_real, w, heads, scale, kp, stream);
+  if (cos != nullptr && d % 16 != 0) return (int)cudaErrorInvalidValue;  // paired half vectors
+  if (d <= 64)
+    return launch_mma<64>(qkv, out, B, S, s_real, w, heads, scale, kp, cos, sin, stream);
+  if (d <= 80)
+    return launch_mma<80>(qkv, out, B, S, s_real, w, heads, scale, kp, cos, sin, stream);
+  if (d <= 96)
+    return launch_mma<96>(qkv, out, B, S, s_real, w, heads, scale, kp, cos, sin, stream);
+  if (d <= 112)
+    return launch_mma<112>(qkv, out, B, S, s_real, w, heads, scale, kp, cos, sin, stream);
+  return launch_mma<128>(qkv, out, B, S, s_real, w, heads, scale, kp, cos, sin, stream);
 }
 
 }  // namespace
@@ -465,15 +414,19 @@ extern "C" {
 // bfloat16 kernel's ~28-53 KB depends on neither.)
 size_t flash_attention_smem_bytes(int kp, int d) { return fma_smem_bytes(kp, d); }
 
-// dtype: 0 = float32, 1 = bfloat16; kp: keys per panel. Returns
-// cudaGetLastError() of the launch.
+// dtype: 0 = float32, 1 = bfloat16; kp: keys per panel. cos, sin: RoPE
+// tables [S, d/2] of the same dtype (half-split pairs), or both null for no
+// rotation. Returns cudaGetLastError() of the launch.
 int flash_attention(const void* qkv, void* out, int dtype, int B, int S, int s_real, int w,
-                    int heads, float scale, int kp, void* stream) {
-  if (heads <= 0 || w % heads != 0 || w / heads > DMAX || s_real < 1 || s_real > S || kp < 1)
+                    int heads, float scale, int kp, const void* cos, const void* sin,
+                    void* stream) {
+  if (heads <= 0 || w % heads != 0 || w / heads > DMAX || s_real < 1 || s_real > S || kp < 1 ||
+      (cos == nullptr) != (sin == nullptr) || (cos != nullptr && (w / heads) % 2 != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_fma<float>(qkv, out, B, S, s_real, w, heads, scale, kp, st);
-  if (dtype == 1) return launch_bf16(qkv, out, B, S, s_real, w, heads, scale, kp, st);
+  if (dtype == 0)
+    return launch_fma<float>(qkv, out, B, S, s_real, w, heads, scale, kp, cos, sin, st);
+  if (dtype == 1) return launch_bf16(qkv, out, B, S, s_real, w, heads, scale, kp, cos, sin, st);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -1,10 +1,17 @@
-// Packed multi-head softmax attention for Hopper (sm_90a), plain C interface.
+// Multi-head softmax attention for Hopper (sm_90a), plain C interface: K1 on
+// the packed qkv, K10 on unpacked [B, h, S, d] q, k, v.
 //
-// Replaces the TPU kernel _packed_kernel / fused_attention_packed
-// (clip_assisted_data_labeling_tpu/ops/attention.py, pallas_call at :1124).
-//
-// Computes, for qkv packed [B, S, 3w] exactly as the qkv projection wrote it
-// (head h's q, k, v are the column slices h*d, w + h*d, 2w + h*d):
+// Replaces the TPU kernels _packed_kernel / fused_attention_packed (K1) and
+// _attn_kernel / fused_attention (K10)
+// (clip_assisted_data_labeling_tpu/ops/attention.py, pallas_call at :1124
+// and :107). Both compute the same function in two layouts, and both entries
+// below run the same kernels, which read q, k and v in place through strides
+// (batch, head, token; the Heads struct), so neither layout is copied:
+//   K1: qkv packed [B, S, 3w] exactly as the qkv projection wrote it (head
+//       h's q, k, v are the column slices h*d, w + h*d, 2w + h*d), out
+//       [B, S, w];
+//   K10: q, k, v and out each [B, h, S, d] (no RoPE, no quant_out).
+// Per head:
 //   q' = q * scale            rounded to the input type (as the TPU kernel)
 //   q' = rot(q'), k' = rot(k) only with RoPE tables (PE towers): the
 //                             half-split pairs (i, i + d/2),
@@ -18,9 +25,9 @@
 // an exact two-pass softmax: every P is exp(s - final row max), rounded at
 // the same point as on the TPU (an online softmax would round a rescaled P).
 //
-// What bounds it: at ViT-L-336 shapes (S=577, d=64) the work is ~4·B·H·S²·d
-// FLOPs against ~B·S·4w·sizeof(T) bytes — ~290 FLOP/byte in bf16, right at
-// the H100's ridge (~295), so both the tensor-core rate and device memory
+// What bounds it (either layout): at ViT-L-336 shapes (S=577, d=64) the
+// work is ~4·B·H·S²·d FLOPs against ~B·S·4w·sizeof(T) bytes — ~290 FLOP/byte
+// in bf16, right at the H100's ridge (~295), so both the tensor-core rate and device memory
 // bound it about equally; float32 has no tensor-core path that keeps float32
 // products (TF32 would round them), so it is bound by the CUDA-core FMA rate.
 //
@@ -66,10 +73,38 @@ constexpr int DMAX = 128; // largest head dim
 constexpr int EPT = QT * DMAX / NT;      // output elements per thread (max)
 constexpr int RPT = QT / (NT / KT);      // score rows per thread
 
+// Where head h of batch item b lives: q, k, v start at q + b*in_b + h*in_h
+// (likewise k, v), token r at + r*in_r; the output at out + b*out_b +
+// h*out_h + r*out_r. Element strides, shared by q, k and v.
+template <typename T>
+struct Heads {
+  const T* q;
+  const T* k;
+  const T* v;
+  void* out;
+  size_t in_b, in_h, in_r, out_b, out_h, out_r;
+};
+
+template <typename T>
+Heads<T> packed_heads(const void* qkv, void* out, int S, int w, int d) {
+  const T* p = static_cast<const T*>(qkv);
+  const size_t rs = 3 * (size_t)w;
+  return Heads<T>{p, p + w, p + 2 * w, out, (size_t)S * rs, (size_t)d, rs,
+                  (size_t)S * w, (size_t)d, (size_t)w};
+}
+
+template <typename T>
+Heads<T> unpacked_heads(const void* q, const void* k, const void* v, void* out, int H, int S,
+                        int d) {
+  const size_t hs = (size_t)S * d;
+  return Heads<T>{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                  out, (size_t)H * hs, hs, (size_t)d, (size_t)H * hs, hs, (size_t)d};
+}
+
 template <typename T>
 __global__ void __launch_bounds__(NT) packed_attention_kernel(
-    const T* __restrict__ qkv, T* __restrict__ out, int S, int s_real, int w,
-    int d, float scale, int s_chunks, const T* __restrict__ cos, const T* __restrict__ sin) {
+    Heads<T> io, int S, int s_real, int d, float scale, int s_chunks, const T* __restrict__ cos,
+    const T* __restrict__ sin) {
   extern __shared__ float smem[];
   const int s_pad = s_chunks * KT;
   float* q_s = smem;                  // [QT][d]  scaled (and rotated) q
@@ -80,14 +115,14 @@ __global__ void __launch_bounds__(NT) packed_attention_kernel(
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * QT;
   const int h = blockIdx.y;
-  const size_t row_stride = 3 * (size_t)w;
-  const T* base = qkv + (size_t)blockIdx.z * S * row_stride;
+  const size_t head = blockIdx.z * io.in_b + h * io.in_h, rs = io.in_r;
+  const T* __restrict__ kb = io.k + head;
+  const T* __restrict__ vb = io.v + head;
 
   // q * scale in the input type (the scale itself rounded to T first), then
   // rotated; k is rotated as each chunk is staged
   const float scale_t = to_f(from_f<T>(scale));
-  stage_rows_f<T, NT, QT>(q_s, d, 1, base, q0, S, row_stride, h * d, d, true, scale_t, cos,
-                          sin);
+  stage_rows_f<T, NT, QT>(q_s, d, 1, io.q + head, q0, S, rs, 0, d, true, scale_t, cos, sin);
 
   // --- pass 1: scores = q' k^T over streamed key chunks -------------------
   const int kk = tid % KT;    // this thread's key within the chunk
@@ -95,8 +130,7 @@ __global__ void __launch_bounds__(NT) packed_attention_kernel(
   for (int c = 0; c < s_chunks; ++c) {
     const int k0 = c * KT;
     __syncthreads();  // kv_s free (and q_s written, on the first chunk)
-    stage_rows_f<T, NT, KT>(kv_s, 1, KT + 1, base, k0, S, row_stride, w + h * d, d, false,
-                            0.f, cos, sin);
+    stage_rows_f<T, NT, KT>(kv_s, 1, KT + 1, kb, k0, S, rs, 0, d, false, 0.f, cos, sin);
     __syncthreads();
     float acc[RPT];
 #pragma unroll
@@ -147,7 +181,7 @@ __global__ void __launch_bounds__(NT) packed_attention_kernel(
     for (int idx = tid; idx < KT * d; idx += NT) {
       const int kr = idx / d, i = idx - (idx / d) * d;
       const int key = k0 + kr;
-      kv_s[idx] = key < S ? to_f(base[(size_t)key * row_stride + 2 * w + h * d + i]) : 0.f;
+      kv_s[idx] = key < S ? to_f(vb[(size_t)key * rs + i]) : 0.f;
     }
     __syncthreads();
     const int kmax = min(KT, S - k0);
@@ -159,18 +193,18 @@ __global__ void __launch_bounds__(NT) packed_attention_kernel(
       }
     }
   }
+  T* out = static_cast<T*>(io.out) + blockIdx.z * io.out_b + h * io.out_h;
 #pragma unroll
   for (int j = 0; j < EPT; ++j) {
     const int qi = q0 + er[j];
     if (tid + j * NT < n_out && qi < S)
-      out[((size_t)blockIdx.z * S + qi) * w + h * d + ei[j]] = from_f<T>(acc[j] * inv_s[er[j]]);
+      out[(size_t)qi * io.out_r + ei[j]] = from_f<T>(acc[j] * inv_s[er[j]]);
   }
 }
 
 template <typename T>
-int launch(const void* qkv, void* out, int B, int S, int s_real, int w, int heads,
-           float scale, const void* cos, const void* sin, cudaStream_t stream) {
-  const int d = w / heads;
+int launch(Heads<T> io, int B, int S, int s_real, int heads, int d, float scale,
+           const void* cos, const void* sin, cudaStream_t stream) {
   const int s_chunks = (S + KT - 1) / KT;
   const size_t smem = sizeof(float) *
       ((size_t)QT * d + (size_t)d * (KT + 1) + (size_t)QT * s_chunks * KT + QT);
@@ -180,8 +214,7 @@ int launch(const void* qkv, void* out, int B, int S, int s_real, int w, int head
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + QT - 1) / QT, heads, B);
   packed_attention_kernel<T><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), S, s_real, w, d, scale, s_chunks,
-      static_cast<const T*>(cos), static_cast<const T*>(sin));
+      io, S, s_real, d, scale, s_chunks, static_cast<const T*>(cos), static_cast<const T*>(sin));
   return (int)cudaGetLastError();
 }
 
@@ -198,9 +231,8 @@ constexpr size_t mma_smem_bytes() {
 
 template <int DP, bool F32OUT>
 __global__ void __launch_bounds__(MNT) packed_attention_mma_kernel(
-    const __nv_bfloat16* __restrict__ qkv, void* __restrict__ out, int S,
-    int s_real, int w, int d, float scale, const __nv_bfloat16* __restrict__ cos,
-    const __nv_bfloat16* __restrict__ sin) {
+    Heads<__nv_bfloat16> io, int S, int s_real, int d, float scale,
+    const __nv_bfloat16* __restrict__ cos, const __nv_bfloat16* __restrict__ sin) {
   constexpr int LDQ = DP + PAD;  // row stride of Qs and Ks
   constexpr int LDV = MK + PAD;  // row stride of Vt
   extern __shared__ __align__(16) unsigned char mma_smem[];
@@ -211,13 +243,14 @@ __global__ void __launch_bounds__(MNT) packed_attention_mma_kernel(
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;  // mma fragment coordinates
   const int q0 = blockIdx.x * MQ, h = blockIdx.y;
-  const size_t rs = 3 * (size_t)w;
-  const __nv_bfloat16* base = qkv + (size_t)blockIdx.z * S * rs;
+  const size_t head = blockIdx.z * io.in_b + h * io.in_h, rs = io.in_r;
+  const __nv_bfloat16* __restrict__ kb = io.k + head;
+  const __nv_bfloat16* __restrict__ vb = io.v + head;
 
   // q tile scaled in bf16 (the scale itself rounded to bf16 first), then
   // rotated; zero-padded past d and past S
   const float scale_t = __bfloat162float(__float2bfloat16_rn(scale));
-  stage_rows_bf16<MNT, MQ, DP, LDQ>(Qs, base, q0, S, rs, h * d, d, true, scale_t, cos, sin);
+  stage_rows_bf16<MNT, MQ, DP, LDQ>(Qs, io.q + head, q0, S, rs, 0, d, true, scale_t, cos, sin);
   __syncthreads();
   const int r0 = warp * 16;
   uint32_t qa[DP / 16][4];
@@ -231,7 +264,7 @@ __global__ void __launch_bounds__(MNT) packed_attention_mma_kernel(
 
   // k rotated (not scaled) as each chunk is staged
   auto load_k = [&](int k0) {
-    stage_rows_bf16<MNT, MK, DP, LDQ>(Ks, base, k0, S, rs, w + h * d, d, false, 0.f, cos, sin);
+    stage_rows_bf16<MNT, MK, DP, LDQ>(Ks, kb, k0, S, rs, 0, d, false, 0.f, cos, sin);
   };
   // this warp's 16 x MK score block of one chunk: s[j] is keys 8j..8j+7,
   // c0/c1 row g keys 2t/2t+1, c2/c3 row g+8 (the mma accumulator layout)
@@ -276,7 +309,7 @@ __global__ void __launch_bounds__(MNT) packed_attention_mma_kernel(
   for (int k0 = 0; k0 < S; k0 += MK) {
     __syncthreads();
     load_k(k0);
-    stage_vt_bf16<MNT, MK, DP, LDV>(Vt, base, k0, S, rs, 2 * w + h * d, d);
+    stage_vt_bf16<MNT, MK, DP, LDV>(Vt, vb, k0, S, rs, 0, d);
     __syncthreads();
     float s[MK / 8][4];
     scores(s, k0);
@@ -306,20 +339,21 @@ __global__ void __launch_bounds__(MNT) packed_attention_mma_kernel(
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
   const int row0 = q0 + r0 + g, row1 = row0 + 8;
+  const size_t ohead = blockIdx.z * io.out_b + h * io.out_h;
 #pragma unroll
   for (int n = 0; n < DP / 8; ++n) {
     const int col = n * 8 + 2 * t;
     if (col >= d) continue;
-    const size_t i0 = ((size_t)blockIdx.z * S + row0) * w + h * d + col;
-    const size_t i1 = i0 + 8 * (size_t)w;
+    const size_t i0 = ohead + (size_t)row0 * io.out_r + col;
+    const size_t i1 = i0 + 8 * io.out_r;
     const float y0 = o[n][0] * inv0, y1 = o[n][1] * inv0;
     const float y2 = o[n][2] * inv1, y3 = o[n][3] * inv1;
     if (F32OUT) {  // quant_out: the float32 head outputs, for the row quantize
-      float* of = static_cast<float*>(out);
+      float* of = static_cast<float*>(io.out);
       if (row0 < S) *reinterpret_cast<float2*>(of + i0) = make_float2(y0, y1);
       if (row1 < S) *reinterpret_cast<float2*>(of + i1) = make_float2(y2, y3);
     } else {
-      __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
+      __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(io.out);
       if (row0 < S) *reinterpret_cast<__nv_bfloat162*>(ob + i0) = __floats2bfloat162_rn(y0, y1);
       if (row1 < S) *reinterpret_cast<__nv_bfloat162*>(ob + i1) = __floats2bfloat162_rn(y2, y3);
     }
@@ -327,7 +361,7 @@ __global__ void __launch_bounds__(MNT) packed_attention_mma_kernel(
 }
 
 template <int DP, bool F32OUT>
-int launch_mma(const void* qkv, void* out, int B, int S, int s_real, int w, int heads,
+int launch_mma(Heads<__nv_bfloat16> io, int B, int S, int s_real, int heads, int d,
                float scale, const void* cos, const void* sin, cudaStream_t stream) {
   const size_t smem = mma_smem_bytes<DP>();
   cudaError_t err = cudaFuncSetAttribute(packed_attention_mma_kernel<DP, F32OUT>,
@@ -336,26 +370,30 @@ int launch_mma(const void* qkv, void* out, int B, int S, int s_real, int w, int 
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + MQ - 1) / MQ, heads, B);
   packed_attention_mma_kernel<DP, F32OUT><<<grid, MNT, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), out, S, s_real, w, w / heads, scale,
-      static_cast<const __nv_bfloat16*>(cos), static_cast<const __nv_bfloat16*>(sin));
+      io, S, s_real, d, scale, static_cast<const __nv_bfloat16*>(cos),
+      static_cast<const __nv_bfloat16*>(sin));
   return (int)cudaGetLastError();
 }
 
 template <bool F32OUT>
-int launch_bf16(const void* qkv, void* out, int B, int S, int s_real, int w, int heads,
+int launch_bf16(Heads<__nv_bfloat16> io, int B, int S, int s_real, int heads, int d,
                 float scale, const void* cos, const void* sin, cudaStream_t stream) {
-  const int d = w / heads;
   if (d % 8 != 0) return (int)cudaErrorInvalidValue;  // 16-byte row loads
   if (cos != nullptr && d % 16 != 0) return (int)cudaErrorInvalidValue;  // paired half vectors
   if (d <= 64)
-    return launch_mma<64, F32OUT>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, stream);
+    return launch_mma<64, F32OUT>(io, B, S, s_real, heads, d, scale, cos, sin, stream);
   if (d <= 80)
-    return launch_mma<80, F32OUT>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, stream);
+    return launch_mma<80, F32OUT>(io, B, S, s_real, heads, d, scale, cos, sin, stream);
   if (d <= 96)
-    return launch_mma<96, F32OUT>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, stream);
+    return launch_mma<96, F32OUT>(io, B, S, s_real, heads, d, scale, cos, sin, stream);
   if (d <= 112)
-    return launch_mma<112, F32OUT>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, stream);
-  return launch_mma<128, F32OUT>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, stream);
+    return launch_mma<112, F32OUT>(io, B, S, s_real, heads, d, scale, cos, sin, stream);
+  return launch_mma<128, F32OUT>(io, B, S, s_real, heads, d, scale, cos, sin, stream);
+}
+
+bool bad_args(int w, int heads, int S, int s_real, const void* cos, const void* sin) {
+  return heads <= 0 || w % heads != 0 || w / heads > DMAX || s_real < 1 || s_real > S ||
+         (cos == nullptr) != (sin == nullptr) || (cos != nullptr && (w / heads) % 2 != 0);
 }
 
 }  // namespace
@@ -377,13 +415,15 @@ size_t packed_attention_smem_bytes(int S, int d) {
 int packed_attention(const void* qkv, void* out, int dtype, int B, int S, int s_real,
                      int w, int heads, float scale, const void* cos, const void* sin,
                      void* stream) {
-  if (heads <= 0 || w % heads != 0 || w / heads > DMAX || s_real < 1 || s_real > S ||
-      (cos == nullptr) != (sin == nullptr) || (cos != nullptr && (w / heads) % 2 != 0))
-    return (int)cudaErrorInvalidValue;
+  if (bad_args(w, heads, S, s_real, cos, sin)) return (int)cudaErrorInvalidValue;
+  const int d = w / heads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, st);
+  if (dtype == 0)
+    return launch<float>(packed_heads<float>(qkv, out, S, w, d), B, S, s_real, heads, d, scale,
+                         cos, sin, st);
   if (dtype == 1)
-    return launch_bf16<false>(qkv, out, B, S, s_real, w, heads, scale, cos, sin, st);
+    return launch_bf16<false>(packed_heads<__nv_bfloat16>(qkv, out, S, w, d), B, S, s_real,
+                              heads, d, scale, cos, sin, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -396,11 +436,27 @@ int packed_attention_f32out(const void* qkv, void* out, int dtype, int B, int S,
                             void* stream) {
   if (dtype != 1)
     return packed_attention(qkv, out, dtype, B, S, s_real, w, heads, scale, cos, sin, stream);
-  if (heads <= 0 || w % heads != 0 || w / heads > DMAX || s_real < 1 || s_real > S ||
-      (cos == nullptr) != (sin == nullptr) || (cos != nullptr && (w / heads) % 2 != 0))
+  if (bad_args(w, heads, S, s_real, cos, sin)) return (int)cudaErrorInvalidValue;
+  const int d = w / heads;
+  return launch_bf16<true>(packed_heads<__nv_bfloat16>(qkv, out, S, w, d), B, S, s_real, heads,
+                           d, scale, cos, sin, static_cast<cudaStream_t>(stream));
+}
+
+// K10: q, k, v, out each [B, H, S, d] contiguous of dtype (0 = float32,
+// 1 = bfloat16); every key is real (s_real = S), no RoPE. Returns
+// cudaGetLastError() of the launch.
+int attention_unpacked(const void* q, const void* k, const void* v, void* out, int dtype, int B,
+                       int H, int S, int d, float scale, void* stream) {
+  if (H <= 0 || d <= 0 || bad_args(H * d, H, S, S, nullptr, nullptr))
     return (int)cudaErrorInvalidValue;
-  return launch_bf16<true>(qkv, out, B, S, s_real, w, heads, scale, cos, sin,
-                           static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float>(unpacked_heads<float>(q, k, v, out, H, S, d), B, S, S, H, d, scale,
+                         nullptr, nullptr, st);
+  if (dtype == 1)
+    return launch_bf16<false>(unpacked_heads<__nv_bfloat16>(q, k, v, out, H, S, d), B, S, S, H,
+                              d, scale, nullptr, nullptr, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // extern "C"

@@ -1,22 +1,35 @@
-// Fused W8A8 linear for Hopper (sm_90a), plain C interface: the int8
-// tensor-core GEMM with K9's dequant epilogue.
+// Int8 tensor-core GEMM for Hopper (sm_90a) with a float32 epilogue, plain
+// C interface: the GEMM of the fused W8A8 linear K9 and of the fused block
+// linear K8.
 //
-// Replaces the TPU kernel _kernel / q_linear_fused
-// (clip_assisted_data_labeling_tpu/ops/quant_kernel.py, pallas_call at :102).
-// The wrapper (ops/quant_kernel.q_linear_fused) runs it as two launches:
-//   1. rowquant.cu with no layernorm and no activation, per row of x [M, K]:
-//        amax = max(max|x|, 1e-8), xq = clip(rint(x * (127 / amax))),
-//        xs = amax * f32(1/127)
-//   2. this GEMM, with the weight stored [N, K] int8 (the "col" operand):
-//        acc = sum_k xq[m, k] * wq[n, k]                  int32, exact
-//        y   = ((f32(acc) * xs[m]) * ws[n]) + bias[n]     each step rounded
-//      cast to the output type (bf16 or f32).
-// That is the TPU kernel's arithmetic in its order.
+// Replaces the TPU kernels _kernel / q_linear_fused (K9) and _block_kernel /
+// q_block_linear (K8) (clip_assisted_data_labeling_tpu/ops/quant_kernel.py,
+// pallas_call at :102 and :299). Each wrapper (ops/quant_kernel) runs one
+// launch of K6's row pass (rowquant.cu) around this GEMM:
+//   K9: 1. rowquant.cu with no layernorm and no activation, per row of x:
+//          amax = max(max|x|, 1e-8), xq = clip(rint(x * (127 / amax))),
+//          xs = amax * f32(1/127)
+//       2. q_block_linear_gemm with act 0 and no residual, the weight
+//          stored [N, K] int8 (the "col" operand):
+//          acc = sum_k xq[m, k] * wq[n, k]                  int32, exact
+//          y   = ((f32(acc) * xs[m]) * ws[n]) + bias[n]     each step rounded
+//          cast to the output type (bf16 or f32).
+//   K8: 1. the same row pass, with K8's layernorm over the full K when it
+//          has one; or x already int8 with its [M, 1] row scales,
+//       2. q_block_linear_gemm: K9's epilogue, then act(y) in float32 (K6's
+//          activations, rowquant_common.cuh act_f32), then + f32(residual),
+//          then the cast; or, with quant_out, the float32 y written for
+//       3. rowquant.cu with no layernorm and no activation over each [N]
+//          output row: int8 and amax * f32(1/127) row scales. No 128 x 128
+//          tile owns a whole output row, as K1's quant_out (same pass).
+// That is the TPU kernels' arithmetic in their order.
 //
 // What bounds it: 2·M·N·K int8 operations against M·K·2 + N·K + M·N·2 bytes;
 // at ViT-L's shapes (M = 18464, K, N in {1024, 3072, 4096}) that is ~750-800
 // operations per byte, above the H100's int8 ridge (~590), so the tensor
-// cores bound it, except the 1024 x 1024 product (~500: memory bound).
+// cores bound it, except the 1024 x 1024 product (~500: memory bound). K8's
+// residual (M·N·2 more bytes) and quant_out (an f32 round trip, 8·M·N bytes)
+// move its 1024→1024 and 1024→4096 cases toward the memory bound.
 //
 // Design (simple first version): 128 x 128 output tiles, 8 warps as 2 x 4,
 // each warp 64 x 32 of the tile with int32 accumulators in registers and
@@ -24,12 +37,11 @@
 // in 64-byte k slices; the next slice's 16-byte global loads are issued into
 // registers before the current slice's products (no cp.async or TMA yet).
 // Shared rows are padded to 80 bytes, so the fragment loads hit 32 distinct
-// banks. The epilogue reads the row and column scales and the bias and writes
-// two neighbouring columns per store. K must be a multiple of 16.
+// banks. The epilogue reads the row and column scales, the bias and the
+// residual, runs the activation (both compiled in only where asked for) and
+// writes two neighbouring columns per store. K must be a multiple of 16.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "rowquant_common.cuh"
 
 namespace {
 
@@ -64,11 +76,23 @@ template <> __device__ __forceinline__ __nv_bfloat16 cast_out<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
-template <typename TO>
+// The residual [M, N] of K8's epilogue, float32 (res_dtype 0) or bfloat16 (1).
+__device__ __forceinline__ float residual_at(const void* res, int res_dtype, size_t i) {
+  return res_dtype == 0 ? static_cast<const float*>(res)[i]
+                        : __bfloat162float(static_cast<const __nv_bfloat16*>(res)[i]);
+}
+
+// ACT (0 none, 1 quick_gelu, 2 gelu_tanh, 3 gelu) and RES (a residual is
+// added) are template parameters: K9 is the <TO, 0, false> instantiation,
+// with no code for either. (A run-time switch on the activation in the
+// unrolled epilogue measured 0.638 ms against 0.398 for K9 at M = 18464,
+// 1024→3072, on an H100 80GB HBM3 at 700 W.)
+template <typename TO, int ACT, bool RES>
 __global__ void __launch_bounds__(NTH) q_gemm_kernel(
     const int8_t* __restrict__ xq, const int8_t* __restrict__ wq,
     const float* __restrict__ xs, const float* __restrict__ ws,
-    const float* __restrict__ bias, TO* __restrict__ out, int M, int N, int K) {
+    const float* __restrict__ bias, TO* __restrict__ out, int M, int N, int K,
+    const void* __restrict__ res, int res_dtype) {
   __shared__ __align__(16) int8_t As[BM * LDS];
   __shared__ __align__(16) int8_t Bs[BN * LDS];
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -159,6 +183,8 @@ __global__ void __launch_bounds__(NTH) q_gemm_kernel(
           const int c = min(col + e, N - 1);
           float v = __fmul_rn(__fmul_rn((float)acc[mi][ni][2 * h + e], sx), ws[c]);
           if (bias != nullptr) v = __fadd_rn(v, bias[c]);
+          v = act_f32<ACT>(v);
+          if (RES) v = __fadd_rn(v, residual_at(res, res_dtype, (size_t)row * N + c));
           y[e] = v;
         }
         TO* o = out + (size_t)row * N + col;
@@ -173,34 +199,69 @@ __global__ void __launch_bounds__(NTH) q_gemm_kernel(
   }
 }
 
-template <typename TO>
+template <typename TO, int ACT, bool RES>
 int launch(const void* xq, const void* wq, const void* xs, const void* ws, const void* bias,
-           void* out, int M, int N, int K, cudaStream_t stream) {
+           void* out, int M, int N, int K, const void* res, int res_dtype,
+           cudaStream_t stream) {
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  q_gemm_kernel<TO><<<grid, NTH, 0, stream>>>(
+  q_gemm_kernel<TO, ACT, RES><<<grid, NTH, 0, stream>>>(
       static_cast<const int8_t*>(xq), static_cast<const int8_t*>(wq),
       static_cast<const float*>(xs), static_cast<const float*>(ws),
-      static_cast<const float*>(bias), static_cast<TO*>(out), M, N, K);
+      static_cast<const float*>(bias), static_cast<TO*>(out), M, N, K, res, res_dtype);
   return (int)cudaGetLastError();
+}
+
+template <typename TO, bool RES>
+int launch_act(int act, const void* xq, const void* wq, const void* xs, const void* ws,
+               const void* bias, void* out, int M, int N, int K, const void* res,
+               int res_dtype, cudaStream_t st) {
+  switch (act) {
+    case 0: return launch<TO, 0, RES>(xq, wq, xs, ws, bias, out, M, N, K, res, res_dtype, st);
+    case 1: return launch<TO, 1, RES>(xq, wq, xs, ws, bias, out, M, N, K, res, res_dtype, st);
+    case 2: return launch<TO, 2, RES>(xq, wq, xs, ws, bias, out, M, N, K, res, res_dtype, st);
+    case 3: return launch<TO, 3, RES>(xq, wq, xs, ws, bias, out, M, N, K, res, res_dtype, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename TO>
+int launch_res(int act, const void* xq, const void* wq, const void* xs, const void* ws,
+               const void* bias, void* out, int M, int N, int K, const void* res,
+               int res_dtype, cudaStream_t st) {
+  if (res != nullptr)
+    return launch_act<TO, true>(act, xq, wq, xs, ws, bias, out, M, N, K, res, res_dtype, st);
+  return launch_act<TO, false>(act, xq, wq, xs, ws, bias, out, M, N, K, nullptr, 0, st);
+}
+
+int launch_out(int out_dtype, int act, const void* xq, const void* wq, const void* xs,
+               const void* ws, const void* bias, void* out, int M, int N, int K,
+               const void* res, int res_dtype, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || K % 16 != 0 || (M + BM - 1) / BM > 65535 || res_dtype < 0 ||
+      res_dtype > 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (out_dtype == 0)
+    return launch_res<float>(act, xq, wq, xs, ws, bias, out, M, N, K, res, res_dtype, st);
+  if (out_dtype == 1)
+    return launch_res<__nv_bfloat16>(act, xq, wq, xs, ws, bias, out, M, N, K, res, res_dtype,
+                                     st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// xq: int8 [M, K]; wq: int8 [N, K]; xs: float32 [M]; ws: float32 [N];
-// bias: float32 [N] or null; out: [M, N] of out_dtype (0 = float32,
-// 1 = bfloat16). K % 16 == 0 and 16-byte aligned xq, wq. Returns
-// cudaGetLastError() of the launch.
-int q_linear_fused_gemm(const void* xq, const void* wq, const void* xs, const void* ws,
-                        const void* bias, void* out, int out_dtype, int M, int N, int K,
-                        void* stream) {
-  if (M < 1 || N < 1 || K < 1 || K % 16 != 0 || (M + BM - 1) / BM > 65535)
-    return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (out_dtype == 0) return launch<float>(xq, wq, xs, ws, bias, out, M, N, K, st);
-  if (out_dtype == 1) return launch<__nv_bfloat16>(xq, wq, xs, ws, bias, out, M, N, K, st);
-  return (int)cudaErrorInvalidValue;
+// The GEMM of K9 (act 0, res null) and K8. xq: int8 [M, K]; wq: int8 [N, K];
+// xs: float32 [M]; ws: float32 [N]; bias: float32 [N] or null; act (0 none,
+// 1 quick_gelu, 2 gelu_tanh, 3 gelu) on the float32 y, then + res [M, N]
+// (null, or of res_dtype 0 = float32, 1 = bfloat16), then the cast to
+// out: [M, N] of out_dtype (0 = float32, 1 = bfloat16). K % 16 == 0 and
+// 16-byte aligned xq, wq. Returns cudaGetLastError() of the launch.
+int q_block_linear_gemm(const void* xq, const void* wq, const void* xs, const void* ws,
+                        const void* bias, const void* res, int res_dtype, void* out,
+                        int out_dtype, int act, int M, int N, int K, void* stream) {
+  return launch_out(out_dtype, act, xq, wq, xs, ws, bias, out, M, N, K, res, res_dtype, stream);
 }
 
 }  // extern "C"

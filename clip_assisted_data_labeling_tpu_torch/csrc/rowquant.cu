@@ -32,26 +32,6 @@
 
 namespace {
 
-constexpr float kInv127 = (float)(1.0 / 127.0);  // f32 of the double, as JAX's weak constant
-
-template <int ACT>
-__device__ __forceinline__ float act(float y) {
-  if (ACT == 1) {  // quick_gelu
-    const float z = __fmul_rn(1.702f, y);
-    return __fmul_rn(y, 1.0f / __fadd_rn(1.0f, expf(-z)));
-  }
-  if (ACT == 2) {  // jax.nn.gelu(approximate=True), each step rounded
-    const float y3 = __fmul_rn(__fmul_rn(y, y), y);
-    const float inner = __fmul_rn(0.7978845834732056f, __fadd_rn(y, __fmul_rn(0.044715f, y3)));
-    return __fmul_rn(y, __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(inner))));
-  }
-  if (ACT == 3) {  // erf gelu
-    const float e = erff(__fmul_rn(y, 0.70710678118654752f));
-    return __fmul_rn(__fmul_rn(y, 0.5f), __fadd_rn(1.0f, e));
-  }
-  return y;
-}
-
 template <typename T, int ACT>
 __global__ void __launch_bounds__(NT) rowquant_kernel(
     const T* __restrict__ x, const float* __restrict__ gamma,
@@ -68,7 +48,7 @@ __global__ void __launch_bounds__(NT) rowquant_kernel(
   for (int k = threadIdx.x; k < K; k += NT) {
     float y = xs[k];
     if (gamma != nullptr) y = ln_apply(y, mu, rs, gamma[k], beta[k]);
-    y = act<ACT>(y);
+    y = act_f32<ACT>(y);
     xs[k] = y;
     m = fmaxf(m, fabsf(y));
   }

@@ -1,7 +1,8 @@
 // Device helpers shared by the row kernels K2 (rowquant_static.cu) and K6
-// (rowquant.cu): one block of NT threads per row of x [M, K], the row staged
-// in shared memory as floats, block-wide sum and max, and the layernorm with
-// the TPU kernels' order of operations:
+// (rowquant.cu), whose activations K8's GEMM epilogue (q_linear_fused.cu)
+// also runs: one block of NT threads per row of x [M, K], the row staged in
+// shared memory as floats, block-wide sum and max, the float32 activations,
+// and the layernorm with the TPU kernels' order of operations:
 //   mu  = sum(x) / K
 //   var = sum((x - mu)^2) / K                 two-pass, population variance
 //   y   = (x - mu) * (1 / sqrt(var + eps))
@@ -82,6 +83,30 @@ __device__ __forceinline__ float ln_apply(float x, float mu, float rs, float g, 
 __device__ __forceinline__ int8_t quant_i8(float y, float inv) {
   const float q = rintf(__fmul_rn(y, inv));
   return (int8_t)fminf(fmaxf(q, -127.f), 127.f);
+}
+
+constexpr float kInv127 = (float)(1.0 / 127.0);  // f32 of the double, as JAX's weak constant
+
+// The row kernels' float32 activations (K6; K8's GEMM epilogue): 0 none,
+// 1 quick_gelu y * (1 / (1 + exp(-1.702 y))), 2 gelu_tanh
+// (jax.nn.gelu(approximate=True)) each step rounded, 3 gelu
+// y * 0.5 * (1 + erf(y / √2)).
+template <int ACT>
+__device__ __forceinline__ float act_f32(float y) {
+  if (ACT == 1) {  // quick_gelu
+    const float z = __fmul_rn(1.702f, y);
+    return __fmul_rn(y, 1.0f / __fadd_rn(1.0f, expf(-z)));
+  }
+  if (ACT == 2) {  // jax.nn.gelu(approximate=True), each step rounded
+    const float y3 = __fmul_rn(__fmul_rn(y, y), y);
+    const float inner = __fmul_rn(0.7978845834732056f, __fadd_rn(y, __fmul_rn(0.044715f, y3)));
+    return __fmul_rn(y, __fmul_rn(0.5f, __fadd_rn(1.0f, tanhf(inner))));
+  }
+  if (ACT == 3) {  // erf gelu
+    const float e = erff(__fmul_rn(y, 0.70710678118654752f));
+    return __fmul_rn(__fmul_rn(y, 0.5f), __fadd_rn(1.0f, e));
+  }
+  return y;
 }
 
 }  // namespace

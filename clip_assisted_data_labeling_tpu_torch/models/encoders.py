@@ -12,10 +12,12 @@ dynamic per-row activation scales: quantized weights, bf16 compute, no
 calibration) and ``int8_static`` (W8A8 with per-layer activation scales
 calibrated on the first batch and persisted to ``.calib.npz`` in the JAX
 package's format, so either package reads the other's file). Where
-``models.vit.int8_wire_enabled`` says so (SO400M-384), int8_static also
-attaches the per-channel ``qkv_amax`` and runs the int8 attention wire (never
-for a RoPE tower). Dynamic int8 blocks run as ``CTPU_INT8_BLOCK`` selects
-(``models.vit.block_route``).
+``models.vit.int8_wire_enabled`` says so (SO400M-384 by default; every tower
+under ``CTPU_INT8_WIRE=1``, none under ``=0``), int8_static also calibrates
+and attaches the per-channel ``qkv_amax``, and a file saved without it is
+recalibrated; its blocks then run the int8 attention wire where
+``models.vit.block_route`` takes it (no RoPE, the wire kernel's gate), as
+``CTPU_LN_KERNEL`` and ``CTPU_INT8_BLOCK`` pick the other blocks.
 
 Weight resolution order (no network — only local files are read):
   1. explicit ``params`` argument (flat or JAX-nested dict of arrays),

@@ -14,9 +14,12 @@ SigLIP/SigLIP2 towers and the Perception Encoder cores).
     :func:`_rope2d_tables`) inside K1/K4, or as :func:`_apply_rope` on the
     XLA-style path the calibration forward runs,
   * int8_static blocks through the layernorm+quantize kernel K2
-    (ops/quant_kernel.py) and int8 matmuls with float32 epilogues, or — where
-    :func:`int8_wire_enabled` says so (SO400M-384) — the int8 attention wire
-    with K3,
+    (ops/quant_kernel.py) and int8 matmuls with float32 epilogues; where
+    :func:`int8_wire_enabled` says so (SO400M-384, or every tower under
+    ``CTPU_INT8_WIRE=1``) and the wire kernel's gate takes the shape, the
+    int8 attention wire with K3; under ``CTPU_LN_KERNEL=0`` or at a width
+    that 128 does not divide, the generic block with static scales
+    (:func:`block_route`),
   * dynamic-int8 blocks (compute_dtype "int8") in the three forms the JAX
     package selects with ``CTPU_INT8_BLOCK`` (:func:`block_route`): the
     generic block with dynamic ``q_matmul`` (or K9 under
@@ -242,17 +245,21 @@ def resolve_config(model_name: str) -> VitConfig:
 
 
 def int8_wire_enabled(cfg: VitConfig, wire: bool | None = None) -> bool:
-    """Whether int8_static runs the int8 attention wire (per-channel
-    ``qkv_amax`` + K3) for this tower. ``wire`` forces it; None takes the JAX
-    package's ``auto`` rule (models/vit.py:574): on exactly where the non-wire
-    route would fall to the flash kernel (neither the whole-block nor the
-    grouped gate takes the shape) while the wire kernel's gate does —
-    SO400M-384. RoPE towers have no wire formulation (K3 has no rotation):
-    the auto rule keeps it off for them, and :func:`_block` skips the wire
-    for a RoPE tower even where it is forced on."""
+    """Whether int8_static calibrates and attaches the int8 attention wire's
+    per-channel ``qkv_amax`` for this tower. ``wire`` forces it; None follows
+    ``CTPU_INT8_WIRE`` (``ops/knobs.INT8_WIRE``) as the JAX package's
+    ``int8_wire_enabled`` (models/vit.py:574-601) does: ``on`` for every
+    tower, RoPE towers too; ``off`` for none; ``auto`` exactly where the
+    non-wire route would fall to the flash kernel (neither the whole-block
+    nor the grouped gate takes the shape) while the wire kernel's gate does —
+    SO400M-384 — and never for a RoPE tower (K3 has no rotation).
+    :func:`block_route` then takes the wire only without RoPE and where the
+    wire kernel's gate holds."""
     if wire is not None:
         return bool(wire)
-    if cfg.use_rope2d:
+    if knobs.INT8_WIRE == "on":
+        return True
+    if knobs.INT8_WIRE == "off" or cfg.use_rope2d:
         return False
     s, w, h = cfg.seq_len, cfg.width, cfg.heads
     if packed_attention_fits(s, w, 2) or grouped_attention_fits(s, w, h, 2):
@@ -404,11 +411,22 @@ def _act(x, kind: str, quantized: bool = False):
     return F.gelu(x, approximate="none")
 
 
-def _linear(x, blk: VitBlock, name: str, residual=None):
-    """Block matmul: float (x @ W + b in x's dtype) or, for a quantized block
-    without static scales (dynamic int8, and the calibration forward),
-    dynamic per-row W8A8."""
+def _linear(x, blk: VitBlock, name: str, residual=None, act_amax=None):
+    """Block matmul: float (x @ W + b in x's dtype) or, for a quantized block,
+    W8A8 — with a calibrated per-tensor ``act_amax`` the static quantize,
+    then the int8 product over it with ``act_amax·(1/127)`` as the row scale
+    and the residual inside the float32 epilogue (JAX ``_linear``,
+    models/vit.py:841-861); without it dynamic per-row (dynamic int8, and the
+    calibration forward)."""
     bias = getattr(blk, name.replace("_kernel", "_bias"))
+    if blk.quantized and act_amax is not None:
+        wq_t = getattr(blk, name)
+        lead, n = x.shape[:-1], wq_t.shape[0]
+        xq = quant_static(x, act_amax).reshape(-1, x.shape[-1])
+        res = None if residual is None else residual.reshape(-1, n)
+        y = q_matmul_pre(xq, act_amax * (1.0 / 127.0), wq_t, getattr(blk, name + "_scale"),
+                         bias, residual=res, out_dtype=x.dtype)
+        return y.reshape(lead + (n,))
     if blk.quantized:
         return q_matmul(x, getattr(blk, name), getattr(blk, name + "_scale"), bias,
                         out_dtype=x.dtype, residual=residual)
@@ -417,18 +435,24 @@ def _linear(x, blk: VitBlock, name: str, residual=None):
 
 
 def _block_generic(x, blk: VitBlock, cfg: VitConfig, rope=None):
-    """Pre-LN block in float32 or bfloat16, or in dynamic int8 (quantized
-    weights, bf16 compute, every matmul a dynamic ``q_matmul``), with the
+    """Pre-LN block in float32 or bfloat16, in dynamic int8 (quantized
+    weights, bf16 compute, every matmul a dynamic ``q_matmul``) or in
+    int8_static with static scales (each matmul's input quantized with its
+    calibrated ``act_amax``, the fc2 residual inside its epilogue), with the
     packed attention kernel the JAX package's routing picks (K1, K4 or K5),
-    RoPE inside it. The residual adds run outside the matmuls, in x's dtype,
-    and int8 blocks take the tanh gelu, as in the JAX package's generic block
-    (models/vit.py:1124-1196)."""
+    RoPE inside it. The other residual adds run outside the matmuls, in x's
+    dtype, and int8 blocks take the tanh gelu, as in the JAX package's
+    generic block (models/vit.py:1124-1194)."""
+    a = blk.act_amax if blk.static else None
     y = _layernorm(x, blk.ln1_scale, blk.ln1_bias, cfg.ln_eps)
-    qkv = _linear(y, blk, "qkv_kernel")
+    qkv = _linear(y, blk, "qkv_kernel", act_amax=None if a is None else a[0])
     attn = packed_attention_auto(qkv, heads=cfg.heads, scale=cfg.head_dim ** -0.5, rope=rope)
-    x = x + _linear(attn, blk, "out_kernel")
+    x = x + _linear(attn, blk, "out_kernel", act_amax=None if a is None else a[1])
     y = _layernorm(x, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
-    y = _act(_linear(y, blk, "fc1_kernel"), cfg.act, quantized=blk.quantized)
+    y = _act(_linear(y, blk, "fc1_kernel", act_amax=None if a is None else a[2]), cfg.act,
+             quantized=blk.quantized)
+    if a is not None:
+        return _linear(y, blk, "fc2_kernel", residual=x, act_amax=a[3])
     return x + _linear(y, blk, "fc2_kernel")
 
 
@@ -486,16 +510,12 @@ def _block_int8_static_lnk(x, blk: VitBlock, cfg: VitConfig, rope=None):
     qkv = q_matmul_pre(xq, a[0] * inv127, blk.qkv_kernel, blk.qkv_kernel_scale,
                        blk.qkv_bias)
     attn = packed_attention_auto(qkv.reshape(B, S, 3 * w), heads=cfg.heads,
-                                 scale=cfg.head_dim ** -0.5, rope=rope)
-    attn_q = quant_static(attn, a[1]).reshape(B * S, w)
-    x2 = x2 + q_matmul_pre(attn_q, a[1] * inv127, blk.out_kernel, blk.out_kernel_scale,
-                           blk.out_bias, out_dtype=x.dtype)
+                                 scale=cfg.head_dim ** -0.5, rope=rope).reshape(B * S, w)
+    x2 = x2 + _linear(attn, blk, "out_kernel", act_amax=a[1])
     hq = rowquant_static(x2, blk.ln2_scale, blk.ln2_bias, a[2:3], ln_eps=cfg.ln_eps)
     h = q_matmul_pre(hq, a[2] * inv127, blk.fc1_kernel, blk.fc1_kernel_scale, blk.fc1_bias)
     g = _act(h, cfg.act, quantized=True)
-    x2 = q_matmul_pre(quant_static(g, a[3]), a[3] * inv127, blk.fc2_kernel,
-                      blk.fc2_kernel_scale, blk.fc2_bias, residual=x2, out_dtype=x.dtype)
-    return x2.reshape(B, S, w)
+    return _linear(g, blk, "fc2_kernel", residual=x2, act_amax=a[3]).reshape(B, S, w)
 
 
 def _block_int8_static_wire(x, blk: VitBlock, cfg: VitConfig):
@@ -521,13 +541,8 @@ def _block_int8_static_wire(x, blk: VitBlock, cfg: VitConfig):
     x = x + q_matmul_pre(attn_q.reshape(B * S, w), a[1] * inv127, blk.out_kernel,
                          blk.out_kernel_scale, blk.out_bias, out_dtype=x.dtype).reshape(B, S, w)
     y = _layernorm(x, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
-    h = q_matmul_pre(quant_static(y, a[2]).reshape(B * S, w), a[2] * inv127, blk.fc1_kernel,
-                     blk.fc1_kernel_scale, blk.fc1_bias, out_dtype=x.dtype)
-    g = _act(h, cfg.act, quantized=True)
-    x2 = q_matmul_pre(quant_static(g, a[3]), a[3] * inv127, blk.fc2_kernel,
-                      blk.fc2_kernel_scale, blk.fc2_bias, residual=x.reshape(B * S, w),
-                      out_dtype=x.dtype)
-    return x2.reshape(B, S, w)
+    g = _act(_linear(y, blk, "fc1_kernel", act_amax=a[2]), cfg.act, quantized=True)
+    return _linear(g, blk, "fc2_kernel", residual=x, act_amax=a[3])
 
 
 def _int8_block_mode() -> str:
@@ -538,17 +553,28 @@ def _int8_block_mode() -> str:
 
 
 def block_route(blk: VitBlock, cfg: VitConfig, rope=None) -> str:
-    """Which block implementation runs, as the JAX package's ``_block``
-    dispatches (models/vit.py:1094-1123): 'wire' (int8_static with the int8
-    attention wire, never with RoPE: K3 has no rotation), 'lnk' (int8_static),
-    'hybrid' (dynamic int8 under CTPU_INT8_BLOCK=hybrid, only where the width
-    is a multiple of 128, else generic), 'xla' (dynamic int8 under
-    CTPU_INT8_BLOCK=xla, any width) or 'generic' (float, dynamic int8 by
-    default, and every RoPE tower's dynamic-int8 blocks)."""
-    if blk.wire and rope is None:
-        return "wire"
+    """Which block implementation runs, in the order of the JAX package's
+    ``_block`` (models/vit.py:1094-1123):
+      * 'wire': int8_static with the wire's ``qkv_amax`` attached, no RoPE
+        (K3 has no rotation), and S tokens the wire kernel's gate takes
+        (``packed_q8s_fits``; the JAX package asks it at its padded length,
+        which gives the same answer),
+      * 'lnk': int8_static under ``CTPU_LN_KERNEL`` (default on) at a width
+        that 128 divides,
+      * 'static': every other int8_static block — the generic block with
+        static scales,
+      * 'hybrid': dynamic int8 under ``CTPU_INT8_BLOCK=hybrid``, only where
+        the width is a multiple of 128 (else generic),
+      * 'xla': dynamic int8 under ``CTPU_INT8_BLOCK=xla``, any width,
+      * 'generic': float, dynamic int8 by default, and every RoPE tower's
+        dynamic-int8 blocks."""
     if blk.static:
-        return "lnk"
+        if (blk.wire and rope is None
+                and packed_q8s_fits(cfg.seq_len, cfg.width, cfg.heads)):
+            return "wire"
+        if knobs.LN_KERNEL and cfg.width % 128 == 0:
+            return "lnk"
+        return "static"
     if blk.quantized and rope is None:
         mode = _int8_block_mode()
         if mode == "hybrid" and cfg.width % 128 == 0:

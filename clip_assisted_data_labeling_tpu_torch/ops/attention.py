@@ -1,4 +1,4 @@
-"""Packed multi-head attention — kernels K1, K3, K4 and K5 — and the rule
+"""Multi-head attention — kernels K1, K3, K4, K5, K7 and K10 — and the rule
 that routes between them (port of the JAX package's ``ops/attention.py``).
 
   * ``fused_attention_packed`` (K1) replaces the TPU kernel ``_packed_kernel``
@@ -14,10 +14,21 @@ that routes between them (port of the JAX package's ``ops/attention.py``).
     same exact two-pass softmax (and RoPE), with the keys streamed in both
     passes so no sequence length bounds it.
   * ``flash_attention_packed`` (K5) replaces ``_flash_kernel`` (``pallas_call``
-    at :599) with ``csrc/flash_attention.cu``: online softmax over k panels.
+    at :599) with ``csrc/flash_attention.cu``: online softmax over k panels,
+    with its RoPE option.
   * ``fused_attention_packed_q8s`` (K3) replaces ``_packed_q8s_kernel``
     (``pallas_call`` at :834) with ``csrc/packed_attention_q8s.cu``: the
     static-scale int8 attention wire of the int8_static blocks.
+  * ``fused_attention_packed_q8`` (K7) replaces ``_packed_q8_kernel``
+    (``pallas_call`` at :713) with ``csrc/packed_attention_q8.cu``: int8 qkv
+    with one float32 scale per token, bf16/f32 out or K1's ``quant_out``.
+  * ``fused_attention`` (K10) replaces ``_attn_kernel`` (``pallas_call`` at
+    :107) with K1's kernels in ``csrc/packed_attention.cu`` read through the
+    strides of unpacked ``[B, h, S, d]`` q, k and v.
+
+No entry point of the JAX package calls K7 or K10, nor runs K5 with RoPE
+(every registered RoPE tower routes to K1 or K4); each is ported as a kernel
+in its own right.
   * ``attention_xla`` is the JAX package's materializing reference path, which
     its calibration forward runs; plain ``torch.matmul`` products here too.
 
@@ -158,21 +169,16 @@ def attention_route(s: int, width: int, heads: int, itemsize: int) -> str:
 
 def packed_attention_auto(qkv: torch.Tensor, heads: int, scale: float,
                           s_real: int | None = None, rope=None) -> torch.Tensor:
-    """The attention of every float block and of the int8_static lnk block:
-    K1, K4 or K5 by :func:`attention_route`. ``rope``: (cos, sin) tables
-    [S, d/2] or None."""
+    """The attention of every float block and of the int8_static lnk and
+    static blocks: K1, K4 or K5 by :func:`attention_route`. ``rope``:
+    (cos, sin) tables [S, d/2] or None."""
     b, s, w3 = qkv.shape
     route = attention_route(s, w3 // 3, heads, qkv.element_size())
     if route == "packed":
         return fused_attention_packed(qkv, heads, scale, s_real, rope)
     if route == "grouped":
         return fused_attention_packed_grouped(qkv, heads, scale, s_real, rope)
-    if rope is not None:
-        raise NotImplementedError(
-            f"S={s}, width {w3 // 3}: the JAX package runs flash attention with RoPE "
-            "here, and K5's RoPE option is not ported yet (no registered tower reaches it)"
-        )
-    return flash_attention_packed(qkv, heads, scale, s_real)
+    return flash_attention_packed(qkv, heads, scale, s_real, rope)
 
 
 def _split_heads(qkv: torch.Tensor, heads: int):
@@ -254,11 +260,18 @@ def _exact_softmax_f32(qkv: torch.Tensor, heads: int, scale: float, s_real: int 
                        rope) -> torch.Tensor:
     """:func:`_exact_softmax_plain` before the last rounding: the float32
     head outputs [B, S, w]."""
-    s = qkv.shape[1]
-    s_real = s if s_real is None else s_real
-    q, k, v = _split_heads(qkv, heads)
-    q = q * torch.tensor(scale, dtype=qkv.dtype, device=qkv.device)
     cos, sin = _rope_tables("attention", qkv, heads, rope)
+    return _merge_heads(_exact_heads_f32(*_split_heads(qkv, heads), scale, s_real, cos, sin))
+
+
+def _exact_heads_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
+                     s_real: int | None, cos=None, sin=None) -> torch.Tensor:
+    """The exact two-pass softmax on [B, h, S, d] heads, to float32 outputs
+    (see :func:`_exact_softmax_plain`); ``cos``, ``sin`` in q's dtype or
+    None."""
+    s = q.shape[2]
+    s_real = s if s_real is None else s_real
+    q = q * torch.tensor(scale, dtype=q.dtype, device=q.device)
     if cos is not None:
         q, k = _rot_half(q, cos, sin), _rot_half(k, cos, sin)
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
@@ -267,7 +280,7 @@ def _exact_softmax_f32(qkv: torch.Tensor, heads: int, scale: float, s_real: int 
     m = scores.amax(dim=-1, keepdim=True)
     probs = torch.exp(scores - m)
     inv_norm = 1.0 / probs.sum(dim=-1, keepdim=True)
-    return _merge_heads(torch.matmul(probs.to(v.dtype).float(), v.float()) * inv_norm)
+    return torch.matmul(probs.to(v.dtype).float(), v.float()) * inv_norm
 
 
 def _launch_packed(what: str, lib_fn, qkv: torch.Tensor, heads: int, scale: float,
@@ -336,6 +349,12 @@ def _lib() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.packed_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
         lib.packed_attention_smem_bytes.restype = ctypes.c_size_t
+        lib.attention_unpacked.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_void_p,
+        ]
+        lib.attention_unpacked.restype = ctypes.c_int
     return lib
 
 
@@ -417,17 +436,23 @@ fused_attention_packed_grouped.launches = 0
 # ---- K5: online softmax over k panels ---------------------------------------
 
 def flash_attention_packed_plain(qkv: torch.Tensor, heads: int, scale: float,
-                                 s_real: int | None = None) -> torch.Tensor:
+                                 s_real: int | None = None, rope=None) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch (the JAX ``_flash_kernel``,
     attention.py:441-511): q·scale in the input dtype (the scale itself cast
-    to it first), and per k panel of :func:`flash_panel` keys
+    to it first), then, with ``rope``, q rotated and k rotated unscaled with
+    the tables in the input dtype (K1's rotation, each key with its own
+    rows); per k panel of :func:`flash_panel` keys
     ``m' = max(m, rowmax(s))``, ``α = exp(m − m')``, ``p = exp(s − m')``,
     ``l = l·α + Σp`` over the unrounded float32 p,
     ``acc = acc·α + T(p)·v``; at the end ``acc / l``."""
     s = qkv.shape[1]
     s_real = s if s_real is None else s_real
     q, k, v = _split_heads(qkv, heads)
-    qf = (q * torch.tensor(scale, dtype=qkv.dtype, device=qkv.device)).float()
+    q = q * torch.tensor(scale, dtype=qkv.dtype, device=qkv.device)
+    cos, sin = _rope_tables("flash_attention_packed", qkv, heads, rope)
+    if cos is not None:
+        q, k = _rot_half(q, cos, sin), _rot_half(k, cos, sin)
+    qf = q.float()
     shape = qf.shape[:-1] + (1,)
     m = torch.full(shape, float("-inf"), device=qkv.device)
     l = torch.zeros(shape, device=qkv.device)
@@ -453,7 +478,7 @@ def _flash_lib() -> ctypes.CDLL:
         lib.flash_attention.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-            ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.flash_attention.restype = ctypes.c_int
         lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -462,11 +487,12 @@ def _flash_lib() -> ctypes.CDLL:
 
 
 def flash_attention_packed(qkv: torch.Tensor, heads: int, scale: float,
-                           s_real: int | None = None) -> torch.Tensor:
+                           s_real: int | None = None, rope=None) -> torch.Tensor:
     """Online-softmax attention on the packed qkv tensor [B, S, 3w] → [B, S, w],
-    rescaling at the JAX flash kernel's k-panel boundaries."""
+    rescaling at the JAX flash kernel's k-panel boundaries. ``rope``: (cos,
+    sin) tables [S, d/2] rotating q and k inside the kernel, or None."""
     if qkv.device.type == "cpu":
-        return flash_attention_packed_plain(qkv, heads, scale, s_real)
+        return flash_attention_packed_plain(qkv, heads, scale, s_real, rope)
     if not qkv.is_cuda:
         raise ValueError(f"flash_attention_packed: unsupported device {qkv.device}")
     b, s, w3 = qkv.shape
@@ -481,22 +507,84 @@ def flash_attention_packed(qkv: torch.Tensor, heads: int, scale: float,
         if smem > _cuda_build.SMEM_LIMIT:
             raise ValueError(f"flash_attention_packed: a {panel}-key panel needs {smem} B "
                              "of shared memory")
-    elif d % 8 or qkv.data_ptr() % 16:
+    elif d % 8 or qkv.data_ptr() % 16 or (rope is not None and d % 16):
         raise ValueError(
             "flash_attention_packed: the bfloat16 kernel reads 16-byte vectors — "
-            f"head dim {d} must be a multiple of 8 and the data 16-byte aligned"
+            f"head dim {d} must be a multiple of 8 (of 16 with RoPE) and the data 16-byte "
+            "aligned"
         )
+    cos, sin = _rope_tables("flash_attention_packed", qkv, heads, rope)
     out = torch.empty((b, s, w), dtype=qkv.dtype, device=qkv.device)
     err = lib.flash_attention(
         qkv.data_ptr(), out.data_ptr(), _DTYPE_CODE[qkv.dtype], b, s, s_real, w,
-        heads, float(scale), panel, torch.cuda.current_stream(qkv.device).cuda_stream,
+        heads, float(scale), panel, None if cos is None else cos.data_ptr(),
+        None if sin is None else sin.data_ptr(),
+        torch.cuda.current_stream(qkv.device).cuda_stream,
     )
     _cuda_build.check(err, "flash_attention")
     flash_attention_packed.launches += 1
+    if cos is not None:
+        flash_attention_packed.rope_launches += 1
     return out
 
 
 flash_attention_packed.launches = 0
+flash_attention_packed.rope_launches = 0  # those of the launches with RoPE tables
+
+
+# ---- K10: K1's arithmetic on unpacked [B, h, S, d] q, k, v --------------------
+
+def fused_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          scale: float) -> torch.Tensor:
+    """The JAX ``_attn_kernel`` (attention.py:25-45) in plain PyTorch, on
+    [B, h, S, d]: q·scale in q's dtype, float32 scores, float32 softmax
+    statistics (keys past S masked: none here, the port does not pad), P cast
+    to v's dtype before P·V, 1/sum applied after, the result in q's dtype —
+    :func:`_exact_softmax_plain`'s arithmetic in the unpacked layout."""
+    return _exact_heads_f32(q, k, v, scale, None).to(q.dtype)
+
+
+def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    scale: float) -> torch.Tensor:
+    """softmax(q·kᵀ·scale)·v on q, k, v [B, h, S, d] (float32 or bfloat16,
+    one dtype) → [B, h, S, d] of q's dtype, without a scores tensor in
+    device memory: K1's kernels reading the three tensors in place."""
+    if q.device.type == "cpu":
+        return fused_attention_plain(q, k, v, scale)
+    if not q.is_cuda:
+        raise ValueError(f"fused_attention: unsupported device {q.device}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if (t.dim() != 4 or t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+                or t.dtype not in _DTYPE_CODE or not t.is_contiguous()):
+            raise ValueError(
+                f"fused_attention: {name} must be a contiguous [B, h, S, d] float32 or "
+                f"bfloat16 tensor like q {tuple(q.shape)} {q.dtype}, got {tuple(t.shape)} "
+                f"{t.dtype} on {t.device}"
+            )
+    b, h, s, d = q.shape
+    lib = _lib()
+    if d > 128:
+        raise ValueError(f"fused_attention: head dim {d} is over 128")
+    if q.dtype == torch.float32:
+        smem = lib.packed_attention_smem_bytes(s, d)
+        if smem > _cuda_build.SMEM_LIMIT:
+            raise ValueError(f"fused_attention: float32 S={s} needs {smem} B of shared memory "
+                             f"for its score tile, over the {_cuda_build.SMEM_LIMIT} B a "
+                             "block may use")
+    elif d % 8 or any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("fused_attention: the bfloat16 kernel reads 16-byte vectors — head "
+                         f"dim {d} must be a multiple of 8 and the data 16-byte aligned")
+    out = torch.empty_like(q)
+    err = lib.attention_unpacked(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype], b, h, s,
+        d, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _cuda_build.check(err, "fused_attention")
+    fused_attention.launches += 1
+    return out
+
+
+fused_attention.launches = 0
 
 
 # ---- K3: the static-scale int8 attention wire --------------------------------
@@ -570,3 +658,92 @@ def fused_attention_packed_q8s(qkv_q: torch.Tensor, ch_scale: torch.Tensor, head
 
 
 fused_attention_packed_q8s.launches = 0
+
+
+# ---- K7: int8 qkv with per-token scales ---------------------------------------
+
+def fused_attention_packed_q8_plain(qkv_q: torch.Tensor, qkv_scale: torch.Tensor, heads: int,
+                                    scale: float, out_dtype=torch.bfloat16,
+                                    quant_out: bool = False, s_real: int | None = None):
+    """The kernel's arithmetic in plain PyTorch (the JAX ``_packed_q8_kernel``,
+    attention.py:619-666): with rs the token's float32 scale, q =
+    ``bf16(f32(int8)·(rs·scale))`` (rs·scale formed first), k and v =
+    ``bf16(f32(int8)·rs)``, then K1's exact softmax on those bf16 heads at
+    scale 1 (float32 scores, the −inf mask on keys ≥ s_real, P cast to bf16,
+    1/sum after P·V). The result in ``out_dtype``, or with ``quant_out`` int8
+    and a float32 [B, S, 1] scale from the amax over each token's whole [w]
+    row (K6's quantize). Not ``attention_packed_q8_xla``, which folds the
+    scale in another order (attention.py:729-733)."""
+    b, s, w3 = qkv_q.shape
+    w = w3 // 3
+    rs = qkv_scale.float().reshape(b, s, 1)
+    f = qkv_q.float()
+    deq = torch.cat([(f[..., :w] * (rs * scale)).to(torch.bfloat16),
+                     (f[..., w:] * rs).to(torch.bfloat16)], dim=-1)
+    out = _exact_softmax_f32(deq, heads, 1.0, s_real, None)
+    if not quant_out:
+        return out.to(out_dtype)
+    q, sc = rowquant_plain(out.reshape(b * s, w))
+    return q.reshape(b, s, w), sc.reshape(b, s, 1)
+
+
+def _q8_lib() -> ctypes.CDLL:
+    lib = _cuda_build.load("packed_attention_q8")
+    if lib.packed_attention_q8.argtypes is None:
+        lib.packed_attention_q8.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_void_p,
+        ]
+        lib.packed_attention_q8.restype = ctypes.c_int
+    return lib
+
+
+def fused_attention_packed_q8(qkv_q: torch.Tensor, qkv_scale: torch.Tensor, heads: int,
+                              scale: float, out_dtype=torch.bfloat16, quant_out: bool = False,
+                              s_real: int | None = None):
+    """Attention on int8 packed qkv [B, S, 3w] with float32 per-token scales
+    [B, S, 1] → [B, S, w] of ``out_dtype`` (bfloat16 or float32), or with
+    ``quant_out`` → (int8 [B, S, w], float32 [B, S, 1]): the kernel writes
+    its float32 head outputs and K6's quantize pass turns each [w] token row
+    into int8 and a scale, one K7 launch and no K6 launch."""
+    if qkv_q.device.type == "cpu":
+        return fused_attention_packed_q8_plain(qkv_q, qkv_scale, heads, scale, out_dtype,
+                                               quant_out, s_real)
+    if not qkv_q.is_cuda:
+        raise ValueError(f"fused_attention_packed_q8: unsupported device {qkv_q.device}")
+    b, s, w3 = qkv_q.shape
+    s_real = s if s_real is None else s_real
+    _check_packed("fused_attention_packed_q8", qkv_q, heads, s_real, (torch.int8,))
+    w = w3 // 3
+    if (w // heads) % 8 or qkv_q.data_ptr() % 8:
+        raise ValueError(
+            "fused_attention_packed_q8: the kernel reads 8-byte vectors — head dim "
+            f"{w // heads} must be a multiple of 8 and the data 8-byte aligned"
+        )
+    if (qkv_scale.device != qkv_q.device or qkv_scale.dtype != torch.float32
+            or qkv_scale.numel() != b * s or not qkv_scale.is_contiguous()):
+        raise ValueError(
+            f"fused_attention_packed_q8: qkv_scale must be a contiguous float32 [{b}, {s}, 1] "
+            f"tensor on {qkv_q.device}, got {tuple(qkv_scale.shape)} {qkv_scale.dtype} on "
+            f"{qkv_scale.device}"
+        )
+    if out_dtype not in _DTYPE_CODE:
+        raise ValueError(f"fused_attention_packed_q8: out_dtype float32 or bfloat16, got "
+                         f"{out_dtype}")
+    out = torch.empty((b, s, w), dtype=torch.float32 if quant_out else out_dtype,
+                      device=qkv_q.device)
+    err = _q8_lib().packed_attention_q8(
+        qkv_q.data_ptr(), qkv_scale.data_ptr(), out.data_ptr(), _DTYPE_CODE[out.dtype], b, s,
+        s_real, w, heads, float(scale), torch.cuda.current_stream(qkv_q.device).cuda_stream,
+    )
+    _cuda_build.check(err, "packed_attention_q8")
+    if quant_out:
+        q, sc = _rowquant_launch("fused_attention_packed_q8", out.view(b * s, w), None, None,
+                                 None, 1e-5)
+        out = q.view(b, s, w), sc.view(b, s, 1)
+    fused_attention_packed_q8.launches += 1
+    return out
+
+
+fused_attention_packed_q8.launches = 0

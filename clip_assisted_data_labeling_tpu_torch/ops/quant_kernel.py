@@ -1,6 +1,6 @@
-"""The row-quantize kernels K2 and K6, the fused W8A8 linear K9, and the int8
-matmul over pre-quantized activations (port of the JAX package's
-``ops/quant_kernel.py``).
+"""The row-quantize kernels K2 and K6, the fused W8A8 linear K9, the fused
+block linear K8, and the int8 matmul over pre-quantized activations (port of
+the JAX package's ``ops/quant_kernel.py``).
 
   * ``rowquant_static`` (K2) replaces the TPU kernel
     ``_rowquant_static_kernel`` / ``rowquant_static``
@@ -16,11 +16,19 @@ matmul over pre-quantized activations (port of the JAX package's
     ``csrc/q_linear_fused.cu`` with the dequant + bias epilogue: one K9
     launch per call. ``ops/quant.q_matmul`` runs it under
     ``CTPU_FUSED_QMATMUL=1``.
+  * ``q_block_linear`` (K8) replaces ``_block_kernel`` / ``q_block_linear``
+    (``pallas_call`` at :299): K6's row pass as the prologue (layernorm +
+    dynamic quantize, or an int8 input with its row scales), K9's GEMM with
+    its epilogue extended by the activation and the residual, and for
+    ``quant_out`` K6's row pass over the float32 output rows — one K8
+    launch per call. No entry point of the JAX package calls it; it is
+    ported as a kernel in its own right.
 
 Each kernel's header says what bounds it on the H100 and how the design
 answers that. Unlike the TPU kernels, K2 and K6 take any row width whose
-float32 row fits shared memory (no K % 128 rule); the K9 GEMM needs
-K % 16 == 0 on the card.
+float32 row fits shared memory (no K % 128 rule); the GEMM of K9 and K8
+needs K % 16 == 0 on the card. K8 keeps the TPU kernel's two refusals
+(K % 128 with the layernorm, N % 128 with ``quant_out``) on every device.
 
 ``q_matmul_pre`` was plain XLA in the JAX package and is plain PyTorch here:
 ``torch._int_mm`` plus the float32 dequant epilogue.
@@ -234,14 +242,67 @@ def q_linear_fused_plain(x: torch.Tensor, wq_t: torch.Tensor, w_scale: torch.Ten
 
 def _gemm_lib() -> ctypes.CDLL:
     lib = _cuda_build.load("q_linear_fused")
-    if lib.q_linear_fused_gemm.argtypes is None:
-        lib.q_linear_fused_gemm.argtypes = [
+    if lib.q_block_linear_gemm.argtypes is None:
+        lib.q_block_linear_gemm.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
-        lib.q_linear_fused_gemm.restype = ctypes.c_int
+        lib.q_block_linear_gemm.restype = ctypes.c_int
     return lib
+
+
+def _check_gemm(what: str, x: torch.Tensor, wq_t: torch.Tensor, w_scale: torch.Tensor,
+                bias: torch.Tensor | None, out_dtype, act: str | None = None,
+                residual: torch.Tensor | None = None) -> None:
+    """The GEMM's own conditions (K9's and K8's), checked before any launch:
+    x [M, K] on the card, wq_t a contiguous 16-byte aligned int8 [N, K] there,
+    K % 16 == 0, w_scale and bias float32 [N], residual [M, N]."""
+    m, k = x.shape
+    n = wq_t.shape[0]
+    if (wq_t.dim() != 2 or wq_t.dtype != torch.int8 or wq_t.shape[1] != k
+            or not wq_t.is_contiguous() or wq_t.device != x.device):
+        raise ValueError(
+            f"{what}: wq_t must be a contiguous int8 [N, {k}] tensor on {x.device}, got "
+            f"{tuple(wq_t.shape)} {wq_t.dtype} on {wq_t.device}"
+        )
+    if (k % 16 or wq_t.data_ptr() % 16 or out_dtype not in _DTYPE_CODE
+            or act not in _ACT_CODE):
+        raise ValueError(
+            f"{what}: the GEMM reads 16-byte vectors — K={k} must be a multiple of 16 and the "
+            f"weight 16-byte aligned; out_dtype float32 or bfloat16 (got {out_dtype}); act one "
+            f"of {sorted(map(str, _ACT_CODE))} (got {act!r})"
+        )
+    _check_vec(what, "w_scale", w_scale, n, x.device)
+    if bias is not None:
+        _check_vec(what, "bias", bias, n, x.device)
+    if residual is not None and (residual.shape != (m, n) or residual.dtype not in _DTYPE_CODE
+                                 or not residual.is_contiguous()
+                                 or residual.device != x.device):
+        raise ValueError(
+            f"{what}: residual must be a contiguous float32 or bfloat16 [{m}, {n}] tensor on "
+            f"{x.device}, got {tuple(residual.shape)} {residual.dtype} on {residual.device}"
+        )
+
+
+def _gemm_launch(what: str, xq: torch.Tensor, xs: torch.Tensor, wq_t: torch.Tensor,
+                 w_scale: torch.Tensor, bias: torch.Tensor | None, out_dtype,
+                 act: str | None = None, residual: torch.Tensor | None = None) -> torch.Tensor:
+    """The int8 GEMM of K9 and K8 on arguments :func:`_check_gemm` passed:
+    ``act(((acc·xs)·w_scale) + bias) + residual`` in float32, cast to
+    ``out_dtype`` → [M, N]."""
+    m, n, k = xq.shape[0], wq_t.shape[0], xq.shape[1]
+    out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
+    err = _gemm_lib().q_block_linear_gemm(
+        xq.data_ptr(), wq_t.data_ptr(), xs.data_ptr(), w_scale.data_ptr(),
+        None if bias is None else bias.data_ptr(),
+        None if residual is None else residual.data_ptr(),
+        0 if residual is None else _DTYPE_CODE[residual.dtype], out.data_ptr(),
+        _DTYPE_CODE[out_dtype], _ACT_CODE[act], m, n, k,
+        torch.cuda.current_stream(xq.device).cuda_stream,
+    )
+    _cuda_build.check(err, what)
+    return out
 
 
 def q_linear_fused(x: torch.Tensor, wq_t: torch.Tensor, w_scale: torch.Tensor,
@@ -254,36 +315,93 @@ def q_linear_fused(x: torch.Tensor, wq_t: torch.Tensor, w_scale: torch.Tensor,
     if not x.is_cuda:
         raise ValueError(f"q_linear_fused: unsupported device {x.device}")
     _check_rows("q_linear_fused", x)
-    m, k = x.shape
-    n = wq_t.shape[0]
-    if (wq_t.dim() != 2 or wq_t.dtype != torch.int8 or wq_t.shape[1] != k
-            or not wq_t.is_contiguous() or wq_t.device != x.device):
-        raise ValueError(
-            f"q_linear_fused: wq_t must be a contiguous int8 [N, {k}] tensor on {x.device}, "
-            f"got {tuple(wq_t.shape)} {wq_t.dtype} on {wq_t.device}"
-        )
-    if k % 16 or wq_t.data_ptr() % 16 or out_dtype not in _DTYPE_CODE:
-        raise ValueError(
-            f"q_linear_fused: the GEMM reads 16-byte vectors — K={k} must be a multiple of "
-            "16 and the weight 16-byte aligned; out_dtype float32 or bfloat16, got "
-            f"{out_dtype}"
-        )
-    _check_vec("q_linear_fused", "w_scale", w_scale, n, x.device)
-    if bias is not None:
-        _check_vec("q_linear_fused", "bias", bias, n, x.device)
+    _check_gemm("q_linear_fused", x, wq_t, w_scale, bias, out_dtype)
     xq, xs = _rowquant_launch("q_linear_fused", x, None, None, None, 1e-5)
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    err = _gemm_lib().q_linear_fused_gemm(
-        xq.data_ptr(), wq_t.data_ptr(), xs.data_ptr(), w_scale.data_ptr(),
-        None if bias is None else bias.data_ptr(), out.data_ptr(), _DTYPE_CODE[out_dtype],
-        m, n, k, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _cuda_build.check(err, "q_linear_fused")
+    out = _gemm_launch("q_linear_fused", xq, xs, wq_t, w_scale, bias, out_dtype)
     q_linear_fused.launches += 1
     return out
 
 
 q_linear_fused.launches = 0
+
+
+# ---- K8: the fused block linear ----------------------------------------------
+
+def _check_block_linear(k: int, n: int, has_ln: bool, quant_out: bool) -> None:
+    """The JAX ``q_block_linear``'s refusals (quant_kernel.py:238-241)."""
+    if has_ln and k % 128 != 0:
+        raise ValueError("fused layernorm requires K % 128 == 0 (no K padding)")
+    if quant_out and n % 128 != 0:
+        raise ValueError("quant_out requires N % 128 == 0 (exact row scales)")
+
+
+def q_block_linear_plain(x: torch.Tensor, wq_t: torch.Tensor, w_scale: torch.Tensor,
+                         bias: torch.Tensor | None = None, x_scale: torch.Tensor | None = None,
+                         ln_scale: torch.Tensor | None = None,
+                         ln_bias: torch.Tensor | None = None,
+                         residual: torch.Tensor | None = None, act: str | None = None,
+                         quant_out: bool = False, out_dtype=torch.bfloat16,
+                         ln_eps: float = 1e-5):
+    """K8's arithmetic in plain PyTorch (the TPU ``_block_kernel``,
+    quant_kernel.py:138-192): the input either int8 with its [M, 1] scales or
+    float, then K6's pass (the optional float32 layernorm, ``amax = max(max|x|,
+    1e-8)``, ``clip(round(x·(127/amax)))``, scale ``amax·(1/127)``); the int32
+    product with the weight stored [N, K]; ``(acc·row_scale)·w_scale + bias``
+    in float32; the optional activation in float32 (K6's forms); the optional
+    ``+ residual`` in float32; then the cast to ``out_dtype``, or with
+    ``quant_out`` K6's quantize of each [N] output row → (int8 [M, N],
+    float32 [M, 1])."""
+    _check_block_linear(wq_t.shape[1], wq_t.shape[0], ln_scale is not None, quant_out)
+    if x_scale is not None:
+        xq, xs = x, x_scale.float()
+    else:
+        xq, xs = rowquant_plain(x, ln_scale, ln_bias, None, ln_eps)
+    y = _row_act(_dequant_epilogue(int_matmul(xq, wq_t), xs, w_scale, bias, None, torch.float32),
+                 act)
+    if residual is not None:
+        y = y + residual.float()
+    return rowquant_plain(y) if quant_out else y.to(out_dtype)
+
+
+def q_block_linear(x: torch.Tensor, wq_t: torch.Tensor, w_scale: torch.Tensor,
+                   bias: torch.Tensor | None = None, x_scale: torch.Tensor | None = None,
+                   ln_scale: torch.Tensor | None = None, ln_bias: torch.Tensor | None = None,
+                   residual: torch.Tensor | None = None, act: str | None = None,
+                   quant_out: bool = False, out_dtype=torch.bfloat16, ln_eps: float = 1e-5):
+    """One transformer-block linear: x [M, K] (float32 or bfloat16, or int8
+    with ``x_scale`` float32 [M, 1]), an optional fused pre-layernorm
+    (``ln_scale``, ``ln_bias`` [K], K % 128 == 0), wq_t [N, K] int8 (the
+    [K, N] kernel stored transposed), w_scale and bias [N] float32, an
+    optional activation and ``residual`` [M, N] (float32 or bfloat16) →
+    [M, N] of ``out_dtype`` (float32 or bfloat16), or with ``quant_out``
+    (N % 128 == 0) → (int8 [M, N], float32 [M, 1])."""
+    m, k = x.shape
+    n = wq_t.shape[0]
+    _check_block_linear(k, n, ln_scale is not None, quant_out)
+    if x.device.type == "cpu":
+        return q_block_linear_plain(x, wq_t, w_scale, bias, x_scale, ln_scale, ln_bias, residual,
+                                    act, quant_out, out_dtype, ln_eps)
+    if not x.is_cuda:
+        raise ValueError(f"q_block_linear: unsupported device {x.device}")
+    what = "q_block_linear"
+    _check_gemm(what, x, wq_t, w_scale, bias, out_dtype, act, residual)
+    if x_scale is not None:
+        if x.dtype != torch.int8 or not x.is_contiguous() or x.data_ptr() % 16:
+            raise ValueError(f"{what}: with x_scale, x must be a contiguous 16-byte aligned "
+                             f"int8 [M, K] tensor, got {x.dtype}")
+        _check_vec(what, "x_scale", x_scale, m, x.device)
+        xq, xs = x, x_scale
+    else:
+        xq, xs = _rowquant_launch(what, x, ln_scale, ln_bias, None, ln_eps)
+    out = _gemm_launch(what, xq, xs, wq_t, w_scale, bias,
+                       torch.float32 if quant_out else out_dtype, act, residual)
+    if quant_out:
+        out = _rowquant_launch(what, out, None, None, None, 1e-5)
+    q_block_linear.launches += 1
+    return out
+
+
+q_block_linear.launches = 0
 
 
 def q_matmul_pre(

@@ -11,14 +11,20 @@ from clip_assisted_data_labeling_tpu_torch.models.vit import _rope2d_tables
 from clip_assisted_data_labeling_tpu_torch.ops.attention import (
     flash_attention_packed,
     flash_attention_packed_plain,
+    fused_attention,
     fused_attention_packed,
     fused_attention_packed_grouped,
     fused_attention_packed_grouped_plain,
     fused_attention_packed_plain,
+    fused_attention_packed_q8,
+    fused_attention_packed_q8_plain,
     fused_attention_packed_q8s,
     fused_attention_packed_q8s_plain,
+    fused_attention_plain,
 )
 from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import (
+    q_block_linear,
+    q_block_linear_plain,
     q_linear_fused,
     q_linear_fused_plain,
     rowquant,
@@ -155,10 +161,11 @@ def test_rowquant_static_kernel_matches_plain(card, dtype, m, k):
 ])
 def test_flash_attention_kernel_matches_plain(card, dtype, b, s, s_real, w, heads):
     qkv = _normal((b, s, 3 * w), seed=s).to(card, dtype)
-    before = flash_attention_packed.launches
+    before = (flash_attention_packed.launches, flash_attention_packed.rope_launches)
     got = flash_attention_packed(qkv, heads, (w // heads) ** -0.5, s_real)
     torch.cuda.synchronize()
-    assert flash_attention_packed.launches == before + 1
+    assert (flash_attention_packed.launches,
+            flash_attention_packed.rope_launches) == (before[0] + 1, before[1])
     ref = flash_attention_packed_plain(qkv, heads, (w // heads) ** -0.5, s_real)
     err = (got.float() - ref.float())[:, :s_real].abs().max().item()
     assert err <= TOL[dtype], f"max abs err {err}"
@@ -410,6 +417,218 @@ def test_vit_l336_two_layers_dynamic_int8_on_card_matches_cpu(card, monkeypatch,
     knobs.reload()
     try:
         kernels = {"K1": fused_attention_packed, "K6": rowquant, "K9": q_linear_fused}
+        before = {k: fn.launches for k, fn in kernels.items()}
+        got = vit.vit_encode_image(gpu, images.to(card), torch.bfloat16).cpu().numpy()
+        assert {k: fn.launches - before[k] for k, fn in kernels.items()} == counts
+        ref = vit.vit_encode_image(cpu, images, torch.bfloat16).numpy()
+    finally:
+        monkeypatch.undo()
+        knobs.reload()
+    assert 1.0 - np.min(np.sum(got * ref, axis=-1)) <= 2e-3
+
+
+# ---- K8, K7, K10 and K5's RoPE option ------------------------------------------
+
+@pytest.mark.parametrize("variant", ["ln", "residual_bf16", "int8_in", "quick_gelu_quant_out",
+                                     "gelu_tanh_residual", "ln_gelu_quant_out"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(300, 1024, 3072), (1000, 4096, 1024), (130, 128, 256)])
+def test_q_block_linear_kernel_matches_plain(card, m, k, n, dtype, variant):
+    """K8: the same prologue (K6's pass), int8 product and float32 epilogue
+    steps; one K8 launch, no K6 launch. A quantized input value may land on
+    the other side of a .5 boundary in K6's pass (its layernorm sums in
+    another order than torch's: ±1 on ~1e-6 of the entries, a few rows in a
+    thousand at K = 4096), and moves its row's outputs by up to
+    amax·w_scale; those rows (≤ 1%) are found from the pass itself. On the
+    others: float outputs one bf16 (or 1e-6 float32) relative step apart at
+    most; int8 outputs ±1 on ≤ 0.1% of entries with row scales within 1e-6.
+    On the flipped rows, tests/test_quant_kernel.py's flip-aware bound:
+    1.2·n_flips·amax·w_scale (the 1.2 for the activation's slope) beyond
+    that step, and for int8 outputs |q·s − rq·rs| within one output step
+    plus that bound."""
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32)).to(card, dtype)
+    wq = torch.from_numpy(rng.integers(-127, 128, (n, k), dtype=np.int8)).to(card)
+    ws = torch.from_numpy(rng.uniform(1e-4, 1e-3, n).astype(np.float32)).to(card)
+    b = torch.from_numpy(rng.normal(0, 0.1, n).astype(np.float32)).to(card)
+    kw = {"act": {"quick_gelu_quant_out": "quick_gelu", "gelu_tanh_residual": "gelu_tanh",
+                  "ln_gelu_quant_out": "gelu"}.get(variant),
+          "quant_out": variant.endswith("quant_out"),
+          "out_dtype": torch.bfloat16 if variant.endswith("bf16") else torch.float32}
+    if variant.startswith("ln"):
+        kw["ln_scale"] = (1 + 0.1 * _normal((k,), seed=1)).to(card)
+        kw["ln_bias"] = (0.1 * _normal((k,), seed=2)).to(card)
+    if "residual" in variant:
+        kw["residual"] = _normal((m, n), seed=3).to(card, dtype)
+    if variant == "int8_in":
+        x, kw["x_scale"] = rowquant_plain(x)
+    k8, k6 = q_block_linear.launches, rowquant.launches
+    got = q_block_linear(x, wq, ws, b, **kw)
+    torch.cuda.synchronize()
+    assert (q_block_linear.launches, rowquant.launches) == (k8 + 1, k6)
+    ref = q_block_linear_plain(x, wq, ws, b, **kw)
+    flip_bound = torch.zeros((m, 1), device=card)
+    if variant != "int8_in":
+        ln = (kw.get("ln_scale"), kw.get("ln_bias"))
+        (xq, _), (rxq, rxs) = rowquant(x, *ln), rowquant_plain(x, *ln)
+        n_flips = (xq != rxq).sum(dim=1, keepdim=True)
+        flip_bound = 1.2 * n_flips * (rxs * 127) * ws.view(1, -1)
+        assert (n_flips > 0).float().mean().item() <= 1e-2, \
+            f"{int((n_flips > 0).sum())} input rows flipped"
+    ok = (flip_bound == 0).all(dim=1)
+    if kw["quant_out"]:
+        (q, sc), (rq, rsc) = got, ref
+        assert q.dtype == torch.int8 and q.shape == (m, n) and sc.shape == (m, 1)
+        assert _flips(q[ok], rq[ok]) <= 1e-3
+        torch.testing.assert_close(sc[ok], rsc[ok], rtol=1e-6, atol=0)
+        err = (q.float() * sc - rq.float() * rsc).abs()
+        assert (err <= torch.maximum(sc, rsc) + flip_bound)[~ok].all().item()
+        return
+    assert got.dtype == kw["out_dtype"] and got.shape == (m, n)
+    rel = 2.0 ** -7 if kw["out_dtype"] == torch.bfloat16 else 1e-6
+    bad = ((got.float() - ref.float()).abs() > rel * ref.float().abs() + 1e-6
+           + flip_bound).any(dim=1)
+    assert not bad.any().item(), f"{int(bad.sum())} rows off ({int((~ok).sum())} flipped)"
+
+
+def test_q_block_linear_refuses_bad_inputs(card):
+    x = torch.zeros((4, 128), device=card)
+    wq = torch.zeros((256, 128), device=card, dtype=torch.int8)
+    ws = torch.ones(256, device=card)
+    with pytest.raises(ValueError, match="K % 128"):  # the TPU kernel's own refusals
+        q_block_linear(torch.zeros((4, 96), device=card), wq[:, :96].contiguous(), ws,
+                       ln_scale=torch.ones(96, device=card), ln_bias=torch.zeros(96, device=card))
+    with pytest.raises(ValueError, match="N % 128"):
+        q_block_linear(x, wq[:72].contiguous(), ws[:72].contiguous(), quant_out=True)
+    with pytest.raises(ValueError):  # a residual of the wrong shape
+        q_block_linear(x, wq, ws, residual=torch.zeros((4, 128), device=card))
+    with pytest.raises(ValueError):  # int8 x without its row scales of the right length
+        q_block_linear(x.to(torch.int8), wq, ws, x_scale=torch.ones((3, 1), device=card))
+    with pytest.raises(ValueError):  # unknown activation
+        q_block_linear(x, wq, ws, act="relu")
+
+
+def _q8_inputs(b, s, w, seed, device):
+    """int8 qkv from a per-token quantize and its float32 [B, S, 1] scales,
+    with scores of std ~2."""
+    qkv = _normal((b, s, 3 * w), seed=seed)
+    amax = qkv.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
+    q = torch.round(qkv / (amax / 127)).clamp(-127, 127).to(torch.int8)
+    return q.to(device), (amax / 127 * 1.7).to(device)
+
+
+@pytest.mark.parametrize("out", ["bfloat16", "float32", "quant_out"])
+@pytest.mark.parametrize("b,s,s_real,w,heads", [
+    (2, 50, 43, 144, 2), (2, 577, 577, 1024, 16), (1, 729, 729, 1152, 16),
+])
+def test_q8_attention_kernel_matches_plain(card, b, s, s_real, w, heads, out):
+    """K7: bf16 and float32 outputs within 2e-2 (K1's bf16 tolerance: the
+    heads are bf16); quant_out int8 ±1 on ≤ 0.1% of entries and scales as
+    K1's quant_out; one K7 launch, no K6 launch."""
+    qkv, sc = _q8_inputs(b, s, w, seed=s, device=card)
+    kw = {"quant_out": True} if out == "quant_out" else {"out_dtype": getattr(torch, out)}
+    k7, k6 = fused_attention_packed_q8.launches, rowquant.launches
+    got = fused_attention_packed_q8(qkv, sc, heads, (w // heads) ** -0.5, s_real=s_real, **kw)
+    torch.cuda.synchronize()
+    assert (fused_attention_packed_q8.launches, rowquant.launches) == (k7 + 1, k6)
+    ref = fused_attention_packed_q8_plain(qkv, sc, heads, (w // heads) ** -0.5, s_real=s_real,
+                                          **kw)
+    if out != "quant_out":
+        assert got.dtype == kw["out_dtype"] and got.shape == (b, s, w)
+        assert (got.float() - ref.float())[:, :s_real].abs().max().item() <= 2e-2
+        return
+    (q, qs), (rq, rqs) = got, ref
+    assert q.dtype == torch.int8 and q.shape == (b, s, w) and qs.shape == (b, s, 1)
+    assert _flips(q[:, :s_real], rq[:, :s_real]) <= 1e-3
+    rel = (qs[:, :s_real] / rqs[:, :s_real] - 1).abs()
+    assert (rel > 1e-5).float().mean().item() <= 5e-2 and rel.max().item() <= 2.0 ** -8
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,s,d", [(2, 3, 37, 32), (2, 16, 577, 64), (1, 4, 100, 72),
+                                     (1, 2, 257, 128)])
+def test_unpacked_attention_kernel_matches_plain(card, dtype, b, h, s, d):
+    """K10: K1's kernels on [B, h, S, d] read in place; f32 ≤ 1e-5, bf16
+    ≤ 2e-2; one K10 launch and no K1 launch."""
+    q, k, v = (_normal((b, h, s, d), seed=s + i).to(card, dtype) for i in range(3))
+    k10, k1 = fused_attention.launches, fused_attention_packed.launches
+    got = fused_attention(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (fused_attention.launches, fused_attention_packed.launches) == (k10 + 1, k1)
+    ref = fused_attention_plain(q, k, v, d ** -0.5)
+    assert got.dtype == dtype and got.shape == (b, h, s, d)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= TOL[dtype], f"max abs err {err}"
+
+
+def test_unpacked_attention_refuses_bad_inputs(card):
+    q = torch.zeros((1, 2, 8, 64), device=card)
+    with pytest.raises(ValueError):  # mixed dtypes
+        fused_attention(q, q.bfloat16(), q, 0.125)
+    with pytest.raises(ValueError):  # not contiguous
+        fused_attention(q.transpose(2, 3), q, q, 0.125)
+    with pytest.raises(ValueError):  # bf16 head dim not a multiple of 8
+        z = torch.zeros((1, 2, 8, 12), device=card, dtype=torch.bfloat16)
+        fused_attention(z, z, z, 0.125)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,grid,cls,s_real,w,heads", [
+    (2, 7, True, 43, 128, 2),        # S = 50, one panel, masked tail
+    (1, 27, False, 729, 128, 2),     # two 368-key panels
+    (2, 32, False, 1024, 1536, 16),  # PE-Core-G14-448's shape (d = 96), four 256-key panels
+])
+def test_flash_attention_rope_kernel_matches_plain(card, dtype, b, grid, cls, s_real, w, heads):
+    """K5 with RoPE inside the kernel, each k panel with its own table rows:
+    f32 ≤ 1e-5, bf16 ≤ 2e-2; one K5 launch, counted with RoPE too."""
+    s, d = grid * grid + cls, w // heads
+    qkv = _normal((b, s, 3 * w), seed=s).to(card, dtype)
+    rope = _rope(grid, cls, d, card)
+    before = (flash_attention_packed.launches, flash_attention_packed.rope_launches)
+    got = flash_attention_packed(qkv, heads, d ** -0.5, s_real, rope)
+    torch.cuda.synchronize()
+    assert (flash_attention_packed.launches,
+            flash_attention_packed.rope_launches) == (before[0] + 1, before[1] + 1)
+    ref = flash_attention_packed_plain(qkv, heads, d ** -0.5, s_real, rope)
+    err = (got.float() - ref.float())[:, :s_real].abs().max().item()
+    assert err <= TOL[dtype], f"max abs err {err}"
+
+
+@pytest.mark.parametrize("name,env,counts", [
+    ("ViT-L-14-336/openai", {"CTPU_LN_KERNEL": "0"}, {"K1": 2, "K2": 0, "K3": 0, "K5": 0}),
+    ("ViT-L-14-336/openai", {"CTPU_INT8_WIRE": "1"}, {"K1": 0, "K2": 0, "K3": 2, "K5": 0}),
+    ("ViT-SO400M-14-SigLIP-384/webli", {"CTPU_INT8_WIRE": "0"},
+     {"K1": 0, "K2": 4, "K3": 0, "K5": 2}),
+])
+def test_int8_static_knob_routes_two_layers_on_card_match_cpu(card, monkeypatch, name, env,
+                                                              counts):
+    """The int8_static routes the knobs pick, on two layers at full width:
+    the static generic block (CTPU_LN_KERNEL=0), the wire at S=577
+    (CTPU_INT8_WIRE=1) and lnk with K5 at S=729 (CTPU_INT8_WIRE=0), on the
+    card against the same weights, calibration and images on the CPU, with
+    each kernel's launches."""
+    import dataclasses
+
+    from clip_assisted_data_labeling_tpu_torch.models import vit
+    from clip_assisted_data_labeling_tpu_torch.models.clip_weights import module_from_params
+    from clip_assisted_data_labeling_tpu_torch.ops import knobs
+    from clip_assisted_data_labeling_tpu_torch.ops.quant import quantize_vit_params
+
+    cfg = dataclasses.replace(vit.resolve_config(name), layers=2)
+    params = quantize_vit_params(vit.init_vit_params(cfg, torch.Generator().manual_seed(0)))
+    images = _normal((2, cfg.image_size, cfg.image_size, 3), seed=6)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    knobs.reload()
+    try:
+        cpu = module_from_params(params, cfg)
+        gpu = module_from_params(params, cfg, card)
+        amax = vit.vit_act_amax(cpu, images)
+        wire = vit.int8_wire_enabled(cfg)
+        for m in (cpu, gpu):
+            vit.attach_act_amax(m, amax, wire=wire)
+        kernels = {"K1": fused_attention_packed, "K2": rowquant_static,
+                   "K3": fused_attention_packed_q8s, "K5": flash_attention_packed}
         before = {k: fn.launches for k, fn in kernels.items()}
         got = vit.vit_encode_image(gpu, images.to(card), torch.bfloat16).cpu().numpy()
         assert {k: fn.launches - before[k] for k, fn in kernels.items()} == counts

@@ -93,7 +93,10 @@ def test_store_rows_match_jax_embed(embedded):
     je = np.asarray(jstore.embeddings, np.float32)
     for i, u in enumerate(pstore.uuids):
         cos = np.sum(pe[i] * je[jstore.index_of(u)], axis=-1)
-        assert np.all(cos >= 1 - 2e-3), f"{u}: cosine {cos}"  # the int8_static budget
+        # both packages run the generic block with static scales at width 64
+        # (worst error 7.0e-4 over these rows; 1.35e-3 while the port ran K2
+        # there); the rest is the CPU JAX run's XLA attention against K1's
+        assert np.all(cos >= 1 - 1e-3), f"{u}: cosine {cos}"
         np.testing.assert_allclose(pstore.img_stats[i], jstore.img_stats[jstore.index_of(u)],
                                    atol=3e-3)
 

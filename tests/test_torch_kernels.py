@@ -34,6 +34,7 @@ from clip_assisted_data_labeling_tpu_torch.ops.attention import (
     attention_route,
     attention_xla,
     flash_attention_packed,
+    flash_attention_packed_plain,
     fused_attention_packed,
     fused_attention_packed_grouped,
     fused_attention_packed_grouped_plain,
@@ -178,14 +179,17 @@ def test_pe_routes():
 
 
 def test_auto_refuses_rope_on_the_flash_route(rng):
-    """No registered RoPE tower reaches flash; a shape that would is refused
-    rather than run without its rotation (K5's RoPE option is not ported)."""
+    """No registered RoPE tower reaches flash; a shape that would is no
+    longer refused: K5 now has the RoPE option, and the route runs it with
+    the rotation (as the JAX package's flash kernel does), not without it."""
     s, heads, d = 729, 16, 72  # SO400M-384's float32 shape
     assert attention_route(s, heads * d, heads, 4) == "flash"
-    qkv = torch.zeros((1, s, 3 * heads * d))
-    tables = tuple(torch.zeros((s, d // 2)) for _ in range(2))
-    with pytest.raises(NotImplementedError, match="RoPE"):
-        packed_attention_auto(qkv, heads, 0.1, rope=tables)
+    qkv = torch.from_numpy(rng.normal(0, 1, (1, s, 3 * heads * d)).astype(np.float32))
+    ang = torch.from_numpy(rng.uniform(0, 30, (s, d // 2)).astype(np.float32))
+    tables = (torch.cos(ang), torch.sin(ang))
+    got = packed_attention_auto(qkv, heads, 0.1, rope=tables)
+    assert torch.equal(got, flash_attention_packed_plain(qkv, heads, 0.1, rope=tables))
+    assert not torch.equal(got, flash_attention_packed_plain(qkv, heads, 0.1))
 
 
 def test_grouped_wrapper_uses_plain_on_cpu(rng):
