@@ -7,11 +7,16 @@ Phases (any failure exits nonzero and prints no result line):
   2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel),
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes and time kernel, plain version, the PyTorch library
-     yardstick and the roofline bound (CUDA events, warmed up): K1 (also with
-     PE's RoPE), K2, K4 (bf16 with RoPE at PE-Core-G14-448's shape, f32 at
-     the 336-pixel towers' float32 shapes), K5, K3, and dynamic int8's K6
+     yardstick and the roofline bound (CUDA events, warmed up; the float32
+     kernels of K1, K4 and K10 at a third of the TF32 rate, their 3xTF32
+     products, with the float32 FMA bound beside it): K1 (also with
+     PE's RoPE; f32 at ViT-L-14's float32 path), K2, K4 (bf16 with RoPE at
+     PE-Core-G14-448's shape, f32 at the 336-pixel towers' float32 paths,
+     with PE-Core-L14-336's RoPE there), K5, K3, and dynamic int8's K6
      (ln at [18464, 1024], quick_gelu at [18464, 4096], bf16 and f32 in), K9
-     (ViT-L's four products at M = 18464) and K1's quant_out option; then the
+     (ViT-L's four products at M = 18464 and 9232) and K1's quant_out
+     option, each also at the CLI's 64-crop shapes or others that no path
+     here runs; then the
      kernels no path of the JAX package reaches: K8 at ViT-L's four block
      linears (M = 18464), K7 at int8 [32, 577, 3072] (bf16 and quant_out),
      K10 at [32|8, 16, 577, 64], and K5 with RoPE at PE-Core-G14-448's shape,
@@ -24,7 +29,9 @@ Phases (any failure exits nonzero and prints no result line):
      then time the same device work in steady state and profile one batch,
   7. run a few images through the float32 path (K4 in float32: the JAX
      package's grouped route) and print the cosine against the int8_static
-     embeddings,
+     embeddings; then ViT-L-14/openai (224 px, S=257) in float32 on them (K1
+     in float32: the whole-block route) against the same encoder on the
+     CPU (1 - cosine ≤ 1e-5), each with its steady ms per forward,
   7a. the embed CLI on copies of the PNGs in a fresh directory (the CLI skips
      images already embedded): ViT-L-14-336/openai in dynamic int8
      (--compute_dtype int8) with CTPU_INT8_BLOCK=hybrid, batch 8, full width
@@ -47,8 +54,8 @@ Phases (any failure exits nonzero and prints no result line):
      RoPE once and K2 twice in each of the 24 layers; no K3, K4, K5), batch
      8, full width and depth, random weights; outputs, steady state, profile,
  11. four images through its bfloat16 path (K1 with RoPE in every layer) and
-     its float32 path (K4 with RoPE in every layer), each against the
-     int8_static embeddings,
+     its float32 path (K4 with RoPE in every layer, with its steady ms per
+     forward), each against the int8_static embeddings,
  12. PE-Core-G14-448 in bfloat16 on four images at full width and all 50
      layers (K4 with RoPE in every layer, no K1): finite unit embeddings,
  13. the int8_static routes of the two knobs that pick the block, each
@@ -58,10 +65,10 @@ Phases (any failure exits nonzero and prints no result line):
      with static scales: K1, no K2), ViT-L-14-336 with CTPU_INT8_WIRE=1 (the
      wire: K3, no K1 or K2), SO400M-384 with CTPU_INT8_WIRE=0 (lnk: K5 and
      K2, no K3),
-then print one JSON line listing the kernels, each with its launches read
-from the counters of the main paths above (K7, K8, K10 and K5 with RoPE,
-which no path of the JAX package reaches, summed over all of them) and,
-last, the device line.
+then print one JSON line listing the kernels, each row with its launches
+read from the counter of the main path above that runs its case (0 for a
+shape no path runs; K7, K8, K10 and K5 with RoPE, which no path of the JAX
+package reaches, summed over all of them) and, last, the device line.
 
 Imports torch and the port only, never JAX.
 """
@@ -83,9 +90,14 @@ import torch
 
 H100_BF16_FLOPS = 989e12  # dense tensor-core bf16 (NVIDIA data sheet, SXM, 700 W)
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
+H100_TF32_FLOPS = 494.7e12  # dense tensor-core TF32
+# float32 products on the tensor cores as three TF32 mmas each (3xTF32): the
+# bound of K1's, K4's and K10's float32 kernels
+H100_3XTF32_FLOPS = H100_TF32_FLOPS / 3
 H100_INT8_OPS = 1979e12  # dense tensor-core int8
 H100_BYTES = 3.35e12  # HBM3 bytes/s
 MODEL = "ViT-L-14-336/openai"
+L14 = "ViT-L-14/openai"  # 224 px, S=257: its float32 block takes K1 (the JAX whole-block gate)
 SIGLIP = "ViT-SO400M-14-SigLIP-384/webli"
 PE_L = "PE-Core-L14-336"
 PE_G = "PE-Core-G14-448"
@@ -110,10 +122,6 @@ K7_TPU = "clip_assisted_data_labeling_tpu/ops/attention.py:619"
 K8_TPU = "clip_assisted_data_labeling_tpu/ops/quant_kernel.py:138"
 K9_TPU = "clip_assisted_data_labeling_tpu/ops/quant_kernel.py:34"
 K10_TPU = "clip_assisted_data_labeling_tpu/ops/attention.py:25"
-# no entry point of the JAX package reaches K7, K8, K10 or K5's RoPE option:
-# they are held against their plain versions in phase 3, and their launches
-# are summed over every main path's counters
-NO_PATH = {"packed_attention_q8": "K7", "q_block_linear": "K8", "fused_attention": "K10"}
 
 
 def fail(msg: str, code: int = 1):
@@ -202,17 +210,28 @@ def time_ms(fn, min_reps: int = 10, min_s: float = 0.2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, peak: float, nbytes: float) -> dict:
+def bound(flops: float, peak: float, nbytes: float, fma_peak: float | None = None) -> dict:
     """The least time the card could take: operations over the peak rate
-    for their type or bytes over the memory rate, whichever is larger."""
-    return {"bound_ms": 1e3 * max(flops / peak, nbytes / H100_BYTES),
-            "bound_by": "operations" if flops / peak > nbytes / H100_BYTES else "bytes"}
+    for their type or bytes over the memory rate, whichever is larger. With
+    ``fma_peak`` (the 3xTF32 rows) the row also carries the bound at that
+    rate (``bound_fma_ms``), that of the CUDA-core kernels they replaced."""
+    row = {"bound_ms": 1e3 * max(flops / peak, nbytes / H100_BYTES),
+           "bound_by": "operations" if flops / peak > nbytes / H100_BYTES else "bytes"}
+    if fma_peak is not None:
+        row["bound_fma_ms"] = 1e3 * max(flops / fma_peak, nbytes / H100_BYTES)
+    return row
 
 
-def check_kernels(gen: torch.Generator) -> list[dict]:
+def check_kernels(gen: torch.Generator, pgen: torch.Generator) -> list[dict]:
     """Phase 3: every kernel against its plain version at the main paths'
     shapes, with times. Launches here are comparisons and are not counted
-    (the counters are zeroed before each main path)."""
+    (the counters are zeroed before each main path). Each row names, as
+    ``path``, the main path that runs its case and the counter that row
+    reports (``main`` reads them), or None for a shape no main path runs
+    (the CLI's 64-crop forwards, other types): its launches are 0. The rows
+    that hold a path's own shape beside an older row of another shape draw
+    their inputs from ``pgen``, so that every older row keeps the inputs
+    ``gen`` gave it before they were added."""
     import torch.nn.functional as F
 
     from clip_assisted_data_labeling_tpu_torch.ops.attention import (
@@ -231,12 +250,18 @@ def check_kernels(gen: torch.Generator) -> list[dict]:
     rows = []
     heads, w = 16, 1024
     d = w // heads
-    bf16, f32 = (torch.bfloat16, 2e-2, H100_BF16_FLOPS), (torch.float32, 1e-5, H100_F32_FLOPS)
-    # the main path's own shape first (BATCH images x 4 crops of ViT-L-14-336),
-    # then the CLI's 64-crop forwards of ViT-L-14-336 and ViT-L-14 (224)
-    for b, s, (dtype, tol, peak) in ((4 * BATCH, 577, bf16), (64, 577, bf16), (64, 577, f32),
-                                     (64, 257, bf16), (64, 257, f32)):
-        qkv = torch.randn((b, s, 3 * w), generator=gen, device="cuda").to(dtype)
+    # (type, tolerance, peak rate, FMA rate beside a 3xTF32 bound)
+    bf16 = (torch.bfloat16, 2e-2, H100_BF16_FLOPS, None)
+    f32 = (torch.float32, 1e-5, H100_F32_FLOPS, None)
+    f32tc = (torch.float32, 1e-5, H100_3XTF32_FLOPS, H100_F32_FLOPS)  # K1's float32: 3xTF32
+    # the main paths' own shapes first (BATCH images x 4 crops of ViT-L-14-336
+    # int8_static; 4 x 4 of ViT-L-14 float32), then the CLI's 64-crop
+    # forwards of ViT-L-14-336 and ViT-L-14 (224)
+    for b, s, (dtype, tol, peak, fma), path, rg in (
+            (4 * BATCH, 577, bf16, ("l336", "K1"), gen), (16, 257, f32tc, ("l14_f32", "K1"), pgen),
+            (64, 577, bf16, None, gen), (64, 577, f32tc, None, gen), (64, 257, bf16, None, gen),
+            (64, 257, f32tc, None, gen)):
+        qkv = torch.randn((b, s, 3 * w), generator=rg, device="cuda").to(dtype)
         got = fused_attention_packed(qkv, heads, d ** -0.5)
         ref = fused_attention_packed_plain(qkv, heads, d ** -0.5)
         err = (got.float() - ref.float()).abs().max().item()
@@ -248,13 +273,13 @@ def check_kernels(gen: torch.Generator) -> list[dict]:
         row = {
             "name": "packed_attention", "route": "cuda", "source": K1_SRC,
             "replaces": K1_TPU, "case": f"{str(dtype)[6:]} [{b},{s},{3 * w}] h={heads}",
-            "max_abs_err": err, "tol": tol,
+            "path": path, "max_abs_err": err, "tol": tol,
             "ms": time_ms(lambda: fused_attention_packed(qkv, heads, d ** -0.5)),
             "plain_ms": time_ms(lambda: fused_attention_packed_plain(qkv, heads, d ** -0.5),
                                 min_reps=3),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, scale=d ** -0.5)),
-            **bound(flops, peak, nbytes),
+            **bound(flops, peak, nbytes, fma),
         }
         rows.append(row)
         print(f"K1 {row['case']}: err {err:.3g} (tol {tol}) kernel {row['ms']:.3f} ms "
@@ -263,8 +288,8 @@ def check_kernels(gen: torch.Generator) -> list[dict]:
         del qkv, q, k, v
         torch.cuda.empty_cache()
 
-    rows += check_rope_and_grouped(gen)
-    rows += check_int8_kernels(gen)
+    rows += check_rope_and_grouped(gen, pgen)
+    rows += check_int8_kernels(gen, pgen)
     rows += check_block_linear(gen)
     rows += check_standalone_attention(gen)
 
@@ -273,7 +298,8 @@ def check_kernels(gen: torch.Generator) -> list[dict]:
     bta = 0.1 * torch.randn((k,), generator=gen, device="cuda")
     amax = torch.tensor([6.0], device="cuda")
     inv = torch.tensor(127.0) / amax
-    for m in (4 * BATCH * 577, 64 * 577):  # the main path's rows, then the CLI's
+    # PE-Core-L14-336 int8_static's rows, then the CLI's 64-crop forwards'
+    for m, path in ((4 * BATCH * 577, ("pe", "K2")), (64 * 577, None)):
         x = (torch.randn((m, k), generator=gen, device="cuda") * 2).to(torch.bfloat16)
         diff = (rowquant_static(x, g, bta, amax).int()
                 - rowquant_static_plain(x, g, bta, amax).int()).abs()
@@ -286,7 +312,8 @@ def check_kernels(gen: torch.Generator) -> list[dict]:
         flops = 10.0 * m * k
         row = {
             "name": "rowquant_static", "route": "cuda", "source": K2_SRC, "replaces": K2_TPU,
-            "case": f"bfloat16 [{m},{k}]", "max_abs_err": diff.max().item(), "tol": 1,
+            "case": f"bfloat16 [{m},{k}]", "path": path, "max_abs_err": diff.max().item(),
+            "tol": 1,
             "flip_share": (diff > 0).float().mean().item(),
             "ms": time_ms(lambda: rowquant_static(x, g, bta, amax)),
             "plain_ms": time_ms(lambda: rowquant_static_plain(x, g, bta, amax)),
@@ -302,19 +329,21 @@ def check_kernels(gen: torch.Generator) -> list[dict]:
                  "entries (> 1e-3)")
         del x, diff
 
-    # ViT-SO400M-14-SigLIP-384 (S=729, 16 heads of 72): K5 bf16 at the
-    # bf16 path's 8 images x 4 crops and f32 at 2 x 4; K3 at int8_static's
+    # ViT-SO400M-14-SigLIP-384 (S=729, 16 heads of 72): K5 bf16 at the bf16
+    # path's 4 images x 4 crops, at 8 x 4 and f32 at 2 x 4; K3 at int8_static's
     heads, w, s = 16, 1152, 729
     d = w // heads
-    for b, (dtype, tol, peak) in ((4 * BATCH, bf16), (8, f32)):
-        qkv = torch.randn((b, s, 3 * w), generator=gen, device="cuda").to(dtype)
+    for b, (dtype, tol, peak, _), path, rg in ((16, bf16, ("so400m_bf16", "K5"), pgen),
+                                              (4 * BATCH, bf16, None, gen), (8, f32, None, gen)):
+        qkv = torch.randn((b, s, 3 * w), generator=rg, device="cuda").to(dtype)
         err = (flash_attention_packed(qkv, heads, d ** -0.5).float()
                - flash_attention_packed_plain(qkv, heads, d ** -0.5).float()).abs().max().item()
         q, k, v = (t.reshape(b, s, heads, d).transpose(1, 2).contiguous()
                    for t in qkv.split(w, dim=-1))
         row = {
             "name": "flash_attention", "route": "cuda", "source": K5_SRC, "replaces": K5_TPU,
-            "case": f"{str(dtype)[6:]} [{b},{s},{3 * w}] h={heads}", "max_abs_err": err,
+            "case": f"{str(dtype)[6:]} [{b},{s},{3 * w}] h={heads}", "path": path,
+            "max_abs_err": err,
             "tol": tol, "ms": time_ms(lambda: flash_attention_packed(qkv, heads, d ** -0.5)),
             "plain_ms": time_ms(lambda: flash_attention_packed_plain(qkv, heads, d ** -0.5),
                                 min_reps=3),
@@ -346,8 +375,9 @@ def check_kernels(gen: torch.Generator) -> list[dict]:
 
     row = {
         "name": "packed_attention_q8s", "route": "cuda", "source": K3_SRC, "replaces": K3_TPU,
-        "case": f"int8 [{b},{s},{3 * w}] h={heads}", "max_abs_err": diff.max().item(),
-        "tol": 1, "flip_share": (diff > 0).float().mean().item(),
+        "case": f"int8 [{b},{s},{3 * w}] h={heads}", "path": ("so400m", "K3"),
+        "max_abs_err": diff.max().item(), "tol": 1,
+        "flip_share": (diff > 0).float().mean().item(),
         "ms": time_ms(lambda: fused_attention_packed_q8s(qkv, cs, heads)),
         "plain_ms": time_ms(lambda: fused_attention_packed_q8s_plain(qkv, cs, heads),
                             min_reps=3),
@@ -369,13 +399,15 @@ def check_kernels(gen: torch.Generator) -> list[dict]:
     return rows
 
 
-def check_rope_and_grouped(gen: torch.Generator) -> list[dict]:
+def check_rope_and_grouped(gen: torch.Generator, pgen: torch.Generator) -> list[dict]:
     """Phase 3, the PE slice's kernels: K1 with RoPE at PE-Core-L14-336's
     int8_static shape, and K4 at the shapes its routes give it — bf16 with
-    RoPE at PE-Core-G14-448's (8 images x 4 crops), float32 without RoPE at
-    ViT-L-14-336's float32 path (4 images), float32 with RoPE at G14's
-    (1 image). K4's yardstick is SDPA on q and k already rotated: it leaves
-    the rotation out."""
+    RoPE at PE-Core-G14-448's (its bf16 path's 4 images x 4 crops, and 8 x
+    4), float32 without RoPE at ViT-L-14-336's float32 path (4 images),
+    float32 with RoPE at PE-Core-L14-336's float32 path (4 images) and at
+    G14's (1 image, d=96). K4's yardstick is SDPA on q and k already
+    rotated: it leaves the rotation out. Rows carry ``path``, and draw from
+    ``gen`` or ``pgen``, as in ``check_kernels``."""
     import torch.nn.functional as F
 
     from clip_assisted_data_labeling_tpu_torch.models.vit import _rope_on, resolve_config
@@ -388,14 +420,19 @@ def check_rope_and_grouped(gen: torch.Generator) -> list[dict]:
     )
 
     pe_l, pe_g = resolve_config(PE_L), resolve_config(PE_G)
-    cases = (  # (kernel, config, batch, dtype, tolerance, peak rate, RoPE)
-        ("K1", pe_l, 4 * BATCH, torch.bfloat16, 2e-2, H100_BF16_FLOPS, True),
-        ("K4", pe_g, 4 * BATCH, torch.bfloat16, 2e-2, H100_BF16_FLOPS, True),
-        ("K4", resolve_config(MODEL), 16, torch.float32, 1e-5, H100_F32_FLOPS, False),
-        ("K4", pe_g, 4, torch.float32, 1e-5, H100_F32_FLOPS, True),
+    bf16 = (torch.bfloat16, 2e-2, H100_BF16_FLOPS, None)
+    f32tc = (torch.float32, 1e-5, H100_3XTF32_FLOPS, H100_F32_FLOPS)  # 3xTF32
+    cases = (  # (kernel, config, batch, (dtype, tolerance, peak, FMA rate), RoPE, path,
+        #  generator)
+        ("K1", pe_l, 4 * BATCH, bf16, True, ("pe", "K1"), gen),
+        ("K4", pe_g, 16, bf16, True, ("g14", "K4"), pgen),
+        ("K4", pe_g, 4 * BATCH, bf16, True, None, gen),
+        ("K4", resolve_config(MODEL), 16, f32tc, False, ("l336_f32", "K4"), gen),
+        ("K4", pe_l, 16, f32tc, True, ("pe_f32", "K4"), pgen),
+        ("K4", pe_g, 4, f32tc, True, None, gen),
     )
     rows = []
-    for kname, cfg, b, dtype, tol, peak, with_rope in cases:
+    for kname, cfg, b, (dtype, tol, peak, fma), with_rope, path, rg in cases:
         s, w, heads, d = cfg.seq_len, cfg.width, cfg.heads, cfg.head_dim
         kernel, plain, name, src, tpu = (
             (fused_attention_packed, fused_attention_packed_plain, "packed_attention", K1_SRC,
@@ -403,7 +440,7 @@ def check_rope_and_grouped(gen: torch.Generator) -> list[dict]:
             (fused_attention_packed_grouped, fused_attention_packed_grouped_plain,
              "packed_attention_grouped", K4_SRC, K4_TPU))
         rope = _rope_on(cfg, torch.device("cuda")) if with_rope else None
-        qkv = torch.randn((b, s, 3 * w), generator=gen, device="cuda").to(dtype)
+        qkv = torch.randn((b, s, 3 * w), generator=rg, device="cuda").to(dtype)
         err = (kernel(qkv, heads, d ** -0.5, None, rope).float()
                - plain(qkv, heads, d ** -0.5, None, rope).float()).abs().max().item()
         q, k, v = (t.reshape(b, s, heads, d).transpose(1, 2).contiguous()
@@ -417,12 +454,12 @@ def check_rope_and_grouped(gen: torch.Generator) -> list[dict]:
             "name": name, "route": "cuda", "source": src, "replaces": tpu,
             "case": f"{str(dtype)[6:]} [{b},{s},{3 * w}] h={heads}"
                     + (" RoPE" if rope is not None else ""),
-            "max_abs_err": err, "tol": tol,
+            "path": path, "max_abs_err": err, "tol": tol,
             "ms": time_ms(lambda: kernel(qkv, heads, d ** -0.5, None, rope)),
             "plain_ms": time_ms(lambda: plain(qkv, heads, d ** -0.5, None, rope), min_reps=3),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, scale=d ** -0.5)),
-            **bound(4.0 * b * heads * s * s * d, peak, nbytes),
+            **bound(4.0 * b * heads * s * s * d, peak, nbytes, fma),
         }
         rows.append(row)
         print(f"{kname} {row['case']}: err {err:.3g} (tol {tol}) kernel {row['ms']:.3f} ms "
@@ -439,7 +476,7 @@ def row_quant_torch(y: torch.Tensor):
     return (y * (127.0 / amax)).round_().clamp_(-127, 127).to(torch.int8), amax / 127.0
 
 
-def check_int8_kernels(gen: torch.Generator) -> list[dict]:
+def check_int8_kernels(gen: torch.Generator, pgen: torch.Generator) -> list[dict]:
     """Phase 3, the dynamic-int8 slice's kernels at ViT-L-14-336's shapes (8
     images x 4 crops: M = 18464 token rows): K6 with ln (ln1, ln2; [M, 1024])
     and with quick_gelu (the MLP hidden; [M, 4096]), bf16 and f32 in; K9 at
@@ -485,6 +522,8 @@ def check_int8_kernels(gen: torch.Generator) -> list[dict]:
         row = {
             "name": "rowquant", "route": "cuda", "source": K6_SRC, "replaces": K6_TPU,
             "case": f"{str(dtype)[6:]} [{m},{k}] " + ("ln" if ln else act),
+            # the hybrid path's blocks run in bf16: no path gives K6 float32
+            "path": ("dyn", "K6") if dtype == torch.bfloat16 else None,
             "max_abs_err": diff.max().item(), "tol": 1,
             "flip_share": (diff > 0).float().mean().item(), "scale_rel_err": scale_err,
             "ms": time_ms(call), "plain_ms": time_ms(plain), "library_ms": time_ms(library),
@@ -502,16 +541,20 @@ def check_int8_kernels(gen: torch.Generator) -> list[dict]:
         torch.cuda.empty_cache()
 
     x = torch.randn((m, 4096), generator=gen, device="cuda").to(torch.bfloat16)
-    for k, n in ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024)):
-        xk = x[:, :k].contiguous()
-        wq, ws = quantize_weight(torch.randn((k, n), generator=gen, device="cuda") * k ** -0.5)
+    # K9 at a layer's four products, at 8 images x 4 crops (M=18464), then at
+    # the CTPU_FUSED_QMATMUL=1 path's 4 x 4 (M=9232)
+    products = ((1024, 3072), (1024, 1024), (1024, 4096), (4096, 1024))
+    for rows_m, (k, n), path, rg in [(m, kn, None, gen) for kn in products] + [
+            (16 * 577, kn, ("fused_qmatmul", "K9"), pgen) for kn in products]:
+        xk = x[:rows_m, :k].contiguous()
+        wq, ws = quantize_weight(torch.randn((k, n), generator=rg, device="cuda") * k ** -0.5)
         wq_t = wq.t().contiguous()
-        b = 0.1 * torch.randn((n,), generator=gen, device="cuda")
+        b = 0.1 * torch.randn((n,), generator=rg, device="cuda")
         got = q_linear_fused(xk, wq_t, ws, b)
         ref = q_linear_fused_plain(xk, wq_t, ws, b)
         err = (got.float() - ref.float()).abs()
         flip_rows = (err > 2.0 ** -7 * ref.float().abs() + 1e-6).any(dim=1).sum().item()
-        xq_t = torch.empty((m, k), dtype=torch.int8, device="cuda")
+        xq_t = torch.empty((rows_m, k), dtype=torch.int8, device="cuda")
 
         def library():  # the port's torch q_matmul: quantize, _int_mm, epilogue
             xf = xk.float()
@@ -522,20 +565,21 @@ def check_int8_kernels(gen: torch.Generator) -> list[dict]:
 
         row = {
             "name": "q_linear_fused", "route": "cuda", "source": K9_SRC, "replaces": K9_TPU,
-            "case": f"bfloat16 [{m},{k}] x int8 [{k},{n}] -> bfloat16",
+            "case": f"bfloat16 [{rows_m},{k}] x int8 [{k},{n}] -> bfloat16", "path": path,
             "max_abs_err": err.max().item(), "tol": 2.0 ** -7 * ref.float().abs().max().item(),
             "flip_rows": flip_rows,
             "ms": time_ms(lambda: q_linear_fused(xk, wq_t, ws, b)),
             "plain_ms": time_ms(lambda: q_linear_fused_plain(xk, wq_t, ws, b)),
             "library_ms": time_ms(library),
-            **bound(2.0 * m * n * k, H100_INT8_OPS, m * k * 2 + n * k + m * n * 2 + 2 * n * 4),
+            **bound(2.0 * rows_m * n * k, H100_INT8_OPS,
+                    rows_m * k * 2 + n * k + rows_m * n * 2 + 2 * n * 4),
         }
         rows.append(row)
         print(f"K9 {row['case']}: max |err| {row['max_abs_err']:.3g} (tol {row['tol']:.3g}), "
               f"{flip_rows} rows off; kernel {row['ms']:.3f} ms plain {row['plain_ms']:.3f} "
               f"quant+_int_mm+epilogue {row['library_ms']:.3f} bound {row['bound_ms']:.4f} ms "
               f"({row['bound_by']})", flush=True)
-        if flip_rows > 1e-3 * m:
+        if flip_rows > 1e-3 * rows_m:
             fail(f"q_linear_fused {row['case']}: {flip_rows} rows off by more than a bf16 step")
         del xk, wq, wq_t, got, ref, err, xq_t
         torch.cuda.empty_cache()
@@ -561,7 +605,8 @@ def check_int8_kernels(gen: torch.Generator) -> list[dict]:
 
     row = {
         "name": "packed_attention", "route": "cuda", "source": K1_SRC, "replaces": K1_TPU,
-        "case": f"bfloat16 [{b},{s},{3 * w}] h={heads} quant_out", "quant_out": True,
+        "case": f"bfloat16 [{b},{s},{3 * w}] h={heads} quant_out",
+        "path": ("dyn", "K1"),  # the hybrid main path: every K1 launch has quant_out
         "max_abs_err": diff.max().item(), "tol": 1,
         "flip_share": (diff > 0).float().mean().item(), "scale_rel_err": scale_err,
         "scale_off_share": scale_off,
@@ -688,7 +733,8 @@ def check_block_linear(gen: torch.Generator) -> list[dict]:
         nbytes = in_bytes + n * k + 2 * n * 4 + out_bytes + (m * n * 2 if "residual" in kw else 0)
         row = {
             "name": "q_block_linear", "route": "cuda", "source": K8_SRC, "replaces": K8_TPU,
-            "case": f"{label} M={m} {k}->{n}", "max_abs_err": err, "tol": tol,
+            "case": f"{label} M={m} {k}->{n}", "path": ("all", "K8"), "max_abs_err": err,
+            "tol": tol,
             "ms": time_ms(call), "plain_ms": time_ms(plain), "library_ms": time_ms(library),
             **bound(2.0 * m * n * k, H100_INT8_OPS, nbytes),
         }
@@ -763,6 +809,7 @@ def check_standalone_attention(gen: torch.Generator) -> list[dict]:
         row = {
             "name": "packed_attention_q8", "route": "cuda", "source": K7_SRC, "replaces": K7_TPU,
             "case": f"int8 [{b},{s},{3 * w}] h={heads} " + ("quant_out" if quant_out else "bf16"),
+            "path": ("all", "K7"),
             "max_abs_err": err, "tol": tol, "ms": time_ms(call),
             "plain_ms": time_ms(plain, min_reps=3), "library_ms": time_ms(library),
             **bound(4.0 * b * heads * s * s * d, H100_BF16_FLOPS, b * s * (3 * w + 4) + out_bytes),
@@ -778,20 +825,22 @@ def check_standalone_attention(gen: torch.Generator) -> list[dict]:
     del qkv, ts
     torch.cuda.empty_cache()
 
-    for b, (dtype, tol, peak) in ((4 * BATCH, (torch.bfloat16, 2e-2, H100_BF16_FLOPS)),
-                                  (8, (torch.float32, 1e-5, H100_F32_FLOPS))):
+    # (batch, type, tolerance, peak rate, FMA rate beside the 3xTF32 bound)
+    for b, dtype, tol, peak, fma in ((4 * BATCH, torch.bfloat16, 2e-2, H100_BF16_FLOPS, None),
+                                     (8, torch.float32, 1e-5, H100_3XTF32_FLOPS, H100_F32_FLOPS)):
         q, k, v = (torch.randn((b, heads, s, d), generator=gen, device="cuda").to(dtype)
                    for _ in range(3))
         err = (fused_attention(q, k, v, d ** -0.5).float()
                - fused_attention_plain(q, k, v, d ** -0.5).float()).abs().max().item()
         row = {
             "name": "fused_attention", "route": "cuda", "source": K10_SRC, "replaces": K10_TPU,
-            "case": f"{str(dtype)[6:]} [{b},{heads},{s},{d}]", "max_abs_err": err, "tol": tol,
+            "case": f"{str(dtype)[6:]} [{b},{heads},{s},{d}]", "path": ("all", "K10"),
+            "max_abs_err": err, "tol": tol,
             "ms": time_ms(lambda: fused_attention(q, k, v, d ** -0.5)),
             "plain_ms": time_ms(lambda: fused_attention_plain(q, k, v, d ** -0.5), min_reps=3),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v,
                                                                           scale=d ** -0.5)),
-            **bound(4.0 * b * heads * s * s * d, peak, 4 * q.numel() * q.element_size()),
+            **bound(4.0 * b * heads * s * s * d, peak, 4 * q.numel() * q.element_size(), fma),
         }
         rows.append(row)
         print(f"K10 {row['case']}: err {err:.3g} (tol {tol}) kernel {row['ms']:.3f} ms plain "
@@ -819,7 +868,8 @@ def check_standalone_attention(gen: torch.Generator) -> list[dict]:
 
         row = {
             "name": "flash_attention", "route": "cuda", "source": K5_SRC, "replaces": K5_TPU,
-            "case": f"{str(dtype)[6:]} [{b},{s},{3 * w}] h={heads} RoPE", "rope": True,
+            "case": f"{str(dtype)[6:]} [{b},{s},{3 * w}] h={heads} RoPE",
+            "path": ("all", "K5+RoPE"),  # a counter of its own
             "max_abs_err": err,
             "tol": tol, "ms": time_ms(lambda: flash_attention_packed(qkv, heads, d ** -0.5, None,
                                                                       rope)),
@@ -964,15 +1014,24 @@ def embed_and_check(root: str, model: str, cfg, per_forward: dict,
 
 
 def encoder_run(model: str, dtype: str, pts: list, side, cfg, per_forward: dict,
-              side_name: str = "int8_static") -> dict:
+                side_name: str = "int8_static", timed: bool = False,
+                cpu_ref: bool = False) -> dict:
     """Four images through the encoder in ``dtype``; its launches must be
     ``per_forward``, its embeddings finite unit vectors and, where ``side``
     holds those of another run (``side_name``) of the same images, near
-    them. Returns the launch counts."""
+    them. ``timed``: then the steady per-forward ms of the same batch (crops
+    and ViT, the canvas already on the card; CUDA events after two warm-up
+    forwards). ``cpu_ref``: the weights are made once from seed 0 on the
+    card, and the same encoder on the CPU (plain versions throughout) embeds
+    the same batch: the cosine of every crop within 1e-5 of it. Returns the
+    launch counts."""
     from clip_assisted_data_labeling_tpu_torch.data.loader import BatchedImageLoader
     from clip_assisted_data_labeling_tpu_torch.models.encoders import CLIPImageEncoder
+    from clip_assisted_data_labeling_tpu_torch.models.vit import init_vit_params
 
-    enc = CLIPImageEncoder(model, compute_dtype=dtype, device="cuda")
+    params = (init_vit_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+              if cpu_ref else None)
+    enc = CLIPImageEncoder(model, params=params, compute_dtype=dtype, device="cuda")
     first = pts[:4]
     loader = BatchedImageLoader([p[:-3] + ".png" for p in first], canvas_size=1024,
                                 out_size=cfg.image_size, batch_size=4, num_workers=4)
@@ -996,6 +1055,24 @@ def encoder_run(model: str, dtype: str, pts: list, side, cfg, per_forward: dict,
               f"{cos.min():.5f} mean {cos.mean():.5f}; launches {got}", flush=True)
         if not cos.min() > 0.95:
             fail(f"{dtype} and {side_name} embeddings disagree (cosine min {cos.min()})")
+    if cpu_ref:
+        cpu = CLIPImageEncoder(model, params={k: v.cpu() for k, v in params.items()},
+                               compute_dtype=dtype, device="cpu")
+        t0 = time.perf_counter()
+        ref = cpu.embed_crops(batch.canvas, batch.crop_params)[: batch.n_valid].numpy()
+        cos_err = 1.0 - np.sum(emb * ref, axis=-1).min()
+        print(f"{model} {dtype} card vs CPU (same weights and images, {ref.shape[0]} x "
+              f"{ref.shape[1]} crops, CPU {time.perf_counter() - t0:.1f} s): 1 - cosine max "
+              f"{cos_err:.3g}", flush=True)
+        if not cos_err <= 1e-5:
+            fail(f"{model} {dtype}: card and CPU embeddings disagree (1 - cosine {cos_err})")
+        del cpu, ref
+    del params
+    if timed:
+        canvas = torch.from_numpy(batch.canvas).to("cuda")
+        ms = time_ms(lambda: enc.embed_crops(canvas, batch.crop_params), min_reps=3, min_s=0.5)
+        print(f"{model} {dtype}: {ms:.3f} ms per forward of {batch.canvas.shape[0]} images x "
+              f"{emb.shape[1]} crops (steady, S={cfg.seq_len})", flush=True)
     del enc
     torch.cuda.empty_cache()
     return got
@@ -1139,7 +1216,7 @@ def main() -> None:
 
     # --- phase 3: kernels against their plain versions ----------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = check_kernels(gen)
+    rows = check_kernels(gen, torch.Generator(device="cuda").manual_seed(1))
     torch.cuda.empty_cache()
 
     cfg, scfg = resolve_config(MODEL), resolve_config(SIGLIP)
@@ -1150,10 +1227,13 @@ def main() -> None:
         # --- phases 5-6: ViT-L-14-336 int8_static: K1 once and K2 twice a
         # layer; the calibration forward runs the XLA-style attention, no kernel
         l336 = embed_and_check(root, MODEL, cfg, {"K1": cfg.layers, "K2": 2 * cfg.layers})
-        # --- phase 7: float32 path on a few images: K4, the JAX package's
-        # grouped route for this shape
+        # --- phase 7: float32 paths on a few images: L-336 takes K4 (the JAX
+        # package's grouped route for its shape), L-14 at 224 px K1
         l336_f32 = encoder_run(MODEL, "float32", l336["pts"], l336["side"], cfg,
-                               {"K4": cfg.layers})
+                               {"K4": cfg.layers}, timed=True)
+        l14cfg = resolve_config(L14)
+        l14_f32 = encoder_run(L14, "float32", l336["pts"], None, l14cfg, {"K1": l14cfg.layers},
+                              timed=True, cpu_ref=True)
 
         # --- phases 7a-7b: ViT-L-14-336 dynamic int8 in every block route
         dyn, dyn_routes = dynamic_int8(root, cfg, l336)
@@ -1169,34 +1249,31 @@ def main() -> None:
         pe = embed_and_check(root, PE_L, pcfg, {"K1": pcfg.layers, "K2": 2 * pcfg.layers})
         pe_bf16 = encoder_run(PE_L, "bfloat16", pe["pts"], pe["side"], pcfg,
                               {"K1": pcfg.layers})
-        pe_f32 = encoder_run(PE_L, "float32", pe["pts"], pe["side"], pcfg, {"K4": pcfg.layers})
+        pe_f32 = encoder_run(PE_L, "float32", pe["pts"], pe["side"], pcfg, {"K4": pcfg.layers},
+                             timed=True)
         # --- phase 12: PE-Core-G14-448 bf16, all 50 layers (K4 with RoPE)
         g14 = encoder_run(PE_G, "bfloat16", pe["pts"], None, gcfg, {"K4": gcfg.layers})
 
         # --- phase 13: the int8_static routes of CTPU_LN_KERNEL and CTPU_INT8_WIRE
         routes = knob_routes(l336, so400m, cfg, scfg)
 
-    # every main path's counters; a kernel that no path reaches gets the sum
-    # of its counter over all of them
-    paths = [l336["launches"], l336_f32, dyn["launches"], *dyn_routes, so400m["launches"],
-             bf16, pe["launches"], pe_bf16, pe_f32, g14, *routes]
-    launches = {"packed_attention": pe["launches"]["K1"],
-                "rowquant_static": pe["launches"]["K2"],
-                "packed_attention_q8s": so400m["launches"]["K3"],
-                "packed_attention_grouped": g14["K4"],
-                "flash_attention": bf16["K5"],
-                "rowquant": dyn["launches"]["K6"],
-                "q_linear_fused": dyn_routes[-1]["K9"],
-                **{name: sum(p[k] for p in paths) for name, k in NO_PATH.items()}}
+    # each row's launches: the counter its ``path`` names, read from that
+    # main path; "all" (the kernels no path of the JAX package reaches) sums
+    # the counter over every main path; None (a shape no path runs) is 0
+    paths = {"l336": l336["launches"], "l336_f32": l336_f32, "l14_f32": l14_f32,
+             "dyn": dyn["launches"], "fused_qmatmul": dyn_routes[-1],
+             "so400m": so400m["launches"], "so400m_bf16": bf16, "pe": pe["launches"],
+             "pe_f32": pe_f32, "g14": g14}
+    every = [*paths.values(), *dyn_routes[:-1], pe_bf16, *routes]
 
-    def path_launches(row: dict) -> int:
-        if row.get("quant_out"):  # the hybrid main path: every K1 launch has quant_out
-            return dyn["launches"]["K1"]
-        if row.get("rope"):  # K5's launches with RoPE tables, a counter of their own
-            return sum(p["K5+RoPE"] for p in paths)
-        return launches[row["name"]]
+    def path_launches(path) -> int:
+        if path is None:
+            return 0
+        name, counter = path
+        return sum(p[counter] for p in every) if name == "all" else paths[name][counter]
 
-    rows = [dict(r, launches=path_launches(r)) for r in rows]
+    rows = [dict(r, path=r["path"] and "/".join(r["path"]), launches=path_launches(r["path"]))
+            for r in rows]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

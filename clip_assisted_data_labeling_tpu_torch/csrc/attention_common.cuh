@@ -2,7 +2,9 @@
 // (packed_attention.cu) and K4 (packed_attention_grouped.cu): type
 // conversion, warp reductions, the bf16 mma.sync tile product, the half-split
 // RoPE rotation with the TPU kernel's roundings, and the loads that stage one
-// head's rows of the packed [B, S, 3w] qkv into shared memory.
+// head's rows of the packed [B, S, 3w] qkv into shared memory; then the
+// float32 kernel both files instantiate, on the tensor cores with 3xTF32
+// split products (the last section).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -206,6 +208,468 @@ __device__ __forceinline__ void stage_vt_bf16(
 #pragma unroll
     for (int j = 0; j < 8; ++j) vt[(c8 * 8 + j) * LDV + r] = e[j];
   }
+}
+
+// ---- float32 on the tensor cores: 3xTF32 split products ---------------------
+//
+// One TF32 mma keeps 10 of a float32 operand's 23 mantissa bits. The split
+// scheme keeps ~21: x = hi + lo with hi = tf32(x) (cvt.rna, round to nearest
+// with ties away; the tensor core truncates the low 13 bits it ignores, so an
+// unrounded hi would leave a biased remainder) and lo = tf32(x - hi), and
+//   a·b ≈ a_lo·b_hi + a_hi·b_lo + a_hi·b_hi
+// (a_lo·b_lo, ~2^-22 of a·b, dropped): three m16n8k8 TF32 mmas with float32
+// accumulation. Every product of a split is exact in float32 (11 x 11
+// significant bits), and the small terms go first so they add up before the
+// large one. The tensor core's float32 sums truncate, so a long chain of
+// mmas into one accumulator drifts: P·V sums each chunk's keys apart and adds
+// them to o in float32 (on the card that took K4's largest error against the
+// plain version from 9.7e-6 to ~2e-6). A split costs several instructions
+// (cvt.rna is no single instruction on sm_90a), so the B operands (K, V) are
+// split once per staged chunk for the whole block and stored as (hi, lo)
+// float2 pairs; the A operands (q, P) are split in registers by each warp.
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// (hi, lo) as the bits of two floats
+__device__ __forceinline__ float2 split_tf32(float x) {
+  const uint32_t hi = tf32_rna(x);
+  return make_float2(__uint_as_float(hi),
+                     __uint_as_float(tf32_rna(__fsub_rn(x, __uint_as_float(hi)))));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], float b0,
+                                         float b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(__float_as_uint(b0)),
+        "r"(__float_as_uint(b1)));
+}
+
+// the four values of an A fragment, split
+__device__ __forceinline__ void split_frag(const float (&x)[4], uint32_t (&hi)[4],
+                                           uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 s = split_tf32(x[i]);
+    hi[i] = __float_as_uint(s.x);
+    lo[i] = __float_as_uint(s.y);
+  }
+}
+
+// c += a·b for a split A fragment and a split B fragment (b0, b1: (hi, lo)),
+// the small terms first
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], float2 b0, float2 b1) {
+  mma_tf32(c, al, b0.x, b1.x);
+  mma_tf32(c, ah, b0.y, b1.y);
+  mma_tf32(c, ah, b0.x, b1.x);
+}
+
+// The m16n8k8 fragments, with g = lane / 4 and t = lane % 4: A (16 x 8, row)
+// holds [0] row g col t, [1] row g+8 col t, [2] row g col t+4, [3] row g+8
+// col t+4; B (8 x 8, col) holds b0 row t and b1 row t+4 of col g; the
+// accumulator c0/c1 row g cols 2t/2t+1, c2/c3 row g+8.
+
+// One warp's q A fragments from its 16 rows of a row-major [16][LD] tile:
+// qf[kk] covers head lanes 8kk..8kk+7.
+template <int DP, int LD>
+__device__ __forceinline__ void load_frag_f32(float (&qf)[DP / 8][4], const float* rows) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int kk = 0; kk < DP / 8; ++kk) {
+    qf[kk][0] = rows[g * LD + kk * 8 + t];
+    qf[kk][1] = rows[(g + 8) * LD + kk * 8 + t];
+    qf[kk][2] = rows[g * LD + kk * 8 + t + 4];
+    qf[kk][3] = rows[(g + 8) * LD + kk * 8 + t + 4];
+  }
+}
+
+// One warp's q A fragments for Q·K^T: split once where the registers allow
+// it (PRE; a head dim up to 64), else kept as floats and split per chunk.
+template <int DP, bool PRE>
+struct QFrags;
+
+template <int DP>
+struct QFrags<DP, true> {
+  uint32_t hi[DP / 8][4], lo[DP / 8][4];
+  __device__ __forceinline__ void set(const float (&x)[DP / 8][4]) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk) split_frag(x[kk], hi[kk], lo[kk]);
+  }
+  __device__ __forceinline__ void get(int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) const {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      ah[i] = hi[kk][i];
+      al[i] = lo[kk][i];
+    }
+  }
+};
+
+template <int DP>
+struct QFrags<DP, false> {
+  float x[DP / 8][4];
+  __device__ __forceinline__ void set(const float (&v)[DP / 8][4]) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 8; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) x[kk][i] = v[kk][i];
+  }
+  __device__ __forceinline__ void get(int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) const {
+    split_frag(x[kk], ah, al);
+  }
+};
+
+// One warp's 16 x NK scores s = q' k'^T against NK keys split row-major in
+// ks [NK][LD] (key r's lane i at ks[r * LD + i]); s[j] holds keys 8j..8j+7 in
+// the accumulator layout. LD ≡ 4 (mod 16) spreads each half-warp's 8-byte
+// loads over all 32 banks.
+template <int DP, int NK, int LD, bool PRE>
+__device__ __forceinline__ void warp_qk_3xtf32(float (&s)[NK / 8][4], const QFrags<DP, PRE>& q,
+                                               const float2* ks) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int j = 0; j < NK / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DP / 8; ++kk) {
+    uint32_t ah[4], al[4];
+    q.get(kk, ah, al);
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j) {
+      const float2* kr = ks + (j * 8 + g) * LD + kk * 8 + t;
+      mma_3xtf32(s[j], ah, al, kr[0], kr[4]);
+    }
+  }
+}
+
+// o += P·V for one warp's 16 x NK block P (in warp_qk_3xtf32's accumulator
+// layout) and NK value rows split row-major in vs [NK][LD]: summed over the
+// chunk's keys in accumulators of their own, then added to o in float32, so
+// no accumulator chain runs over the whole sequence (the tensor core's
+// float32 sums truncate; a chain of S/8 steps would bias o). The k8 step j
+// feeds the keys a thread already holds, row g's 8j+2t and 8j+2t+1, as its A
+// lanes t and t+4, and reads the same two keys' value rows as B's rows t and
+// t+4: the sum over keys taken in another order, with no shuffle of P.
+// LD ≡ 2 (mod 16) spreads each half-warp's loads over all banks.
+template <int DP, int NK, int LD>
+__device__ __forceinline__ void warp_pv_3xtf32(float (&o)[DP / 8][4],
+                                               const float (&p)[NK / 8][4], const float2* vs) {
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  float oc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) oc[n][0] = oc[n][1] = oc[n][2] = oc[n][3] = 0.f;
+#pragma unroll
+  for (int j = 0; j < NK / 8; ++j) {
+    const float a[4] = {p[j][0], p[j][2], p[j][1], p[j][3]};
+    uint32_t ah[4], al[4];
+    split_frag(a, ah, al);
+    const float2* vr = vs + (j * 8 + 2 * t) * LD + g;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) mma_3xtf32(oc[n], ah, al, vr[n * 8], vr[LD + n * 8]);
+  }
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[n][i] += oc[n][i];
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(src),
+               "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(a), "l"(src),
+               "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Copy tokens [r0, r0 + ROWS) of d float32 lanes (row stride rs) into dst
+// [ROWS][ld] asynchronously: 16-byte copies where `vec` (d % 4 == 0 and every
+// row 16-byte aligned), else 4-byte ones; rows past S are zero-filled, lanes
+// d..ld left as they are.
+template <int NTHREADS, int ROWS>
+__device__ __forceinline__ void cp_async_rows_f32(float* dst, int ld, const float* base, int r0,
+                                                  int S, size_t rs, int d, bool vec) {
+  const int nv = vec ? d / 4 : d, step = vec ? 4 : 1;  // copies per row, lanes per copy
+  for (int idx = threadIdx.x; idx < ROWS * nv; idx += NTHREADS) {
+    const int r = idx / nv, c = (idx - r * nv) * step;
+    const bool ok = r0 + r < S;
+    const float* src = ok ? base + (size_t)(r0 + r) * rs + c : base;
+    if (vec)
+      cp_async16(dst + r * ld + c, src, ok);
+    else
+      cp_async4(dst + r * ld + c, src, ok);
+  }
+}
+
+// Split a staged chunk src [ROWS][LDIN] (tokens r0.., DP lanes, zero-padded)
+// into (hi, lo) pairs dst [ROWS][LD]. With RoPE, tab holds the chunk's
+// staged table rows (cos [ROWS][d/2], then sin [ROWS][d/2]) and each pair
+// (i, i + d/2) is rotated first (rot_pair's roundings, those of
+// stage_rows_f).
+template <int NTHREADS, int ROWS, int DP, int LDIN, int LD>
+__device__ __forceinline__ void split_rows(float2* dst, const float* src, int d,
+                                           const float* tab) {
+  if (tab == nullptr) {
+    for (int idx = threadIdx.x; idx < ROWS * DP / 4; idx += NTHREADS) {
+      const int r = idx / (DP / 4), c = idx % (DP / 4) * 4;
+      const float4 x = *reinterpret_cast<const float4*>(src + r * LDIN + c);
+      const float2 a = split_tf32(x.x), b = split_tf32(x.y), e = split_tf32(x.z),
+                   f = split_tf32(x.w);
+      *reinterpret_cast<float4*>(dst + r * LD + c) = make_float4(a.x, a.y, b.x, b.y);
+      *reinterpret_cast<float4*>(dst + r * LD + c + 2) = make_float4(e.x, e.y, f.x, f.y);
+    }
+    return;
+  }
+  const int half = d / 2;
+  for (int idx = threadIdx.x; idx < ROWS * half; idx += NTHREADS) {
+    const int r = idx / half, i = idx - r * half;
+    float x1 = src[r * LDIN + i], x2 = src[r * LDIN + half + i];
+    rot_pair<float>(x1, x2, tab[idx], tab[ROWS * half + idx]);
+    dst[r * LD + i] = split_tf32(x1);
+    dst[r * LD + half + i] = split_tf32(x2);
+  }
+  for (int idx = threadIdx.x; idx < ROWS * (DP - d); idx += NTHREADS)  // the padding lanes
+    dst[idx / (DP - d) * LD + d + idx % (DP - d)] = make_float2(0.f, 0.f);
+}
+
+// Where head h of batch item b lives: q, k, v start at q + b*in_b + h*in_h
+// (likewise k, v), token r at + r*in_r; the output at out + b*out_b +
+// h*out_h + r*out_r. Element strides, shared by q, k and v.
+template <typename T>
+struct Heads {
+  const T* q;
+  const T* k;
+  const T* v;
+  void* out;
+  size_t in_b, in_h, in_r, out_b, out_h, out_r;
+};
+
+// qkv packed [B, S, 3w] (head h's q, k, v the column slices h*d, w + h*d,
+// 2w + h*d), out [B, S, w]
+template <typename T>
+Heads<T> packed_heads(const void* qkv, void* out, int S, int w, int d) {
+  const T* p = static_cast<const T*>(qkv);
+  const size_t rs = 3 * (size_t)w;
+  return Heads<T>{p, p + w, p + 2 * w, out, (size_t)S * rs, (size_t)d, rs,
+                  (size_t)S * w, (size_t)d, (size_t)w};
+}
+
+constexpr int TF32_KEYS = 32;  // keys per streamed chunk of the float32 kernel
+
+// shared memory of the float32 kernel for head dim padded to DP (a multiple
+// of 16): the staged K and V chunk [2][NK][DP + 4] floats, the split K
+// [NK][DP + 4] and split V [NK][DP + 2] as (hi, lo) pairs, and with RoPE the
+// chunk's cos and sin rows [2][NK][d/2]; the q tile is staged over them first
+template <int DP>
+constexpr size_t tf32_smem_bytes(bool rope) {
+  return sizeof(float) * TF32_KEYS * (6 * DP + 20 + (rope ? DP : 0));
+}
+
+// blocks an SM should hold, which caps the registers a thread: at a head
+// dim up to 64, 3 blocks of 4 warps (168 registers) or 2 of 8 (128, a few
+// spilled), whose shared memory fits beside each other; above, one block,
+// which takes what it needs (q then stays in floats, see QFrags)
+constexpr int tf32_min_blocks(int DP, int WARPS) { return DP > 64 ? 1 : WARPS == 4 ? 3 : 2; }
+
+// The float32 exact two-pass attention on the tensor cores, for K1 (WARPS =
+// 4, 64 query rows a block) and K4 (WARPS = 8, 128 rows): one block per
+// (query rows, head, batch item), each warp owning 16 rows with its q
+// fragments, scores and output accumulators in registers; both products
+// 3xTF32 (warp_qk_3xtf32, warp_pv_3xtf32). K, then K and V, stream through
+// shared memory in 32-key chunks in both passes, so nothing grows with S:
+// each chunk lands by cp.async, is split (k rotated first, with RoPE tables
+// staged beside it) once for all warps, and the next chunk's copy is in
+// flight while the warps multiply. Pass 1 takes the row max; pass 2
+// recomputes the identical scores (the same code on the same data),
+// exponentiates against the final max in float32, sums the unrounded p and
+// accumulates P·V; the epilogue multiplies by 1/sum. q is scaled and rotated
+// as it is staged. The head dim is zero-padded to DP in shared memory.
+template <int DP, int WARPS>
+__global__ void __launch_bounds__(WARPS * 32, tf32_min_blocks(DP, WARPS)) exact_3xtf32_kernel(
+    Heads<float> io, int S, int s_real, int d, float scale, bool vec,
+    const float* __restrict__ cos, const float* __restrict__ sin) {
+  constexpr int NT = WARPS * 32, MQ = WARPS * 16, NK = TF32_KEYS;
+  constexpr int LDR = DP + 4;  // staged rows (floats); also the q tile's
+  constexpr int LDK = DP + 4, LDV = DP + 2;  // split K and V rows (pairs)
+  static_assert(DP % 16 == 0 && MQ * LDR <= NK * (2 * LDR + 2 * LDK + 2 * LDV),
+                "the q tile is staged over the chunk buffers");
+  extern __shared__ __align__(16) float tf32_smem[];
+  float* Kr = tf32_smem;                                   // [NK][LDR] staged K chunk
+  float* Vr = Kr + NK * LDR;                               // [NK][LDR] staged V chunk
+  float2* Kp = reinterpret_cast<float2*>(Vr + NK * LDR);  // [NK][LDK] split K
+  float2* Vp = Kp + NK * LDK;                              // [NK][LDV] split V
+  float* Tb = reinterpret_cast<float*>(Vp + NK * LDV);     // [2][NK][d/2] cos, sin rows
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int q0 = blockIdx.x * MQ, h = blockIdx.y;
+  const size_t head = blockIdx.z * io.in_b + h * io.in_h, rs = io.in_r;
+  const float* kb = io.k + head;
+  const float* vb = io.v + head;
+  const int nc = (S + NK - 1) / NK, half = d / 2;
+  const bool tvec = half % 4 == 0 && reinterpret_cast<uintptr_t>(cos) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(sin) % 16 == 0;
+
+  // q scaled (and rotated) into shared memory [MQ][LDR], zero-padded, then
+  // into registers
+  stage_rows_f<float, NT, MQ>(tf32_smem, LDR, 1, io.q + head, q0, S, rs, 0, d, true, scale,
+                              cos, sin);
+  for (int idx = tid; idx < MQ * (DP - d); idx += NT)
+    tf32_smem[idx / (DP - d) * LDR + d + idx % (DP - d)] = 0.f;
+  __syncthreads();
+  const int r0 = warp * 16;
+  QFrags<DP, DP <= 64> qf;
+  {
+    float x[DP / 8][4];
+    load_frag_f32<DP, LDR>(x, tf32_smem + r0 * LDR);
+    qf.set(x);
+  }
+  __syncthreads();
+  // zeros in the staging buffers: their padding lanes d..DP are never
+  // written again
+  for (int i = tid; i < NK * LDR / 2; i += NT)
+    reinterpret_cast<float4*>(tf32_smem)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+
+  // staged chunk i of 2·nc: K chunk i (and its table rows) in pass 1, K and
+  // V chunk i - nc in pass 2
+  auto issue = [&](int i) {
+    const int k0 = (i < nc ? i : i - nc) * NK;
+    cp_async_rows_f32<NT, NK>(Kr, LDR, kb, k0, S, rs, d, vec);
+    if (i >= nc) cp_async_rows_f32<NT, NK>(Vr, LDR, vb, k0, S, rs, d, vec);
+    if (cos != nullptr) {
+      cp_async_rows_f32<NT, NK>(Tb, half, cos, k0, S, half, half, tvec);
+      cp_async_rows_f32<NT, NK>(Tb + NK * half, half, sin, k0, S, half, half, tvec);
+    }
+    cp_async_commit();
+  };
+  issue(0);
+  // a warp whose 16 rows all lie past the sequence still stages and syncs,
+  // but skips the products
+  const bool live = q0 + r0 < S;
+
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows g and g+8
+  float o[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int i = 0; i < 2 * nc; ++i) {
+    const int k0 = (i < nc ? i : i - nc) * NK;
+    cp_async_wait_all();  // chunk i has landed
+    __syncthreads();      // for every thread, and the split buffers are free
+    split_rows<NT, NK, DP, LDR, LDK>(Kp, Kr, d, cos != nullptr ? Tb : nullptr);
+    if (i >= nc) split_rows<NT, NK, DP, LDR, LDV>(Vp, Vr, d, nullptr);
+    __syncthreads();
+    if (i + 1 < 2 * nc) issue(i + 1);  // in flight while the warps multiply
+    if (live) {
+      float s[NK / 8][4];
+      warp_qk_3xtf32<DP, NK, LDK>(s, qf, Kp);
+#pragma unroll
+      for (int j = 0; j < NK / 8; ++j) {
+        const int key = k0 + j * 8 + 2 * t;
+        if (key >= s_real) s[j][0] = s[j][2] = -INFINITY;
+        if (key + 1 >= s_real) s[j][1] = s[j][3] = -INFINITY;
+      }
+      if (i < nc) {  // pass 1: the row max
+#pragma unroll
+        for (int j = 0; j < NK / 8; ++j) {
+          m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
+          m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+        }
+      } else {  // pass 2: p = exp(s - max), its sum, O += P·V
+#pragma unroll
+        for (int j = 0; j < NK / 8; ++j) {
+          s[j][0] = expf(s[j][0] - m0);
+          s[j][1] = expf(s[j][1] - m0);
+          s[j][2] = expf(s[j][2] - m1);
+          s[j][3] = expf(s[j][3] - m1);
+          l0 += s[j][0];
+          l0 += s[j][1];
+          l1 += s[j][2];
+          l1 += s[j][3];
+        }
+        warp_pv_3xtf32<DP, NK, LDV>(o, s, Vp);
+      }
+    }
+    if (i == nc - 1) {  // the four threads of a row hold its max in parts
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
+      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
+      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+    }
+  }
+  if (!live) return;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+  const int row0 = q0 + r0 + g, row1 = row0 + 8;
+  float* out = static_cast<float*>(io.out) + blockIdx.z * io.out_b + h * io.out_h;
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (row0 < S) {
+      if (col < d) out[(size_t)row0 * io.out_r + col] = o[n][0] * inv0;
+      if (col + 1 < d) out[(size_t)row0 * io.out_r + col + 1] = o[n][1] * inv0;
+    }
+    if (row1 < S) {
+      if (col < d) out[(size_t)row1 * io.out_r + col] = o[n][2] * inv1;
+      if (col + 1 < d) out[(size_t)row1 * io.out_r + col + 1] = o[n][3] * inv1;
+    }
+  }
+}
+
+template <int DP, int WARPS>
+int launch_3xtf32(Heads<float> io, int B, int S, int s_real, int heads, int d, float scale,
+                  const void* cos, const void* sin, cudaStream_t stream) {
+  const size_t smem = tf32_smem_bytes<DP>(cos != nullptr);
+  cudaError_t err = cudaFuncSetAttribute(exact_3xtf32_kernel<DP, WARPS>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  // 16-byte copies need every row of q, k and v 16-byte aligned
+  const bool vec = d % 4 == 0 && io.in_b % 4 == 0 && io.in_h % 4 == 0 && io.in_r % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(io.q) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(io.k) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(io.v) % 16 == 0;
+  dim3 grid((S + WARPS * 16 - 1) / (WARPS * 16), heads, B);
+  exact_3xtf32_kernel<DP, WARPS><<<grid, WARPS * 32, smem, stream>>>(
+      io, S, s_real, d, scale, vec, static_cast<const float*>(cos),
+      static_cast<const float*>(sin));
+  return (int)cudaGetLastError();
+}
+
+// The float32 kernel for head dim d <= 128, padded to a multiple of 16 (to 32
+// at least: 32, 64, 80, 96, 112 or 128 lanes).
+template <int WARPS>
+int launch_f32_3xtf32(Heads<float> io, int B, int S, int s_real, int heads, int d, float scale,
+                      const void* cos, const void* sin, cudaStream_t stream) {
+  if (d <= 32)
+    return launch_3xtf32<32, WARPS>(io, B, S, s_real, heads, d, scale, cos, sin, stream);
+  if (d <= 64)
+    return launch_3xtf32<64, WARPS>(io, B, S, s_real, heads, d, scale, cos, sin, stream);
+  if (d <= 80)
+    return launch_3xtf32<80, WARPS>(io, B, S, s_real, heads, d, scale, cos, sin, stream);
+  if (d <= 96)
+    return launch_3xtf32<96, WARPS>(io, B, S, s_real, heads, d, scale, cos, sin, stream);
+  if (d <= 112)
+    return launch_3xtf32<112, WARPS>(io, B, S, s_real, heads, d, scale, cos, sin, stream);
+  return launch_3xtf32<128, WARPS>(io, B, S, s_real, heads, d, scale, cos, sin, stream);
 }
 
 }  // namespace

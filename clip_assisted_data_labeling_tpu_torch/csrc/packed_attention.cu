@@ -28,8 +28,10 @@
 // What bounds it (either layout): at ViT-L-336 shapes (S=577, d=64) the
 // work is ~4·B·H·S²·d FLOPs against ~B·S·4w·sizeof(T) bytes — ~290 FLOP/byte
 // in bf16, right at the H100's ridge (~295), so both the tensor-core rate and device memory
-// bound it about equally; float32 has no tensor-core path that keeps float32
-// products (TF32 would round them), so it is bound by the CUDA-core FMA rate.
+// bound it about equally. In float32 the products run on the TF32 tensor
+// cores as 3xTF32 splits (three TF32 mmas per product, attention_common.cuh),
+// so the bound is the TF32 rate over three: ~165 of the 495 TFLOP/s, still
+// 2.5x the 67 TFLOP/s of float32 FMAs.
 //
 // bfloat16 (the main path): packed_attention_mma_kernel. One block of four
 // warps per (64 query rows, head, batch item); each warp owns 16 rows and
@@ -55,43 +57,24 @@
 // amax)), scale amax * f32(1/127), the TPU kernel's epilogue. The float32
 // round trip costs ~2 x 75 MB at [32, 577, 1024] (~45 us at 3.35 TB/s).
 //
-// float32: packed_attention_kernel. One block per (16 query rows, head,
-// batch item) keeps the tile's whole score block [16, S] in shared memory
-// (40 KB at S=577) and runs both products as float32 FMAs over K^T and V
-// chunks streamed through shared memory. Sequences whose score tile
-// overflows the 227 KB a block may use are refused (the wrapper checks);
-// K4 (packed_attention_grouped.cu) streams the keys instead.
+// float32: exact_3xtf32_kernel<DP, 4> of attention_common.cuh, K4's float32
+// kernel with 64 query rows a block: the bfloat16 kernel's structure (warps
+// of 16 rows with their fragments and accumulators in registers, keys
+// streamed in 32-key chunks in both passes, so no S is refused) with both
+// products as 3xTF32 m16n8k8 mmas, and P kept in float32. Each K and V chunk
+// comes in by 16-byte cp.async (the next one's copy in flight while the
+// warps multiply) and is split into (hi, lo) pairs once for the block. A
+// split keeps ~21 of a product's 24 bits: emulated on K1's arithmetic
+// (tests/test_torch_split_f32.py), the outputs stay within ~1e-6 of float32
+// (as close as float32 torch and XLA come to each other), where one TF32
+// pass misses by ~2e-4. The same kernel serves K10 in float32 and
+// quant_out's float32 input.
 
 #include "attention_common.cuh"
 
 namespace {
 
-constexpr int QT = 16;    // query rows per block
-constexpr int KT = 64;    // keys per streamed chunk
-constexpr int NT = 256;   // threads per block
 constexpr int DMAX = 128; // largest head dim
-constexpr int EPT = QT * DMAX / NT;      // output elements per thread (max)
-constexpr int RPT = QT / (NT / KT);      // score rows per thread
-
-// Where head h of batch item b lives: q, k, v start at q + b*in_b + h*in_h
-// (likewise k, v), token r at + r*in_r; the output at out + b*out_b +
-// h*out_h + r*out_r. Element strides, shared by q, k and v.
-template <typename T>
-struct Heads {
-  const T* q;
-  const T* k;
-  const T* v;
-  void* out;
-  size_t in_b, in_h, in_r, out_b, out_h, out_r;
-};
-
-template <typename T>
-Heads<T> packed_heads(const void* qkv, void* out, int S, int w, int d) {
-  const T* p = static_cast<const T*>(qkv);
-  const size_t rs = 3 * (size_t)w;
-  return Heads<T>{p, p + w, p + 2 * w, out, (size_t)S * rs, (size_t)d, rs,
-                  (size_t)S * w, (size_t)d, (size_t)w};
-}
 
 template <typename T>
 Heads<T> unpacked_heads(const void* q, const void* k, const void* v, void* out, int H, int S,
@@ -99,123 +82,6 @@ Heads<T> unpacked_heads(const void* q, const void* k, const void* v, void* out, 
   const size_t hs = (size_t)S * d;
   return Heads<T>{static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
                   out, (size_t)H * hs, hs, (size_t)d, (size_t)H * hs, hs, (size_t)d};
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT) packed_attention_kernel(
-    Heads<T> io, int S, int s_real, int d, float scale, int s_chunks, const T* __restrict__ cos,
-    const T* __restrict__ sin) {
-  extern __shared__ float smem[];
-  const int s_pad = s_chunks * KT;
-  float* q_s = smem;                  // [QT][d]  scaled (and rotated) q
-  float* kv_s = q_s + QT * d;         // K^T chunk [d][KT+1], then V chunk [KT][d]
-  float* sc = kv_s + d * (KT + 1);    // [QT][s_pad] scores, then P
-  float* inv_s = sc + QT * s_pad;     // [QT] 1/sum
-
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * QT;
-  const int h = blockIdx.y;
-  const size_t head = blockIdx.z * io.in_b + h * io.in_h, rs = io.in_r;
-  const T* __restrict__ kb = io.k + head;
-  const T* __restrict__ vb = io.v + head;
-
-  // q * scale in the input type (the scale itself rounded to T first), then
-  // rotated; k is rotated as each chunk is staged
-  const float scale_t = to_f(from_f<T>(scale));
-  stage_rows_f<T, NT, QT>(q_s, d, 1, io.q + head, q0, S, rs, 0, d, true, scale_t, cos, sin);
-
-  // --- pass 1: scores = q' k^T over streamed key chunks -------------------
-  const int kk = tid % KT;    // this thread's key within the chunk
-  const int rg = tid / KT;    // this thread's group of RPT rows
-  for (int c = 0; c < s_chunks; ++c) {
-    const int k0 = c * KT;
-    __syncthreads();  // kv_s free (and q_s written, on the first chunk)
-    stage_rows_f<T, NT, KT>(kv_s, 1, KT + 1, kb, k0, S, rs, 0, d, false, 0.f, cos, sin);
-    __syncthreads();
-    float acc[RPT];
-#pragma unroll
-    for (int j = 0; j < RPT; ++j) acc[j] = 0.f;
-    for (int i = 0; i < d; ++i) {
-      const float kv = kv_s[i * (KT + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) acc[j] = fmaf(q_s[(rg * RPT + j) * d + i], kv, acc[j]);
-    }
-    const int key = k0 + kk;
-#pragma unroll
-    for (int j = 0; j < RPT; ++j)
-      sc[(rg * RPT + j) * s_pad + key] = key < s_real ? acc[j] : -INFINITY;
-  }
-  __syncthreads();
-
-  // --- softmax rows: max, exp, sum in float32; P rounded to T -------------
-  const int warp = tid / 32, lane = tid % 32;
-  for (int r = warp; r < QT; r += NT / 32) {
-    float* row = sc + r * s_pad;
-    float m = -INFINITY;
-    for (int k = lane; k < S; k += 32) m = fmaxf(m, row[k]);
-    m = warp_max(m);
-    float sum = 0.f;
-    for (int k = lane; k < S; k += 32) {
-      const float p = expf(row[k] - m);
-      sum += p;
-      row[k] = to_f(from_f<T>(p));
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) inv_s[r] = 1.0f / sum;
-  }
-
-  // --- pass 2: out = P v over streamed value chunks -----------------------
-  int er[EPT], ei[EPT];
-  float acc[EPT];
-#pragma unroll
-  for (int j = 0; j < EPT; ++j) {
-    const int e = tid + j * NT;
-    er[j] = e / d;
-    ei[j] = e - er[j] * d;
-    acc[j] = 0.f;
-  }
-  const int n_out = QT * d;
-  for (int c = 0; c < s_chunks; ++c) {
-    const int k0 = c * KT;
-    __syncthreads();  // kv_s free, P complete
-    for (int idx = tid; idx < KT * d; idx += NT) {
-      const int kr = idx / d, i = idx - (idx / d) * d;
-      const int key = k0 + kr;
-      kv_s[idx] = key < S ? to_f(vb[(size_t)key * rs + i]) : 0.f;
-    }
-    __syncthreads();
-    const int kmax = min(KT, S - k0);
-    for (int k = 0; k < kmax; ++k) {
-#pragma unroll
-      for (int j = 0; j < EPT; ++j) {
-        if (tid + j * NT < n_out)
-          acc[j] = fmaf(sc[er[j] * s_pad + k0 + k], kv_s[k * d + ei[j]], acc[j]);
-      }
-    }
-  }
-  T* out = static_cast<T*>(io.out) + blockIdx.z * io.out_b + h * io.out_h;
-#pragma unroll
-  for (int j = 0; j < EPT; ++j) {
-    const int qi = q0 + er[j];
-    if (tid + j * NT < n_out && qi < S)
-      out[(size_t)qi * io.out_r + ei[j]] = from_f<T>(acc[j] * inv_s[er[j]]);
-  }
-}
-
-template <typename T>
-int launch(Heads<T> io, int B, int S, int s_real, int heads, int d, float scale,
-           const void* cos, const void* sin, cudaStream_t stream) {
-  const int s_chunks = (S + KT - 1) / KT;
-  const size_t smem = sizeof(float) *
-      ((size_t)QT * d + (size_t)d * (KT + 1) + (size_t)QT * s_chunks * KT + QT);
-  cudaError_t err = cudaFuncSetAttribute(packed_attention_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + QT - 1) / QT, heads, B);
-  packed_attention_kernel<T><<<grid, NT, smem, stream>>>(
-      io, S, s_real, d, scale, s_chunks, static_cast<const T*>(cos), static_cast<const T*>(sin));
-  return (int)cudaGetLastError();
 }
 
 // ---- bfloat16: tensor-core kernel ------------------------------------------
@@ -400,15 +266,6 @@ bool bad_args(int w, int heads, int S, int s_real, const void* cos, const void* 
 
 extern "C" {
 
-// Shared memory the float32 kernel needs for sequence length S and head dim
-// d; the wrapper refuses shapes above the 227 KB a block may use. (The
-// bfloat16 kernel's ~28-53 KB does not depend on S.)
-size_t packed_attention_smem_bytes(int S, int d) {
-  const int s_chunks = (S + KT - 1) / KT;
-  return sizeof(float) *
-      ((size_t)QT * d + (size_t)d * (KT + 1) + (size_t)QT * s_chunks * KT + QT);
-}
-
 // dtype: 0 = float32, 1 = bfloat16. cos, sin: RoPE tables [S, d/2] of the
 // same dtype (half-split pairs), or both null for no rotation. Returns
 // cudaGetLastError() of the launch.
@@ -419,8 +276,8 @@ int packed_attention(const void* qkv, void* out, int dtype, int B, int S, int s_
   const int d = w / heads;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(packed_heads<float>(qkv, out, S, w, d), B, S, s_real, heads, d, scale,
-                         cos, sin, st);
+    return launch_f32_3xtf32<4>(packed_heads<float>(qkv, out, S, w, d), B, S, s_real, heads, d,
+                                scale, cos, sin, st);
   if (dtype == 1)
     return launch_bf16<false>(packed_heads<__nv_bfloat16>(qkv, out, S, w, d), B, S, s_real,
                               heads, d, scale, cos, sin, st);
@@ -451,8 +308,8 @@ int attention_unpacked(const void* q, const void* k, const void* v, void* out, i
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(unpacked_heads<float>(q, k, v, out, H, S, d), B, S, S, H, d, scale,
-                         nullptr, nullptr, st);
+    return launch_f32_3xtf32<4>(unpacked_heads<float>(q, k, v, out, H, S, d), B, S, S, H, d,
+                                scale, nullptr, nullptr, st);
   if (dtype == 1)
     return launch_bf16<false>(unpacked_heads<__nv_bfloat16>(q, k, v, out, H, S, d), B, S, S, H,
                               d, scale, nullptr, nullptr, st);

@@ -23,19 +23,19 @@
 // What bounds it on the H100: at PE-G14-448's shape ([32, 1024, 4608] bf16,
 // 16 heads, d=96) the work is 4·B·H·S²·d = 206 GFLOP (0.21 ms at
 // 989 TFLOP/s) against B·S·4w·2 = 403 MB (0.12 ms at 3.35 TB/s): the
-// tensor-core rate. float32 has no tensor-core path that keeps float32
-// products (TF32 would round them), so there the CUDA-core FMA rate bounds it.
-// What Hopper has to add to the TPU kernel is any sequence length at any
-// head dim up to 128 in both types: a whole score row does not fit shared
-// memory beside its operands for long sequences (K1's float32 path keeps a
-// [16, S] score tile and refuses S beyond ~3.4k keys).
+// tensor-core rate. In float32 the products are 3xTF32 splits (three TF32
+// mmas each, attention_common.cuh), bound by the TF32 rate over three (~165
+// TFLOP/s). What Hopper has to add to the TPU kernel is any sequence length
+// at any head dim up to 128 in both types: a whole score row does not fit
+// shared memory beside its operands for long sequences.
 //
 // The design answers that by streaming the keys through shared memory in
-// 64-key chunks in both passes of the exact softmax, so nothing grows with S:
-// pass 1 takes each row's max over all chunks; pass 2 recomputes the same
-// scores chunk by chunk (the same operations on the same data, so the same
-// values), exponentiates against the final max, sums the float32 p, and
-// accumulates T(p)·V; the epilogue multiplies by 1/sum. k is rotated as each
+// 64-key chunks (32 in float32) in both passes of the exact softmax, so
+// nothing grows with S: pass 1 takes each row's max over all chunks; pass 2
+// recomputes the same scores chunk by chunk (the same operations on the same
+// data, so the same values), exponentiates against the final max, sums the
+// float32 p, and accumulates T(p)·V; the epilogue multiplies by 1/sum. k is
+// rotated as each
 // chunk is staged (twice per key in all): the TPU kernel rotates it once per
 // head in VMEM, but a rotated bf16 K of 1024 x 96 beside V would not leave
 // room in one block's shared memory for the many blocks an SM needs.
@@ -47,161 +47,20 @@
 // shared memory serves 128 query rows (K1 stages it for 64). d = 96 runs
 // 6 k-steps of 16 for Q·K^T and 12 n8 tiles for P·V.
 //
-// float32: grouped_fma_kernel. One block of 256 threads per (32 query rows,
-// head, batch item): each thread scores 8 rows against one key of the chunk
-// with float32 FMAs over K^T in shared memory, writes its P into a [32, 64]
-// chunk tile, and then accumulates its share of the [32, d] output over the
-// chunk's V. Shared memory stays at ~46 KB (d=64) to ~92 KB (d=128) for any S.
+// float32: exact_3xtf32_kernel<DP, 8> of attention_common.cuh, K1's float32
+// kernel with 128 query rows a block: both products as 3xTF32 m16n8k8 mmas
+// (a float32 operand split into a rounded TF32 high part and a TF32
+// remainder, three mmas per product pair, ~21 of the 24 bits kept), P kept
+// in float32. Each K and V chunk comes in by 16-byte cp.async (the next
+// one's copy in flight while the warps multiply) and is split once for the
+// block, k rotated first. Shared memory stays at 52 KB (d=64) to 101 KB
+// (d=128), 8 to 16 KB more with RoPE tables, for any S.
 
 #include "attention_common.cuh"
 
 namespace {
 
 constexpr int DMAX = 128;  // largest head dim
-
-// ---- float32: CUDA-core FMA kernel, keys streamed in both passes -----------
-
-constexpr int FQ = 32;              // query rows per block
-constexpr int FK = 64;              // keys per streamed chunk
-constexpr int FNT = 256;            // threads per block
-constexpr int FR = FQ / (FNT / FK);  // score rows per thread (8)
-constexpr int FE = FQ * DMAX / FNT;  // output elements per thread (max 16)
-
-size_t fma_smem_bytes(int d) {
-  return sizeof(float) * ((size_t)FQ * d + (size_t)d * (FK + 1) + (size_t)FK * d +
-                          (size_t)FQ * (FK + 1) + 3 * FQ);
-}
-
-__global__ void __launch_bounds__(FNT) grouped_fma_kernel(
-    const float* __restrict__ qkv, float* __restrict__ out, int S, int s_real, int w, int d,
-    float scale, const float* __restrict__ cos, const float* __restrict__ sin) {
-  extern __shared__ float smem[];
-  float* q_s = smem;                 // [FQ][d] scaled, rotated q
-  float* kt = q_s + FQ * d;          // [d][FK+1] rotated K^T chunk
-  float* v_s = kt + d * (FK + 1);    // [FK][d] V chunk
-  float* p_s = v_s + FK * d;         // [FQ][FK+1] P of the chunk
-  float* red = p_s + FQ * (FK + 1);  // [2][FQ] per-warp row max, then row sum
-  float* row_s = red + 2 * FQ;       // [FQ] row max, then 1/sum
-
-  const int tid = threadIdx.x, lane = tid % 32;
-  const int q0 = blockIdx.x * FQ, h = blockIdx.y;
-  const size_t rs = 3 * (size_t)w;
-  const float* base = qkv + (size_t)blockIdx.z * S * rs;
-  const int kk = tid % FK;        // this thread's key within the chunk
-  const int rg = tid / FK;        // this thread's group of FR rows
-  const int wh = kk / 32;         // which of the group's two warps
-  const int n_out = FQ * d;
-
-  stage_rows_f<float, FNT, FQ>(q_s, d, 1, base, q0, S, rs, h * d, d, true, scale, cos, sin);
-
-  float sc[FR];
-  // the scores of this thread's FR rows against key k0 + kk; masked past s_real
-  auto scores = [&](int k0) {
-#pragma unroll
-    for (int j = 0; j < FR; ++j) sc[j] = 0.f;
-    for (int i = 0; i < d; ++i) {
-      const float kv = kt[i * (FK + 1) + kk];
-#pragma unroll
-      for (int j = 0; j < FR; ++j) sc[j] = fmaf(q_s[(rg * FR + j) * d + i], kv, sc[j]);
-    }
-    if (k0 + kk >= s_real) {
-#pragma unroll
-      for (int j = 0; j < FR; ++j) sc[j] = -INFINITY;
-    }
-  };
-  auto stage_k = [&](int k0) {
-    stage_rows_f<float, FNT, FK>(kt, 1, FK + 1, base, k0, S, rs, w + h * d, d, false, 0.f,
-                                 cos, sin);
-  };
-
-  // --- pass 1: row max over all keys -------------------------------------
-  float mx[FR];
-#pragma unroll
-  for (int j = 0; j < FR; ++j) mx[j] = -INFINITY;
-  for (int k0 = 0; k0 < S; k0 += FK) {
-    __syncthreads();  // kt free (and q_s written, on the first chunk)
-    stage_k(k0);
-    __syncthreads();
-    scores(k0);
-#pragma unroll
-    for (int j = 0; j < FR; ++j) mx[j] = fmaxf(mx[j], sc[j]);
-  }
-#pragma unroll
-  for (int j = 0; j < FR; ++j) {
-    const float v = warp_max(mx[j]);
-    if (lane == 0) red[wh * FQ + rg * FR + j] = v;
-  }
-  __syncthreads();
-  if (tid < FQ) row_s[tid] = fmaxf(red[tid], red[FQ + tid]);
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < FR; ++j) mx[j] = row_s[rg * FR + j];
-
-  // --- pass 2: recompute scores, p = exp(s - max), O += P V -----------------
-  float ls[FR];
-#pragma unroll
-  for (int j = 0; j < FR; ++j) ls[j] = 0.f;
-  // this thread's output elements e = tid + j·FNT of the [FQ, d] tile: the
-  // offset of its P row (-1 past the tile) and its column
-  float acc[FE];
-  int prow[FE], col[FE];
-#pragma unroll
-  for (int j = 0; j < FE; ++j) {
-    const int e = tid + j * FNT, r = e / d;
-    acc[j] = 0.f;
-    prow[j] = e < n_out ? r * (FK + 1) : -1;
-    col[j] = e - r * d;
-  }
-  for (int k0 = 0; k0 < S; k0 += FK) {
-    __syncthreads();  // kt, v_s and p_s free
-    stage_k(k0);
-    stage_rows_f<float, FNT, FK>(v_s, d, 1, base, k0, S, rs, 2 * w + h * d, d, false, 0.f,
-                                 nullptr, nullptr);
-    __syncthreads();
-    scores(k0);
-#pragma unroll
-    for (int j = 0; j < FR; ++j) {
-      const float p = expf(sc[j] - mx[j]);
-      ls[j] += p;
-      p_s[(rg * FR + j) * (FK + 1) + kk] = p;
-    }
-    __syncthreads();
-    const int kmax = min(FK, S - k0);
-    for (int k = 0; k < kmax; ++k) {
-#pragma unroll
-      for (int j = 0; j < FE; ++j)
-        if (prow[j] >= 0) acc[j] = fmaf(p_s[prow[j] + k], v_s[k * d + col[j]], acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < FR; ++j) {
-    const float v = warp_sum(ls[j]);
-    if (lane == 0) red[wh * FQ + rg * FR + j] = v;
-  }
-  __syncthreads();
-  if (tid < FQ) row_s[tid] = 1.0f / (red[tid] + red[FQ + tid]);
-  __syncthreads();
-#pragma unroll
-  for (int j = 0; j < FE; ++j) {
-    const int r = prow[j] / (FK + 1), qi = q0 + r;
-    if (prow[j] >= 0 && qi < S)
-      out[((size_t)blockIdx.z * S + qi) * w + h * d + col[j]] = acc[j] * row_s[r];
-  }
-}
-
-int launch_f32(const void* qkv, void* out, int B, int S, int s_real, int w, int heads,
-               float scale, const void* cos, const void* sin, cudaStream_t stream) {
-  const int d = w / heads;
-  const size_t smem = fma_smem_bytes(d);
-  cudaError_t err = cudaFuncSetAttribute(grouped_fma_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + FQ - 1) / FQ, heads, B);
-  grouped_fma_kernel<<<grid, FNT, smem, stream>>>(
-      static_cast<const float*>(qkv), static_cast<float*>(out), S, s_real, w, d, scale,
-      static_cast<const float*>(cos), static_cast<const float*>(sin));
-  return (int)cudaGetLastError();
-}
 
 // ---- bfloat16: tensor-core kernel, 128 query rows a block ------------------
 
@@ -384,7 +243,9 @@ int packed_attention_grouped(const void* qkv, void* out, int dtype, int B, int S
       (cos == nullptr) != (sin == nullptr) || (cos != nullptr && (w / heads) % 2 != 0))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_f32(qkv, out, B, S, s_real, w, heads, scale, cos, sin, st);
+  if (dtype == 0)
+    return launch_f32_3xtf32<8>(packed_heads<float>(qkv, out, S, w, w / heads), B, S, s_real,
+                                heads, w / heads, scale, cos, sin, st);
   if (dtype == 1) return launch_bf16(qkv, out, B, S, s_real, w, heads, scale, cos, sin, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -284,23 +284,15 @@ def _exact_heads_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: f
 
 
 def _launch_packed(what: str, lib_fn, qkv: torch.Tensor, heads: int, scale: float,
-                   s_real: int | None, rope, f32_smem=None, out_dtype=None) -> torch.Tensor:
+                   s_real: int | None, rope, out_dtype=None) -> torch.Tensor:
     """Check the inputs of K1 or K4 and launch its C entry on the current
     stream; returns the [B, S, w] output (of ``out_dtype``, by default the
-    input's). ``f32_smem(S, d)``: the shared memory a float32 block needs,
-    where that grows with S."""
+    input's)."""
     b, s, w3 = qkv.shape
     s_real = s if s_real is None else s_real
     _check_packed(what, qkv, heads, s_real, _DTYPE_CODE)
     w = w3 // 3
     d = w // heads
-    if qkv.dtype == torch.float32 and f32_smem is not None:
-        smem = f32_smem(s, d)
-        if smem > _cuda_build.SMEM_LIMIT:
-            raise ValueError(
-                f"{what}: float32 S={s} needs {smem} B of shared memory for its score "
-                f"tile, over the {_cuda_build.SMEM_LIMIT} B a block may use"
-            )
     if qkv.dtype == torch.bfloat16 and (d % 8 or qkv.data_ptr() % 16
                                         or (rope is not None and d % 16)):
         raise ValueError(
@@ -347,8 +339,6 @@ def _lib() -> ctypes.CDLL:
         for fn in (lib.packed_attention, lib.packed_attention_f32out):
             fn.argtypes = _ARGTYPES
             fn.restype = ctypes.c_int
-        lib.packed_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.packed_attention_smem_bytes.restype = ctypes.c_size_t
         lib.attention_unpacked.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
@@ -378,15 +368,13 @@ def fused_attention_packed(qkv: torch.Tensor, heads: int, scale: float,
     if quant_out:
         b, s, w3 = qkv.shape
         out32 = _launch_packed("fused_attention_packed", lib.packed_attention_f32out, qkv,
-                               heads, scale, s_real, rope,
-                               f32_smem=lib.packed_attention_smem_bytes,
-                               out_dtype=torch.float32)
+                               heads, scale, s_real, rope, out_dtype=torch.float32)
         q, sc = _rowquant_launch("fused_attention_packed", out32.view(b * s, w3 // 3), None,
                                  None, None, 1e-5)
         out = q.view(b, s, w3 // 3), sc.view(b, s, 1)
     else:
         out = _launch_packed("fused_attention_packed", lib.packed_attention, qkv, heads,
-                             scale, s_real, rope, f32_smem=lib.packed_attention_smem_bytes)
+                             scale, s_real, rope)
     fused_attention_packed.launches += 1
     return out
 
@@ -562,20 +550,13 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 f"{t.dtype} on {t.device}"
             )
     b, h, s, d = q.shape
-    lib = _lib()
     if d > 128:
         raise ValueError(f"fused_attention: head dim {d} is over 128")
-    if q.dtype == torch.float32:
-        smem = lib.packed_attention_smem_bytes(s, d)
-        if smem > _cuda_build.SMEM_LIMIT:
-            raise ValueError(f"fused_attention: float32 S={s} needs {smem} B of shared memory "
-                             f"for its score tile, over the {_cuda_build.SMEM_LIMIT} B a "
-                             "block may use")
-    elif d % 8 or any(t.data_ptr() % 16 for t in (q, k, v)):
+    if q.dtype == torch.bfloat16 and (d % 8 or any(t.data_ptr() % 16 for t in (q, k, v))):
         raise ValueError("fused_attention: the bfloat16 kernel reads 16-byte vectors — head "
                          f"dim {d} must be a multiple of 8 and the data 16-byte aligned")
     out = torch.empty_like(q)
-    err = lib.attention_unpacked(
+    err = _lib().attention_unpacked(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype], b, h, s,
         d, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
     )

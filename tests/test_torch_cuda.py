@@ -53,6 +53,7 @@ def _normal(shape, seed):
 @pytest.mark.parametrize("b,s,s_real,w,heads", [
     (2, 17, 17, 128, 2), (2, 50, 43, 128, 2), (2, 577, 577, 1024, 16), (1, 257, 200, 1280, 16),
     (1, 130, 130, 1664, 16),  # head dim 104 (ViT-bigG): padded to 112 on the bf16 path
+    (1, 4000, 4000, 128, 2),  # keys streamed in both types: no S is refused
 ])
 def test_packed_attention_kernel_matches_plain(card, dtype, b, s, s_real, w, heads):
     qkv = _normal((b, s, 3 * w), seed=s).to(card, dtype)
@@ -201,8 +202,6 @@ def test_wrappers_refuse_bad_inputs(card):
     qkv = torch.zeros((1, 8, 6 * 128), device=card)[..., ::2]  # not contiguous
     with pytest.raises(ValueError):
         fused_attention_packed(qkv, 2, 0.125)
-    with pytest.raises(ValueError):  # float32 score tile over the shared-memory limit
-        fused_attention_packed(torch.zeros((1, 4000, 3 * 128), device=card), 2, 0.125)
     with pytest.raises(ValueError):  # bfloat16 needs head dim % 8 == 0
         fused_attention_packed(torch.zeros((1, 8, 3 * 36), device=card, dtype=torch.bfloat16),
                                3, 0.125)
@@ -254,6 +253,29 @@ def test_pe_l14_two_layers_on_card_matches_cpu(card, mode, kernel):
     ref = vit.vit_encode_image(cpu, images, dtype).numpy()
     limit = {"int8_static": 2e-3, "bfloat16": 1e-3, "float32": 1e-5}[mode]
     assert 1.0 - np.min(np.sum(got * ref, axis=-1)) <= limit
+
+
+def test_vit_l14_two_layers_float32_on_card_matches_cpu(card):
+    """ViT-L-14 (224 px) cut to 2 layers in float32 (S=257, w=1024, 16 heads
+    of 64): its block fits the JAX whole-block gate, so K1's float32 kernel
+    runs each layer, against the same weights and images on the CPU."""
+    import dataclasses
+
+    from clip_assisted_data_labeling_tpu_torch.models import vit
+    from clip_assisted_data_labeling_tpu_torch.models.clip_weights import module_from_params
+    from clip_assisted_data_labeling_tpu_torch.ops.attention import fused_attention_packed_grouped
+
+    cfg = dataclasses.replace(vit.resolve_config("ViT-L-14/openai"), layers=2)
+    params = vit.init_vit_params(cfg, torch.Generator().manual_seed(0))
+    images = _normal((2, 224, 224, 3), seed=7)
+    cpu = module_from_params(params, cfg)
+    gpu = module_from_params(params, cfg, card)
+    before = fused_attention_packed.launches, fused_attention_packed_grouped.launches
+    got = vit.vit_encode_image(gpu, images.to(card), torch.float32).cpu().numpy()
+    assert (fused_attention_packed.launches - before[0],
+            fused_attention_packed_grouped.launches - before[1]) == (cfg.layers, 0)
+    ref = vit.vit_encode_image(cpu, images, torch.float32).numpy()
+    assert 1.0 - np.min(np.sum(got * ref, axis=-1)) <= 1e-5
 
 
 @pytest.mark.parametrize("mode", ["int8_static", "bfloat16"])
