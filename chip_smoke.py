@@ -8,11 +8,13 @@ Phases (any failure exits nonzero and prints no result line):
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes and time kernel, plain version, the PyTorch library
      yardstick and the roofline bound (CUDA events, warmed up; the float32
-     kernels of K1, K4 and K10 at a third of the TF32 rate, their 3xTF32
+     kernels of K1, K4, K5 and K10 at a third of the TF32 rate, their 3xTF32
      products, with the float32 FMA bound beside it): K1 (also with
      PE's RoPE; f32 at ViT-L-14's float32 path), K2, K4 (bf16 with RoPE at
-     PE-Core-G14-448's shape, f32 at the 336-pixel towers' float32 paths,
-     with PE-Core-L14-336's RoPE there), K5, K3, and dynamic int8's K6
+     PE-Core-G14-448's shape, bf16 without RoPE at ViT-B-16-SigLIP-512's,
+     f32 at the 336-pixel towers' float32 paths, with PE-Core-L14-336's RoPE
+     there; the RoPE rows of K1 and K4 also time the torch rotation + SDPA),
+     K5 (bf16, and f32 at SO400M-384's float32 path), K3, and dynamic int8's K6
      (ln at [18464, 1024], quick_gelu at [18464, 4096], bf16 and f32 in), K9
      (ViT-L's four products at M = 18464 and 9232) and K1's quant_out
      option, each also at the CLI's 64-crop shapes or others that no path
@@ -50,6 +52,10 @@ Phases (any failure exits nonzero and prints no result line):
      outputs and the .calib.npz's qkv_amax, steady state, profile,
   9. four images through its bfloat16 path (K5 in every layer) and the
      cosine against the int8_static embeddings,
+  9a. four images through its float32 path (K5's float32 kernel in all 27
+     layers, nothing else counted): the cosine against the int8_static
+     embeddings, the steady ms per forward, and the first image against the
+     same encoder on the CPU (1 - cosine ≤ 1e-5, with the CPU's seconds),
  10. the embed CLI on the same PNGs: PE-Core-L14-336, int8_static (K1 with
      RoPE once and K2 twice in each of the 24 layers; no K3, K4, K5), batch
      8, full width and depth, random weights; outputs, steady state, profile,
@@ -57,7 +63,8 @@ Phases (any failure exits nonzero and prints no result line):
      its float32 path (K4 with RoPE in every layer, with its steady ms per
      forward), each against the int8_static embeddings,
  12. PE-Core-G14-448 in bfloat16 on four images at full width and all 50
-     layers (K4 with RoPE in every layer, no K1): finite unit embeddings,
+     layers (K4 with RoPE in every layer, no K1): finite unit embeddings and
+     the steady ms per forward,
  13. the int8_static routes of the two knobs that pick the block, each
      through the embed CLI on copies of four of the PNGs in a fresh
      directory, full width and depth, exact counters, cosine against the
@@ -92,13 +99,14 @@ H100_BF16_FLOPS = 989e12  # dense tensor-core bf16 (NVIDIA data sheet, SXM, 700 
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores
 H100_TF32_FLOPS = 494.7e12  # dense tensor-core TF32
 # float32 products on the tensor cores as three TF32 mmas each (3xTF32): the
-# bound of K1's, K4's and K10's float32 kernels
+# bound of K1's, K4's, K5's and K10's float32 kernels
 H100_3XTF32_FLOPS = H100_TF32_FLOPS / 3
 H100_INT8_OPS = 1979e12  # dense tensor-core int8
 H100_BYTES = 3.35e12  # HBM3 bytes/s
 MODEL = "ViT-L-14-336/openai"
 L14 = "ViT-L-14/openai"  # 224 px, S=257: its float32 block takes K1 (the JAX whole-block gate)
 SIGLIP = "ViT-SO400M-14-SigLIP-384/webli"
+SIGLIP_B512 = "ViT-B-16-SigLIP-512/webli"  # S=1024, 12 heads of 64: K4 in bf16, no RoPE
 PE_L = "PE-Core-L14-336"
 PE_G = "PE-Core-G14-448"
 N_IMAGES, BATCH = 32, 8
@@ -222,7 +230,8 @@ def bound(flops: float, peak: float, nbytes: float, fma_peak: float | None = Non
     return row
 
 
-def check_kernels(gen: torch.Generator, pgen: torch.Generator) -> list[dict]:
+def check_kernels(gen: torch.Generator, pgen: torch.Generator,
+                  qgen: torch.Generator) -> list[dict]:
     """Phase 3: every kernel against its plain version at the main paths'
     shapes, with times. Launches here are comparisons and are not counted
     (the counters are zeroed before each main path). Each row names, as
@@ -231,7 +240,8 @@ def check_kernels(gen: torch.Generator, pgen: torch.Generator) -> list[dict]:
     (the CLI's 64-crop forwards, other types): its launches are 0. The rows
     that hold a path's own shape beside an older row of another shape draw
     their inputs from ``pgen``, so that every older row keeps the inputs
-    ``gen`` gave it before they were added."""
+    ``gen`` gave it before they were added; rows added after those draw
+    from ``qgen``, so that the rows of ``pgen`` keep theirs too."""
     import torch.nn.functional as F
 
     from clip_assisted_data_labeling_tpu_torch.ops.attention import (
@@ -252,8 +262,8 @@ def check_kernels(gen: torch.Generator, pgen: torch.Generator) -> list[dict]:
     d = w // heads
     # (type, tolerance, peak rate, FMA rate beside a 3xTF32 bound)
     bf16 = (torch.bfloat16, 2e-2, H100_BF16_FLOPS, None)
-    f32 = (torch.float32, 1e-5, H100_F32_FLOPS, None)
-    f32tc = (torch.float32, 1e-5, H100_3XTF32_FLOPS, H100_F32_FLOPS)  # K1's float32: 3xTF32
+    # K1's and K5's float32: 3xTF32
+    f32tc = (torch.float32, 1e-5, H100_3XTF32_FLOPS, H100_F32_FLOPS)
     # the main paths' own shapes first (BATCH images x 4 crops of ViT-L-14-336
     # int8_static; 4 x 4 of ViT-L-14 float32), then the CLI's 64-crop
     # forwards of ViT-L-14-336 and ViT-L-14 (224)
@@ -288,7 +298,7 @@ def check_kernels(gen: torch.Generator, pgen: torch.Generator) -> list[dict]:
         del qkv, q, k, v
         torch.cuda.empty_cache()
 
-    rows += check_rope_and_grouped(gen, pgen)
+    rows += check_rope_and_grouped(gen, pgen, qgen)
     rows += check_int8_kernels(gen, pgen)
     rows += check_block_linear(gen)
     rows += check_standalone_attention(gen)
@@ -330,11 +340,13 @@ def check_kernels(gen: torch.Generator, pgen: torch.Generator) -> list[dict]:
         del x, diff
 
     # ViT-SO400M-14-SigLIP-384 (S=729, 16 heads of 72): K5 bf16 at the bf16
-    # path's 4 images x 4 crops, at 8 x 4 and f32 at 2 x 4; K3 at int8_static's
+    # path's 4 images x 4 crops, at 8 x 4 and f32 at 2 x 4, f32 at the float32
+    # path's 4 x 4; K3 at int8_static's
     heads, w, s = 16, 1152, 729
     d = w // heads
-    for b, (dtype, tol, peak, _), path, rg in ((16, bf16, ("so400m_bf16", "K5"), pgen),
-                                              (4 * BATCH, bf16, None, gen), (8, f32, None, gen)):
+    for b, (dtype, tol, peak, fma), path, rg in (
+            (16, bf16, ("so400m_bf16", "K5"), pgen), (4 * BATCH, bf16, None, gen),
+            (8, f32tc, None, gen), (16, f32tc, ("so400m_f32", "K5"), qgen)):
         qkv = torch.randn((b, s, 3 * w), generator=rg, device="cuda").to(dtype)
         err = (flash_attention_packed(qkv, heads, d ** -0.5).float()
                - flash_attention_packed_plain(qkv, heads, d ** -0.5).float()).abs().max().item()
@@ -349,7 +361,7 @@ def check_kernels(gen: torch.Generator, pgen: torch.Generator) -> list[dict]:
                                 min_reps=3),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, scale=d ** -0.5)),
-            **bound(4.0 * b * heads * s * s * d, peak, b * s * 4 * w * qkv.element_size()),
+            **bound(4.0 * b * heads * s * s * d, peak, b * s * 4 * w * qkv.element_size(), fma),
         }
         rows.append(row)
         print(f"K5 {row['case']}: err {err:.3g} (tol {tol}) kernel {row['ms']:.3f} ms "
@@ -399,15 +411,19 @@ def check_kernels(gen: torch.Generator, pgen: torch.Generator) -> list[dict]:
     return rows
 
 
-def check_rope_and_grouped(gen: torch.Generator, pgen: torch.Generator) -> list[dict]:
+def check_rope_and_grouped(gen: torch.Generator, pgen: torch.Generator,
+                           qgen: torch.Generator) -> list[dict]:
     """Phase 3, the PE slice's kernels: K1 with RoPE at PE-Core-L14-336's
     int8_static shape, and K4 at the shapes its routes give it — bf16 with
     RoPE at PE-Core-G14-448's (its bf16 path's 4 images x 4 crops, and 8 x
-    4), float32 without RoPE at ViT-L-14-336's float32 path (4 images),
-    float32 with RoPE at PE-Core-L14-336's float32 path (4 images) and at
-    G14's (1 image, d=96). K4's yardstick is SDPA on q and k already
-    rotated: it leaves the rotation out. Rows carry ``path``, and draw from
-    ``gen`` or ``pgen``, as in ``check_kernels``."""
+    4), bf16 without RoPE at ViT-B-16-SigLIP-512's (4 x 4, 12 heads of 64)
+    and at G14's (4 x 4: K4 without its rotation pre-pass), float32 without
+    RoPE at ViT-L-14-336's float32 path (4 images), float32 with RoPE at
+    PE-Core-L14-336's float32 path (4 images) and at G14's (1 image, d=96).
+    The yardstick ``library_ms`` is SDPA on q and k already rotated: it
+    leaves the rotation out; with RoPE, ``library_rot_ms`` is the torch
+    rotation and then SDPA. Rows carry ``path``, and draw from ``gen``,
+    ``pgen`` or ``qgen``, as in ``check_kernels``."""
     import torch.nn.functional as F
 
     from clip_assisted_data_labeling_tpu_torch.models.vit import _rope_on, resolve_config
@@ -430,6 +446,8 @@ def check_rope_and_grouped(gen: torch.Generator, pgen: torch.Generator) -> list[
         ("K4", resolve_config(MODEL), 16, f32tc, False, ("l336_f32", "K4"), gen),
         ("K4", pe_l, 16, f32tc, True, ("pe_f32", "K4"), pgen),
         ("K4", pe_g, 4, f32tc, True, None, gen),
+        ("K4", resolve_config(SIGLIP_B512), 16, bf16, False, None, qgen),
+        ("K4", pe_g, 16, bf16, False, None, qgen),  # G14's shape without its RoPE pre-pass
     )
     rows = []
     for kname, cfg, b, (dtype, tol, peak, fma), with_rope, path, rg in cases:
@@ -443,11 +461,15 @@ def check_rope_and_grouped(gen: torch.Generator, pgen: torch.Generator) -> list[
         qkv = torch.randn((b, s, 3 * w), generator=rg, device="cuda").to(dtype)
         err = (kernel(qkv, heads, d ** -0.5, None, rope).float()
                - plain(qkv, heads, d ** -0.5, None, rope).float()).abs().max().item()
-        q, k, v = (t.reshape(b, s, heads, d).transpose(1, 2).contiguous()
-                   for t in qkv.split(w, dim=-1))
+        q0, k0, v = (t.reshape(b, s, heads, d).transpose(1, 2).contiguous()
+                     for t in qkv.split(w, dim=-1))
+        q, k = q0, k0
+        rot = {}
         if rope is not None:
             cos, sin = (t.to(dtype) for t in rope)
-            q, k = _rot_half(q, cos, sin).contiguous(), _rot_half(k, cos, sin).contiguous()
+            q, k = _rot_half(q0, cos, sin).contiguous(), _rot_half(k0, cos, sin).contiguous()
+            rot["library_rot_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+                _rot_half(q0, cos, sin), _rot_half(k0, cos, sin), v, scale=d ** -0.5))
         nbytes = b * s * 4 * w * qkv.element_size() + (2 * s * d // 2 * qkv.element_size()
                                                        if rope is not None else 0)
         row = {
@@ -459,13 +481,15 @@ def check_rope_and_grouped(gen: torch.Generator, pgen: torch.Generator) -> list[
             "plain_ms": time_ms(lambda: plain(qkv, heads, d ** -0.5, None, rope), min_reps=3),
             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, scale=d ** -0.5)),
+            **rot,
             **bound(4.0 * b * heads * s * s * d, peak, nbytes, fma),
         }
         rows.append(row)
         print(f"{kname} {row['case']}: err {err:.3g} (tol {tol}) kernel {row['ms']:.3f} ms "
               f"plain {row['plain_ms']:.3f} sdpa(rotated q,k) {row['library_ms']:.3f} "
-              f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
-        del qkv, q, k, v
+              + (f"rotation+sdpa {rot['library_rot_ms']:.3f} " if rot else "")
+              + f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+        del qkv, q, k, v, q0, k0
         torch.cuda.empty_cache()
     return rows
 
@@ -851,8 +875,9 @@ def check_standalone_attention(gen: torch.Generator) -> list[dict]:
 
     cfg = resolve_config(PE_G)
     s, w, heads, d = cfg.seq_len, cfg.width, cfg.heads, cfg.head_dim
-    for b, (dtype, tol, peak) in ((4 * BATCH, (torch.bfloat16, 2e-2, H100_BF16_FLOPS)),
-                                  (4, (torch.float32, 1e-5, H100_F32_FLOPS))):
+    for b, (dtype, tol, peak, fma) in (
+            (4 * BATCH, (torch.bfloat16, 2e-2, H100_BF16_FLOPS, None)),
+            (4, (torch.float32, 1e-5, H100_3XTF32_FLOPS, H100_F32_FLOPS))):
         rope = _rope_on(cfg, torch.device("cuda"))
         qkv = torch.randn((b, s, 3 * w), generator=gen, device="cuda").to(dtype)
         err = (flash_attention_packed(qkv, heads, d ** -0.5, None, rope).float()
@@ -877,7 +902,7 @@ def check_standalone_attention(gen: torch.Generator) -> list[dict]:
                                                                      rope), min_reps=3),
             "library_ms": time_ms(library),
             **bound(4.0 * b * heads * s * s * d, peak,
-                    b * s * 4 * w * qkv.element_size() + s * d * qkv.element_size()),
+                    b * s * 4 * w * qkv.element_size() + s * d * qkv.element_size(), fma),
         }
         rows.append(row)
         print(f"K5 {row['case']}: err {err:.3g} (tol {tol}) kernel {row['ms']:.3f} ms plain "
@@ -1015,22 +1040,27 @@ def embed_and_check(root: str, model: str, cfg, per_forward: dict,
 
 def encoder_run(model: str, dtype: str, pts: list, side, cfg, per_forward: dict,
                 side_name: str = "int8_static", timed: bool = False,
-                cpu_ref: bool = False) -> dict:
+                cpu_ref: bool = False, cpu_images: int = 4) -> dict:
     """Four images through the encoder in ``dtype``; its launches must be
     ``per_forward``, its embeddings finite unit vectors and, where ``side``
     holds those of another run (``side_name``) of the same images, near
     them. ``timed``: then the steady per-forward ms of the same batch (crops
     and ViT, the canvas already on the card; CUDA events after two warm-up
-    forwards). ``cpu_ref``: the weights are made once from seed 0 on the
-    card, and the same encoder on the CPU (plain versions throughout) embeds
-    the same batch: the cosine of every crop within 1e-5 of it. Returns the
+    forwards). ``cpu_ref``: the weights are made once on the card, as the
+    encoder makes them by default (seeded by the model name, so ``side``
+    still compares like with like), and the same encoder on the CPU (plain
+    versions throughout) embeds the first ``cpu_images`` images of the
+    batch: the cosine of every crop within 1e-5 of the card's. Returns the
     launch counts."""
     from clip_assisted_data_labeling_tpu_torch.data.loader import BatchedImageLoader
-    from clip_assisted_data_labeling_tpu_torch.models.encoders import CLIPImageEncoder
+    from clip_assisted_data_labeling_tpu_torch.models.encoders import (
+        CLIPImageEncoder,
+        _stable_seed,
+    )
     from clip_assisted_data_labeling_tpu_torch.models.vit import init_vit_params
 
-    params = (init_vit_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
-              if cpu_ref else None)
+    params = (init_vit_params(cfg, torch.Generator(device="cuda").manual_seed(
+        _stable_seed(model)), "cuda") if cpu_ref else None)
     enc = CLIPImageEncoder(model, params=params, compute_dtype=dtype, device="cuda")
     first = pts[:4]
     loader = BatchedImageLoader([p[:-3] + ".png" for p in first], canvas_size=1024,
@@ -1058,9 +1088,10 @@ def encoder_run(model: str, dtype: str, pts: list, side, cfg, per_forward: dict,
     if cpu_ref:
         cpu = CLIPImageEncoder(model, params={k: v.cpu() for k, v in params.items()},
                                compute_dtype=dtype, device="cpu")
+        n = min(cpu_images, batch.n_valid)
         t0 = time.perf_counter()
-        ref = cpu.embed_crops(batch.canvas, batch.crop_params)[: batch.n_valid].numpy()
-        cos_err = 1.0 - np.sum(emb * ref, axis=-1).min()
+        ref = cpu.embed_crops(batch.canvas[:n], batch.crop_params[:n]).numpy()
+        cos_err = 1.0 - np.sum(emb[:n] * ref, axis=-1).min()
         print(f"{model} {dtype} card vs CPU (same weights and images, {ref.shape[0]} x "
               f"{ref.shape[1]} crops, CPU {time.perf_counter() - t0:.1f} s): 1 - cosine max "
               f"{cos_err:.3g}", flush=True)
@@ -1216,7 +1247,8 @@ def main() -> None:
 
     # --- phase 3: kernels against their plain versions ----------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = check_kernels(gen, torch.Generator(device="cuda").manual_seed(1))
+    rows = check_kernels(gen, torch.Generator(device="cuda").manual_seed(1),
+                         torch.Generator(device="cuda").manual_seed(2))
     torch.cuda.empty_cache()
 
     cfg, scfg = resolve_config(MODEL), resolve_config(SIGLIP)
@@ -1243,6 +1275,10 @@ def main() -> None:
         so400m = embed_and_check(root, SIGLIP, scfg, {"K3": scfg.layers})
         bf16 = encoder_run(SIGLIP, "bfloat16", so400m["pts"], so400m["side"], scfg,
                          {"K5": scfg.layers})
+        # --- phase 9a: its float32 path (K5's float32 kernel a layer), held
+        # against the same encoder on the CPU on one image
+        so400m_f32 = encoder_run(SIGLIP, "float32", so400m["pts"], so400m["side"], scfg,
+                                 {"K5": scfg.layers}, timed=True, cpu_ref=True, cpu_images=1)
 
         # --- phases 10-11: PE-Core-L14-336 int8_static (K1 with RoPE once and
         # K2 twice a layer), then its bf16 (K1) and float32 (K4) paths
@@ -1252,7 +1288,8 @@ def main() -> None:
         pe_f32 = encoder_run(PE_L, "float32", pe["pts"], pe["side"], pcfg, {"K4": pcfg.layers},
                              timed=True)
         # --- phase 12: PE-Core-G14-448 bf16, all 50 layers (K4 with RoPE)
-        g14 = encoder_run(PE_G, "bfloat16", pe["pts"], None, gcfg, {"K4": gcfg.layers})
+        g14 = encoder_run(PE_G, "bfloat16", pe["pts"], None, gcfg, {"K4": gcfg.layers},
+                          timed=True)
 
         # --- phase 13: the int8_static routes of CTPU_LN_KERNEL and CTPU_INT8_WIRE
         routes = knob_routes(l336, so400m, cfg, scfg)
@@ -1262,7 +1299,8 @@ def main() -> None:
     # the counter over every main path; None (a shape no path runs) is 0
     paths = {"l336": l336["launches"], "l336_f32": l336_f32, "l14_f32": l14_f32,
              "dyn": dyn["launches"], "fused_qmatmul": dyn_routes[-1],
-             "so400m": so400m["launches"], "so400m_bf16": bf16, "pe": pe["launches"],
+             "so400m": so400m["launches"], "so400m_bf16": bf16, "so400m_f32": so400m_f32,
+             "pe": pe["launches"],
              "pe_f32": pe_f32, "g14": g14}
     every = [*paths.values(), *dyn_routes[:-1], pe_bf16, *routes]
 

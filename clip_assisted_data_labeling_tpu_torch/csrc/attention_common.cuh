@@ -1,10 +1,11 @@
-// Device helpers shared by the exact two-pass attention kernels K1
-// (packed_attention.cu) and K4 (packed_attention_grouped.cu): type
+// Device helpers shared by the attention kernels K1 (packed_attention.cu),
+// K4 (packed_attention_grouped.cu) and K5 (flash_attention.cu): type
 // conversion, warp reductions, the bf16 mma.sync tile product, the half-split
 // RoPE rotation with the TPU kernel's roundings, and the loads that stage one
-// head's rows of the packed [B, S, 3w] qkv into shared memory; then the
-// float32 kernel both files instantiate, on the tensor cores with 3xTF32
-// split products (the last section).
+// head's rows of the packed [B, S, 3w] qkv into shared memory; cp.async; the
+// wgmma products, descriptors and core-matrix copies of K4's bf16 kernel;
+// then the float32 kernel all three files instantiate, on the tensor cores
+// with 3xTF32 split products (the last section).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -210,6 +211,209 @@ __device__ __forceinline__ void stage_vt_bf16(
   }
 }
 
+// ---- asynchronous copies (cp.async) ----------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(src),
+               "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(a), "l"(src),
+               "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// wait until at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- bfloat16 on Hopper's warpgroup tensor cores (wgmma) -------------------
+//
+// A warpgroup (four consecutive warps, 128 threads) issues one asynchronous
+// m64nNk16 product: A (64 x 16) from registers, in the m16n8k16 A fragment
+// layout of each warp's 16 rows (warp w of the group owns rows 16w..16w+15),
+// B (16 x N) from shared memory through a descriptor; the float32
+// accumulator of 64 x N sits in the same layout as N/8 m16n8 accumulators of
+// each warp: d[j] holds columns 8j..8j+7 (d[j][0..1] row g cols 2t, 2t+1,
+// d[j][2..3] row g+8). Operands in shared memory use the layout without
+// swizzle: 8 x 8 "core matrices" of 128 contiguous bytes (8 rows of 16
+// bytes). The descriptor gives the start address, LBO (the byte stride
+// between core matrices along K) and SBO (along M or N). A K-major operand
+// has K contiguous in a core-matrix row, an MN-major one M or N; the
+// wgmma_n* products take A from registers and B MN-major (the transpose
+// bit set), wgmma_ss_n64 both from shared memory, K-major.
+
+#define WG_D4(j) "+f"(d[j][0]), "+f"(d[j][1]), "+f"(d[j][2]), "+f"(d[j][3])
+
+__device__ __forceinline__ void wgmma_n64(float (&d)[8][4], const uint32_t (&a)[4],
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : WG_D4(0), WG_D4(1), WG_D4(2), WG_D4(3),
+        WG_D4(4), WG_D4(5), WG_D4(6), WG_D4(7)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n80(float (&d)[10][4], const uint32_t (&a)[4],
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : WG_D4(0), WG_D4(1), WG_D4(2), WG_D4(3),
+        WG_D4(4), WG_D4(5), WG_D4(6), WG_D4(7),
+        WG_D4(8), WG_D4(9)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n96(float (&d)[12][4], const uint32_t (&a)[4],
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"
+      : WG_D4(0), WG_D4(1), WG_D4(2), WG_D4(3),
+        WG_D4(4), WG_D4(5), WG_D4(6), WG_D4(7),
+        WG_D4(8), WG_D4(9), WG_D4(10), WG_D4(11)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n112(float (&d)[14][4], const uint32_t (&a)[4],
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55"
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+      : WG_D4(0), WG_D4(1), WG_D4(2), WG_D4(3),
+        WG_D4(4), WG_D4(5), WG_D4(6), WG_D4(7),
+        WG_D4(8), WG_D4(9), WG_D4(10), WG_D4(11),
+        WG_D4(12), WG_D4(13)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n128(float (&d)[16][4], const uint32_t (&a)[4],
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : WG_D4(0), WG_D4(1), WG_D4(2), WG_D4(3),
+        WG_D4(4), WG_D4(5), WG_D4(6), WG_D4(7),
+        WG_D4(8), WG_D4(9), WG_D4(10), WG_D4(11),
+        WG_D4(12), WG_D4(13), WG_D4(14), WG_D4(15)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64) = A·B + (scale_d ? d : 0), A (64 x 16) and B both K-major in
+// shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[8][4], uint64_t a, uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WG_D4(0), WG_D4(1), WG_D4(2), WG_D4(3),
+        WG_D4(4), WG_D4(5), WG_D4(6), WG_D4(7)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+#undef WG_D4
+
+// d (64 x N) = a·B + (scale_d ? d : 0) for one k16 step, B MN-major
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  if constexpr (N == 64) wgmma_n64(d, a, b, scale_d);
+  else if constexpr (N == 80) wgmma_n80(d, a, b, scale_d);
+  else if constexpr (N == 96) wgmma_n96(d, a, b, scale_d);
+  else if constexpr (N == 112) wgmma_n112(d, a, b, scale_d);
+  else wgmma_n128(d, a, b, scale_d);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// after wgmma_wait0: the accumulator's registers hold the product from here
+// on (keeps the compiler from reading them before the wait)
+template <int NJ>
+__device__ __forceinline__ void wgmma_settle(float (&d)[NJ][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+f"(d[j][i])::"memory");
+}
+
+// copies made by cp.async (the generic proxy) visible to wgmma's reads of
+// shared memory (the async proxy), before the barrier that publishes them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// descriptor of an operand without swizzle at p, strides in bytes
+__device__ __forceinline__ uint64_t gmma_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return (uint64_t)((a & 0x3FFFF) >> 4) | (uint64_t)(lbo >> 4) << 16 |
+         (uint64_t)(sbo >> 4) << 32;
+}
+
+// Copy tokens [r0, r0 + ROWS) of one head's d bf16 lanes, which start at
+// column `col` of rows of stride rs, into dst by 16-byte cp.async, in core
+// matrices: row r's lanes 8c..8c+7 at dst + ((r / 8)·(DP / 8) + c)·64 +
+// (r % 8)·8, so eight consecutive threads fill one 128-byte core matrix
+// (no bank conflicts, no padding). Rows past S and the lanes d..DP are
+// zero-filled (d % 8 == 0).
+template <int NTHREADS, int ROWS, int DP>
+__device__ __forceinline__ void cp_async_core_bf16(__nv_bfloat16* dst, const __nv_bfloat16* base,
+                                                   int r0, int S, size_t rs, int col, int d) {
+  constexpr int NV = DP / 8;
+  for (int idx = threadIdx.x; idx < ROWS * NV; idx += NTHREADS) {
+    const int r = idx / (8 * NV) * 8 + idx % 8, c8 = idx / 8 % NV;
+    const bool ok = r0 + r < S && c8 * 8 < d;
+    cp_async16(dst + idx * 8, ok ? base + (size_t)(r0 + r) * rs + col + c8 * 8 : base, ok);
+  }
+}
+
 // ---- float32 on the tensor cores: 3xTF32 split products ---------------------
 //
 // One TF32 mma keeps 10 of a float32 operand's 23 mantissa bits. The split
@@ -378,26 +582,6 @@ __device__ __forceinline__ void warp_pv_3xtf32(float (&o)[DP / 8][4],
     for (int i = 0; i < 4; ++i) o[n][i] += oc[n][i];
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(a), "l"(src),
-               "r"(valid ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(a), "l"(src),
-               "r"(valid ? 4 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
 // Copy tokens [r0, r0 + ROWS) of d float32 lanes (row stride rs) into dst
 // [ROWS][ld] asynchronously: 16-byte copies where `vec` (d % 4 == 0 and every
 // row 16-byte aligned), else 4-byte ones; rows past S are zero-filled, lanes
@@ -488,21 +672,30 @@ constexpr size_t tf32_smem_bytes(bool rope) {
 constexpr int tf32_min_blocks(int DP, int WARPS) { return DP > 64 ? 1 : WARPS == 4 ? 3 : 2; }
 
 // The float32 exact two-pass attention on the tensor cores, for K1 (WARPS =
-// 4, 64 query rows a block) and K4 (WARPS = 8, 128 rows): one block per
-// (query rows, head, batch item), each warp owning 16 rows with its q
-// fragments, scores and output accumulators in registers; both products
-// 3xTF32 (warp_qk_3xtf32, warp_pv_3xtf32). K, then K and V, stream through
-// shared memory in 32-key chunks in both passes, so nothing grows with S:
-// each chunk lands by cp.async, is split (k rotated first, with RoPE tables
-// staged beside it) once for all warps, and the next chunk's copy is in
-// flight while the warps multiply. Pass 1 takes the row max; pass 2
-// recomputes the identical scores (the same code on the same data),
-// exponentiates against the final max in float32, sums the unrounded p and
+// 4, 64 query rows a block), K4 (WARPS = 8, 128 rows) and, with PANELS, K5
+// (WARPS = 8): one block per (query rows, head, batch item), each warp
+// owning 16 rows with its q fragments, scores and output accumulators in
+// registers; both products 3xTF32 (warp_qk_3xtf32, warp_pv_3xtf32). K, then
+// K and V, stream through shared memory in 32-key chunks in both passes, so
+// nothing grows with S: each chunk lands by cp.async, is split (k rotated
+// first, with RoPE tables staged beside it) once for all warps, and the next
+// chunk's copy is in flight while the warps multiply. Pass 1 takes the row
+// max; pass 2 recomputes the identical scores (the same code on the same
+// data), exponentiates against the max in float32, sums the unrounded p and
 // accumulates P·V; the epilogue multiplies by 1/sum. q is scaled and rotated
 // as it is staged. The head dim is zero-padded to DP in shared memory.
-template <int DP, int WARPS>
+//
+// Without PANELS the two passes run once over all S keys. With PANELS (K5's
+// online softmax) they run over each k panel of kp keys in turn, keys at or
+// past the panel's end loading as zeros and masked: after a panel's pass 1
+// the running max m becomes m' = max(m, the panel's row max), and the sum l
+// and every output accumulator are rescaled once by exp(m - m'); pass 2
+// exponentiates against m'. The epilogue then divides by l, as K5 does. The
+// copy of the next panel's first chunk is in flight during the last chunk of
+// this one, so the ring never drains at a panel's end.
+template <int DP, int WARPS, bool PANELS>
 __global__ void __launch_bounds__(WARPS * 32, tf32_min_blocks(DP, WARPS)) exact_3xtf32_kernel(
-    Heads<float> io, int S, int s_real, int d, float scale, bool vec,
+    Heads<float> io, int S, int s_real, int d, float scale, int kp, bool vec,
     const float* __restrict__ cos, const float* __restrict__ sin) {
   constexpr int NT = WARPS * 32, MQ = WARPS * 16, NK = TF32_KEYS;
   constexpr int LDR = DP + 4;  // staged rows (floats); also the q tile's
@@ -522,7 +715,7 @@ __global__ void __launch_bounds__(WARPS * 32, tf32_min_blocks(DP, WARPS)) exact_
   const size_t head = blockIdx.z * io.in_b + h * io.in_h, rs = io.in_r;
   const float* kb = io.k + head;
   const float* vb = io.v + head;
-  const int nc = (S + NK - 1) / NK, half = d / 2;
+  const int half = d / 2, panel = PANELS ? kp : S;
   const bool tvec = half % 4 == 0 && reinterpret_cast<uintptr_t>(cos) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(sin) % 16 == 0;
 
@@ -547,19 +740,21 @@ __global__ void __launch_bounds__(WARPS * 32, tf32_min_blocks(DP, WARPS)) exact_
     reinterpret_cast<float4*>(tf32_smem)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   __syncthreads();
 
-  // staged chunk i of 2·nc: K chunk i (and its table rows) in pass 1, K and
-  // V chunk i - nc in pass 2
-  auto issue = [&](int i) {
-    const int k0 = (i < nc ? i : i - nc) * NK;
-    cp_async_rows_f32<NT, NK>(Kr, LDR, kb, k0, S, rs, d, vec);
-    if (i >= nc) cp_async_rows_f32<NT, NK>(Vr, LDR, vb, k0, S, rs, d, vec);
+  // staged chunk i of the 2·nc of the panel [p0, pend): K chunk i (and its
+  // table rows) in pass 1, K and V chunk i - nc in pass 2; keys at or past
+  // pend load as zeros
+  auto issue = [&](int p0, int pend, int i) {
+    const int nc = (pend - p0 + NK - 1) / NK;
+    const int k0 = p0 + (i < nc ? i : i - nc) * NK;
+    cp_async_rows_f32<NT, NK>(Kr, LDR, kb, k0, pend, rs, d, vec);
+    if (i >= nc) cp_async_rows_f32<NT, NK>(Vr, LDR, vb, k0, pend, rs, d, vec);
     if (cos != nullptr) {
-      cp_async_rows_f32<NT, NK>(Tb, half, cos, k0, S, half, half, tvec);
-      cp_async_rows_f32<NT, NK>(Tb + NK * half, half, sin, k0, S, half, half, tvec);
+      cp_async_rows_f32<NT, NK>(Tb, half, cos, k0, pend, half, half, tvec);
+      cp_async_rows_f32<NT, NK>(Tb + NK * half, half, sin, k0, pend, half, half, tvec);
     }
     cp_async_commit();
   };
-  issue(0);
+  issue(0, min(panel, S), 0);
   // a warp whose 16 rows all lie past the sequence still stages and syncs,
   // but skips the products
   const bool live = q0 + r0 < S;
@@ -568,49 +763,78 @@ __global__ void __launch_bounds__(WARPS * 32, tf32_min_blocks(DP, WARPS)) exact_
   float o[DP / 8][4];
 #pragma unroll
   for (int n = 0; n < DP / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  for (int i = 0; i < 2 * nc; ++i) {
-    const int k0 = (i < nc ? i : i - nc) * NK;
-    cp_async_wait_all();  // chunk i has landed
-    __syncthreads();      // for every thread, and the split buffers are free
-    split_rows<NT, NK, DP, LDR, LDK>(Kp, Kr, d, cos != nullptr ? Tb : nullptr);
-    if (i >= nc) split_rows<NT, NK, DP, LDR, LDV>(Vp, Vr, d, nullptr);
-    __syncthreads();
-    if (i + 1 < 2 * nc) issue(i + 1);  // in flight while the warps multiply
-    if (live) {
-      float s[NK / 8][4];
-      warp_qk_3xtf32<DP, NK, LDK>(s, qf, Kp);
-#pragma unroll
-      for (int j = 0; j < NK / 8; ++j) {
-        const int key = k0 + j * 8 + 2 * t;
-        if (key >= s_real) s[j][0] = s[j][2] = -INFINITY;
-        if (key + 1 >= s_real) s[j][1] = s[j][3] = -INFINITY;
-      }
-      if (i < nc) {  // pass 1: the row max
-#pragma unroll
-        for (int j = 0; j < NK / 8; ++j) {
-          m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
-          m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
-        }
-      } else {  // pass 2: p = exp(s - max), its sum, O += P·V
+  for (int p0 = 0; p0 < S; p0 += panel) {
+    const int pend = min(p0 + panel, S), kend = min(pend, s_real);
+    const int nc = (pend - p0 + NK - 1) / NK;
+    float pm0 = -INFINITY, pm1 = -INFINITY;  // the panel's row max
+    for (int i = 0; i < 2 * nc; ++i) {
+      const int k0 = p0 + (i < nc ? i : i - nc) * NK;
+      cp_async_wait_all();  // chunk i has landed
+      __syncthreads();      // for every thread, and the split buffers are free
+      split_rows<NT, NK, DP, LDR, LDK>(Kp, Kr, d, cos != nullptr ? Tb : nullptr);
+      if (i >= nc) split_rows<NT, NK, DP, LDR, LDV>(Vp, Vr, d, nullptr);
+      __syncthreads();
+      // in flight while the warps multiply
+      if (i + 1 < 2 * nc)
+        issue(p0, pend, i + 1);
+      else if (PANELS && pend < S)
+        issue(pend, min(pend + panel, S), 0);
+      if (live) {
+        float s[NK / 8][4];
+        warp_qk_3xtf32<DP, NK, LDK>(s, qf, Kp);
 #pragma unroll
         for (int j = 0; j < NK / 8; ++j) {
-          s[j][0] = expf(s[j][0] - m0);
-          s[j][1] = expf(s[j][1] - m0);
-          s[j][2] = expf(s[j][2] - m1);
-          s[j][3] = expf(s[j][3] - m1);
-          l0 += s[j][0];
-          l0 += s[j][1];
-          l1 += s[j][2];
-          l1 += s[j][3];
+          const int key = k0 + j * 8 + 2 * t;
+          if (key >= kend) s[j][0] = s[j][2] = -INFINITY;
+          if (key + 1 >= kend) s[j][1] = s[j][3] = -INFINITY;
         }
-        warp_pv_3xtf32<DP, NK, LDV>(o, s, Vp);
+        if (i < nc) {  // pass 1: the row max
+#pragma unroll
+          for (int j = 0; j < NK / 8; ++j) {
+            pm0 = fmaxf(pm0, fmaxf(s[j][0], s[j][1]));
+            pm1 = fmaxf(pm1, fmaxf(s[j][2], s[j][3]));
+          }
+        } else {  // pass 2: p = exp(s - max), its sum, O += P·V
+#pragma unroll
+          for (int j = 0; j < NK / 8; ++j) {
+            s[j][0] = expf(s[j][0] - m0);
+            s[j][1] = expf(s[j][1] - m0);
+            s[j][2] = expf(s[j][2] - m1);
+            s[j][3] = expf(s[j][3] - m1);
+            l0 += s[j][0];
+            l0 += s[j][1];
+            l1 += s[j][2];
+            l1 += s[j][3];
+          }
+          warp_pv_3xtf32<DP, NK, LDV>(o, s, Vp);
+        }
       }
-    }
-    if (i == nc - 1) {  // the four threads of a row hold its max in parts
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 1));
-      m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, 2));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 1));
-      m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, 2));
+      if (i == nc - 1) {  // the four threads of a row hold its max in parts
+        pm0 = fmaxf(pm0, __shfl_xor_sync(0xffffffffu, pm0, 1));
+        pm0 = fmaxf(pm0, __shfl_xor_sync(0xffffffffu, pm0, 2));
+        pm1 = fmaxf(pm1, __shfl_xor_sync(0xffffffffu, pm1, 1));
+        pm1 = fmaxf(pm1, __shfl_xor_sync(0xffffffffu, pm1, 2));
+        if constexpr (PANELS) {  // m' and the rescale by exp(m - m')
+          if (live) {
+            const float mn0 = fmaxf(m0, pm0), mn1 = fmaxf(m1, pm1);
+            const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+            l0 *= a0;
+            l1 *= a1;
+#pragma unroll
+            for (int n = 0; n < DP / 8; ++n) {
+              o[n][0] *= a0;
+              o[n][1] *= a0;
+              o[n][2] *= a1;
+              o[n][3] *= a1;
+            }
+            m0 = mn0;
+            m1 = mn1;
+          }
+        } else {
+          m0 = pm0;
+          m1 = pm1;
+        }
+      }
     }
   }
   if (!live) return;
@@ -618,28 +842,30 @@ __global__ void __launch_bounds__(WARPS * 32, tf32_min_blocks(DP, WARPS)) exact_
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  // K5 divides by the sum; K1 and K4 multiply by its reciprocal
   const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+  auto norm = [&](float x, float l, float inv) { return PANELS ? x / l : x * inv; };
   const int row0 = q0 + r0 + g, row1 = row0 + 8;
   float* out = static_cast<float*>(io.out) + blockIdx.z * io.out_b + h * io.out_h;
 #pragma unroll
   for (int n = 0; n < DP / 8; ++n) {
     const int col = n * 8 + 2 * t;
     if (row0 < S) {
-      if (col < d) out[(size_t)row0 * io.out_r + col] = o[n][0] * inv0;
-      if (col + 1 < d) out[(size_t)row0 * io.out_r + col + 1] = o[n][1] * inv0;
+      if (col < d) out[(size_t)row0 * io.out_r + col] = norm(o[n][0], l0, inv0);
+      if (col + 1 < d) out[(size_t)row0 * io.out_r + col + 1] = norm(o[n][1], l0, inv0);
     }
     if (row1 < S) {
-      if (col < d) out[(size_t)row1 * io.out_r + col] = o[n][2] * inv1;
-      if (col + 1 < d) out[(size_t)row1 * io.out_r + col + 1] = o[n][3] * inv1;
+      if (col < d) out[(size_t)row1 * io.out_r + col] = norm(o[n][2], l1, inv1);
+      if (col + 1 < d) out[(size_t)row1 * io.out_r + col + 1] = norm(o[n][3], l1, inv1);
     }
   }
 }
 
-template <int DP, int WARPS>
+template <int DP, int WARPS, bool PANELS>
 int launch_3xtf32(Heads<float> io, int B, int S, int s_real, int heads, int d, float scale,
-                  const void* cos, const void* sin, cudaStream_t stream) {
+                  int kp, const void* cos, const void* sin, cudaStream_t stream) {
   const size_t smem = tf32_smem_bytes<DP>(cos != nullptr);
-  cudaError_t err = cudaFuncSetAttribute(exact_3xtf32_kernel<DP, WARPS>,
+  cudaError_t err = cudaFuncSetAttribute(exact_3xtf32_kernel<DP, WARPS, PANELS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   // 16-byte copies need every row of q, k and v 16-byte aligned
@@ -648,28 +874,35 @@ int launch_3xtf32(Heads<float> io, int B, int S, int s_real, int heads, int d, f
                    reinterpret_cast<uintptr_t>(io.k) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(io.v) % 16 == 0;
   dim3 grid((S + WARPS * 16 - 1) / (WARPS * 16), heads, B);
-  exact_3xtf32_kernel<DP, WARPS><<<grid, WARPS * 32, smem, stream>>>(
-      io, S, s_real, d, scale, vec, static_cast<const float*>(cos),
+  exact_3xtf32_kernel<DP, WARPS, PANELS><<<grid, WARPS * 32, smem, stream>>>(
+      io, S, s_real, d, scale, kp, vec, static_cast<const float*>(cos),
       static_cast<const float*>(sin));
   return (int)cudaGetLastError();
 }
 
 // The float32 kernel for head dim d <= 128, padded to a multiple of 16 (to 32
-// at least: 32, 64, 80, 96, 112 or 128 lanes).
-template <int WARPS>
+// at least: 32, 64, 80, 96, 112 or 128 lanes). With PANELS, the softmax is
+// rescaled at the ends of kp-key panels (K5); without, kp is not read.
+template <int WARPS, bool PANELS = false>
 int launch_f32_3xtf32(Heads<float> io, int B, int S, int s_real, int heads, int d, float scale,
-                      const void* cos, const void* sin, cudaStream_t stream) {
+                      const void* cos, const void* sin, cudaStream_t stream, int kp = 0) {
   if (d <= 32)
-    return launch_3xtf32<32, WARPS>(io, B, S, s_real, heads, d, scale, cos, sin, stream);
+    return launch_3xtf32<32, WARPS, PANELS>(io, B, S, s_real, heads, d, scale, kp, cos, sin,
+                                            stream);
   if (d <= 64)
-    return launch_3xtf32<64, WARPS>(io, B, S, s_real, heads, d, scale, cos, sin, stream);
+    return launch_3xtf32<64, WARPS, PANELS>(io, B, S, s_real, heads, d, scale, kp, cos, sin,
+                                            stream);
   if (d <= 80)
-    return launch_3xtf32<80, WARPS>(io, B, S, s_real, heads, d, scale, cos, sin, stream);
+    return launch_3xtf32<80, WARPS, PANELS>(io, B, S, s_real, heads, d, scale, kp, cos, sin,
+                                            stream);
   if (d <= 96)
-    return launch_3xtf32<96, WARPS>(io, B, S, s_real, heads, d, scale, cos, sin, stream);
+    return launch_3xtf32<96, WARPS, PANELS>(io, B, S, s_real, heads, d, scale, kp, cos, sin,
+                                            stream);
   if (d <= 112)
-    return launch_3xtf32<112, WARPS>(io, B, S, s_real, heads, d, scale, cos, sin, stream);
-  return launch_3xtf32<128, WARPS>(io, B, S, s_real, heads, d, scale, cos, sin, stream);
+    return launch_3xtf32<112, WARPS, PANELS>(io, B, S, s_real, heads, d, scale, kp, cos, sin,
+                                             stream);
+  return launch_3xtf32<128, WARPS, PANELS>(io, B, S, s_real, heads, d, scale, kp, cos, sin,
+                                           stream);
 }
 
 }  // namespace

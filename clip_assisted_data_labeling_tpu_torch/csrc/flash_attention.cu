@@ -31,8 +31,10 @@
 // tensor-core rate. With RoPE at PE-Core-G14-448's shape ([32, 1024, 4608]
 // bf16, d=96) it is 206 GFLOP (0.208 ms) against 403 MB (0.120 ms): the
 // tensor-core rate again, the tables (192 KB) adding nothing that counts.
-// float32 has no tensor-core path that keeps float32 products (TF32 would
-// round them), so it is bound by the CUDA-core FMA rate.
+// In float32 the products run on the TF32 tensor cores as 3xTF32 splits
+// (three TF32 mmas per product, attention_common.cuh): at SO400M-384's
+// float32 path ([16, 729, 3456]) 39.2 GFLOP over a third of the TF32 rate
+// (~165 TFLOP/s), 0.24 ms.
 //
 // bfloat16: flash_mma_kernel. One block of four warps per (64 query rows,
 // head, batch item); each warp owns 16 rows and keeps its q fragments, scores
@@ -52,166 +54,26 @@
 // rotation adds no pass and no synchronisation; its cost is the table loads
 // and the two extra staging rotations of each K chunk.
 //
-// float32: flash_fma_kernel. One block per (16 query rows, head, batch item)
-// keeps one panel's [16, kp] score tile in shared memory and runs both
-// products as float32 FMAs over K^T and V chunks streamed through shared
-// memory, with the running m, l and per-panel alpha in shared memory and the
-// output accumulators in registers.
+// float32: exact_3xtf32_kernel<DP, 8, true> of attention_common.cuh, the
+// float32 kernel of K1, K4 and K10 with its panel parameter: eight warps of
+// 16 query rows a block, each warp with its q fragments, scores and output
+// accumulators in registers, both products as 3xTF32 m16n8k8 mmas with P
+// kept in float32 (T(p) = p), K and V streamed by 16-byte cp.async in
+// 32-key chunks and split into (hi, lo) pairs once for the block. Within
+// each panel the same exact two-pass as the bf16 kernel, the chunk that
+// crosses the panel's end masked past it; the state is rescaled once per
+// panel. Shared memory does not grow with the panel (52-101 KB by head dim,
+// 8-16 KB more with RoPE tables), so no panel width is refused. At
+// SO400M's d = 72 the head dim pads to 80, where the kernel takes 255
+// registers and one block of eight warps an SM (PERF.md §6): eight warps
+// share each split chunk among 128 query rows, twice what four would.
 
 #include "attention_common.cuh"
 
 namespace {
 
-constexpr int QT = 16;    // query rows per float32 block
-constexpr int KT = 64;    // keys per streamed chunk
-constexpr int NT = 256;   // threads per float32 block
-constexpr int DMAX = 128; // largest head dim
-constexpr int EPT = QT * DMAX / NT;  // output elements per thread (max)
-constexpr int RPT = QT / (NT / KT);  // score rows per thread
-
-size_t fma_smem_bytes(int kp, int d) {
-  const int kp_pad = (kp + KT - 1) / KT * KT;
-  return sizeof(float) *
-      ((size_t)QT * d + (size_t)d * (KT + 1) + (size_t)QT * kp_pad + 3 * QT);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT) flash_fma_kernel(
-    const T* __restrict__ qkv, T* __restrict__ out, int S, int s_real, int w, int d,
-    float scale, int kp, const T* __restrict__ cos, const T* __restrict__ sin) {
-  extern __shared__ float smem[];
-  const int kp_pad = (kp + KT - 1) / KT * KT;
-  float* q_s = smem;                  // [QT][d]  scaled q
-  float* kv_s = q_s + QT * d;         // K^T chunk [d][KT+1], then V chunk [KT][d]
-  float* sc = kv_s + d * (KT + 1);    // [QT][kp_pad] panel scores, then P
-  float* m_s = sc + QT * kp_pad;      // [QT] running max
-  float* l_s = m_s + QT;              // [QT] running sum
-  float* a_s = l_s + QT;              // [QT] this panel's alpha
-
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * QT;
-  const int h = blockIdx.y;
-  const size_t row_stride = 3 * (size_t)w;
-  const T* base = qkv + (size_t)blockIdx.z * S * row_stride;
-
-  const float scale_t = to_f(from_f<T>(scale));
-  stage_rows_f<T, NT, QT>(q_s, d, 1, base, q0, S, row_stride, h * d, d, true, scale_t, cos,
-                          sin);
-  if (tid < QT) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
-  }
-
-  int er[EPT], ei[EPT];
-  float acc[EPT];
-  const int n_out = QT * d;
-#pragma unroll
-  for (int j = 0; j < EPT; ++j) {
-    const int e = tid + j * NT;
-    er[j] = e / d;
-    ei[j] = e - er[j] * d;
-    acc[j] = 0.f;
-  }
-  const int kk = tid % KT;  // this thread's key within a chunk
-  const int rg = tid / KT;  // this thread's group of RPT rows
-  const int warp = tid / 32, lane = tid % 32;
-
-  for (int p0 = 0; p0 < S; p0 += kp) {
-    const int pend = min(p0 + kp, S), kend = min(pend, s_real);
-    // --- the panel's scores --------------------------------------------------
-    for (int c0 = p0; c0 < pend; c0 += KT) {
-      __syncthreads();  // kv_s free (q_s, m_s, l_s written on the first chunk)
-      // K^T of keys [c0, c0 + KT), zero at or past the panel's end
-      stage_rows_f<T, NT, KT>(kv_s, 1, KT + 1, base, c0, pend, row_stride, w + h * d, d, false,
-                              0.f, cos, sin);
-      __syncthreads();
-      float s[RPT];
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) s[j] = 0.f;
-      for (int i = 0; i < d; ++i) {
-        const float kv = kv_s[i * (KT + 1) + kk];
-#pragma unroll
-        for (int j = 0; j < RPT; ++j) s[j] = fmaf(q_s[(rg * RPT + j) * d + i], kv, s[j]);
-      }
-      const int key = c0 + kk;
-      if (key < pend) {
-#pragma unroll
-        for (int j = 0; j < RPT; ++j)
-          sc[(rg * RPT + j) * kp_pad + key - p0] = key < kend ? s[j] : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    // --- online softmax rows: new max, alpha, P = T(exp(s - m')), l -----------
-    const int n = pend - p0;
-    for (int r = warp; r < QT; r += NT / 32) {
-      float* row = sc + r * kp_pad;
-      float pm = -INFINITY;
-      for (int k = lane; k < n; k += 32) pm = fmaxf(pm, row[k]);
-      pm = warp_max(pm);
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, pm);
-      float sum = 0.f;
-      for (int k = lane; k < n; k += 32) {
-        const float p = expf(row[k] - m_new);
-        sum += p;
-        row[k] = to_f(from_f<T>(p));
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-        a_s[r] = alpha;
-      }
-    }
-    __syncthreads();
-#pragma unroll
-    for (int j = 0; j < EPT; ++j)
-      if (tid + j * NT < n_out) acc[j] *= a_s[er[j]];
-
-    // --- acc += P v over the panel's value chunks -----------------------------
-    for (int c0 = p0; c0 < pend; c0 += KT) {
-      __syncthreads();  // kv_s free
-      for (int idx = tid; idx < KT * d; idx += NT) {
-        const int kr = idx / d, i = idx - (idx / d) * d;
-        const int key = c0 + kr;
-        kv_s[idx] = key < pend ? to_f(base[(size_t)key * row_stride + 2 * w + h * d + i]) : 0.f;
-      }
-      __syncthreads();
-      const int kmax = min(KT, pend - c0);
-      for (int k = 0; k < kmax; ++k) {
-#pragma unroll
-        for (int j = 0; j < EPT; ++j) {
-          if (tid + j * NT < n_out)
-            acc[j] = fmaf(sc[er[j] * kp_pad + c0 - p0 + k], kv_s[k * d + ei[j]], acc[j]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < EPT; ++j) {
-    const int qi = q0 + er[j];
-    if (tid + j * NT < n_out && qi < S)
-      out[((size_t)blockIdx.z * S + qi) * w + h * d + ei[j]] = from_f<T>(acc[j] / l_s[er[j]]);
-  }
-}
-
-template <typename T>
-int launch_fma(const void* qkv, void* out, int B, int S, int s_real, int w, int heads,
-               float scale, int kp, const void* cos, const void* sin, cudaStream_t stream) {
-  const int d = w / heads;
-  const size_t smem = fma_smem_bytes(kp, d);
-  cudaError_t err = cudaFuncSetAttribute(flash_fma_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((S + QT - 1) / QT, heads, B);
-  flash_fma_kernel<T><<<grid, NT, smem, stream>>>(
-      static_cast<const T*>(qkv), static_cast<T*>(out), S, s_real, w, d, scale, kp,
-      static_cast<const T*>(cos), static_cast<const T*>(sin));
-  return (int)cudaGetLastError();
-}
+constexpr int DMAX = 128;  // largest head dim
+constexpr int F32_WARPS = 8;  // warps per float32 block
 
 // ---- bfloat16: tensor-core kernel ------------------------------------------
 
@@ -409,11 +271,6 @@ int launch_bf16(const void* qkv, void* out, int B, int S, int s_real, int w, int
 
 extern "C" {
 
-// Shared memory the float32 kernel needs for a kp-key panel at head dim d;
-// the wrapper refuses shapes above the 227 KB a block may use. (The
-// bfloat16 kernel's ~28-53 KB depends on neither.)
-size_t flash_attention_smem_bytes(int kp, int d) { return fma_smem_bytes(kp, d); }
-
 // dtype: 0 = float32, 1 = bfloat16; kp: keys per panel. cos, sin: RoPE
 // tables [S, d/2] of the same dtype (half-split pairs), or both null for no
 // rotation. Returns cudaGetLastError() of the launch.
@@ -425,7 +282,9 @@ int flash_attention(const void* qkv, void* out, int dtype, int B, int S, int s_r
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_fma<float>(qkv, out, B, S, s_real, w, heads, scale, kp, cos, sin, st);
+    return launch_f32_3xtf32<F32_WARPS, true>(packed_heads<float>(qkv, out, S, w, w / heads), B,
+                                              S, s_real, heads, w / heads, scale, cos, sin, st,
+                                              kp);
   if (dtype == 1) return launch_bf16(qkv, out, B, S, s_real, w, heads, scale, kp, cos, sin, st);
   return (int)cudaErrorInvalidValue;
 }

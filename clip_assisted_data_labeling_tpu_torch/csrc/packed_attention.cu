@@ -57,8 +57,8 @@
 // amax)), scale amax * f32(1/127), the TPU kernel's epilogue. The float32
 // round trip costs ~2 x 75 MB at [32, 577, 1024] (~45 us at 3.35 TB/s).
 //
-// float32: exact_3xtf32_kernel<DP, 4> of attention_common.cuh, K4's float32
-// kernel with 64 query rows a block: the bfloat16 kernel's structure (warps
+// float32: exact_3xtf32_kernel<DP, 4, false> of attention_common.cuh, K4's
+// float32 kernel with 64 query rows a block: the bfloat16 kernel's structure (warps
 // of 16 rows with their fragments and accumulators in registers, keys
 // streamed in 32-key chunks in both passes, so no S is refused) with both
 // products as 3xTF32 m16n8k8 mmas, and P kept in float32. Each K and V chunk

@@ -284,10 +284,13 @@ def _exact_heads_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: f
 
 
 def _launch_packed(what: str, lib_fn, qkv: torch.Tensor, heads: int, scale: float,
-                   s_real: int | None, rope, out_dtype=None) -> torch.Tensor:
+                   s_real: int | None, rope, out_dtype=None,
+                   scratch: bool = False) -> torch.Tensor:
     """Check the inputs of K1 or K4 and launch its C entry on the current
     stream; returns the [B, S, w] output (of ``out_dtype``, by default the
-    input's)."""
+    input's). ``scratch`` (K4): the C entry takes one more pointer, to a
+    [B, S, 2w] tensor for its bf16 RoPE pre-pass, or null where it runs
+    none."""
     b, s, w3 = qkv.shape
     s_real = s if s_real is None else s_real
     _check_packed(what, qkv, heads, s_real, _DTYPE_CODE)
@@ -301,10 +304,15 @@ def _launch_packed(what: str, lib_fn, qkv: torch.Tensor, heads: int, scale: floa
         )
     cos, sin = _rope_tables(what, qkv, heads, rope)
     out = torch.empty((b, s, w), dtype=out_dtype or qkv.dtype, device=qkv.device)
+    extra = ()
+    if scratch:
+        qk = (torch.empty((b, s, 2 * w), dtype=qkv.dtype, device=qkv.device)
+              if cos is not None and qkv.dtype == torch.bfloat16 else None)
+        extra = (None if qk is None else qk.data_ptr(),)
     err = lib_fn(
         qkv.data_ptr(), out.data_ptr(), _DTYPE_CODE[qkv.dtype], b, s, s_real, w, heads,
         float(scale), None if cos is None else cos.data_ptr(),
-        None if sin is None else sin.data_ptr(),
+        None if sin is None else sin.data_ptr(), *extra,
         torch.cuda.current_stream(qkv.device).cuda_stream,
     )
     _cuda_build.check(err, what)
@@ -396,7 +404,8 @@ def fused_attention_packed_grouped_plain(qkv: torch.Tensor, heads: int, scale: f
 def _grouped_lib() -> ctypes.CDLL:
     lib = _cuda_build.load("packed_attention_grouped")
     if lib.packed_attention_grouped.argtypes is None:
-        lib.packed_attention_grouped.argtypes = _ARGTYPES
+        lib.packed_attention_grouped.argtypes = _ARGTYPES[:-1] + [ctypes.c_void_p,
+                                                                  ctypes.c_void_p]
         lib.packed_attention_grouped.restype = ctypes.c_int
     return lib
 
@@ -413,7 +422,7 @@ def fused_attention_packed_grouped(qkv: torch.Tensor, heads: int, scale: float,
         raise ValueError(f"fused_attention_packed_grouped: unsupported device {qkv.device}")
     out = _launch_packed("fused_attention_packed_grouped",
                          _grouped_lib().packed_attention_grouped, qkv, heads, scale, s_real,
-                         rope)
+                         rope, scratch=True)
     fused_attention_packed_grouped.launches += 1
     return out
 
@@ -469,8 +478,6 @@ def _flash_lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.flash_attention.restype = ctypes.c_int
-        lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.flash_attention_smem_bytes.restype = ctypes.c_size_t
     return lib
 
 
@@ -488,14 +495,8 @@ def flash_attention_packed(qkv: torch.Tensor, heads: int, scale: float,
     _check_packed("flash_attention_packed", qkv, heads, s_real, _DTYPE_CODE)
     w = w3 // 3
     d = w // heads
-    panel = flash_panel(s)
-    lib = _flash_lib()
-    if qkv.dtype == torch.float32:
-        smem = lib.flash_attention_smem_bytes(panel, d)
-        if smem > _cuda_build.SMEM_LIMIT:
-            raise ValueError(f"flash_attention_packed: a {panel}-key panel needs {smem} B "
-                             "of shared memory")
-    elif d % 8 or qkv.data_ptr() % 16 or (rope is not None and d % 16):
+    if qkv.dtype == torch.bfloat16 and (d % 8 or qkv.data_ptr() % 16
+                                        or (rope is not None and d % 16)):
         raise ValueError(
             "flash_attention_packed: the bfloat16 kernel reads 16-byte vectors — "
             f"head dim {d} must be a multiple of 8 (of 16 with RoPE) and the data 16-byte "
@@ -503,9 +504,9 @@ def flash_attention_packed(qkv: torch.Tensor, heads: int, scale: float,
         )
     cos, sin = _rope_tables("flash_attention_packed", qkv, heads, rope)
     out = torch.empty((b, s, w), dtype=qkv.dtype, device=qkv.device)
-    err = lib.flash_attention(
+    err = _flash_lib().flash_attention(
         qkv.data_ptr(), out.data_ptr(), _DTYPE_CODE[qkv.dtype], b, s, s_real, w,
-        heads, float(scale), panel, None if cos is None else cos.data_ptr(),
+        heads, float(scale), flash_panel(s), None if cos is None else cos.data_ptr(),
         None if sin is None else sin.data_ptr(),
         torch.cuda.current_stream(qkv.device).cuda_stream,
     )

@@ -102,11 +102,21 @@ def test_packed_attention_rope_kernel_matches_plain(card, dtype, b, grid, cls, s
     (1, 32, False, 1000, 1536, 16, True),
     (1, 10, False, 100, 128, 1, False),   # head dim 128
     (1, 66, False, 4356, 128, 2, False),  # past K1's float32 shared-memory limit
+    # every padded head dim, S below and off the bf16 kernel's 64-key chunk,
+    # s_real < S, with RoPE (in bf16 its pre-pass) and without
+    (2, 6, True, 30, 128, 2, False),      # S = 37, head dim 64
+    (2, 10, False, 90, 144, 2, False),    # head dim 72 (padded to 80)
+    (1, 14, True, 170, 192, 2, False),    # S = 197, head dim 96
+    (1, 17, True, 260, 256, 2, False),    # S = 290, head dim 128
+    (1, 8, True, 60, 128, 2, True),       # S = 65, head dim 64
+    (1, 10, False, 90, 192, 2, True),     # head dim 96
+    (1, 7, False, 45, 256, 2, True),      # S = 49, head dim 128
 ])
 def test_grouped_attention_kernel_matches_plain(card, dtype, b, grid, cls, s_real, w, heads,
                                                 rope):
     """K4 against its plain version: both types, RoPE on and off, ragged
-    s_real, and sequences no whole-row kernel can hold."""
+    s_real, and sequences no whole-row kernel can hold; one K4 launch each
+    (the bf16 RoPE pre-pass is part of it)."""
     s, d = grid * grid + cls, w // heads
     qkv = _normal((b, s, 3 * w), seed=s).to(card, dtype)
     tables = _rope(grid, cls, d, card) if rope else None
@@ -159,6 +169,9 @@ def test_rowquant_static_kernel_matches_plain(card, dtype, m, k):
     (2, 50, 43, 144, 2),  # head dim 72, masked tail
     (2, 729, 729, 1152, 16),  # ViT-SO400M-14-SigLIP-384: two 368-key panels
     (1, 1100, 1000, 256, 2),  # three 368-key panels, the last partly masked
+    (1, 729, 700, 128, 2),    # head dim 64: the panels end inside a 32-key chunk
+    (1, 1100, 1000, 512, 4),  # head dim 128
+    (1, 4001, 4001, 128, 2),  # sixteen 256-key panels
 ])
 def test_flash_attention_kernel_matches_plain(card, dtype, b, s, s_real, w, heads):
     qkv = _normal((b, s, 3 * w), seed=s).to(card, dtype)
@@ -599,6 +612,7 @@ def test_unpacked_attention_refuses_bad_inputs(card):
     (2, 7, True, 43, 128, 2),        # S = 50, one panel, masked tail
     (1, 27, False, 729, 128, 2),     # two 368-key panels
     (2, 32, False, 1024, 1536, 16),  # PE-Core-G14-448's shape (d = 96), four 256-key panels
+    (1, 30, False, 880, 192, 2),     # S = 900, d = 96: 256-key panels, a short last one
 ])
 def test_flash_attention_rope_kernel_matches_plain(card, dtype, b, grid, cls, s_real, w, heads):
     """K5 with RoPE inside the kernel, each k panel with its own table rows:
