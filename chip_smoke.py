@@ -4,15 +4,17 @@
 
 Phases (any failure exits nonzero and prints no result line):
   1. print the card's name and power limit (nvidia-smi); no card → exit 2,
-  2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel),
+  2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel)
+     and print each kernel's registers and stack frame (ptxas),
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes and time kernel, plain version, the PyTorch library
      yardstick and the roofline bound (CUDA events, warmed up; the float32
      kernels of K1, K4, K5 and K10 at a third of the TF32 rate, their 3xTF32
      products, with the float32 FMA bound beside it): K1 (also with
-     PE's RoPE; f32 at ViT-L-14's float32 path), K2, K4 (bf16 with RoPE at
-     PE-Core-G14-448's shape, bf16 without RoPE at ViT-B-16-SigLIP-512's,
-     f32 at the 336-pixel towers' float32 paths, with PE-Core-L14-336's RoPE
+     PE's RoPE; f32 at ViT-L-14's float32 path; bf16 at S=576 beside
+     ViT-L-14-336's 577, the cost of the one-key tail chunk), K2, K4
+     (bf16 with RoPE at PE-Core-G14-448's shape, bf16 without RoPE at
+     ViT-B-16-SigLIP-512's, f32 at the 336-pixel towers' float32 paths, with PE-Core-L14-336's RoPE
      there; the RoPE rows of K1 and K4 also time the torch rotation + SDPA),
      K5 (bf16, and f32 at SO400M-384's float32 path), K3, and dynamic int8's K6
      (ln at [18464, 1024], quick_gelu at [18464, 4096], bf16 and f32 in), K9
@@ -50,8 +52,8 @@ Phases (any failure exits nonzero and prints no result line):
      int8_static (the int8 attention wire: K3 in each of the 27 layers, no
      K1, K2 or K5), batch 8, full width and depth, random weights; check
      outputs and the .calib.npz's qkv_amax, steady state, profile,
-  9. four images through its bfloat16 path (K5 in every layer) and the
-     cosine against the int8_static embeddings,
+  9. four images through its bfloat16 path (K5 in every layer): the cosine
+     against the int8_static embeddings and the steady ms per forward,
   9a. four images through its float32 path (K5's float32 kernel in all 27
      layers, nothing else counted): the cosine against the int8_static
      embeddings, the steady ms per forward, and the first image against the
@@ -60,8 +62,8 @@ Phases (any failure exits nonzero and prints no result line):
      RoPE once and K2 twice in each of the 24 layers; no K3, K4, K5), batch
      8, full width and depth, random weights; outputs, steady state, profile,
  11. four images through its bfloat16 path (K1 with RoPE in every layer) and
-     its float32 path (K4 with RoPE in every layer, with its steady ms per
-     forward), each against the int8_static embeddings,
+     its float32 path (K4 with RoPE in every layer), each against the
+     int8_static embeddings and with its steady ms per forward,
  12. PE-Core-G14-448 in bfloat16 on four images at full width and all 50
      layers (K4 with RoPE in every layer, no K1): finite unit embeddings and
      the steady ms per forward,
@@ -86,6 +88,7 @@ import glob
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -230,8 +233,8 @@ def bound(flops: float, peak: float, nbytes: float, fma_peak: float | None = Non
     return row
 
 
-def check_kernels(gen: torch.Generator, pgen: torch.Generator,
-                  qgen: torch.Generator) -> list[dict]:
+def check_kernels(gen: torch.Generator, pgen: torch.Generator, qgen: torch.Generator,
+                  rgen: torch.Generator) -> list[dict]:
     """Phase 3: every kernel against its plain version at the main paths'
     shapes, with times. Launches here are comparisons and are not counted
     (the counters are zeroed before each main path). Each row names, as
@@ -241,7 +244,8 @@ def check_kernels(gen: torch.Generator, pgen: torch.Generator,
     that hold a path's own shape beside an older row of another shape draw
     their inputs from ``pgen``, so that every older row keeps the inputs
     ``gen`` gave it before they were added; rows added after those draw
-    from ``qgen``, so that the rows of ``pgen`` keep theirs too."""
+    from ``qgen``, so that the rows of ``pgen`` keep theirs too, and the
+    latest from ``rgen``."""
     import torch.nn.functional as F
 
     from clip_assisted_data_labeling_tpu_torch.ops.attention import (
@@ -267,10 +271,12 @@ def check_kernels(gen: torch.Generator, pgen: torch.Generator,
     # the main paths' own shapes first (BATCH images x 4 crops of ViT-L-14-336
     # int8_static; 4 x 4 of ViT-L-14 float32), then the CLI's 64-crop
     # forwards of ViT-L-14-336 and ViT-L-14 (224)
+    # and last S=576 beside S=577 (577 = 9·64 + 1: the one-key tail chunk of
+    # the bf16 kernel's 64-key chunks, and a 65-row last query tile)
     for b, s, (dtype, tol, peak, fma), path, rg in (
             (4 * BATCH, 577, bf16, ("l336", "K1"), gen), (16, 257, f32tc, ("l14_f32", "K1"), pgen),
             (64, 577, bf16, None, gen), (64, 577, f32tc, None, gen), (64, 257, bf16, None, gen),
-            (64, 257, f32tc, None, gen)):
+            (64, 257, f32tc, None, gen), (4 * BATCH, 576, bf16, None, rgen)):
         qkv = torch.randn((b, s, 3 * w), generator=rg, device="cuda").to(dtype)
         got = fused_attention_packed(qkv, heads, d ** -0.5)
         ref = fused_attention_packed_plain(qkv, heads, d ** -0.5)
@@ -827,9 +833,12 @@ def check_standalone_attention(gen: torch.Generator) -> list[dict]:
             detail = (f"int8 ±{err} on {share:.2e} of entries, scale rel err "
                       f"{rel.max().item():.2e} (> 1e-5 on {off:.2e} of tokens)")
             out_bytes = b * s * (w + 4)
-        else:
-            err, tol = (got.float() - ref.float()).abs().max().item(), 2e-2
-            ok, detail, out_bytes = err <= tol, f"err {err:.3g} (tol {tol})", b * s * w * 2
+        else:  # within 2e-2 or one bf16 step of the reference value, elementwise
+            e, r = (got.float() - ref.float()).abs(), ref.float().abs()
+            over = int((e > torch.clamp(2.0 ** -7 * r, min=2e-2)).sum())
+            err, tol = e.max().item(), max(2e-2, 2.0 ** -7 * r.max().item())
+            ok, out_bytes = over == 0, b * s * w * 2
+            detail = f"err {err:.3g}, {over} entries over max(2e-2, 2^-7·|ref|)"
         row = {
             "name": "packed_attention_q8", "route": "cuda", "source": K7_SRC, "replaces": K7_TPU,
             "case": f"int8 [{b},{s},{3 * w}] h={heads} " + ("quant_out" if quant_out else "bf16"),
@@ -1199,6 +1208,38 @@ def knob_routes(l336: dict, so400m: dict, cfg, scfg) -> list[dict]:
     return runs
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel's name and integer template arguments from its mangled
+    name, e.g. ``exact_wgmma_kernel<64,0,0>``: the first identifier of its
+    (nested) name that ends in ``kernel``."""
+    pos = 3 if mangled.startswith("_ZN") else 2
+    while (n := re.match(r"\d+", mangled[pos:])) is not None:
+        start = pos + n.end()
+        pos = start + int(n.group())
+        if mangled[start:pos].endswith("kernel"):
+            rest = mangled[pos:]
+            targs = rest[:rest.find("EE") + 2] if rest[:1] == "I" else ""
+            args = re.findall(r"L[a-z](\d+)E", targs)
+            return mangled[start:pos] + (f"<{','.join(args)}>" if args else "")
+    return mangled
+
+
+def ptxas_summary(log: str) -> list[str]:
+    """One line per kernel of an nvcc log built with ``-Xptxas -v``: its
+    name, registers, stack frame and spills."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name, stack = kernel_name(line.split("'")[1]), ""
+        elif name and "bytes stack frame" in line:
+            stack = line.strip()
+        elif name and "Used" in line and "registers" in line:
+            regs = line.split("Used", 1)[1].split(",")[0].strip()
+            out.append(f"{name}: {regs}; {stack}")
+            name = None
+    return out
+
+
 def write_pngs(directory: str, seed: int = 0) -> None:
     """Phase 4: N_IMAGES smooth-plus-noise RGB PNGs of mixed sizes."""
     from clip_assisted_data_labeling_tpu_torch.data.png import write_png
@@ -1241,14 +1282,14 @@ def main() -> None:
     t0 = time.perf_counter()
     logs = _cuda_build.build_all()
     for name, log in logs.items():
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
-        print(f"built {name}: {regs}")
+        print(f"built {name}:")
+        for line in ptxas_summary(log):
+            print(f"  {line}")
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # --- phase 3: kernels against their plain versions ----------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = check_kernels(gen, torch.Generator(device="cuda").manual_seed(1),
-                         torch.Generator(device="cuda").manual_seed(2))
+    rows = check_kernels(gen, *(torch.Generator(device="cuda").manual_seed(i) for i in (1, 2, 3)))
     torch.cuda.empty_cache()
 
     cfg, scfg = resolve_config(MODEL), resolve_config(SIGLIP)
@@ -1274,7 +1315,7 @@ def main() -> None:
         # attention wire (K3 a layer), then bfloat16 (K5 a layer)
         so400m = embed_and_check(root, SIGLIP, scfg, {"K3": scfg.layers})
         bf16 = encoder_run(SIGLIP, "bfloat16", so400m["pts"], so400m["side"], scfg,
-                         {"K5": scfg.layers})
+                           {"K5": scfg.layers}, timed=True)
         # --- phase 9a: its float32 path (K5's float32 kernel a layer), held
         # against the same encoder on the CPU on one image
         so400m_f32 = encoder_run(SIGLIP, "float32", so400m["pts"], so400m["side"], scfg,
@@ -1284,7 +1325,7 @@ def main() -> None:
         # K2 twice a layer), then its bf16 (K1) and float32 (K4) paths
         pe = embed_and_check(root, PE_L, pcfg, {"K1": pcfg.layers, "K2": 2 * pcfg.layers})
         pe_bf16 = encoder_run(PE_L, "bfloat16", pe["pts"], pe["side"], pcfg,
-                              {"K1": pcfg.layers})
+                              {"K1": pcfg.layers}, timed=True)
         pe_f32 = encoder_run(PE_L, "float32", pe["pts"], pe["side"], pcfg, {"K4": pcfg.layers},
                              timed=True)
         # --- phase 12: PE-Core-G14-448 bf16, all 50 layers (K4 with RoPE)

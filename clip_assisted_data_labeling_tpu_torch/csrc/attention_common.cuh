@@ -1,11 +1,11 @@
 // Device helpers shared by the attention kernels K1 (packed_attention.cu),
-// K4 (packed_attention_grouped.cu) and K5 (flash_attention.cu): type
-// conversion, warp reductions, the bf16 mma.sync tile product, the half-split
-// RoPE rotation with the TPU kernel's roundings, and the loads that stage one
-// head's rows of the packed [B, S, 3w] qkv into shared memory; cp.async; the
-// wgmma products, descriptors and core-matrix copies of K4's bf16 kernel;
-// then the float32 kernel all three files instantiate, on the tensor cores
-// with 3xTF32 split products (the last section).
+// K4 (packed_attention_grouped.cu), K5 (flash_attention.cu) and K7
+// (packed_attention_q8.cu): type conversion, the bf16 mma.sync tile
+// product, the half-split RoPE rotation with the TPU kernel's roundings;
+// cp.async; the wgmma products, descriptors and core-matrix copies; then
+// the two kernels that K1, K4, K5 and K10 instantiate: the float32 one, on
+// the tensor cores with 3xTF32 split products, and the bfloat16 one, on
+// wgmma (the last two sections).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,16 +22,6 @@ template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
 }
 
 // RoPE on one feature pair (x1, x2) = (x[i], x[i + d/2]) of one token, with
@@ -140,74 +130,6 @@ __device__ __forceinline__ void rot8(uint4& lo, uint4& hi, uint4 cv, uint4 sv) {
     const __nv_bfloat162 x1 = a[j], x2 = b[j];
     a[j] = __hsub2_rn(__hmul2_rn(x1, c[j]), __hmul2_rn(x2, s[j]));
     b[j] = __hadd2_rn(__hmul2_rn(x1, s[j]), __hmul2_rn(x2, c[j]));
-  }
-}
-
-// Stage tokens [r0, r0 + ROWS) of one head's d columns, which start at column
-// `col` of the packed rows (row stride rs), into dst [ROWS][LD] bf16 with
-// 16-byte loads: zero past the sequence and in the padding lanes d..DP. With
-// `scale`, each value is first multiplied by scale_t (a bf16 value) and
-// rounded. With RoPE tables (cos, sin: [S, d/2] bf16, d % 16 == 0), each
-// vector of the first half is rotated with its partner in the second half
-// against the token's table row.
-template <int NTHREADS, int ROWS, int DP, int LD>
-__device__ __forceinline__ void stage_rows_bf16(
-    __nv_bfloat16* dst, const __nv_bfloat16* base, int r0, int S, size_t rs, int col, int d,
-    bool scale, float scale_t, const __nv_bfloat16* cos, const __nv_bfloat16* sin) {
-  constexpr int NV = DP / 8;  // 16-byte vectors per padded row
-  const int dv = d / 8;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  const __nv_bfloat162 scale2 = __float2bfloat162_rn(scale_t);
-  if (cos == nullptr) {
-    for (int idx = threadIdx.x; idx < ROWS * NV; idx += NTHREADS) {
-      const int r = idx / NV, c8 = idx % NV;
-      uint4 v = zero;
-      if (r0 + r < S && c8 < dv) {
-        v = *reinterpret_cast<const uint4*>(base + (size_t)(r0 + r) * rs + col + c8 * 8);
-        if (scale) scale8(v, scale2);
-      }
-      *reinterpret_cast<uint4*>(dst + r * LD + c8 * 8) = v;
-    }
-    return;
-  }
-  const int half = d / 2, hv = d / 16;
-  for (int idx = threadIdx.x; idx < ROWS * hv; idx += NTHREADS) {
-    const int r = idx / hv, j = idx % hv, row = r0 + r;
-    uint4 lo = zero, hi = zero;
-    if (row < S) {
-      const __nv_bfloat16* src = base + (size_t)row * rs + col;
-      lo = *reinterpret_cast<const uint4*>(src + j * 8);
-      hi = *reinterpret_cast<const uint4*>(src + half + j * 8);
-      if (scale) {
-        scale8(lo, scale2);
-        scale8(hi, scale2);
-      }
-      rot8(lo, hi, *reinterpret_cast<const uint4*>(cos + (size_t)row * half + j * 8),
-           *reinterpret_cast<const uint4*>(sin + (size_t)row * half + j * 8));
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + j * 8) = lo;
-    *reinterpret_cast<uint4*>(dst + r * LD + half + j * 8) = hi;
-  }
-  const int np = NV - dv;  // padding vectors per row
-  for (int idx = threadIdx.x; idx < ROWS * np; idx += NTHREADS)
-    *reinterpret_cast<uint4*>(dst + (idx / np) * LD + (dv + idx % np) * 8) = zero;
-}
-
-// Stage keys [k0, k0 + KEYS) of one head's v columns transposed, into
-// vt [DP][LDV] (key fastest, so the scattered 2-byte stores spread over banks).
-template <int NTHREADS, int KEYS, int DP, int LDV>
-__device__ __forceinline__ void stage_vt_bf16(
-    __nv_bfloat16* vt, const __nv_bfloat16* base, int k0, int S, size_t rs, int col, int d) {
-  constexpr int NV = DP / 8;
-  const int dv = d / 8;
-  for (int idx = threadIdx.x; idx < KEYS * NV; idx += NTHREADS) {
-    const int r = idx % KEYS, c8 = idx / KEYS;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (k0 + r < S && c8 < dv)
-      v = *reinterpret_cast<const uint4*>(base + (size_t)(k0 + r) * rs + col + c8 * 8);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&v);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) vt[(c8 * 8 + j) * LDV + r] = e[j];
   }
 }
 
@@ -902,6 +824,356 @@ int launch_f32_3xtf32(Heads<float> io, int B, int S, int s_real, int heads, int 
     return launch_3xtf32<112, WARPS, PANELS>(io, B, S, s_real, heads, d, scale, kp, cos, sin,
                                              stream);
   return launch_3xtf32<128, WARPS, PANELS>(io, B, S, s_real, heads, d, scale, kp, cos, sin,
+                                           stream);
+}
+
+// ---- bfloat16 on Hopper's warpgroup tensor cores: the exact two-pass kernel --
+//
+// K1, K4, K5 and K10 in bfloat16, one template (exact_wgmma_kernel<DP,
+// PANELS, F32OUT>): one block of two warpgroups per (128 query rows, head,
+// batch item), each warpgroup owning 64 rows, q, k and v read in place
+// through the strides of Heads (the packed [B, S, 3w] qkv or K10's [B, h, S,
+// d]; with RoPE, q and k from the pre-pass's scratch).
+//   - K and V chunks of 64 keys come in by 16-byte cp.async into a ring of
+//     three stages in shared memory, in 8 x 8 core matrices
+//     (cp_async_core_bf16: eight threads fill 128 contiguous bytes, so no
+//     store conflicts on banks and no padding). Two steps' copies are in
+//     flight while the warpgroups multiply, with one barrier a step.
+//   - Q·K^T is wgmma m64n64k16 with q and K both K-major in shared memory
+//     (q from registers was slower at d = 64 on the H100: PERF.md §6).
+//   - P·V is wgmma m64nDk16 (D = the head dim padded to 16) with P, rounded
+//     to bf16, in the registers of the A operand (the accumulator layout of
+//     Q·K^T is that operand's fragment layout), and V row-major in shared
+//     memory: the MN-major B operand through wgmma's transpose bit, so V is
+//     never transposed. The float32 accumulator of P·V stays in registers.
+//   - Each product is waited for before its result is read (no ping-pong
+//     between the warpgroups, no producer warp).
+// The exact two-pass softmax: pass 1 takes each row's max over the K
+// chunks; pass 2 recomputes the same scores (the same products on the same
+// data), exponentiates against that max in float32, sums the unrounded p
+// and accumulates bf16(p)·V. Keys at or past s_real get -inf.
+//
+// Without PANELS the two passes run once over all S keys and the epilogue
+// multiplies by 1/sum (K1, K4, K10). With PANELS (K5's online softmax) they
+// run over each k panel of kp keys in turn: a chunk that crosses the panel's
+// end loads the keys past it as zeros and masks them (the next panel loads
+// them again); after a panel's pass 1 the running max m becomes m' = max(m,
+// the panel's row max), the sum and the accumulator are rescaled once by
+// exp(m - m'), and pass 2 exponentiates against m'; the epilogue divides by
+// the sum. The ring runs one sequence of steps over all panels (for each
+// panel its K chunks, then its K and V chunks), so the copies of the next
+// panel's first chunk are in flight during this panel's last one. F32OUT
+// writes the float32 head outputs (K1's quant_out) instead of rounding them
+// to bf16.
+
+constexpr int WG_Q = 128;   // query rows per block (2 warpgroups x 64)
+constexpr int WG_K = 64;    // keys per streamed chunk
+constexpr int WG_NT = 256;  // threads per block
+constexpr int WG_ST = 3;    // stages of the K/V ring
+
+template <int DP>  // head dim padded to a multiple of 16
+constexpr size_t wgmma_smem_bytes() {
+  return sizeof(__nv_bfloat16) * (WG_ST * 2 * WG_K + WG_Q) * DP;
+}
+
+// blocks an SM should hold, which caps the registers a thread: two (128
+// registers) up to d = 96, where two blocks' shared memory fits an SM
+constexpr int wgmma_min_blocks(int DP) { return DP <= 96 ? 2 : 1; }
+
+// The RoPE pre-pass: q·T(scale) rotated and k rotated, each 16-byte vector
+// of a head row's first half with its partner in the second half, with
+// scale8 and rot8 (the roundings of rot_pair), into qk [B, S, 2w] (q' in
+// columns [0, w), k' in [w, 2w)), from the packed qkv [B, S, 3w]. One
+// thread per (token, q or k, head, pair of vectors).
+__global__ void rope_prepass_kernel(const __nv_bfloat16* __restrict__ qkv,
+                                    __nv_bfloat16* __restrict__ qk, int S, int w, int d,
+                                    float scale, const __nv_bfloat16* __restrict__ cos,
+                                    const __nv_bfloat16* __restrict__ sin, size_t n) {
+  const size_t idx = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const int per_row = w / 8;  // (q, k) x heads x d/16 pairs of vectors
+  const size_t row = idx / per_row;
+  const int e = (int)(idx % per_row), which = e / (w / 16), r = e % (w / 16);
+  const int hv = d / 16, half = d / 2, h = r / hv, j = r % hv;
+  const int col = which * w + h * d + j * 8, token = (int)(row % S);
+  const __nv_bfloat16* src = qkv + row * 3 * (size_t)w + col;
+  uint4 lo = *reinterpret_cast<const uint4*>(src);
+  uint4 hi = *reinterpret_cast<const uint4*>(src + half);
+  if (which == 0) {
+    const __nv_bfloat162 scale2 = __float2bfloat162_rn(scale);
+    scale8(lo, scale2);
+    scale8(hi, scale2);
+  }
+  rot8(lo, hi, *reinterpret_cast<const uint4*>(cos + (size_t)token * half + j * 8),
+       *reinterpret_cast<const uint4*>(sin + (size_t)token * half + j * 8));
+  __nv_bfloat16* dst = qk + row * 2 * (size_t)w + col;
+  *reinterpret_cast<uint4*>(dst) = lo;
+  *reinterpret_cast<uint4*>(dst + half) = hi;
+}
+
+// q and k from `qk`'s pointers and strides (io's, or the pre-pass's scratch,
+// there already scaled and rotated: `prescaled`), v and the output from io's.
+template <int DP, bool PANELS, bool F32OUT>
+__global__ void __launch_bounds__(WG_NT, wgmma_min_blocks(DP)) exact_wgmma_kernel(
+    Heads<__nv_bfloat16> qk, Heads<__nv_bfloat16> io, int S, int s_real, int d, float scale,
+    int kp, bool prescaled) {
+  constexpr int NV = DP / 8;            // core matrices along a row
+  constexpr int STAGE = 2 * WG_K * DP;  // one stage: K rows, then V rows (bf16)
+  constexpr uint32_t CORE = 128;        // bytes of a core matrix
+  extern __shared__ __align__(128) unsigned char wgmma_smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(wgmma_smem);  // [WG_ST][2][WG_K][DP]
+  __nv_bfloat16* qs = ring + WG_ST * STAGE;                              // [WG_Q][DP]
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;  // accumulator coordinates
+  const int q0 = blockIdx.x * WG_Q, h = blockIdx.y;
+  const size_t src = blockIdx.z * qk.in_b + h * qk.in_h, qrs = qk.in_r, vrs = io.in_r;
+  const __nv_bfloat16* kb = qk.k + src;
+  const __nv_bfloat16* vb = io.v + blockIdx.z * io.in_b + h * io.in_h;
+  const int ncp = ((PANELS ? kp : S) + WG_K - 1) / WG_K;  // chunks of a whole panel
+
+  // step i: in the panel [p0, pend) of nc chunks, K chunk c in pass 1 (c <
+  // nc) or K and V chunk c - nc in pass 2, into stage i % WG_ST; keys at or
+  // past the panel's end load as zeros. Without PANELS one panel holds all
+  // S keys. Every step commits one group (empty past the last), so a
+  // thread's groups count steps.
+  auto copy_step = [&](int i) {
+    int p0 = 0, pend = S, c = i;
+    if constexpr (PANELS) {
+      const int pi = i / (2 * ncp);
+      p0 = pi * kp;
+      pend = min(p0 + kp, S);
+      c = i - pi * 2 * ncp;
+    }
+    const int nc = (pend - p0 + WG_K - 1) / WG_K;
+    if (p0 < S && c < 2 * nc) {
+      const int k0 = p0 + (c < nc ? c : c - nc) * WG_K;
+      __nv_bfloat16* st = ring + (i % WG_ST) * STAGE;
+      cp_async_core_bf16<WG_NT, WG_K, DP>(st, kb, k0, pend, qrs, 0, d);
+      if (c >= nc) cp_async_core_bf16<WG_NT, WG_K, DP>(st + WG_K * DP, vb, k0, pend, vrs, 0, d);
+    }
+    cp_async_commit();
+  };
+  // the q tile first (the oldest group), then the first WG_ST - 1 steps
+  cp_async_core_bf16<WG_NT, WG_Q, DP>(qs, qk.q + src, q0, S, qrs, 0, d);
+  cp_async_commit();
+#pragma unroll
+  for (int i = 0; i < WG_ST - 1; ++i) copy_step(i);
+  cp_async_wait<WG_ST - 1>();  // this thread's copies of the q tile have landed
+  if (!prescaled) {  // q·T(scale) where it lies (the scale rounded to bf16 first):
+    // each thread scales the vectors it copied (cp_async_core_bf16's order)
+    const __nv_bfloat162 scale2 = __float2bfloat162_rn(scale);
+    for (int i = tid; i < WG_Q * DP / 8; i += WG_NT) {
+      uint4 v = reinterpret_cast<uint4*>(qs)[i];
+      scale8(v, scale2);
+      reinterpret_cast<uint4*>(qs)[i] = v;
+    }
+  }
+  fence_proxy_async();
+  __syncthreads();
+  // this warpgroup's 64 rows of q: A K-major (core matrices along the head
+  // dim 128 bytes apart, along the rows NV·128)
+  const uint64_t qdesc = gmma_desc(qs + (warp / 4) * 8 * NV * 64, CORE, NV * CORE);
+  // a warpgroup whose 64 rows all lie past the sequence still stages and
+  // syncs, but skips the products (wgmma runs per warpgroup)
+  const bool live = q0 + (warp / 4) * 64 < S;
+
+  // this warpgroup's 64 x WG_K scores against the staged K chunk (B
+  // K-major, laid out as q): each warp's s[j] holds keys 8j.. in the
+  // accumulator layout; keys at or past kend get -inf
+  auto scores = [&](float (&s)[WG_K / 8][4], const __nv_bfloat16* ks_, int k0, int kend) {
+    const uint64_t kdesc = gmma_desc(ks_, CORE, NV * CORE);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DP / 16; ++ks)  // k16 steps: two core matrices along the head dim
+      wgmma_ss_n64(s, qdesc + ks * (2 * CORE >> 4), kdesc + ks * (2 * CORE >> 4), ks > 0);
+    wgmma_commit();
+    wgmma_wait0();
+    wgmma_settle(s);
+#pragma unroll
+    for (int j = 0; j < WG_K / 8; ++j) {
+      const int key = k0 + j * 8 + 2 * t;
+      if (key >= kend) s[j][0] = s[j][2] = -INFINITY;
+      if (key + 1 >= kend) s[j][1] = s[j][3] = -INFINITY;
+    }
+  };
+  // wait for step i's chunk, then one barrier: every thread's copies have
+  // landed (and are visible to wgmma) and every warpgroup is done with step
+  // i - 1, whose stage step i + WG_ST - 1 then refills while the warpgroups
+  // multiply
+  auto next = [&](int i) {
+    cp_async_wait<WG_ST - 2>();
+    fence_proxy_async();
+    __syncthreads();
+    copy_step(i + WG_ST - 1);
+    return ring + (i % WG_ST) * STAGE;
+  };
+
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows g and g+8 of this warp
+  float o[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  int i = 0;  // step
+  // the two passes over the keys [p0, pend)
+  auto run_panel = [&](int p0, int pend) {
+    const int kend = min(pend, s_real), nc = (pend - p0 + WG_K - 1) / WG_K;
+    // --- pass 1: the row max over the panel's keys ---------------------
+    float pm0 = -INFINITY, pm1 = -INFINITY;
+    for (int c = 0; c < nc; ++c, ++i) {
+      const __nv_bfloat16* st = next(i);
+      if (!live) continue;
+      float s[WG_K / 8][4];
+      scores(s, st, p0 + c * WG_K, kend);
+#pragma unroll
+      for (int j = 0; j < WG_K / 8; ++j) {
+        pm0 = fmaxf(pm0, fmaxf(s[j][0], s[j][1]));
+        pm1 = fmaxf(pm1, fmaxf(s[j][2], s[j][3]));
+      }
+    }
+    // the four threads of a row hold its max in parts
+    pm0 = fmaxf(pm0, __shfl_xor_sync(0xffffffffu, pm0, 1));
+    pm0 = fmaxf(pm0, __shfl_xor_sync(0xffffffffu, pm0, 2));
+    pm1 = fmaxf(pm1, __shfl_xor_sync(0xffffffffu, pm1, 1));
+    pm1 = fmaxf(pm1, __shfl_xor_sync(0xffffffffu, pm1, 2));
+    if constexpr (PANELS) {  // m' and the rescale by exp(m - m')
+      const float mn0 = fmaxf(m0, pm0), mn1 = fmaxf(m1, pm1);
+      const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+      l0 *= a0;
+      l1 *= a1;
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n) {
+        o[n][0] *= a0;
+        o[n][1] *= a0;
+        o[n][2] *= a1;
+        o[n][3] *= a1;
+      }
+      m0 = mn0;
+      m1 = mn1;
+    } else {
+      m0 = pm0;
+      m1 = pm1;
+    }
+    // --- pass 2: the same scores, P = bf16(exp(s - m)) in the registers
+    // of wgmma's A operand, O += P V ------------------------------------
+    for (int c = 0; c < nc; ++c, ++i) {
+      const __nv_bfloat16* st = next(i);
+      if (!live) continue;
+      float s[WG_K / 8][4];
+      scores(s, st, p0 + c * WG_K, kend);
+      uint32_t pa[WG_K / 16][4];
+#pragma unroll
+      for (int j = 0; j < WG_K / 8; ++j) {
+        const float e0 = expf(s[j][0] - m0), e1 = expf(s[j][1] - m0);
+        const float e2 = expf(s[j][2] - m1), e3 = expf(s[j][3] - m1);
+        l0 += e0;
+        l0 += e1;
+        l1 += e2;
+        l1 += e3;
+        pa[j / 2][(j % 2) * 2] = pack_bf16(e0, e1);
+        pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(e2, e3);
+      }
+      // V stays row-major: B MN-major, its core matrices along the head
+      // dim (N) 128 bytes apart, along the keys (K) NV·128
+      const uint64_t vdesc = gmma_desc(st + WG_K * DP, NV * CORE, CORE);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < WG_K / 16; ++kk)  // k16 steps: two core matrices of keys
+        wgmma_rs<DP>(o, pa[kk], vdesc + kk * (2 * NV * CORE >> 4), 1);
+      wgmma_commit();
+      wgmma_wait0();
+      wgmma_settle(o);
+    }
+  };
+  if constexpr (PANELS) {
+    for (int p0 = 0; p0 < S; p0 += kp) run_panel(p0, min(p0 + kp, S));
+  } else {
+    run_panel(0, S);
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+  if (!live) return;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  // K5 divides by the sum; K1, K4 and K10 multiply by its reciprocal
+  const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
+  auto norm = [&](float x, float l, float inv) { return PANELS ? x / l : x * inv; };
+  const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
+  const size_t ohead = blockIdx.z * io.out_b + h * io.out_h;
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n) {
+    const int col = n * 8 + 2 * t;
+    if (col >= d) continue;
+    const size_t i0 = ohead + (size_t)row0 * io.out_r + col, i1 = i0 + 8 * io.out_r;
+    const float y0 = norm(o[n][0], l0, inv0), y1 = norm(o[n][1], l0, inv0);
+    const float y2 = norm(o[n][2], l1, inv1), y3 = norm(o[n][3], l1, inv1);
+    if constexpr (F32OUT) {  // quant_out: the float32 head outputs, for the row quantize
+      float* of = static_cast<float*>(io.out);
+      if (row0 < S) *reinterpret_cast<float2*>(of + i0) = make_float2(y0, y1);
+      if (row1 < S) *reinterpret_cast<float2*>(of + i1) = make_float2(y2, y3);
+    } else {
+      __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(io.out);
+      if (row0 < S) *reinterpret_cast<__nv_bfloat162*>(ob + i0) = __floats2bfloat162_rn(y0, y1);
+      if (row1 < S) *reinterpret_cast<__nv_bfloat162*>(ob + i1) = __floats2bfloat162_rn(y2, y3);
+    }
+  }
+}
+
+template <int DP, bool PANELS, bool F32OUT>
+int launch_wgmma(Heads<__nv_bfloat16> qk, Heads<__nv_bfloat16> io, int B, int S, int s_real,
+                 int heads, int d, float scale, int kp, bool prescaled, cudaStream_t stream) {
+  const size_t smem = wgmma_smem_bytes<DP>();
+  cudaError_t err = cudaFuncSetAttribute(exact_wgmma_kernel<DP, PANELS, F32OUT>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((S + WG_Q - 1) / WG_Q, heads, B);
+  exact_wgmma_kernel<DP, PANELS, F32OUT><<<grid, WG_NT, smem, stream>>>(
+      qk, io, S, s_real, d, scale, kp, prescaled);
+  return (int)cudaGetLastError();
+}
+
+// The bfloat16 kernel for head dim d <= 128, d % 8 == 0 (16-byte copies),
+// padded to a multiple of 16 (64 at least). With RoPE tables (cos, sin [S,
+// d/2] bf16, d % 16 == 0; io then the packed layout of packed_heads), the
+// pre-pass first writes q·T(scale) and k rotated into scratch, a [B, S, 2w]
+// bf16 buffer the caller allocates, and the kernel reads q and k there.
+// With PANELS, the softmax is rescaled at the ends of kp-key panels (K5);
+// without, kp is not read. F32OUT: float32 outputs.
+template <bool PANELS, bool F32OUT = false>
+int launch_bf16_wgmma(Heads<__nv_bfloat16> io, int B, int S, int s_real, int heads, int d,
+                      float scale, const void* cos, const void* sin, void* scratch,
+                      cudaStream_t stream, int kp = 0) {
+  if (d % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (cos != nullptr && (d % 16 != 0 || scratch == nullptr)) return (int)cudaErrorInvalidValue;
+  Heads<__nv_bfloat16> qk = io;
+  if (cos != nullptr) {  // rotate (and scale q) once, into the scratch
+    const int w = heads * d;
+    const size_t n = (size_t)B * S * (w / 8);
+    __nv_bfloat16* x = static_cast<__nv_bfloat16*>(scratch);
+    rope_prepass_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+        io.q, x, S, w, d, scale, static_cast<const __nv_bfloat16*>(cos),
+        static_cast<const __nv_bfloat16*>(sin), n);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    qk.q = x;
+    qk.k = x + w;
+    qk.in_b = (size_t)S * 2 * w;
+    qk.in_r = 2 * (size_t)w;
+  }
+  const bool pre = cos != nullptr;
+  if (d <= 64)
+    return launch_wgmma<64, PANELS, F32OUT>(qk, io, B, S, s_real, heads, d, scale, kp, pre,
+                                            stream);
+  if (d <= 80)
+    return launch_wgmma<80, PANELS, F32OUT>(qk, io, B, S, s_real, heads, d, scale, kp, pre,
+                                            stream);
+  if (d <= 96)
+    return launch_wgmma<96, PANELS, F32OUT>(qk, io, B, S, s_real, heads, d, scale, kp, pre,
+                                            stream);
+  if (d <= 112)
+    return launch_wgmma<112, PANELS, F32OUT>(qk, io, B, S, s_real, heads, d, scale, kp, pre,
+                                             stream);
+  return launch_wgmma<128, PANELS, F32OUT>(qk, io, B, S, s_real, heads, d, scale, kp, pre,
                                            stream);
 }
 

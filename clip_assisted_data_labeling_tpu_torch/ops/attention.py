@@ -285,12 +285,12 @@ def _exact_heads_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: f
 
 def _launch_packed(what: str, lib_fn, qkv: torch.Tensor, heads: int, scale: float,
                    s_real: int | None, rope, out_dtype=None,
-                   scratch: bool = False) -> torch.Tensor:
-    """Check the inputs of K1 or K4 and launch its C entry on the current
+                   panel: int | None = None) -> torch.Tensor:
+    """Check the inputs of K1, K4 or K5 and launch its C entry on the current
     stream; returns the [B, S, w] output (of ``out_dtype``, by default the
-    input's). ``scratch`` (K4): the C entry takes one more pointer, to a
-    [B, S, 2w] tensor for its bf16 RoPE pre-pass, or null where it runs
-    none."""
+    input's). ``panel`` (K5): the keys per k panel, passed after the scale.
+    Every entry takes one more pointer after the RoPE tables, to a [B, S, 2w]
+    tensor for its bf16 RoPE pre-pass, or null where it runs none."""
     b, s, w3 = qkv.shape
     s_real = s if s_real is None else s_real
     _check_packed(what, qkv, heads, s_real, _DTYPE_CODE)
@@ -304,16 +304,13 @@ def _launch_packed(what: str, lib_fn, qkv: torch.Tensor, heads: int, scale: floa
         )
     cos, sin = _rope_tables(what, qkv, heads, rope)
     out = torch.empty((b, s, w), dtype=out_dtype or qkv.dtype, device=qkv.device)
-    extra = ()
-    if scratch:
-        qk = (torch.empty((b, s, 2 * w), dtype=qkv.dtype, device=qkv.device)
-              if cos is not None and qkv.dtype == torch.bfloat16 else None)
-        extra = (None if qk is None else qk.data_ptr(),)
+    qk = (torch.empty((b, s, 2 * w), dtype=qkv.dtype, device=qkv.device)
+          if cos is not None and qkv.dtype == torch.bfloat16 else None)
     err = lib_fn(
         qkv.data_ptr(), out.data_ptr(), _DTYPE_CODE[qkv.dtype], b, s, s_real, w, heads,
-        float(scale), None if cos is None else cos.data_ptr(),
-        None if sin is None else sin.data_ptr(), *extra,
-        torch.cuda.current_stream(qkv.device).cuda_stream,
+        float(scale), *(() if panel is None else (panel,)),
+        None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
+        None if qk is None else qk.data_ptr(), torch.cuda.current_stream(qkv.device).cuda_stream,
     )
     _cuda_build.check(err, what)
     return out
@@ -336,9 +333,11 @@ def fused_attention_packed_plain(qkv: torch.Tensor, heads: int, scale: float,
     return q.reshape(b, s, w3 // 3), sc.reshape(b, s, 1)
 
 
+# the packed entries of K1 and K4: qkv, out, dtype, B, S, s_real, w, heads,
+# scale, cos, sin, scratch, stream (K5 adds its panel after the scale)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-             ctypes.c_void_p, ctypes.c_void_p]
+             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
 
 
 def _lib() -> ctypes.CDLL:
@@ -404,8 +403,7 @@ def fused_attention_packed_grouped_plain(qkv: torch.Tensor, heads: int, scale: f
 def _grouped_lib() -> ctypes.CDLL:
     lib = _cuda_build.load("packed_attention_grouped")
     if lib.packed_attention_grouped.argtypes is None:
-        lib.packed_attention_grouped.argtypes = _ARGTYPES[:-1] + [ctypes.c_void_p,
-                                                                  ctypes.c_void_p]
+        lib.packed_attention_grouped.argtypes = _ARGTYPES
         lib.packed_attention_grouped.restype = ctypes.c_int
     return lib
 
@@ -422,7 +420,7 @@ def fused_attention_packed_grouped(qkv: torch.Tensor, heads: int, scale: float,
         raise ValueError(f"fused_attention_packed_grouped: unsupported device {qkv.device}")
     out = _launch_packed("fused_attention_packed_grouped",
                          _grouped_lib().packed_attention_grouped, qkv, heads, scale, s_real,
-                         rope, scratch=True)
+                         rope)
     fused_attention_packed_grouped.launches += 1
     return out
 
@@ -472,11 +470,7 @@ def flash_attention_packed_plain(qkv: torch.Tensor, heads: int, scale: float,
 def _flash_lib() -> ctypes.CDLL:
     lib = _cuda_build.load("flash_attention")
     if lib.flash_attention.argtypes is None:
-        lib.flash_attention.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ]
+        lib.flash_attention.argtypes = _ARGTYPES[:9] + [ctypes.c_int] + _ARGTYPES[9:]
         lib.flash_attention.restype = ctypes.c_int
     return lib
 
@@ -490,29 +484,10 @@ def flash_attention_packed(qkv: torch.Tensor, heads: int, scale: float,
         return flash_attention_packed_plain(qkv, heads, scale, s_real, rope)
     if not qkv.is_cuda:
         raise ValueError(f"flash_attention_packed: unsupported device {qkv.device}")
-    b, s, w3 = qkv.shape
-    s_real = s if s_real is None else s_real
-    _check_packed("flash_attention_packed", qkv, heads, s_real, _DTYPE_CODE)
-    w = w3 // 3
-    d = w // heads
-    if qkv.dtype == torch.bfloat16 and (d % 8 or qkv.data_ptr() % 16
-                                        or (rope is not None and d % 16)):
-        raise ValueError(
-            "flash_attention_packed: the bfloat16 kernel reads 16-byte vectors — "
-            f"head dim {d} must be a multiple of 8 (of 16 with RoPE) and the data 16-byte "
-            "aligned"
-        )
-    cos, sin = _rope_tables("flash_attention_packed", qkv, heads, rope)
-    out = torch.empty((b, s, w), dtype=qkv.dtype, device=qkv.device)
-    err = _flash_lib().flash_attention(
-        qkv.data_ptr(), out.data_ptr(), _DTYPE_CODE[qkv.dtype], b, s, s_real, w,
-        heads, float(scale), flash_panel(s), None if cos is None else cos.data_ptr(),
-        None if sin is None else sin.data_ptr(),
-        torch.cuda.current_stream(qkv.device).cuda_stream,
-    )
-    _cuda_build.check(err, "flash_attention")
+    out = _launch_packed("flash_attention_packed", _flash_lib().flash_attention, qkv, heads,
+                         scale, s_real, rope, panel=flash_panel(qkv.shape[1]))
     flash_attention_packed.launches += 1
-    if cos is not None:
+    if rope is not None:
         flash_attention_packed.rope_launches += 1
     return out
 

@@ -54,6 +54,11 @@ def _normal(shape, seed):
     (2, 17, 17, 128, 2), (2, 50, 43, 128, 2), (2, 577, 577, 1024, 16), (1, 257, 200, 1280, 16),
     (1, 130, 130, 1664, 16),  # head dim 104 (ViT-bigG): padded to 112 on the bf16 path
     (1, 4000, 4000, 128, 2),  # keys streamed in both types: no S is refused
+    # one-key tails of the bf16 kernel's 64-key chunks (and a 65-row, or
+    # 1-row, last warpgroup of its 128-row query tiles)
+    (2, 577, 500, 1024, 16),  # ViT-L-14-336 with masked keys
+    (2, 65, 65, 128, 2),
+    (1, 257, 257, 1024, 16),  # ViT-L-14 (224 px)
 ])
 def test_packed_attention_kernel_matches_plain(card, dtype, b, s, s_real, w, heads):
     qkv = _normal((b, s, 3 * w), seed=s).to(card, dtype)
