@@ -5,7 +5,8 @@
 Phases (any failure exits nonzero and prints no result line):
   1. print the card's name and power limit (nvidia-smi); no card → exit 2,
   2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel)
-     and print each kernel's registers and stack frame (ptxas),
+     and print each kernel's registers and stack frame (ptxas), by name and
+     template arguments (exact_wgmma_kernel<DP,PANELS,WIRE,out type>),
   3. hold each kernel against its plain PyTorch version on the card at the
      main paths' shapes and time kernel, plain version, the PyTorch library
      yardstick and the roofline bound (CUDA events, warmed up; the float32
@@ -16,7 +17,8 @@ Phases (any failure exits nonzero and prints no result line):
      (bf16 with RoPE at PE-Core-G14-448's shape, bf16 without RoPE at
      ViT-B-16-SigLIP-512's, f32 at the 336-pixel towers' float32 paths, with PE-Core-L14-336's RoPE
      there; the RoPE rows of K1 and K4 also time the torch rotation + SDPA),
-     K5 (bf16, and f32 at SO400M-384's float32 path), K3, and dynamic int8's K6
+     K5 (bf16, and f32 at SO400M-384's float32 path), K3 (at SO400M-384's
+     shape and at the L-336 CTPU_INT8_WIRE=1 route's), and dynamic int8's K6
      (ln at [18464, 1024], quick_gelu at [18464, 4096], bf16 and f32 in), K9
      (ViT-L's four products at M = 18464 and 9232) and K1's quant_out
      option, each also at the CLI's 64-crop shapes or others that no path
@@ -234,7 +236,7 @@ def bound(flops: float, peak: float, nbytes: float, fma_peak: float | None = Non
 
 
 def check_kernels(gen: torch.Generator, pgen: torch.Generator, qgen: torch.Generator,
-                  rgen: torch.Generator) -> list[dict]:
+                  rgen: torch.Generator, sgen: torch.Generator) -> list[dict]:
     """Phase 3: every kernel against its plain version at the main paths'
     shapes, with times. Launches here are comparisons and are not counted
     (the counters are zeroed before each main path). Each row names, as
@@ -244,8 +246,8 @@ def check_kernels(gen: torch.Generator, pgen: torch.Generator, qgen: torch.Gener
     that hold a path's own shape beside an older row of another shape draw
     their inputs from ``pgen``, so that every older row keeps the inputs
     ``gen`` gave it before they were added; rows added after those draw
-    from ``qgen``, so that the rows of ``pgen`` keep theirs too, and the
-    latest from ``rgen``."""
+    from ``qgen``, so that the rows of ``pgen`` keep theirs too, then from
+    ``rgen``, and the latest from ``sgen``."""
     import torch.nn.functional as F
 
     from clip_assisted_data_labeling_tpu_torch.ops.attention import (
@@ -376,41 +378,47 @@ def check_kernels(gen: torch.Generator, pgen: torch.Generator, qgen: torch.Gener
         del qkv, q, k, v
         torch.cuda.empty_cache()
 
-    b = 4 * BATCH
-    qkv = torch.randint(-127, 128, (b, s, 3 * w), generator=gen, device="cuda",
-                        dtype=torch.int8)
-    # scores of std ~3, outputs over much of the int8 range (as the tests)
-    cs = torch.cat([torch.rand(2 * w, generator=gen, device="cuda") * 8e-3 + 4e-3,
-                    torch.rand(w, generator=gen, device="cuda") * 0.5 + 0.25])
-    diff = (fused_attention_packed_q8s(qkv, cs, heads).int()
-            - fused_attention_packed_q8s_plain(qkv, cs, heads).int()).abs()
+    # K3 at SO400M-384 int8_static's shape, then (from sgen) at the L-336
+    # CTPU_INT8_WIRE=1 route's: the CLI pads its 4 images to a batch of
+    # BATCH, x 4 crops, S=577, 16 heads of 64
+    for b, s, w, path, rg in ((4 * BATCH, s, w, ("so400m", "K3"), gen),
+                              (4 * BATCH, 577, 1024, ("l336_wire", "K3"), sgen)):
+        d = w // heads
+        qkv = torch.randint(-127, 128, (b, s, 3 * w), generator=rg, device="cuda",
+                            dtype=torch.int8)
+        # scores of std ~3, outputs over much of the int8 range (as the tests)
+        cs = torch.cat([torch.rand(2 * w, generator=rg, device="cuda") * 8e-3 + 4e-3,
+                        torch.rand(w, generator=rg, device="cuda") * 0.5 + 0.25])
+        diff = (fused_attention_packed_q8s(qkv, cs, heads).int()
+                - fused_attention_packed_q8s_plain(qkv, cs, heads).int()).abs()
 
-    def q8s_library():  # dequantize, SDPA, requantize
-        deq = (qkv.float() * cs).to(torch.bfloat16).view(b, s, 3, heads, d)
-        o = F.scaled_dot_product_attention(*deq.permute(2, 0, 3, 1, 4).unbind(0), scale=1.0)
-        return o.transpose(1, 2).reshape(b, s, w).float().round_().clamp_(-127, 127).to(
-            torch.int8)
+        def q8s_library():  # dequantize, SDPA, requantize
+            deq = (qkv.float() * cs).to(torch.bfloat16).view(b, s, 3, heads, d)
+            o = F.scaled_dot_product_attention(*deq.permute(2, 0, 3, 1, 4).unbind(0), scale=1.0)
+            return o.transpose(1, 2).reshape(b, s, w).float().round_().clamp_(-127, 127).to(
+                torch.int8)
 
-    row = {
-        "name": "packed_attention_q8s", "route": "cuda", "source": K3_SRC, "replaces": K3_TPU,
-        "case": f"int8 [{b},{s},{3 * w}] h={heads}", "path": ("so400m", "K3"),
-        "max_abs_err": diff.max().item(), "tol": 1,
-        "flip_share": (diff > 0).float().mean().item(),
-        "ms": time_ms(lambda: fused_attention_packed_q8s(qkv, cs, heads)),
-        "plain_ms": time_ms(lambda: fused_attention_packed_q8s_plain(qkv, cs, heads),
-                            min_reps=3),
-        "library_ms": time_ms(q8s_library),
-        **bound(4.0 * b * heads * s * s * d, H100_BF16_FLOPS, b * s * 4 * w + 3 * w * 4),
-    }
-    rows.append(row)
-    print(f"K3 {row['case']}: max |diff| {row['max_abs_err']} on {row['flip_share']:.2e} of "
-          f"entries, kernel {row['ms']:.3f} ms plain {row['plain_ms']:.3f} dequant+sdpa+quant "
-          f"{row['library_ms']:.3f} bound {row['bound_ms']:.4f} ms ({row['bound_by']})",
-          flush=True)
-    if row["flip_share"] > 1e-3:
-        fail(f"packed_attention_q8s: ±1 flips on {row['flip_share']:.2e} of entries (> 1e-3)")
-    del qkv, diff
-    torch.cuda.empty_cache()
+        row = {
+            "name": "packed_attention_q8s", "route": "cuda", "source": K3_SRC,
+            "replaces": K3_TPU, "case": f"int8 [{b},{s},{3 * w}] h={heads}", "path": path,
+            "max_abs_err": diff.max().item(), "tol": 1,
+            "flip_share": (diff > 0).float().mean().item(),
+            "ms": time_ms(lambda: fused_attention_packed_q8s(qkv, cs, heads)),
+            "plain_ms": time_ms(lambda: fused_attention_packed_q8s_plain(qkv, cs, heads),
+                                min_reps=3),
+            "library_ms": time_ms(q8s_library),
+            **bound(4.0 * b * heads * s * s * d, H100_BF16_FLOPS, b * s * 4 * w + 3 * w * 4),
+        }
+        rows.append(row)
+        print(f"K3 {row['case']}: max |diff| {row['max_abs_err']} on {row['flip_share']:.2e} "
+              f"of entries, kernel {row['ms']:.3f} ms plain {row['plain_ms']:.3f} "
+              f"dequant+sdpa+quant {row['library_ms']:.3f} bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']})", flush=True)
+        if row["flip_share"] > 1e-3:
+            fail(f"packed_attention_q8s {row['case']}: ±1 flips on {row['flip_share']:.2e} of "
+                 "entries (> 1e-3)")
+        del qkv, diff
+        torch.cuda.empty_cache()
     for r in rows:
         if not (r["max_abs_err"] <= r["tol"]):
             fail(f"{r['name']} {r['case']} disagrees with its plain version: {r['max_abs_err']}")
@@ -1208,28 +1216,45 @@ def knob_routes(l336: dict, so400m: dict, cfg, scfg) -> list[dict]:
     return runs
 
 
+# mangled builtin types and classes a kernel's template arguments name
+MANGLED_TYPES = {"f": "f32", "a": "i8", "__nv_bfloat16": "bf16"}
+
+
 def kernel_name(mangled: str) -> str:
-    """A kernel's name and integer template arguments from its mangled
-    name, e.g. ``exact_wgmma_kernel<64,0,0>``: the first identifier of its
-    (nested) name that ends in ``kernel``."""
+    """A kernel's name and template arguments from its mangled name, e.g.
+    ``exact_wgmma_kernel<64,0,0,bf16>``: the first identifier of its
+    (nested) name that ends in ``kernel``, with its integer arguments and
+    the types among them (``MANGLED_TYPES``)."""
     pos = 3 if mangled.startswith("_ZN") else 2
     while (n := re.match(r"\d+", mangled[pos:])) is not None:
         start = pos + n.end()
         pos = start + int(n.group())
         if mangled[start:pos].endswith("kernel"):
-            rest = mangled[pos:]
-            targs = rest[:rest.find("EE") + 2] if rest[:1] == "I" else ""
-            args = re.findall(r"L[a-z](\d+)E", targs)
+            args, at = [], pos + 1  # the arguments follow an I, up to their E
+            while mangled[pos:pos + 1] == "I" and at < len(mangled) and mangled[at] != "E":
+                if (m := re.match(r"L[a-z](n?\d+)E", mangled[at:])) is not None:
+                    arg, at = m.group(1).replace("n", "-"), at + m.end()
+                elif (m := re.match(r"\d+", mangled[at:])) is not None:  # a class
+                    arg, at = mangled[at + m.end():at + m.end() + int(m.group())], \
+                        at + m.end() + int(m.group())
+                elif mangled[at].islower():  # a builtin type
+                    arg, at = mangled[at], at + 1
+                else:
+                    break
+                args.append(MANGLED_TYPES.get(arg, arg))
             return mangled[start:pos] + (f"<{','.join(args)}>" if args else "")
     return mangled
 
 
 def ptxas_summary(log: str) -> list[str]:
     """One line per kernel of an nvcc log built with ``-Xptxas -v``: its
-    name, registers, stack frame and spills."""
+    name, registers, stack frame and spills; and one for each warning that
+    ptxas serialized a kernel's wgmma products."""
     out, name = [], None
     for line in log.splitlines():
-        if "Compiling entry function" in line:
+        if "Performance Loss" in line and (m := re.search(r"'(_Z\w+)'", line)) is not None:
+            out.append(f"{kernel_name(m.group(1))}: {line.split('Performance Loss:')[-1].strip()}")
+        elif "Compiling entry function" in line:
             name, stack = kernel_name(line.split("'")[1]), ""
         elif name and "bytes stack frame" in line:
             stack = line.strip()
@@ -1289,7 +1314,8 @@ def main() -> None:
 
     # --- phase 3: kernels against their plain versions ----------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = check_kernels(gen, *(torch.Generator(device="cuda").manual_seed(i) for i in (1, 2, 3)))
+    rows = check_kernels(gen, *(torch.Generator(device="cuda").manual_seed(i)
+                                for i in (1, 2, 3, 4)))
     torch.cuda.empty_cache()
 
     cfg, scfg = resolve_config(MODEL), resolve_config(SIGLIP)
@@ -1342,8 +1368,9 @@ def main() -> None:
              "dyn": dyn["launches"], "fused_qmatmul": dyn_routes[-1],
              "so400m": so400m["launches"], "so400m_bf16": bf16, "so400m_f32": so400m_f32,
              "pe": pe["launches"],
-             "pe_f32": pe_f32, "g14": g14}
-    every = [*paths.values(), *dyn_routes[:-1], pe_bf16, *routes]
+             "pe_f32": pe_f32, "g14": g14, "l336_ln0": routes[0], "l336_wire": routes[1],
+             "so400m_wire0": routes[2]}
+    every = [*paths.values(), *dyn_routes[:-1], pe_bf16]
 
     def path_launches(path) -> int:
         if path is None:

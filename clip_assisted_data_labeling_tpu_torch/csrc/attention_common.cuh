@@ -1,17 +1,20 @@
 // Device helpers shared by the attention kernels K1 (packed_attention.cu),
-// K4 (packed_attention_grouped.cu), K5 (flash_attention.cu) and K7
-// (packed_attention_q8.cu): type conversion, the bf16 mma.sync tile
-// product, the half-split RoPE rotation with the TPU kernel's roundings;
-// cp.async; the wgmma products, descriptors and core-matrix copies; then
-// the two kernels that K1, K4, K5 and K10 instantiate: the float32 one, on
-// the tensor cores with 3xTF32 split products, and the bfloat16 one, on
-// wgmma (the last two sections).
+// K3 (packed_attention_q8s.cu), K4 (packed_attention_grouped.cu), K5
+// (flash_attention.cu) and K7 (packed_attention_q8.cu): type conversion,
+// the half-split RoPE rotation with the TPU kernel's roundings; cp.async;
+// the wgmma products, descriptors and core-matrix copies (bf16, and int8
+// with its dequantize); then the two kernels that they instantiate: the
+// float32 one, on the tensor cores with 3xTF32 split products (K1, K4, K5,
+// K10), and the bfloat16 one, on wgmma, which also takes the int8 wires of
+// K3 and K7 (the last two sections).
 #pragma once
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -82,22 +85,7 @@ __device__ __forceinline__ void stage_rows_f(
   }
 }
 
-// ---- bfloat16 tensor-core pieces ------------------------------------------
-
-constexpr int PAD = 8;  // bf16 elements of padding per shared-memory row
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+// ---- bfloat16 vector pieces ------------------------------------------------
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -145,6 +133,12 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(a), "l"(src),
                "r"(valid ? 4 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async8(void* dst, const void* src, bool valid) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(a), "l"(src),
+               "r"(valid ? 8 : 0) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -333,6 +327,67 @@ __device__ __forceinline__ void cp_async_core_bf16(__nv_bfloat16* dst, const __n
     const int r = idx / (8 * NV) * 8 + idx % 8, c8 = idx / 8 % NV;
     const bool ok = r0 + r < S && c8 * 8 < d;
     cp_async16(dst + idx * 8, ok ? base + (size_t)(r0 + r) * rs + col + c8 * 8 : base, ok);
+  }
+}
+
+// The int8 form of cp_async_core_bf16, in its order: row r's lanes 8c..8c+7
+// (8 bytes, one 8-byte cp.async: an int8 head slice starts at h·d bytes,
+// only 8-byte aligned at d = 72) at dst + idx·8, idx being the index that
+// cp_async_core_bf16 gives those lanes, so that dequant_core turns them into
+// exactly their 16-byte row of a bf16 core matrix. Rows past S and the
+// lanes d..DP are zero-filled (d % 8 == 0).
+template <int NTHREADS, int ROWS, int DP>
+__device__ __forceinline__ void cp_async_core_i8(int8_t* dst, const int8_t* base, int r0, int S,
+                                                 size_t rs, int d) {
+  constexpr int NV = DP / 8;
+  for (int idx = threadIdx.x; idx < ROWS * NV; idx += NTHREADS) {
+    const int r = idx / (8 * NV) * 8 + idx % 8, c8 = idx / 8 % NV;
+    const bool ok = r0 + r < S && c8 * 8 < d;
+    cp_async8(dst + idx * 8, ok ? base + (size_t)(r0 + r) * rs + c8 * 8 : base, ok);
+  }
+}
+
+// eight int8 lanes → eight bf16(f32(x)·s[j]), one 16-byte core-matrix row:
+// x to float exactly by a byte permute (the bits of 2^23 + 128 + x, less
+// 2^23 + 128), the product rounded to float32 (never contracted), then to
+// bf16, as the TPU kernels dequantize a head slice. s: eight scales in
+// registers, or a pointer to them in shared memory, read as they are used
+// (loading all eight first spilled registers at d = 64)
+template <typename SC>
+__device__ __forceinline__ uint4 dequant8(uint2 raw, const SC& s) {
+  const uint32_t u[2] = {raw.x ^ 0x80808080u, raw.y ^ 0x80808080u};  // x + 128 in each byte
+  uint4 v;
+  uint32_t* o = &v.x;
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint32_t w = u[j / 2], b = (j % 2) * 2;
+    const float x0 = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7650u + b)) - 8388736.f;
+    const float x1 = __uint_as_float(__byte_perm(w, 0x4B000000u, 0x7651u + b)) - 8388736.f;
+    o[j] = pack_bf16(__fmul_rn(x0, s[2 * j]), __fmul_rn(x1, s[2 * j + 1]));
+  }
+  return v;
+}
+
+// Dequantize the vectors that cp_async_core_i8 copied for this thread
+// into the same vectors of the bf16 core matrices at dst. PER_TOKEN: row
+// r's lanes scale by s[r]·mul (s: the ROWS token scales of the tile, 0 past
+// S); else lane i by s[i] (s: the head's DP lane scales, 0 past d).
+template <int NTHREADS, int ROWS, int DP, bool PER_TOKEN>
+__device__ __forceinline__ void dequant_core(__nv_bfloat16* dst, const int8_t* src, const float* s,
+                                             float mul) {
+  constexpr int NV = DP / 8;
+#pragma unroll 1
+  for (int idx = threadIdx.x; idx < ROWS * NV; idx += NTHREADS) {
+    if constexpr (PER_TOKEN) {
+      float f[8];
+      const float t = __fmul_rn(s[idx / (8 * NV) * 8 + idx % 8], mul);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) f[j] = t;
+      reinterpret_cast<uint4*>(dst)[idx] = dequant8(reinterpret_cast<const uint2*>(src)[idx], f);
+    } else {
+      reinterpret_cast<uint4*>(dst)[idx] =
+          dequant8(reinterpret_cast<const uint2*>(src)[idx], s + idx / 8 % NV * 8);
+    }
   }
 }
 
@@ -829,11 +884,12 @@ int launch_f32_3xtf32(Heads<float> io, int B, int S, int s_real, int heads, int 
 
 // ---- bfloat16 on Hopper's warpgroup tensor cores: the exact two-pass kernel --
 //
-// K1, K4, K5 and K10 in bfloat16, one template (exact_wgmma_kernel<DP,
-// PANELS, F32OUT>): one block of two warpgroups per (128 query rows, head,
-// batch item), each warpgroup owning 64 rows, q, k and v read in place
-// through the strides of Heads (the packed [B, S, 3w] qkv or K10's [B, h, S,
-// d]; with RoPE, q and k from the pre-pass's scratch).
+// K1, K4, K5 and K10 in bfloat16, and the int8 wires of K3 and K7, one
+// template (exact_wgmma_kernel<DP, PANELS, WIRE, TO>): one block of two
+// warpgroups per (128 query rows, head, batch item), each warpgroup owning
+// 64 rows, q, k and v read in place through the strides of Heads (the packed
+// [B, S, 3w] qkv or K10's [B, h, S, d]; with RoPE, q and k from the
+// pre-pass's scratch).
 //   - K and V chunks of 64 keys come in by 16-byte cp.async into a ring of
 //     three stages in shared memory, in 8 x 8 core matrices
 //     (cp_async_core_bf16: eight threads fill 128 contiguous bytes, so no
@@ -853,27 +909,76 @@ int launch_f32_3xtf32(Heads<float> io, int B, int S, int s_real, int heads, int 
 // data), exponentiates against that max in float32, sums the unrounded p
 // and accumulates bf16(p)·V. Keys at or past s_real get -inf.
 //
-// Without PANELS the two passes run once over all S keys and the epilogue
-// multiplies by 1/sum (K1, K4, K10). With PANELS (K5's online softmax) they
-// run over each k panel of kp keys in turn: a chunk that crosses the panel's
-// end loads the keys past it as zeros and masks them (the next panel loads
-// them again); after a panel's pass 1 the running max m becomes m' = max(m,
-// the panel's row max), the sum and the accumulator are rescaled once by
-// exp(m - m'), and pass 2 exponentiates against m'; the epilogue divides by
-// the sum. The ring runs one sequence of steps over all panels (for each
+// Without PANELS the two passes run once over all S keys. With PANELS (K5's
+// online softmax) they run over each k panel of kp keys in turn: a chunk
+// that crosses the panel's end loads the keys past it as zeros and masks
+// them (the next panel loads them again); after a panel's pass 1 the running
+// max m becomes m' = max(m, the panel's row max), the sum and the
+// accumulator are rescaled once by exp(m - m'), and pass 2 exponentiates
+// against m'. The ring runs one sequence of steps over all panels (for each
 // panel its K chunks, then its K and V chunks), so the copies of the next
-// panel's first chunk are in flight during this panel's last one. F32OUT
-// writes the float32 head outputs (K1's quant_out) instead of rounding them
-// to bf16.
+// panel's first chunk are in flight during this panel's last one.
+//
+// The int8 wires (WIRE, without panels) read int8 q, k and v and dequantize
+// each to bf16(f32(x)·scale) in shared memory, as the TPU kernels do, with
+// per-channel scales (K3: the head's 3·d lane scales, staged in shared
+// memory once a block) or per-token ones (K7: one float a token, q's times
+// the attention scale first; the q tile's 128 come in with it, each chunk's
+// 64 by cp.async four steps ahead, after a step's barrier, into a ring of
+// four slots, so shared memory does not grow with S). Their K and V chunks come in by 8-byte cp.async
+// (cp_async_core_i8) into a two-stage int8 ring, two steps ahead; each thread
+// waits for its own copies and converts exactly the bytes it copied
+// (dequant_core) into the bf16 stage the descriptors read, so no barrier
+// guards the int8 ring. The conversion of step i + 1 runs while step i's
+// Q·K^T is in flight, and the step's one barrier publishes it (after
+// fence.proxy.async); two bf16 stages then suffice, since a stage is
+// rewritten only after every warpgroup has passed the barrier that ends the
+// step reading it. The q tile is converted the same way before the first
+// barrier.
+//
+// The output (TO): bf16; float32 (K1's and K7's quant_out, K7's float32);
+// or int8 (K3), clip(rint(o / sum), -127, 127). The epilogue divides by the
+// sum with PANELS (K5) or an int8 output (K3), as their TPU kernels do, and
+// multiplies by its reciprocal otherwise (K1, K4, K7, K10).
 
 constexpr int WG_Q = 128;   // query rows per block (2 warpgroups x 64)
 constexpr int WG_K = 64;    // keys per streamed chunk
 constexpr int WG_NT = 256;  // threads per block
-constexpr int WG_ST = 3;    // stages of the K/V ring
+constexpr int WG_ST = 3;    // stages of the bf16 wire's K/V ring
 
-template <int DP>  // head dim padded to a multiple of 16
+// what the kernel reads: bf16 q, k, v (K1, K4, K5, K10), or int8 with
+// per-channel scales (K3) or per-token scales (K7)
+constexpr int WIRE_BF16 = 0, WIRE_Q8_CHANNEL = 1, WIRE_Q8_TOKEN = 2;
+
+template <int WIRE>
+using WireT = std::conditional_t<WIRE == WIRE_BF16, __nv_bfloat16, int8_t>;
+
+// the int8 wires' float32 scales: per channel (K3: the q, k and v sections
+// of cs [3w], head h's lanes from + h·in_h), or per token (K7: q = k = v =
+// ts [B, S])
+struct Scales {
+  const float* q;
+  const float* k;
+  const float* v;
+};
+
+// stages of the bf16 ring that the descriptors read
+__host__ __device__ constexpr int wgmma_stages(int wire) {
+  return wire == WIRE_BF16 ? WG_ST : 2;
+}
+
+constexpr int WG_TS = 4;  // K7's ring of chunk token scales
+
+template <int DP, int WIRE>  // head dim padded to a multiple of 16
 constexpr size_t wgmma_smem_bytes() {
-  return sizeof(__nv_bfloat16) * (WG_ST * 2 * WG_K + WG_Q) * DP;
+  // the bf16 ring and q tile; an int8 wire adds its int8 ring [2][2][WG_K][DP]
+  // and q tile [WG_Q][DP], and its scales: K3's lane scales of the head [3][DP]
+  // or K7's token scales of the q tile [WG_Q] and of four chunks [WG_TS][WG_K]
+  return sizeof(__nv_bfloat16) * (wgmma_stages(WIRE) * 2 * WG_K + WG_Q) * DP +
+         (WIRE == WIRE_BF16 ? 0 : (2 * 2 * WG_K + WG_Q) * DP) +
+         sizeof(float) * (WIRE == WIRE_Q8_CHANNEL   ? 3 * DP
+                          : WIRE == WIRE_Q8_TOKEN ? WG_Q + WG_TS * WG_K
+                                                  : 0);
 }
 
 // blocks an SM should hold, which caps the registers a thread: two (128
@@ -913,30 +1018,57 @@ __global__ void rope_prepass_kernel(const __nv_bfloat16* __restrict__ qkv,
 
 // q and k from `qk`'s pointers and strides (io's, or the pre-pass's scratch,
 // there already scaled and rotated: `prescaled`), v and the output from io's.
-template <int DP, bool PANELS, bool F32OUT>
+// An int8 wire reads its scales from sc (K7 scales q by ts·scale).
+template <int DP, bool PANELS, int WIRE, typename TO>
 __global__ void __launch_bounds__(WG_NT, wgmma_min_blocks(DP)) exact_wgmma_kernel(
-    Heads<__nv_bfloat16> qk, Heads<__nv_bfloat16> io, int S, int s_real, int d, float scale,
-    int kp, bool prescaled) {
-  constexpr int NV = DP / 8;            // core matrices along a row
-  constexpr int STAGE = 2 * WG_K * DP;  // one stage: K rows, then V rows (bf16)
-  constexpr uint32_t CORE = 128;        // bytes of a core matrix
+    Heads<WireT<WIRE>> qk, Heads<WireT<WIRE>> io, int S, int s_real, int d, float scale,
+    int kp, bool prescaled, Scales sc) {
+  using TI = WireT<WIRE>;
+  constexpr bool Q8 = WIRE != WIRE_BF16;
+  static_assert(!(Q8 && PANELS), "the int8 wires run without panels");
+  constexpr int NV = DP / 8;                 // core matrices along a row
+  constexpr int ST = wgmma_stages(WIRE);     // stages of the bf16 ring
+  constexpr int STAGE = 2 * WG_K * DP;       // one stage: K rows, then V rows
+  constexpr uint32_t CORE = 128;             // bytes of a core matrix
   extern __shared__ __align__(128) unsigned char wgmma_smem[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(wgmma_smem);  // [WG_ST][2][WG_K][DP]
-  __nv_bfloat16* qs = ring + WG_ST * STAGE;                              // [WG_Q][DP]
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(wgmma_smem);  // [ST][2][WG_K][DP]
+  __nv_bfloat16* qs = ring + ST * STAGE;                                 // [WG_Q][DP]
+  // an int8 wire's cp.async ring [2][2][WG_K][DP] and q tile [WG_Q][DP],
+  // and its scales: K3's lane scales of the head's q, k and v [3][DP] (0
+  // past d), or K7's token scales of the q tile [WG_Q] and the ring of the
+  // chunks' [WG_TS][WG_K] (0 past S)
+  int8_t* ring8 = reinterpret_cast<int8_t*>(qs + WG_Q * DP);
+  int8_t* q8 = ring8 + 2 * STAGE;
+  float* wire_sc = reinterpret_cast<float*>(q8 + WG_Q * DP);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;  // accumulator coordinates
   const int q0 = blockIdx.x * WG_Q, h = blockIdx.y;
   const size_t src = blockIdx.z * qk.in_b + h * qk.in_h, qrs = qk.in_r, vrs = io.in_r;
-  const __nv_bfloat16* kb = qk.k + src;
-  const __nv_bfloat16* vb = io.v + blockIdx.z * io.in_b + h * io.in_h;
+  const TI* kb = qk.k + src;
+  const TI* vb = io.v + blockIdx.z * io.in_b + h * io.in_h;
   const int ncp = ((PANELS ? kp : S) + WG_K - 1) / WG_K;  // chunks of a whole panel
+  constexpr bool TOK = WIRE == WIRE_Q8_TOKEN;
+  static_assert(WG_TS * WG_K == WG_NT, "the first WG_TS steps' scales: one a thread");
+  // K7: token j of step i's 64 token scales (the keys of its K or V chunk)
+  // into slot i % WG_TS of the scale ring
+  auto copy_scales = [&](int i, int j) {
+    if constexpr (TOK) {
+      const int nc = (S + WG_K - 1) / WG_K;
+      if (i < 2 * nc) {
+        const unsigned z = blockIdx.z;
+        const int r = (i < nc ? i : i - nc) * WG_K + j;
+        cp_async4(wire_sc + WG_Q + (i % WG_TS) * WG_K + j, sc.q + (size_t)z * S + (r < S ? r : 0),
+                  r < S);
+      }
+    }
+  };
 
   // step i: in the panel [p0, pend) of nc chunks, K chunk c in pass 1 (c <
-  // nc) or K and V chunk c - nc in pass 2, into stage i % WG_ST; keys at or
-  // past the panel's end load as zeros. Without PANELS one panel holds all
-  // S keys. Every step commits one group (empty past the last), so a
-  // thread's groups count steps.
+  // nc) or K and V chunk c - nc in pass 2, into stage i % WG_ST (an int8
+  // wire: its int8 ring's stage i % 2); keys at or past the panel's end load
+  // as zeros. Without PANELS one panel holds all S keys. Every step commits
+  // one group (empty past the last), so a thread's groups count steps.
   auto copy_step = [&](int i) {
     int p0 = 0, pend = S, c = i;
     if constexpr (PANELS) {
@@ -948,19 +1080,68 @@ __global__ void __launch_bounds__(WG_NT, wgmma_min_blocks(DP)) exact_wgmma_kerne
     const int nc = (pend - p0 + WG_K - 1) / WG_K;
     if (p0 < S && c < 2 * nc) {
       const int k0 = p0 + (c < nc ? c : c - nc) * WG_K;
-      __nv_bfloat16* st = ring + (i % WG_ST) * STAGE;
-      cp_async_core_bf16<WG_NT, WG_K, DP>(st, kb, k0, pend, qrs, 0, d);
-      if (c >= nc) cp_async_core_bf16<WG_NT, WG_K, DP>(st + WG_K * DP, vb, k0, pend, vrs, 0, d);
+      if constexpr (Q8) {
+        int8_t* st = ring8 + (i % 2) * STAGE;
+        cp_async_core_i8<WG_NT, WG_K, DP>(st, kb, k0, pend, qrs, d);
+        if (c >= nc) cp_async_core_i8<WG_NT, WG_K, DP>(st + WG_K * DP, vb, k0, pend, vrs, d);
+      } else {
+        __nv_bfloat16* st = ring + (i % WG_ST) * STAGE;
+        cp_async_core_bf16<WG_NT, WG_K, DP>(st, kb, k0, pend, qrs, 0, d);
+        if (c >= nc) cp_async_core_bf16<WG_NT, WG_K, DP>(st + WG_K * DP, vb, k0, pend, vrs, 0, d);
+      }
     }
     cp_async_commit();
   };
-  // the q tile first (the oldest group), then the first WG_ST - 1 steps
-  cp_async_core_bf16<WG_NT, WG_Q, DP>(qs, qk.q + src, q0, S, qrs, 0, d);
+  // an int8 wire: step i's chunk from this thread's own bytes of the int8
+  // ring into bf16 stage i % ST (the group of step i has landed once at most
+  // the next step's is in flight), then step i + 2's copy into the int8
+  // stage just read (K7's token scales of step i, copied by other threads,
+  // were published by an earlier barrier: see next)
+  auto convert_step = [&](int i) {
+    if constexpr (Q8) {
+      cp_async_wait<1>();
+      const int nc = (S + WG_K - 1) / WG_K;
+      if (i < 2 * nc) {
+        const int8_t* s8 = ring8 + (i % 2) * STAGE;
+        __nv_bfloat16* st = ring + (i % ST) * STAGE;
+        const float* ks = TOK ? wire_sc + WG_Q + (i % WG_TS) * WG_K : wire_sc + DP;
+        dequant_core<WG_NT, WG_K, DP, TOK>(st, s8, ks, 1.0f);
+        if (i >= nc)
+          dequant_core<WG_NT, WG_K, DP, TOK>(st + WG_K * DP, s8 + WG_K * DP,
+                                             TOK ? ks : wire_sc + 2 * DP, 1.0f);
+      }
+      copy_step(i + 2);
+    }
+  };
+  // the q tile first (the oldest group; K7's with its token scales and the
+  // first WG_TS steps'), then the first WG_ST - 1 steps
+  if constexpr (Q8) {
+    if constexpr (TOK) {
+      const float* ts = sc.q + blockIdx.z * (size_t)S;
+      if (tid < WG_Q) cp_async4(wire_sc + tid, ts + (q0 + tid < S ? q0 + tid : 0), q0 + tid < S);
+      copy_scales(tid / WG_K, tid % WG_K);
+    } else {
+      for (int i = tid; i < 3 * DP; i += WG_NT) {
+        const int sec = i / DP, c = i - sec * DP;
+        const float* p = sec == 0 ? sc.q : sec == 1 ? sc.k : sc.v;
+        wire_sc[i] = c < d ? p[h * io.in_h + c] : 0.f;
+      }
+    }
+    cp_async_core_i8<WG_NT, WG_Q, DP>(q8, qk.q + src, q0, S, qrs, d);
+  } else {
+    cp_async_core_bf16<WG_NT, WG_Q, DP>(qs, qk.q + src, q0, S, qrs, 0, d);
+  }
   cp_async_commit();
 #pragma unroll
   for (int i = 0; i < WG_ST - 1; ++i) copy_step(i);
   cp_async_wait<WG_ST - 1>();  // this thread's copies of the q tile have landed
-  if (!prescaled) {  // q·T(scale) where it lies (the scale rounded to bf16 first):
+  if constexpr (Q8) {
+    __syncthreads();  // the scales
+    // q dequantized (K3's q lane scales carry the attention scale; K7's q
+    // scale is ts·scale), then step 0's chunk
+    dequant_core<WG_NT, WG_Q, DP, TOK>(qs, q8, wire_sc, scale);
+    convert_step(0);
+  } else if (!prescaled) {  // q·T(scale) where it lies (the scale rounded to bf16 first):
     // each thread scales the vectors it copied (cp_async_core_bf16's order)
     const __nv_bfloat162 scale2 = __float2bfloat162_rn(scale);
     for (int i = tid; i < WG_Q * DP / 8; i += WG_NT) {
@@ -974,13 +1155,15 @@ __global__ void __launch_bounds__(WG_NT, wgmma_min_blocks(DP)) exact_wgmma_kerne
   // this warpgroup's 64 rows of q: A K-major (core matrices along the head
   // dim 128 bytes apart, along the rows NV·128)
   const uint64_t qdesc = gmma_desc(qs + (warp / 4) * 8 * NV * 64, CORE, NV * CORE);
-  // a warpgroup whose 64 rows all lie past the sequence still stages and
-  // syncs, but skips the products (wgmma runs per warpgroup)
+  // a warpgroup whose 64 rows all lie past the sequence still stages (and
+  // converts) and syncs, but skips the products (wgmma runs per warpgroup)
   const bool live = q0 + (warp / 4) * 64 < S;
+  int i = 0;  // step
 
   // this warpgroup's 64 x WG_K scores against the staged K chunk (B
   // K-major, laid out as q): each warp's s[j] holds keys 8j.. in the
-  // accumulator layout; keys at or past kend get -inf
+  // accumulator layout; keys at or past kend get -inf. An int8 wire converts
+  // the next step's chunk while the product runs.
   auto scores = [&](float (&s)[WG_K / 8][4], const __nv_bfloat16* ks_, int k0, int kend) {
     const uint64_t kdesc = gmma_desc(ks_, CORE, NV * CORE);
     wgmma_fence();
@@ -988,6 +1171,7 @@ __global__ void __launch_bounds__(WG_NT, wgmma_min_blocks(DP)) exact_wgmma_kerne
     for (int ks = 0; ks < DP / 16; ++ks)  // k16 steps: two core matrices along the head dim
       wgmma_ss_n64(s, qdesc + ks * (2 * CORE >> 4), kdesc + ks * (2 * CORE >> 4), ks > 0);
     wgmma_commit();
+    convert_step(i + 1);
     wgmma_wait0();
     wgmma_settle(s);
 #pragma unroll
@@ -997,23 +1181,28 @@ __global__ void __launch_bounds__(WG_NT, wgmma_min_blocks(DP)) exact_wgmma_kerne
       if (key + 1 >= kend) s[j][1] = s[j][3] = -INFINITY;
     }
   };
-  // wait for step i's chunk, then one barrier: every thread's copies have
-  // landed (and are visible to wgmma) and every warpgroup is done with step
-  // i - 1, whose stage step i + WG_ST - 1 then refills while the warpgroups
-  // multiply
+  // wait for step i's chunk, then one barrier: every thread's copies (or
+  // conversions) have landed (and are visible to wgmma) and every warpgroup
+  // is done with step i - 1, whose stage step i + WG_ST - 1 then refills
+  // while the warpgroups multiply (an int8 wire refills it as it converts).
+  // K7 then copies step i + WG_TS's token scales, which join the group of
+  // step i + 3; each thread waits for that group before the barrier of step
+  // i + 3, after which step i + 4 converts. Their slot's last reader,
+  // step i's conversion, ran before this barrier. (Issued in the conversion,
+  // inside Q·K^T's window, these copies made K7 spill at d = 64 and 80.)
   auto next = [&](int i) {
-    cp_async_wait<WG_ST - 2>();
+    if constexpr (!Q8) cp_async_wait<WG_ST - 2>();
     fence_proxy_async();
     __syncthreads();
-    copy_step(i + WG_ST - 1);
-    return ring + (i % WG_ST) * STAGE;
+    if constexpr (!Q8) copy_step(i + WG_ST - 1);
+    if (TOK && tid < WG_K) copy_scales(i + WG_TS, tid);
+    return ring + (i % ST) * STAGE;
   };
 
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // rows g and g+8 of this warp
   float o[DP / 8][4];
 #pragma unroll
   for (int n = 0; n < DP / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  int i = 0;  // step
   // the two passes over the keys [p0, pend)
   auto run_panel = [&](int p0, int pend) {
     const int kend = min(pend, s_real), nc = (pend - p0 + WG_K - 1) / WG_K;
@@ -1021,7 +1210,10 @@ __global__ void __launch_bounds__(WG_NT, wgmma_min_blocks(DP)) exact_wgmma_kerne
     float pm0 = -INFINITY, pm1 = -INFINITY;
     for (int c = 0; c < nc; ++c, ++i) {
       const __nv_bfloat16* st = next(i);
-      if (!live) continue;
+      if (!live) {
+        convert_step(i + 1);
+        continue;
+      }
       float s[WG_K / 8][4];
       scores(s, st, p0 + c * WG_K, kend);
 #pragma unroll
@@ -1057,7 +1249,10 @@ __global__ void __launch_bounds__(WG_NT, wgmma_min_blocks(DP)) exact_wgmma_kerne
     // of wgmma's A operand, O += P V ------------------------------------
     for (int c = 0; c < nc; ++c, ++i) {
       const __nv_bfloat16* st = next(i);
-      if (!live) continue;
+      if (!live) {
+        convert_step(i + 1);
+        continue;
+      }
       float s[WG_K / 8][4];
       scores(s, st, p0 + c * WG_K, kend);
       uint32_t pa[WG_K / 16][4];
@@ -1095,9 +1290,10 @@ __global__ void __launch_bounds__(WG_NT, wgmma_min_blocks(DP)) exact_wgmma_kerne
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  // K5 divides by the sum; K1, K4 and K10 multiply by its reciprocal
+  // K5 and K3 divide by the sum; K1, K4, K7 and K10 multiply by its reciprocal
+  constexpr bool DIV = PANELS || std::is_same_v<TO, int8_t>;
   const float inv0 = 1.0f / l0, inv1 = 1.0f / l1;
-  auto norm = [&](float x, float l, float inv) { return PANELS ? x / l : x * inv; };
+  auto norm = [&](float x, float l, float inv) { return DIV ? x / l : x * inv; };
   const int row0 = q0 + warp * 16 + g, row1 = row0 + 8;
   const size_t ohead = blockIdx.z * io.out_b + h * io.out_h;
 #pragma unroll
@@ -1107,10 +1303,15 @@ __global__ void __launch_bounds__(WG_NT, wgmma_min_blocks(DP)) exact_wgmma_kerne
     const size_t i0 = ohead + (size_t)row0 * io.out_r + col, i1 = i0 + 8 * io.out_r;
     const float y0 = norm(o[n][0], l0, inv0), y1 = norm(o[n][1], l0, inv0);
     const float y2 = norm(o[n][2], l1, inv1), y3 = norm(o[n][3], l1, inv1);
-    if constexpr (F32OUT) {  // quant_out: the float32 head outputs, for the row quantize
+    if constexpr (std::is_same_v<TO, float>) {  // e.g. quant_out: for the row quantize
       float* of = static_cast<float*>(io.out);
       if (row0 < S) *reinterpret_cast<float2*>(of + i0) = make_float2(y0, y1);
       if (row1 < S) *reinterpret_cast<float2*>(of + i1) = make_float2(y2, y3);
+    } else if constexpr (std::is_same_v<TO, int8_t>) {  // round half to even, clip to ±127
+      auto q = [](float x) { return (signed char)fminf(fmaxf(rintf(x), -127.f), 127.f); };
+      int8_t* o8 = static_cast<int8_t*>(io.out);
+      if (row0 < S) *reinterpret_cast<char2*>(o8 + i0) = make_char2(q(y0), q(y1));
+      if (row1 < S) *reinterpret_cast<char2*>(o8 + i1) = make_char2(q(y2), q(y3));
     } else {
       __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(io.out);
       if (row0 < S) *reinterpret_cast<__nv_bfloat162*>(ob + i0) = __floats2bfloat162_rn(y0, y1);
@@ -1119,16 +1320,17 @@ __global__ void __launch_bounds__(WG_NT, wgmma_min_blocks(DP)) exact_wgmma_kerne
   }
 }
 
-template <int DP, bool PANELS, bool F32OUT>
-int launch_wgmma(Heads<__nv_bfloat16> qk, Heads<__nv_bfloat16> io, int B, int S, int s_real,
-                 int heads, int d, float scale, int kp, bool prescaled, cudaStream_t stream) {
-  const size_t smem = wgmma_smem_bytes<DP>();
-  cudaError_t err = cudaFuncSetAttribute(exact_wgmma_kernel<DP, PANELS, F32OUT>,
+template <int DP, bool PANELS, int WIRE, typename TO>
+int launch_wgmma(Heads<WireT<WIRE>> qk, Heads<WireT<WIRE>> io, int B, int S, int s_real,
+                 int heads, int d, float scale, int kp, bool prescaled, Scales sc,
+                 cudaStream_t stream) {
+  const size_t smem = wgmma_smem_bytes<DP, WIRE>();
+  cudaError_t err = cudaFuncSetAttribute(exact_wgmma_kernel<DP, PANELS, WIRE, TO>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + WG_Q - 1) / WG_Q, heads, B);
-  exact_wgmma_kernel<DP, PANELS, F32OUT><<<grid, WG_NT, smem, stream>>>(
-      qk, io, S, s_real, d, scale, kp, prescaled);
+  exact_wgmma_kernel<DP, PANELS, WIRE, TO><<<grid, WG_NT, smem, stream>>>(
+      qk, io, S, s_real, d, scale, kp, prescaled, sc);
   return (int)cudaGetLastError();
 }
 
@@ -1138,8 +1340,8 @@ int launch_wgmma(Heads<__nv_bfloat16> qk, Heads<__nv_bfloat16> io, int B, int S,
 // pre-pass first writes q·T(scale) and k rotated into scratch, a [B, S, 2w]
 // bf16 buffer the caller allocates, and the kernel reads q and k there.
 // With PANELS, the softmax is rescaled at the ends of kp-key panels (K5);
-// without, kp is not read. F32OUT: float32 outputs.
-template <bool PANELS, bool F32OUT = false>
+// without, kp is not read. TO: the output type (bf16 or float32).
+template <bool PANELS, typename TO = __nv_bfloat16>
 int launch_bf16_wgmma(Heads<__nv_bfloat16> io, int B, int S, int s_real, int heads, int d,
                       float scale, const void* cos, const void* sin, void* scratch,
                       cudaStream_t stream, int kp = 0) {
@@ -1161,20 +1363,47 @@ int launch_bf16_wgmma(Heads<__nv_bfloat16> io, int B, int S, int s_real, int hea
     qk.in_r = 2 * (size_t)w;
   }
   const bool pre = cos != nullptr;
+  const Scales none{nullptr, nullptr, nullptr};
   if (d <= 64)
-    return launch_wgmma<64, PANELS, F32OUT>(qk, io, B, S, s_real, heads, d, scale, kp, pre,
-                                            stream);
+    return launch_wgmma<64, PANELS, WIRE_BF16, TO>(qk, io, B, S, s_real, heads, d, scale, kp,
+                                                    pre, none, stream);
   if (d <= 80)
-    return launch_wgmma<80, PANELS, F32OUT>(qk, io, B, S, s_real, heads, d, scale, kp, pre,
-                                            stream);
+    return launch_wgmma<80, PANELS, WIRE_BF16, TO>(qk, io, B, S, s_real, heads, d, scale, kp,
+                                                    pre, none, stream);
   if (d <= 96)
-    return launch_wgmma<96, PANELS, F32OUT>(qk, io, B, S, s_real, heads, d, scale, kp, pre,
-                                            stream);
+    return launch_wgmma<96, PANELS, WIRE_BF16, TO>(qk, io, B, S, s_real, heads, d, scale, kp,
+                                                    pre, none, stream);
   if (d <= 112)
-    return launch_wgmma<112, PANELS, F32OUT>(qk, io, B, S, s_real, heads, d, scale, kp, pre,
+    return launch_wgmma<112, PANELS, WIRE_BF16, TO>(qk, io, B, S, s_real, heads, d, scale, kp,
+                                                     pre, none, stream);
+  return launch_wgmma<128, PANELS, WIRE_BF16, TO>(qk, io, B, S, s_real, heads, d, scale, kp,
+                                                   pre, none, stream);
+}
+
+// An int8 wire (K3: WIRE_Q8_CHANNEL, K7: WIRE_Q8_TOKEN) on the packed int8
+// qkv [B, S, 3w] (8-byte aligned), out [B, S, w] of TO; head dim d = w /
+// heads <= 128, d % 8 == 0 (8-byte copies; the C entries check both),
+// padded to a multiple of 16 (64 at least). scale: K7's attention scale
+// (K3's is in its q lane scales).
+template <int WIRE, typename TO>
+int launch_q8_wgmma(const void* qkv, void* out, Scales sc, int B, int S, int s_real, int w,
+                    int heads, float scale, cudaStream_t stream) {
+  const int d = w / heads;
+  const Heads<int8_t> io = packed_heads<int8_t>(qkv, out, S, w, d);
+  if (d <= 64)
+    return launch_wgmma<64, false, WIRE, TO>(io, io, B, S, s_real, heads, d, scale, 0, false, sc,
                                              stream);
-  return launch_wgmma<128, PANELS, F32OUT>(qk, io, B, S, s_real, heads, d, scale, kp, pre,
-                                           stream);
+  if (d <= 80)
+    return launch_wgmma<80, false, WIRE, TO>(io, io, B, S, s_real, heads, d, scale, 0, false, sc,
+                                             stream);
+  if (d <= 96)
+    return launch_wgmma<96, false, WIRE, TO>(io, io, B, S, s_real, heads, d, scale, 0, false, sc,
+                                             stream);
+  if (d <= 112)
+    return launch_wgmma<112, false, WIRE, TO>(io, io, B, S, s_real, heads, d, scale, 0, false,
+                                              sc, stream);
+  return launch_wgmma<128, false, WIRE, TO>(io, io, B, S, s_real, heads, d, scale, 0, false, sc,
+                                            stream);
 }
 
 }  // namespace

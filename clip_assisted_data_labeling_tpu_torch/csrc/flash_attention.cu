@@ -36,8 +36,9 @@
 // float32 path ([16, 729, 3456]) 39.2 GFLOP over a third of the TF32 rate
 // (~165 TFLOP/s), 0.24 ms.
 //
-// bfloat16: exact_wgmma_kernel<DP, true, false> of attention_common.cuh,
-// the template of K1, K4 and K10 with its panel parameter. One block of two
+// bfloat16: exact_wgmma_kernel<DP, true, WIRE_BF16, bf16> of
+// attention_common.cuh, the template of K1, K3, K4, K7 and K10 with its panel
+// parameter. One block of two
 // warpgroups per (128 query rows, head, batch item); Q·K^T and P·V on wgmma
 // (P in registers, V MN-major through the transpose bit); K, then K and V,
 // in 64-key chunks by cp.async into a three-stage ring of 8x8 core matrices.

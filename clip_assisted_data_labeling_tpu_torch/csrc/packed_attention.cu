@@ -33,8 +33,8 @@
 // so the bound is the TF32 rate over three: ~165 of the 495 TFLOP/s, still
 // 2.5x the 67 TFLOP/s of float32 FMAs.
 //
-// bfloat16 (the main path): exact_wgmma_kernel<DP, false, F32OUT> of
-// attention_common.cuh, the template K4 and K5 instantiate too. One block
+// bfloat16 (the main path): exact_wgmma_kernel<DP, false, WIRE_BF16, TO> of
+// attention_common.cuh, the template K3, K4, K5 and K7 instantiate too. One block
 // of two warpgroups per (128 query rows, head, batch item); K, then K and V,
 // stream in 64-key chunks by 16-byte cp.async into a three-stage ring of 8x8
 // core matrices read in place with head strides, so two steps' copies are in
@@ -53,7 +53,7 @@
 // that rounds as rot_pair, and the kernel reads q and k there: each key
 // rotated once, not once per query tile and pass.
 //
-// quant_out (packed_attention_f32out): the bfloat16 kernel (F32OUT) stores
+// quant_out (packed_attention_f32out): the bfloat16 kernel (TO = float) stores
 // the float32 head outputs o * (1/sum) instead of rounding them to bf16 (the
 // TPU kernel keeps them in an f32 VMEM scratch), and the wrapper quantizes each token's
 // whole [w] row — all heads, which no block of this grid owns — with the row
@@ -128,7 +128,7 @@ int packed_attention_f32out(const void* qkv, void* out, int dtype, int B, int S,
                             stream);
   if (bad_args(w, heads, S, s_real, cos, sin)) return (int)cudaErrorInvalidValue;
   const int d = w / heads;
-  return launch_bf16_wgmma<false, true>(packed_heads<__nv_bfloat16>(qkv, out, S, w, d), B, S,
+  return launch_bf16_wgmma<false, float>(packed_heads<__nv_bfloat16>(qkv, out, S, w, d), B, S,
                                         s_real, heads, d, scale, cos, sin, scratch,
                                         static_cast<cudaStream_t>(stream));
 }

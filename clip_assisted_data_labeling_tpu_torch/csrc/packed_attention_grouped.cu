@@ -36,12 +36,13 @@
 // data, so the same values), exponentiates against the final max, sums the
 // float32 p, and accumulates T(p)·V; the epilogue multiplies by 1/sum.
 //
-// bfloat16: exact_wgmma_kernel<DP, false, false> of attention_common.cuh,
-// the template K1, K5 and K10 instantiate too: one block of two warpgroups
-// per (128 query rows, head, batch item); K and V in 64-key chunks by
-// cp.async into a three-stage ring of 8x8 core matrices; Q·K^T on wgmma with
-// K from shared memory, P·V with P in registers and V MN-major through the
-// transpose bit. With RoPE, a pre-pass (rope_prepass_kernel, in
+// bfloat16: exact_wgmma_kernel<DP, false, WIRE_BF16, bf16> of
+// attention_common.cuh, the template K1, K3, K5, K7 and K10 instantiate
+// too: one block of two warpgroups per (128 query rows, head, batch item);
+// K and V in 64-key chunks by cp.async into a three-stage ring of 8x8 core
+// matrices; Q·K^T on wgmma with K from shared memory, P·V with P in
+// registers and V MN-major through the transpose bit. With RoPE, a pre-pass
+// (rope_prepass_kernel, in
 // the same launch of the C entry) writes q·T(scale) rotated and k rotated
 // once into a [B, S, 2w] scratch that the wrapper allocates, with K1's
 // staging code (scale8, rot8), so the values are those K1 rotates; the

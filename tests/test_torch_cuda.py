@@ -200,8 +200,16 @@ def _q8s_inputs(b, s, w, seed, device):
     return qkv.to(device), torch.from_numpy(cs).to(device)
 
 
+# the edges of the shared wgmma template that the int8 wires meet: head dims
+# 96 and 128 (one block an SM at 128), S < 64 (one chunk), s_real = 1, a last
+# query tile whose second warpgroup lies wholly past S (190 = 128 + 62), and
+# three heads of 72 over B = 3 (head slices that start 8 bytes off 16)
+Q8_EDGES = [(1, 200, 200, 192, 2), (1, 130, 130, 256, 2), (2, 40, 40, 144, 2),
+            (1, 33, 1, 128, 2), (2, 190, 170, 144, 2), (3, 100, 100, 216, 3)]
+
+
 @pytest.mark.parametrize("b,s,s_real,w,heads", [
-    (2, 50, 43, 144, 2), (2, 729, 729, 1152, 16), (1, 300, 300, 1024, 16),
+    (2, 50, 43, 144, 2), (2, 729, 729, 1152, 16), (1, 300, 300, 1024, 16), *Q8_EDGES,
 ])
 def test_q8s_attention_kernel_matches_plain(card, b, s, s_real, w, heads):
     qkv, cs = _q8s_inputs(b, s, w, seed=s, device=card)
@@ -559,7 +567,7 @@ def _q8_inputs(b, s, w, seed, device):
 
 @pytest.mark.parametrize("out", ["bfloat16", "float32", "quant_out"])
 @pytest.mark.parametrize("b,s,s_real,w,heads", [
-    (2, 50, 43, 144, 2), (2, 577, 577, 1024, 16), (1, 729, 729, 1152, 16),
+    (2, 50, 43, 144, 2), (2, 577, 577, 1024, 16), (1, 729, 729, 1152, 16), *Q8_EDGES,
 ])
 def test_q8_attention_kernel_matches_plain(card, b, s, s_real, w, heads, out):
     """K7: bf16 and float32 outputs within 2e-2 (K1's bf16 tolerance: the
@@ -582,6 +590,24 @@ def test_q8_attention_kernel_matches_plain(card, b, s, s_real, w, heads, out):
     assert _flips(q[:, :s_real], rq[:, :s_real]) <= 1e-3
     rel = (qs[:, :s_real] / rqs[:, :s_real] - 1).abs()
     assert (rel > 1e-5).float().mean().item() <= 5e-2 and rel.max().item() <= 2.0 ** -8
+
+
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+def test_q8_attention_kernel_long_sequence(card, out):
+    """K7 at S=24000, d=128, past where a block's shared memory could hold
+    the batch item's token scales: they come in a chunk at a time, so it
+    launches, within test_q8_attention_kernel_matches_plain's limit.
+    quant_out's scale limit (within 1e-5 on 95% of the tokens) holds for
+    short sequences only: K1's quant_out misses it at this S as well."""
+    b, s, w, heads = 1, 24000, 128, 1
+    qkv, sc = _q8_inputs(b, s, w, seed=s, device=card)
+    before = fused_attention_packed_q8.launches
+    got = fused_attention_packed_q8(qkv, sc, heads, w ** -0.5, out_dtype=out)
+    torch.cuda.synchronize()
+    assert fused_attention_packed_q8.launches == before + 1
+    ref = fused_attention_packed_q8_plain(qkv, sc, heads, w ** -0.5, out_dtype=out)
+    assert got.dtype == out and got.shape == (b, s, w)
+    assert (got.float() - ref.float()).abs().max().item() <= 2e-2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
