@@ -12,8 +12,8 @@ the JAX package's ``ops/quant_kernel.py``).
     then the dynamic per-row int8 quantize with float32 row scales.
   * ``q_linear_fused`` (K9) replaces ``_kernel`` / ``q_linear_fused``
     (``pallas_call`` at :102) with K6's quantize pass (no layernorm, no
-    activation) and the hand-written int8 tensor-core GEMM of
-    ``csrc/q_linear_fused.cu`` with the dequant + bias epilogue: one K9
+    activation) and the hand-written int8 GEMM of ``csrc/q_linear_fused.cu``
+    (``wgmma`` on a TMA ring) with the dequant + bias epilogue: one K9
     launch per call. ``ops/quant.q_matmul`` runs it under
     ``CTPU_FUSED_QMATMUL=1``.
   * ``q_block_linear`` (K8) replaces ``_block_kernel`` / ``q_block_linear``
@@ -26,8 +26,10 @@ the JAX package's ``ops/quant_kernel.py``).
 
 Each kernel's header says what bounds it on the H100 and how the design
 answers that. Unlike the TPU kernels, K2 and K6 take any row width whose
-float32 row fits shared memory (no K % 128 rule); the GEMM of K9 and K8
-needs K % 16 == 0 on the card. K8 keeps the TPU kernel's two refusals
+float32 row fits shared memory (no K % 128 rule; K6 holds rows of up to
+10240 bf16 values in registers and stages longer ones there); the GEMM of
+K9 and K8 needs K % 16 == 0 and 16-byte aligned int8 operands on the card
+(TMA reads their rows). K8 keeps the TPU kernel's two refusals
 (K % 128 with the layernorm, N % 128 with ``quant_out``) on every device.
 
 ``q_matmul_pre`` was plain XLA in the JAX package and is plain PyTorch here:
@@ -76,7 +78,8 @@ def rowquant_static_plain(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torc
 
 def _check_rows(what: str, x: torch.Tensor) -> None:
     """x must be a contiguous [M, K] float32 or bfloat16 tensor whose float32
-    row fits shared memory (the row kernels hold one there)."""
+    row fits shared memory (K2 holds one there, and so does K6 for rows
+    longer than its registers hold)."""
     if x.dim() != 2 or x.dtype not in _DTYPE_CODE or not x.is_contiguous():
         raise ValueError(
             f"{what} wants a contiguous [M, K] float32 or bfloat16 tensor, got "

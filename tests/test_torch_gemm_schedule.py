@@ -1,0 +1,291 @@
+"""An emulation, in numpy on the CPU, of the schedules of K9's int8 GEMM
+(``csrc/q_linear_fused.cu``, which K8 shares) and of K6's row pass
+(``csrc/rowquant.cu``). The card tests (tests/test_torch_cuda.py) hold the
+kernels themselves; this pins what their schedules compute.
+
+The GEMM: a persistent grid of min(tiles, 132) blocks walks 128 x BN output
+tiles (BN = 256, or 128 where that leaves at least 10% less work on the
+busiest SM) in row-major order, tile t = block + i · grid; each tile sums
+128-byte k slices that TMA copies as whole boxes, zero past K, M and N, with
+the two consumer warpgroups' 64 rows each; the epilogue masks rows past M
+and columns past N and runs ``((f32(acc)·xs)·ws + bias)``, then the
+activation and the residual, each step rounded, as
+``ops/quant._dequant_epilogue`` and the plain versions do, after a shuffle
+among each quad of lanes that gives every lane 8 contiguous columns.
+
+K6's row pass: a group of WPR warps owns a row, lane l holding the row's
+vectors l, l + 32·WPR, ... (8 bf16 or 4 float32 values each); each lane sums
+its values in that order, the warp adds its lanes by the xor butterfly
+(16, 8, 4, 2, 1) and the group adds its warps' totals in warp order; the
+variance pass does the same over fmaf(x − mu, x − mu, s). Against the plain
+version (torch's sums) that order is held at the paths' widths to the card
+checks' limits: int8 ±1 on ≤ 0.1% of entries, row scales within 1e-6."""
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from clip_assisted_data_labeling_tpu_torch.ops.quant import _dequant_epilogue, int_matmul
+from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import (
+    _row_act,
+    q_block_linear_plain,
+    q_linear_fused_plain,
+    rowquant_plain,
+)
+
+# The schedules' constants are read from the kernels' sources, so the
+# emulation follows the kernels
+CSRC = Path(__file__).resolve().parents[1] / "clip_assisted_data_labeling_tpu_torch" / "csrc"
+_GEMM_SRC = (CSRC / "q_linear_fused.cu").read_text()
+_ROWQUANT_SRC = (CSRC / "rowquant.cu").read_text()
+
+
+def _constexpr(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", _GEMM_SRC).group(1))
+
+
+BM, BK = _constexpr("BM"), _constexpr("BK")  # the GEMM's tile rows and k slice (bytes)
+# pick_bn: BN = 128 where PICK_128 · cost(128) <= PICK_256 · cost(256)
+PICK_128, PICK_256 = map(int, re.search(
+    r"return (\d+) \* cost\(128\) <= (\d+) \* cost\(256\) \? 128 : 256;", _GEMM_SRC).groups())
+SMS = 132  # the H100 SXM's SMs (the kernel reads cudaDevAttrMultiProcessorCount)
+# K6's schedules (warps a row, vectors a lane), in the order the kernel tries them
+VEC_SCHEDULES = tuple((int(w), int(n)) for w, n in re.findall(
+    r"X\((\d+), (\d+)\)", re.search(r"#define RQ_VEC_SCHEDULES\(X\) (.*)", _ROWQUANT_SRC).group(1)))
+FLIP_SHARE = 1e-3
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _pick_bn(m: int, n: int) -> int:
+    """The kernel's tile width: 128 where the busiest SM then has at least
+    10% less work (rounds of tiles times BN) than with 256."""
+    def cost(bn):
+        return _cdiv(_cdiv(m, BM) * _cdiv(n, bn), SMS) * bn
+    return 128 if PICK_128 * cost(128) <= PICK_256 * cost(256) else 256
+
+
+def _emulate_gemm(xq: np.ndarray, wq: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The kernel's int32 sums [M, N] and how often each output was written:
+    every block's tiles, every tile's zero-filled k slices, each consumer's
+    64 rows, the epilogue's masks."""
+    m, k = xq.shape
+    n = wq.shape[0]
+    bn = _pick_bn(m, n)
+    n_tiles = _cdiv(n, bn)
+    tiles = _cdiv(m, BM) * n_tiles
+    grid = min(tiles, SMS)
+    acc_out = np.zeros((m, n), np.int64)
+    written = np.zeros((m, n), np.int64)
+
+    def box(a, r0, rows, k0):  # TMA's box: zero past the tensor's ends
+        out = np.zeros((rows, BK), np.int64)
+        part = a[r0:r0 + rows, k0:k0 + BK]
+        out[:part.shape[0], :part.shape[1]] = part
+        return out
+
+    for block in range(grid):
+        for tile in range(block, tiles, grid):
+            m0, n0 = tile // n_tiles * BM, tile % n_tiles * bn
+            acc = np.zeros((BM, bn), np.int64)
+            for kt in range(_cdiv(k, BK)):
+                a, b = box(xq, m0, BM, kt * BK), box(wq, n0, bn, kt * BK)
+                for cw in range(2):  # each consumer warpgroup's 64 rows, k32 at a time
+                    for kk in range(BK // 32):
+                        acc[64 * cw:64 * cw + 64] += (a[64 * cw:64 * cw + 64, 32 * kk:32 * kk + 32]
+                                                      @ b[:, 32 * kk:32 * kk + 32].T)
+            assert np.abs(acc).max(initial=0) < 2 ** 31  # the sums fit int32
+            rows, cols = min(BM, m - m0), min(bn, n - n0)  # the epilogue's masks
+            acc_out[m0:m0 + rows, n0:n0 + cols] = acc[:rows, :cols]
+            written[m0:m0 + rows, n0:n0 + cols] += 1
+    return acc_out, written
+
+
+SHAPES = [
+    (130, 48, 72), (5, 32, 7), (17, 64, 32),   # the card tests' ragged cases
+    (300, 1024, 3072), (257, 4096, 1024),      # ViT-L's products at fewer rows
+    (37, 1152, 4304),                          # SO400M-384's fc1
+]
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_gemm_schedule_writes_each_output_once_with_the_exact_product(m, k, n):
+    rng = np.random.default_rng(m + k + n)
+    xq = rng.integers(-127, 128, (m, k), dtype=np.int8)
+    wq = rng.integers(-127, 128, (n, k), dtype=np.int8)
+    acc, written = _emulate_gemm(xq, wq)
+    assert (written == 1).all()
+    np.testing.assert_array_equal(acc, xq.astype(np.int64) @ wq.astype(np.int64).T)
+    np.testing.assert_array_equal(
+        acc, int_matmul(torch.from_numpy(xq), torch.from_numpy(wq)).numpy())
+
+
+@pytest.mark.parametrize("m,n,bn", [(9232, 3072, 256), (9232, 1024, 128), (18464, 3072, 256),
+                                    (18464, 4096, 256), (18464, 1024, 128), (5, 7, 128)])
+def test_gemm_tile_width_at_the_paths_shapes(m, n, bn):
+    """The tile width at K9's and K8's path shapes: 128 at N = 1024, else 256."""
+    assert _pick_bn(m, n) == bn
+
+
+def test_quad_transpose_gives_each_lane_eight_contiguous_columns():
+    """The epilogue's quad transpose (``quad_transpose``), round by round as
+    the kernel runs it: lane t holds column 8·jj + 2t + e of its row before
+    (a[jj][e]), and column 8t + 2u + e after (a[u][e])."""
+    lanes = np.arange(32)
+    t = lanes & 3
+    a = np.array([[[8 * jj + 2 * ti + e for e in range(2)] for jj in range(4)] for ti in t])
+    b = a.copy()
+    for r in (1, 2, 3):
+        src, k = (t + r) & 3, (t - r) & 3
+        send = a[lanes, k]                 # [32, 2]: this lane's a[k]
+        got = send[(lanes & ~3) | src]     # __shfl_sync from lane (lane & ~3) | src
+        b[lanes, src] = got
+    want = np.array([[[8 * ti + 2 * u + e for e in range(2)] for u in range(4)] for ti in t])
+    np.testing.assert_array_equal(b, want)
+
+
+def _epilogue_f32(acc, xs, ws, bias, act=None, residual=None):
+    """The kernel's epilogue, one float32 rounding a step (numpy float32
+    arithmetic contracts nothing): f32(acc)·xs[m], ·ws[n], + bias[n], then
+    the activation (torch's, as the plain version's) and + residual."""
+    y = acc.astype(np.float32) * xs.reshape(-1, 1)
+    y = y * ws.reshape(1, -1)
+    if bias is not None:
+        y = y + bias.reshape(1, -1)
+    if act is not None:
+        y = _row_act(torch.from_numpy(y), act).numpy()
+    if residual is not None:
+        y = y + residual
+    return y
+
+
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("m,k,n", SHAPES[:4])
+def test_gemm_epilogue_order_matches_dequant_epilogue(m, k, n, out_dtype):
+    """K9: the emulated epilogue on the emulated sums equals, bit for bit,
+    ``_dequant_epilogue`` on ``int_matmul`` and ``q_linear_fused_plain``."""
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.normal(0, 1, (m, k)).astype(np.float32))
+    wq = rng.integers(-127, 128, (n, k), dtype=np.int8)
+    ws = rng.uniform(1e-4, 1e-3, n).astype(np.float32)
+    bias = rng.normal(0, 0.1, n).astype(np.float32)
+    xq, xs = rowquant_plain(x)
+    acc, _ = _emulate_gemm(xq.numpy(), wq)
+    got = torch.from_numpy(_epilogue_f32(acc, xs.numpy(), ws, bias)).to(out_dtype)
+    t_wq = torch.from_numpy(wq)
+    ref = _dequant_epilogue(int_matmul(xq, t_wq), xs, torch.from_numpy(ws),
+                            torch.from_numpy(bias), None, out_dtype)
+    assert torch.equal(got, ref)
+    assert torch.equal(got, q_linear_fused_plain(x, t_wq, torch.from_numpy(ws),
+                                                 torch.from_numpy(bias), out_dtype))
+
+
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu_tanh", "gelu"])
+def test_gemm_epilogue_order_with_activation_and_residual(act):
+    """K8: the activation after the bias and before the residual, the
+    residual added in float32 and the cast last, as ``q_block_linear_plain``."""
+    m, k, n = 130, 128, 256
+    rng = np.random.default_rng(7)
+    xq = rng.integers(-127, 128, (m, k), dtype=np.int8)
+    xs = rng.uniform(0.01, 0.03, (m, 1)).astype(np.float32)
+    wq = rng.integers(-127, 128, (n, k), dtype=np.int8)
+    ws = rng.uniform(1e-4, 1e-3, n).astype(np.float32)
+    bias = rng.normal(0, 0.1, n).astype(np.float32)
+    res = torch.from_numpy(rng.normal(0, 1, (m, n)).astype(np.float32)).to(torch.bfloat16)
+    acc, _ = _emulate_gemm(xq, wq)
+    got = torch.from_numpy(_epilogue_f32(acc, xs, ws, bias, act, res.float().numpy()))
+    ref = q_block_linear_plain(torch.from_numpy(xq), torch.from_numpy(wq), torch.from_numpy(ws),
+                               torch.from_numpy(bias), x_scale=torch.from_numpy(xs),
+                               residual=res, act=act, out_dtype=torch.float32)
+    assert torch.equal(got, ref)
+
+
+# ---- K6: the row pass's layernorm sums -------------------------------------------
+
+def _schedule(k: int, vec: int) -> tuple[int, int]:
+    """(warps a row, vectors a lane) for a row of k values, vec a vector."""
+    nv = k // vec
+    return next((w, l) for w, l in VEC_SCHEDULES if nv <= 32 * w * l)
+
+
+def _fma32(a, b, c):
+    """float32 fmaf through float64 (a·b is exact there; the sum rounds
+    twice, off by an ulp on rare ties)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _group_sum(part: np.ndarray, wpr: int) -> np.ndarray:
+    """part [rows, 32·wpr] lane partials → [rows] as the kernel adds them:
+    the xor butterfly in each warp, then the warps' totals in warp order."""
+    v = part.reshape(part.shape[0], wpr, 32).copy()
+    lanes = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        v = v + v[:, :, lanes ^ o]
+    t = v[:, 0, 0]
+    for w in range(1, wpr):
+        t = t + v[:, w, 0]
+    return t
+
+
+def _emulate_rowquant_ln(x: np.ndarray, gamma, beta, vec: int, eps: float = 1e-5):
+    """K6's layernorm + quantize in the kernel's order: x [rows, K] float32
+    (the bf16 input already widened)."""
+    rows, k = x.shape
+    wpr, loads = _schedule(k, vec)
+    g = 32 * wpr
+    nv = k // vec
+    xv = x.reshape(rows, nv, vec)
+    s = np.zeros((rows, g), np.float32)
+    for i in range(loads):  # lane l's vectors l + i·G, each value in order
+        c = np.arange(g) + i * g
+        ok = c < nv
+        for e in range(vec):
+            s[:, ok] = s[:, ok] + xv[:, c[ok], e]
+    mu = _group_sum(s, wpr) / np.float32(k)
+    s2 = np.zeros((rows, g), np.float32)
+    for i in range(loads):
+        c = np.arange(g) + i * g
+        ok = c < nv
+        for e in range(vec):
+            dv = xv[:, c[ok], e] - mu[:, None]
+            s2[:, ok] = _fma32(dv, dv, s2[:, ok])
+    var = _group_sum(s2, wpr) / np.float32(k)
+    rs = np.float32(1.0) / np.sqrt(var + np.float32(eps))
+    y = (x - mu[:, None]) * rs[:, None]
+    y = y * gamma + beta
+    amax = np.maximum(np.abs(y).max(axis=1), np.float32(1e-8))
+    q = np.clip(np.rint(y * (np.float32(127.0) / amax)[:, None]), -127, 127).astype(np.int8)
+    return q, (amax * np.float32(1.0 / 127.0)).reshape(-1, 1)
+
+
+@pytest.mark.parametrize("dtype,k,rows", [
+    (torch.bfloat16, 1024, 2048),  # ViT-L's ln1 / ln2 (hybrid: [18464, 1024] in bf16)
+    (torch.float32, 1024, 2048),
+    (torch.bfloat16, 1152, 1024),  # SO400M-384's ([23328, 1152])
+    (torch.bfloat16, 4096, 256),   # K8's ln at 4096
+])
+def test_rowquant_ln_sum_order_within_the_card_limits(dtype, k, rows):
+    rng = np.random.default_rng(k)
+    x = torch.from_numpy((rng.normal(0, 1, (rows, k)) * 2).astype(np.float32)).to(dtype)
+    gamma = (1 + 0.1 * rng.normal(0, 1, k)).astype(np.float32)
+    beta = (0.1 * rng.normal(0, 1, k)).astype(np.float32)
+    vec = 16 // x.element_size()
+    q, s = _emulate_rowquant_ln(x.float().numpy(), gamma, beta, vec)
+    rq, rs = rowquant_plain(x, torch.from_numpy(gamma), torch.from_numpy(beta))
+    diff = np.abs(q.astype(np.int32) - rq.numpy().astype(np.int32))
+    assert diff.max() <= 1 and (diff > 0).mean() <= FLIP_SHARE
+    np.testing.assert_allclose(s, rs.numpy(), rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("k,vec,want", [
+    (1024, 8, (1, 4)), (1152, 8, (2, 4)), (4096, 8, (8, 2)), (4304, 8, (8, 4)),
+    (1024, 4, (2, 4)), (4096, 4, (8, 4)), (72, 8, (1, 4)),
+])
+def test_rowquant_schedules_at_the_paths_widths(k, vec, want):
+    """The schedule each width takes (8 bf16 or 4 float32 values a vector):
+    ViT-L's 1024 with one warp a row, no block barrier."""
+    assert _schedule(k, vec) == want
