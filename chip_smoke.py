@@ -13,7 +13,8 @@ Phases (any failure exits nonzero and prints no result line):
      kernels of K1, K4, K5 and K10 at a third of the TF32 rate, their 3xTF32
      products, with the float32 FMA bound beside it): K1 (also with
      PE's RoPE; f32 at ViT-L-14's float32 path; bf16 at S=576 beside
-     ViT-L-14-336's 577, the cost of the one-key tail chunk), K2, K4
+     ViT-L-14-336's 577, the cost of the one-key tail chunk), K2 (also at
+     SO400M-384's [23328, 1152], and with its device time), K4
      (bf16 with RoPE at PE-Core-G14-448's shape, bf16 without RoPE at
      ViT-B-16-SigLIP-512's, f32 at the 336-pixel towers' float32 paths, with PE-Core-L14-336's RoPE
      there; the RoPE rows of K1 and K4 also time the torch rotation + SDPA),
@@ -83,7 +84,20 @@ Phases (any failure exits nonzero and prints no result line):
      with static scales: K1, no K2), ViT-L-14-336 with CTPU_INT8_WIRE=1 (the
      wire: K3, no K1 or K2), SO400M-384 with CTPU_INT8_WIRE=0 (lnk: K5 and
      K2, no K3),
-then print one JSON line listing the kernels, each row with its launches
+ 14. stage 2 (dedup, torch products: no kernel of the table) at N = 262,144
+     embeddings of width 768 from a seed, with planted pairs and a group of
+     40 near-identical rows (k escalates): find_duplicate_pairs over the
+     int8 and the fp16 wire, each timed by part, against a plain float32
+     route on the card — the same pair set, every planted pair, the same
+     overflow rows; the euclidean metric at N = 32,768 likewise,
+ 15. the dedup CLI end to end: six of the PNGs and byte-identical copies of
+     two, embedded by the embed CLI (ViT-L-14-336/openai, bfloat16), then
+     ``python -m ...pipeline.dedup --threshold 0.99 --mode copy`` in its own
+     process (no pandas, matplotlib or JAX imported): the planted pairs
+     found, the pairs equal to the plain route's on the same store, every
+     pair's file groups copied,
+then print one JSON line with phase 14's records, one JSON line listing
+the kernels, each row with its launches
 read from the counter of the main path above that runs its case (0 for a
 shape no path runs; K7, K8, K10 and K5 with RoPE, which no path of the JAX
 package reaches, summed over all of them) and, last, the device line.
@@ -231,39 +245,67 @@ def time_ms(fn, min_reps: int = 10, min_s: float = 0.2) -> float:
 
 
 L2_FLUSH_BYTES = 256 << 20  # five times the H100's 50 MB L2
+TRACE_PAD_S = 0.05  # host idle at each end of a device_ms trace
 
 
-def device_ms(fn, reps: int = 20) -> float:
+def device_ms(fn, reps: int = 20, tries: int = 3) -> float:
     """Milliseconds of device time per call: the kernels that ``reps``
     calls launch, summed from a torch.profiler trace, without the host's
     time between them (a wrapper's checks and allocations, which bound the
-    CUDA-event time of a kernel shorter than them). Before each call a sum
-    over a 256 MB buffer evicts the L2, so each call reads its inputs from
-    HBM as the bound assumes, and leaves no dirty line for the call to
-    write back; the sum's kernels, named from a trace of the sum alone, are
-    left out of the total, and must appear exactly once a call."""
+    CUDA-event time of a kernel shorter than them). Before each call a row
+    sum over a 256 MB buffer evicts the L2, so each call reads its inputs
+    from HBM as the bound assumes; it reduces 1024 floats a row into a
+    256 KB output, a single kernel with no memset (a whole-buffer sum adds
+    a ``Memset (Device)`` entry, a name that any call's memset would
+    share). The sum's kernels, named from a trace of the sum alone, are
+    left out of the total. The profiler keeps only the kernels whose device
+    timestamps, mapped to the host's clock, fall inside its window, and
+    that mapping drifts over a long process: kernels launched just after
+    the window opens were sometimes dropped (the sum alone with no kernel,
+    or 14 of 20 calls, on the H100), so each trace idles ``TRACE_PAD_S``
+    on the host before and after its work. A trace is used only when it is
+    whole: each eviction kernel appears exactly once a call and each of
+    the call's kernels a multiple of ``reps`` times. An inconsistent trace
+    is printed to stderr and taken again, at most ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
 
-    def kernels(prof) -> dict:
+    def counts(work) -> dict:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(TRACE_PAD_S)
+            work()
+            torch.cuda.synchronize()
+            time.sleep(TRACE_PAD_S)
         return {e.key: e for e in prof.key_averages() if e.device_type.name == "CUDA"}
 
-    flush = torch.ones(L2_FLUSH_BYTES // 4, device="cuda")
-    fn()
-    flush.sum()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as alone:
-        flush.sum()
-        torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    flush = torch.ones((L2_FLUSH_BYTES // 4096, 1024), device="cuda")
+    sums = torch.empty(flush.shape[0], device="cuda")
+
+    def evict():
+        torch.sum(flush, 1, out=sums)
+
+    def timed():
         for _ in range(reps):
-            flush.sum()
+            evict()
             fn()
-        torch.cuda.synchronize()
-    skip, got = kernels(alone), kernels(prof)
-    if any(got.get(k) is None or got[k].count != reps * e.count for k, e in skip.items()):
-        fail("device_ms: the L2 flush's kernels also run inside a timed call")
-    total = sum(e.self_device_time_total for k, e in got.items() if k not in skip)
-    del flush
+
+    fn()
+    evict()
+    torch.cuda.synchronize()
+    for attempt in range(1, tries + 1):
+        skip = {k: e.count for k, e in counts(evict).items()}
+        got = counts(timed)
+        seen = {k: e.count for k, e in got.items()}
+        own = {k: c for k, c in seen.items() if k not in skip}
+        if (skip and own and all(seen.get(k) == reps * c for k, c in skip.items())
+                and all(c % reps == 0 for c in own.values())):
+            total = sum(e.self_device_time_total for k, e in got.items() if k in own)
+            break
+        print(f"device_ms: trace {attempt} of {tries} is not whole: the eviction "
+              f"alone {skip}, {reps} calls {seen}", file=sys.stderr, flush=True)
+    else:
+        fail(f"device_ms: no whole trace in {tries} tries (the eviction's kernels also "
+             "run inside a timed call, or the profiler lost records)")
+    del flush, sums
     if total <= 0:
         fail("torch.profiler recorded no device time for a phase-3 kernel")
     return total / reps / 1e3
@@ -283,7 +325,7 @@ def bound(flops: float, peak: float, nbytes: float, fma_peak: float | None = Non
 
 def check_kernels(gen: torch.Generator, pgen: torch.Generator, qgen: torch.Generator,
                   rgen: torch.Generator, sgen: torch.Generator,
-                  tgen: torch.Generator) -> list[dict]:
+                  tgen: torch.Generator, ugen: torch.Generator) -> list[dict]:
     """Phase 3: every kernel against its plain version at the main paths'
     shapes, with times. Launches here are comparisons and are not counted
     (the counters are zeroed before each main path). Each row names, as
@@ -294,7 +336,8 @@ def check_kernels(gen: torch.Generator, pgen: torch.Generator, qgen: torch.Gener
     their inputs from ``pgen``, so that every older row keeps the inputs
     ``gen`` gave it before they were added; rows added after those draw
     from ``qgen``, so that the rows of ``pgen`` keep theirs too, then from
-    ``rgen``, then ``sgen``, and the latest (K6's new rows) from ``tgen``."""
+    ``rgen``, then ``sgen``, K6's newer rows from ``tgen``, and the latest
+    (K2's SO400M-384 row) from ``ugen``. K2's rows also carry ``device_ms``."""
     import torch.nn.functional as F
 
     from clip_assisted_data_labeling_tpu_torch.ops.attention import (
@@ -358,20 +401,28 @@ def check_kernels(gen: torch.Generator, pgen: torch.Generator, qgen: torch.Gener
     rows += check_block_linear(gen)
     rows += check_standalone_attention(gen)
 
-    k = 1024
-    g = 1 + 0.1 * torch.randn((k,), generator=gen, device="cuda")
-    bta = 0.1 * torch.randn((k,), generator=gen, device="cuda")
     amax = torch.tensor([6.0], device="cuda")
     inv = torch.tensor(127.0) / amax
-    # PE-Core-L14-336 int8_static's rows, then the CLI's 64-crop forwards'
-    for m, path in ((4 * BATCH * 577, ("pe", "K2")), (64 * 577, None)):
-        x = (torch.randn((m, k), generator=gen, device="cuda") * 2).to(torch.bfloat16)
+    # PE-Core-L14-336 int8_static's rows and the CLI's 64-crop forwards' (one
+    # warp a row), then (from ugen) SO400M-384's under CTPU_INT8_WIRE=0 (two)
+    k2_ln = {}
+    for m, k, path, rg in ((4 * BATCH * 577, 1024, ("pe", "K2"), gen),
+                           (64 * 577, 1024, None, gen),
+                           (4 * BATCH * 729, 1152, ("so400m_wire0", "K2"), ugen)):
+        if k not in k2_ln or rg is not gen:
+            k2_ln[k] = (1 + 0.1 * torch.randn((k,), generator=rg, device="cuda"),
+                        0.1 * torch.randn((k,), generator=rg, device="cuda"))
+        g, bta = k2_ln[k]
+        x = (torch.randn((m, k), generator=rg, device="cuda") * 2).to(torch.bfloat16)
         diff = (rowquant_static(x, g, bta, amax).int()
                 - rowquant_static_plain(x, g, bta, amax).int()).abs()
 
         def library():
             y = F.layer_norm(x.float(), (k,), g, bta, 1e-5)
             return torch.clamp(torch.round(y * inv), -127, 127).to(torch.int8)
+
+        def call():
+            return rowquant_static(x, g, bta, amax)
 
         nbytes = m * k * (x.element_size() + 1) + 2 * k * 4
         flops = 10.0 * m * k
@@ -380,15 +431,16 @@ def check_kernels(gen: torch.Generator, pgen: torch.Generator, qgen: torch.Gener
             "case": f"bfloat16 [{m},{k}]", "path": path, "max_abs_err": diff.max().item(),
             "tol": 1,
             "flip_share": (diff > 0).float().mean().item(),
-            "ms": time_ms(lambda: rowquant_static(x, g, bta, amax)),
+            "ms": time_ms(call), "device_ms": device_ms(call),
             "plain_ms": time_ms(lambda: rowquant_static_plain(x, g, bta, amax)),
             "library_ms": time_ms(library),
             **bound(flops, H100_F32_FLOPS, nbytes),
         }
         rows.append(row)
         print(f"K2 {row['case']}: max |diff| {row['max_abs_err']} on {row['flip_share']:.2e} "
-              f"of entries, kernel {row['ms']:.3f} ms plain {row['plain_ms']:.3f} "
-              f"ln+quant {row['library_ms']:.3f} bound {row['bound_ms']:.4f} ms", flush=True)
+              f"of entries, kernel {row['ms']:.3f} ms (device {row['device_ms']:.4f}) plain "
+              f"{row['plain_ms']:.3f} ln+quant {row['library_ms']:.3f} bound "
+              f"{row['bound_ms']:.4f} ms", flush=True)
         if row["flip_share"] > 1e-3:
             fail(f"rowquant_static {row['case']}: ±1 flips on {row['flip_share']:.2e} of "
                  "entries (> 1e-3)")
@@ -1359,6 +1411,199 @@ def knob_routes(l336: dict, so400m: dict, cfg, scfg) -> list[dict]:
     return runs
 
 
+DEDUP_N, DEDUP_D = 262144, 768  # ViT-L-14-336's embedding width
+DEDUP_PAIRS, DEDUP_GROUP = 400, 40
+
+
+def plain_pairs(emb: np.ndarray, threshold: float, euclidean: bool,
+                b: int = 8192) -> set:
+    """The plain route of stage 2 on the card: float32 ``torch.matmul``
+    tiles (TF32 off) of the normalized embeddings over the upper triangle,
+    every pair above ``threshold`` − 1e-4 a candidate, then the port's host
+    recheck (``_exact_metric_host``, kept above threshold − THRESHOLD_SLACK).
+    Returns the set of (i, j)."""
+    from clip_assisted_data_labeling_tpu_torch.ops.similarity import (
+        THRESHOLD_SLACK,
+        _exact_metric_host,
+        normalize_rows,
+    )
+
+    normed = normalize_rows(emb)
+    x = torch.from_numpy(normed).cuda()
+    n = len(x)
+    rows, cols = [], []
+    for r0 in range(0, n, b):
+        for c0 in range(r0, n, b):
+            sim = torch.matmul(x[r0:r0 + b], x[c0:c0 + b].t())
+            metric = torch.sqrt(torch.clamp(2.0 - 2.0 * sim, min=0.0)) if euclidean else sim
+            hit = metric > threshold - 1e-4
+            if c0 == r0:
+                hit = torch.triu(hit, diagonal=1)
+            i, j = hit.nonzero(as_tuple=True)
+            rows.append((i + r0).cpu().numpy())
+            cols.append((j + c0).cpu().numpy())
+    rows, cols = np.concatenate(rows), np.concatenate(cols)
+    keep = _exact_metric_host(normed, rows, cols, euclidean) > threshold - THRESHOLD_SLACK
+    return set(zip(rows[keep].tolist(), cols[keep].tolist()))
+
+
+def dedup_at_scale() -> list[dict]:
+    """Phase 14: stage 2 at a real size. N = DEDUP_N embeddings of width
+    DEDUP_D from a seeded generator on the card, with DEDUP_PAIRS planted
+    pairs at cosine ~0.999 and one group of DEDUP_GROUP near-identical rows
+    (39 matches a row > max_pairs_per_row = 16: k escalates). At threshold
+    0.96 random rows stay far below (cosine std ~0.036), so the pair set is
+    the planted one. ``find_duplicate_pairs`` on the card over the int8 and
+    the fp16 wire, each timed (host preparation and upload, scan, extract
+    with the recheck), against the plain route; then the euclidean metric
+    at N = 32768 (its most dissimilar pairs) over both wires against the
+    plain route. Fails unless the sets are identical, every planted pair is
+    found and the wires' overflow rows agree. Returns one record a run."""
+    from clip_assisted_data_labeling_tpu_torch.ops.similarity import find_duplicate_pairs
+    from clip_assisted_data_labeling_tpu_torch.utils.timer import StageTimer
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    emb = torch.randn((DEDUP_N, DEDUP_D), generator=gen, device="cuda")
+    perm = torch.randperm(DEDUP_N, generator=gen, device="cuda").cpu().numpy()
+    group = np.sort(perm[:DEDUP_GROUP])
+    src = perm[DEDUP_GROUP:DEDUP_GROUP + DEDUP_PAIRS]
+    dst = perm[DEDUP_GROUP + DEDUP_PAIRS:DEDUP_GROUP + 2 * DEDUP_PAIRS]
+    emb[torch.from_numpy(dst).cuda()] = emb[torch.from_numpy(src).cuda()] + 0.05 * torch.randn(
+        (DEDUP_PAIRS, DEDUP_D), generator=gen, device="cuda")
+    emb[torch.from_numpy(group).cuda()] = emb[int(group[0])] + 0.01 * torch.randn(
+        (DEDUP_GROUP, DEDUP_D), generator=gen, device="cuda")
+    emb = emb.cpu().numpy()
+    planted = {(min(a, b), max(a, b)) for a, b in zip(src.tolist(), dst.tolist())}
+    planted |= {(int(a), int(b)) for i, a in enumerate(group) for b in group[i + 1:]}
+
+    # warm cuBLAS and the allocator at a small size, outside the timed runs
+    find_duplicate_pairs(emb[:20000], threshold=0.96)
+    records, results = [], {}
+    for wire in ("int8", "fp16"):
+        timer = StageTimer()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = find_duplicate_pairs(emb, threshold=0.96, wire=wire, timer=timer)
+        total = time.perf_counter() - t0
+        results[wire] = res
+        rec = {"stage": "dedup", "metric": "cosine", "n": DEDUP_N, "d": DEDUP_D, "wire": wire,
+               "seconds": total, **{f"{k}_s": v for k, v in timer.totals.items()},
+               "embeddings_per_s": DEDUP_N / total, "pairs": len(res.rows),
+               "overflow_rows": len(res.overflow_rows),
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        records.append(rec)
+        print(f"stage 2 {wire} wire, N={DEDUP_N} D={DEDUP_D}: {total:.3f} s = "
+              f"{DEDUP_N / total:,.0f} embeddings/s (prepare and upload "
+              f"{rec['prepare_s']:.3f} s, scan {rec['scan_s']:.3f} s, extract and recheck "
+              f"{rec.get('extract_s', 0.0):.3f} s); {rec['pairs']} pairs, "
+              f"{rec['overflow_rows']} overflow rows", flush=True)
+    t0 = time.perf_counter()
+    plain = plain_pairs(emb, 0.96, False)
+    print(f"stage 2 plain f32 route: {len(plain)} pairs in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    sets = {w: set(zip(r.rows.tolist(), r.cols.tolist())) for w, r in results.items()}
+    if not (sets["int8"] == sets["fp16"] == plain):
+        fail(f"stage 2: the pair sets differ (int8 {len(sets['int8'])}, fp16 "
+             f"{len(sets['fp16'])}, plain {len(plain)})")
+    if not planted <= plain:
+        fail(f"stage 2: {len(planted - plain)} planted pairs not found")
+    if not (np.array_equal(results["int8"].overflow_rows, results["fp16"].overflow_rows)
+            and len(results["int8"].overflow_rows) > 0):
+        fail("stage 2: the wires' overflow rows differ, or k did not escalate")
+    print(f"stage 2: int8 = fp16 = plain ({len(plain)} pairs, all {len(planted)} planted "
+          f"found, {len(plain - planted)} others), overflow rows "
+          f"{len(results['int8'].overflow_rows)} on both wires", flush=True)
+
+    sub = emb[:32768]
+    ref = plain_pairs(sub, 1.52, True)
+    for wire in ("int8", "fp16"):
+        t0 = time.perf_counter()
+        res = find_duplicate_pairs(sub, threshold=1.52, sim_type="euclidean", wire=wire)
+        dt = time.perf_counter() - t0
+        got = set(zip(res.rows.tolist(), res.cols.tolist()))
+        records.append({"stage": "dedup", "metric": "euclidean", "n": len(sub), "d": DEDUP_D,
+                        "wire": wire, "seconds": dt, "embeddings_per_s": len(sub) / dt,
+                        "pairs": len(got)})
+        print(f"stage 2 euclidean {wire} wire, N={len(sub)}: {len(got)} pairs (plain "
+              f"{len(ref)}) in {dt:.3f} s", flush=True)
+        if got != ref or not got:
+            fail(f"stage 2 euclidean {wire}: {len(got)} pairs, the plain route {len(ref)}")
+    del emb
+    return records
+
+
+def dedup_cli(root: str) -> dict:
+    """Phase 15: the dedup CLI end to end on the card. Six of the PNGs and
+    byte-identical copies of two of them in a fresh directory, embedded by
+    the embed CLI (ViT-L-14-336/openai, bfloat16; counters zeroed before and
+    read after), then ``python -m ...pipeline.dedup --threshold 0.99 --mode
+    copy`` in a process of its own (``-X importtime``: neither pandas nor
+    matplotlib may be imported). Fails unless the planted pairs are found,
+    the pairs its copies name equal the plain route's on the same store
+    (random-weight towers make a narrow cone, so other pairs may pass too),
+    and every pair's file groups are in near_duplicates_cosine_0.99. Returns
+    the embed's launch counts."""
+    from clip_assisted_data_labeling_tpu_torch.config import DedupConfig
+    from clip_assisted_data_labeling_tpu_torch.pipeline.dedup import load_embeddings
+    from clip_assisted_data_labeling_tpu_torch.pipeline.embed import main as embed_main
+
+    base = tempfile.mkdtemp(prefix="chip_smoke_dedup_")
+    try:
+        droot = os.path.join(base, "mydata")
+        os.makedirs(droot)
+        for i in range(6):
+            shutil.copy(os.path.join(root, f"img_{i:03d}.png"), droot)
+        shutil.copy(os.path.join(root, "img_001.png"), os.path.join(droot, "zz_copy_a.png"))
+        shutil.copy(os.path.join(root, "img_004.png"), os.path.join(droot, "zz_copy_b.png"))
+        reset_counts()
+        embed_main(["--root_dir", droot, "--models_to_use", MODEL, "--compute_dtype",
+                    "bfloat16", "--batch_size", str(BATCH), "--num_workers", "4",
+                    "--device", "cuda"])
+        torch.cuda.synchronize()
+        embed_counts = counts()
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-X", "importtime", "-m",
+             "clip_assisted_data_labeling_tpu_torch.pipeline.dedup", "--root_dir", droot,
+             "--threshold", "0.99", "--mode", "copy"],
+            capture_output=True, text=True, timeout=600, cwd=os.path.dirname(
+                os.path.abspath(__file__)))
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"dedup CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+        imported = {ln.split("|")[-1].strip().split(".")[0] for ln in proc.stderr.splitlines()
+                    if ln.startswith("import time:")}
+        if imported & {"pandas", "matplotlib", "jax"}:
+            fail(f"the dedup CLI imported {sorted(imported & {'pandas', 'matplotlib', 'jax'})}")
+        outdir = os.path.join(base, "near_duplicates_cosine_0.99")
+        found: dict[int, dict[str, set]] = {}  # pair → role → file group
+        for f in os.listdir(outdir) if os.path.isdir(outdir) else []:
+            _sim, idx, role, name = f.split("_", 3)
+            found.setdefault(int(idx), {}).setdefault(role, set()).add(name)
+        # each image's group is its PNG and its sidecar
+        groups_ok = all(
+            set(p) == {"source", "target"}
+            and all(len(g) == 2 and {os.path.splitext(n)[1] for n in g} == {".png", ".pt"}
+                    and len({os.path.splitext(n)[0] for n in g}) == 1 for g in p.values())
+            for p in found.values())
+        pairs = {frozenset(n for g in p.values() for n in g if n.endswith(".png"))
+                 for p in found.values()}
+        paths, emb = load_embeddings(droot, DedupConfig())
+        names = [os.path.basename(p) for p in paths]
+        plain = {frozenset((names[i], names[j])) for i, j in plain_pairs(emb, 0.99, False)}
+        planted = {frozenset(("img_001.png", "zz_copy_a.png")),
+                   frozenset(("img_004.png", "zz_copy_b.png"))}
+        print(f"dedup CLI on {len(paths)} images ({wall:.2f} s, its own process): "
+              f"{proc.stdout.strip().splitlines()[-2:]}; pairs {sorted(map(sorted, pairs))}; "
+              f"plain route {len(plain)} pairs; embed launches {embed_counts}", flush=True)
+        if not (planted <= pairs and pairs == plain and groups_ok):
+            fail(f"dedup CLI: pairs {pairs}, plain route {plain}, planted {planted}")
+        return embed_counts
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
 # mangled builtin types and classes a kernel's template arguments name
 MANGLED_TYPES = {"f": "f32", "a": "i8", "__nv_bfloat16": "bf16"}
 
@@ -1459,7 +1704,7 @@ def main() -> None:
     # --- phase 3: kernels against their plain versions ----------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = check_kernels(gen, *(torch.Generator(device="cuda").manual_seed(i)
-                                for i in (1, 2, 3, 4, 5)))
+                                for i in (1, 2, 3, 4, 5, 6)))
     quant_out_long_sequences()
     torch.cuda.empty_cache()
 
@@ -1506,6 +1751,11 @@ def main() -> None:
         # --- phase 13: the int8_static routes of CTPU_LN_KERNEL and CTPU_INT8_WIRE
         routes = knob_routes(l336, so400m, cfg, scfg)
 
+        # --- phases 14-15: stage 2 (no kernel of the table: torch products)
+        # at N = 262144, then the dedup CLI end to end on embedded PNGs
+        dedup_records = dedup_at_scale()
+        dedup_embed = dedup_cli(root)
+
     # each row's launches: the counter its ``path`` names, read from that
     # main path; "all" (the kernels no path of the JAX package reaches) sums
     # the counter over every main path; None (a shape no path runs) is 0
@@ -1515,7 +1765,7 @@ def main() -> None:
              "pe": pe["launches"],
              "pe_f32": pe_f32, "g14": g14, "l336_ln0": routes[0], "l336_wire": routes[1],
              "so400m_wire0": routes[2]}
-    every = [*paths.values(), *dyn_routes[:-1], pe_bf16]
+    every = [*paths.values(), *dyn_routes[:-1], pe_bf16, dedup_embed]
 
     def path_launches(path) -> int:
         if path is None:
@@ -1525,6 +1775,7 @@ def main() -> None:
 
     rows = [dict(r, path=r["path"] and "/".join(r["path"]), launches=path_launches(r["path"]))
             for r in rows]
+    print(json.dumps({"dedup": dedup_records}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 """Shared constants and the stage-1 config (port of the JAX package's
 ``config.py``: the crop names and aliases, CLIP and SigLIP normalization, image
-extensions and ``EmbedConfig``)."""
+extensions, the label database's columns, ``EmbedConfig`` and
+``DedupConfig``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -27,6 +28,9 @@ SIGLIP_STD = (0.5, 0.5, 0.5)
 
 IMG_EXTENSIONS = (".png", ".jpg", ".jpeg", ".JPEG", ".JPG", ".PNG")
 
+# The label database's columns (store/database.py), in the reference's order.
+DB_COLUMNS = ("uuid", "label", "timestamp", "predicted_label")
+
 
 @dataclasses.dataclass(frozen=True)
 class EmbedConfig:
@@ -51,3 +55,21 @@ class EmbedConfig:
     # anything else = an explicit npz path
     calibration: str = "auto"
     device: str = "cuda"
+
+
+@dataclasses.dataclass(frozen=True)
+class DedupConfig:
+    """Stage-2 near-duplicate removal (same fields and defaults as the JAX
+    package's ``DedupConfig``; the device is ``run_dedup``'s argument)."""
+
+    threshold: float = 0.96
+    mode: str = "copy"  # copy | move
+    sim_type: str = "cosine"  # cosine | euclidean
+    clip_model_to_use: str | None = None
+    crop_to_use: str = CROP_SQUARE_PADDED
+    chunk_size: int = 0  # accepted for the reference CLI; the search is global
+    test: bool = False
+    max_pairs_per_row: int = 16  # the extract pass's per-row capacity floor
+    # on-device embedding format: int8 (half the host-to-device bytes; exact
+    # pair set through the float32 host recheck) or fp16 (the reference's)
+    wire: str = "int8"

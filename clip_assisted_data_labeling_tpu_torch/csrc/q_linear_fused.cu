@@ -63,8 +63,7 @@
 // once for both rows, and write 8 outputs a store; otherwise they go a
 // column pair at a time. The activation and the residual are compiled in
 // only where asked for. The wgmma and mbarrier helpers are this file's own:
-// attention_common.cuh's define to_f as rowquant_common.cuh does, and K2's
-// header stays as it is.
+// attention_common.cuh's define to_f as rowquant_common.cuh does.
 
 #include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
 

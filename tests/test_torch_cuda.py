@@ -154,7 +154,11 @@ def test_grouped_wrapper_refuses_bad_inputs(card):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k", [(18, 128), (577, 1024), (300, 4096)])
+@pytest.mark.parametrize("m,k", [(18, 128), (577, 1024), (300, 4096),
+                                 # SO400M-384's rows (two warps a row); rows of 8 bf16 or
+                                 # 4 f32 values short of a 16-byte vector, and past the
+                                 # registers: the staged kernel
+                                 (301, 1152), (65, 1001), (9, 10240)])
 def test_rowquant_static_kernel_matches_plain(card, dtype, m, k):
     x = (_normal((m, k), seed=k) * 2).to(card, dtype)
     g = (1 + 0.1 * _normal((k,), seed=1)).to(card)

@@ -1,6 +1,6 @@
 """An emulation, in numpy on the CPU, of the schedules of K9's int8 GEMM
-(``csrc/q_linear_fused.cu``, which K8 shares) and of K6's row pass
-(``csrc/rowquant.cu``). The card tests (tests/test_torch_cuda.py) hold the
+(``csrc/q_linear_fused.cu``, which K8 shares) and of the row pass of K6
+and K2 (``csrc/rowquant_common.cuh``). The card tests (tests/test_torch_cuda.py) hold the
 kernels themselves; this pins what their schedules compute.
 
 The GEMM: a persistent grid of min(tiles, 132) blocks walks 128 x BN output
@@ -17,8 +17,9 @@ K6's row pass: a group of WPR warps owns a row, lane l holding the row's
 vectors l, l + 32·WPR, ... (8 bf16 or 4 float32 values each); each lane sums
 its values in that order, the warp adds its lanes by the xor butterfly
 (16, 8, 4, 2, 1) and the group adds its warps' totals in warp order; the
-variance pass does the same over fmaf(x − mu, x − mu, s). Against the plain
-version (torch's sums) that order is held at the paths' widths to the card
+variance pass does the same over fmaf(x − mu, x − mu, s). K2 runs the same
+pass with a static amax (no floor, no row scales). Against the plain
+versions (torch's sums) that order is held at the paths' widths to the card
 checks' limits: int8 ±1 on ≤ 0.1% of entries, row scales within 1e-6."""
 import re
 from pathlib import Path
@@ -33,13 +34,15 @@ from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import (
     q_block_linear_plain,
     q_linear_fused_plain,
     rowquant_plain,
+    rowquant_static_plain,
 )
 
 # The schedules' constants are read from the kernels' sources, so the
 # emulation follows the kernels
 CSRC = Path(__file__).resolve().parents[1] / "clip_assisted_data_labeling_tpu_torch" / "csrc"
 _GEMM_SRC = (CSRC / "q_linear_fused.cu").read_text()
-_ROWQUANT_SRC = (CSRC / "rowquant.cu").read_text()
+# K6's and K2's row pass (rowquant_common.cuh, which both sources launch)
+_ROWQUANT_SRC = (CSRC / "rowquant_common.cuh").read_text()
 
 
 def _constexpr(name: str) -> int:
@@ -51,7 +54,7 @@ BM, BK = _constexpr("BM"), _constexpr("BK")  # the GEMM's tile rows and k slice 
 PICK_128, PICK_256 = map(int, re.search(
     r"return (\d+) \* cost\(128\) <= (\d+) \* cost\(256\) \? 128 : 256;", _GEMM_SRC).groups())
 SMS = 132  # the H100 SXM's SMs (the kernel reads cudaDevAttrMultiProcessorCount)
-# K6's schedules (warps a row, vectors a lane), in the order the kernel tries them
+# the row pass's schedules (warps a row, vectors a lane), in the order it tries them
 VEC_SCHEDULES = tuple((int(w), int(n)) for w, n in re.findall(
     r"X\((\d+), (\d+)\)", re.search(r"#define RQ_VEC_SCHEDULES\(X\) (.*)", _ROWQUANT_SRC).group(1)))
 FLIP_SHARE = 1e-3
@@ -206,10 +209,11 @@ def test_gemm_epilogue_order_with_activation_and_residual(act):
 
 # ---- K6: the row pass's layernorm sums -------------------------------------------
 
-def _schedule(k: int, vec: int) -> tuple[int, int]:
-    """(warps a row, vectors a lane) for a row of k values, vec a vector."""
+def _schedule(k: int, vec: int) -> tuple[int, int] | None:
+    """(warps a row, vectors a lane) for a row of k values, vec a vector;
+    None for a row past every schedule (the staged kernels take it)."""
     nv = k // vec
-    return next((w, l) for w, l in VEC_SCHEDULES if nv <= 32 * w * l)
+    return next(((w, l) for w, l in VEC_SCHEDULES if nv <= 32 * w * l), None)
 
 
 def _fma32(a, b, c):
@@ -231,9 +235,11 @@ def _group_sum(part: np.ndarray, wpr: int) -> np.ndarray:
     return t
 
 
-def _emulate_rowquant_ln(x: np.ndarray, gamma, beta, vec: int, eps: float = 1e-5):
+def _emulate_rowquant_ln(x: np.ndarray, gamma, beta, vec: int, eps: float = 1e-5,
+                         amax=None):
     """K6's layernorm + quantize in the kernel's order: x [rows, K] float32
-    (the bf16 input already widened)."""
+    (the bf16 input already widened). With ``amax`` (K2, the static mode):
+    that scale for every row, no floor, and no row scales (None)."""
     rows, k = x.shape
     wpr, loads = _schedule(k, vec)
     g = 32 * wpr
@@ -257,35 +263,59 @@ def _emulate_rowquant_ln(x: np.ndarray, gamma, beta, vec: int, eps: float = 1e-5
     rs = np.float32(1.0) / np.sqrt(var + np.float32(eps))
     y = (x - mu[:, None]) * rs[:, None]
     y = y * gamma + beta
+    if amax is not None:
+        q = np.clip(np.rint(y * (np.float32(127.0) / np.float32(amax))), -127, 127)
+        return q.astype(np.int8), None
     amax = np.maximum(np.abs(y).max(axis=1), np.float32(1e-8))
     q = np.clip(np.rint(y * (np.float32(127.0) / amax)[:, None]), -127, 127).astype(np.int8)
     return q, (amax * np.float32(1.0 / 127.0)).reshape(-1, 1)
 
 
-@pytest.mark.parametrize("dtype,k,rows", [
-    (torch.bfloat16, 1024, 2048),  # ViT-L's ln1 / ln2 (hybrid: [18464, 1024] in bf16)
-    (torch.float32, 1024, 2048),
-    (torch.bfloat16, 1152, 1024),  # SO400M-384's ([23328, 1152])
-    (torch.bfloat16, 4096, 256),   # K8's ln at 4096
+@pytest.mark.parametrize("dtype,k,rows,kernel", [
+    # K6: ViT-L's ln1 / ln2 (hybrid: [18464, 1024] in bf16)
+    pytest.param(torch.bfloat16, 1024, 2048, "K6", id="dtype0-1024-2048"),
+    pytest.param(torch.float32, 1024, 2048, "K6", id="dtype1-1024-2048"),
+    # SO400M-384's ([23328, 1152])
+    pytest.param(torch.bfloat16, 1152, 1024, "K6", id="dtype2-1152-1024"),
+    pytest.param(torch.bfloat16, 4096, 256, "K6", id="dtype3-4096-256"),  # K8's ln at 4096
+    # K2 (static scale): int8_static's lnk rows of ViT-L-14-336 and PE-L14
+    # ([18464, 1024] bf16, one warp a row), SO400M-384 under CTPU_INT8_WIRE=0
+    # ([23328, 1152], two warps), and 1024 in float32 (two warps)
+    pytest.param(torch.bfloat16, 1024, 2048, "K2", id="K2-bf16-1024-2048"),
+    pytest.param(torch.bfloat16, 1152, 1024, "K2", id="K2-bf16-1152-1024"),
+    pytest.param(torch.float32, 1024, 2048, "K2", id="K2-f32-1024-2048"),
 ])
-def test_rowquant_ln_sum_order_within_the_card_limits(dtype, k, rows):
+def test_rowquant_ln_sum_order_within_the_card_limits(dtype, k, rows, kernel):
     rng = np.random.default_rng(k)
     x = torch.from_numpy((rng.normal(0, 1, (rows, k)) * 2).astype(np.float32)).to(dtype)
     gamma = (1 + 0.1 * rng.normal(0, 1, k)).astype(np.float32)
     beta = (0.1 * rng.normal(0, 1, k)).astype(np.float32)
     vec = 16 // x.element_size()
-    q, s = _emulate_rowquant_ln(x.float().numpy(), gamma, beta, vec)
-    rq, rs = rowquant_plain(x, torch.from_numpy(gamma), torch.from_numpy(beta))
+    g, b = torch.from_numpy(gamma), torch.from_numpy(beta)
+    if kernel == "K2":  # the card tests' static scale
+        q, _ = _emulate_rowquant_ln(x.float().numpy(), gamma, beta, vec, amax=6.0)
+        rq = rowquant_static_plain(x, g, b, torch.tensor([6.0]))
+    else:
+        q, s = _emulate_rowquant_ln(x.float().numpy(), gamma, beta, vec)
+        rq, rs = rowquant_plain(x, g, b)
+        np.testing.assert_allclose(s, rs.numpy(), rtol=1e-6, atol=0)
     diff = np.abs(q.astype(np.int32) - rq.numpy().astype(np.int32))
     assert diff.max() <= 1 and (diff > 0).mean() <= FLIP_SHARE
-    np.testing.assert_allclose(s, rs.numpy(), rtol=1e-6, atol=0)
 
 
 @pytest.mark.parametrize("k,vec,want", [
     (1024, 8, (1, 4)), (1152, 8, (2, 4)), (4096, 8, (8, 2)), (4304, 8, (8, 4)),
     (1024, 4, (2, 4)), (4096, 4, (8, 4)), (72, 8, (1, 4)),
+    # past every schedule: bf16 past 8192 and f32 past 4096 are staged
+    (8200, 8, None), (4100, 4, None),
 ])
 def test_rowquant_schedules_at_the_paths_widths(k, vec, want):
     """The schedule each width takes (8 bf16 or 4 float32 values a vector):
-    ViT-L's 1024 with one warp a row, no block barrier."""
+    ViT-L's 1024 with one warp a row, no block barrier. K6 and K2 take the
+    same table: both launch through ``launch_rows_vec``, K2 in its static
+    mode, and stage only what it refuses."""
     assert _schedule(k, vec) == want
+    for src, mode in (("rowquant.cu", "false"), ("rowquant_static.cu", "true")):
+        text = (CSRC / src).read_text()
+        assert re.search(rf"launch_rows_vec<T, \w+, {mode}>\(", text), src
+        assert "kNoSchedule" in text and "#define RQ_VEC_SCHEDULES" not in text, src

@@ -93,6 +93,27 @@ def test_chip_smoke_refuses_without_card():
     assert '"ok": true' not in out.stdout
 
 
+def test_dedup_path_imports_no_pandas_or_matplotlib(tmp_path):
+    """The card's machine lists neither: the dedup CLI, the label database
+    and the plot module (matplotlib only inside a plot call) import none of
+    them, and nothing of JAX."""
+    code = (
+        "import sys\n"
+        f"from {PORT}.pipeline import dedup\n"
+        f"from {PORT}.store import database\n"
+        f"from {PORT}.utils import plots\n"
+        f"dedup.main(['--root_dir', {str(tmp_path)!r}, '--device', 'cpu'])\n"
+        f"database.LabelDatabase.load_or_create({str(tmp_path)!r}).save()\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('pandas', 'matplotlib', 'jax')))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
+
+
 def test_unported_cli_options_refused(tmp_path):
     from clip_assisted_data_labeling_tpu_torch.pipeline.embed import main
 
