@@ -13,7 +13,8 @@ Phases (any failure exits nonzero and prints no result line):
      kernels of K1, K4, K5 and K10 at a third of the TF32 rate, their 3xTF32
      products, with the float32 FMA bound beside it): K1 (also with
      PE's RoPE; f32 at ViT-L-14's float32 path; bf16 at S=576 beside
-     ViT-L-14-336's 577, the cost of the one-key tail chunk), K2 (also at
+     ViT-L-14-336's 577, the cost of the one-key tail chunk; bf16 at the
+     single-image scorer's [4, 577, 3072]), K2 (also at
      SO400M-384's [23328, 1152], and with its device time), K4
      (bf16 with RoPE at PE-Core-G14-448's shape, bf16 without RoPE at
      ViT-B-16-SigLIP-512's, f32 at the 336-pixel towers' float32 paths, with PE-Core-L14-336's RoPE
@@ -96,8 +97,30 @@ Phases (any failure exits nonzero and prints no result line):
      process (no pandas, matplotlib or JAX imported): the planted pairs
      found, the pairs equal to the plain route's on the same store, every
      pair's file groups copied,
-then print one JSON line with phase 14's records, one JSON line listing
-the kernels, each row with its launches
+ 16. stage 4 at the reference's label-set size: 9,400 rows of width 768 x 2
+     crops in a float16 store, labelled 0-9 from a latent the crops carry;
+     the train CLI on the card in the default configuration (hidden 264,
+     128, 64, dropout 0.5, batch 16, 60 epochs): seconds, steps/s, and a
+     test MSE under half the dummy baseline's; then the same initial
+     regressor without dropout for 3 epochs on the card and on the CPU in
+     the same permutations: parameters within 1e-5,
+ 17. the predict CLI, each wire (float16, float32, int8) in a process of its
+     own (no pandas or JAX imported, matplotlib optional), at N = 131,072
+     rows of a float16 store of ViT-L-14-336 (4 crops of 768; two of
+     predict's 65,536-row chunks), with phase 16's checkpoint: every row in
+     the CSV, the .json writeback, the seeded preview copies, the scores
+     within 1e-5 of the same wire computed on the CPU; rows/s split into
+     store gather, forward and side effects,
+ 18. the single-image scorer: the predict_simple CLI on four of phase 15's
+     PNGs with phase 16's checkpoint, its ViT-L-14-336 encoder in bfloat16
+     (K1 exactly 24 times an image, no other kernel), scores in [0, 1] and
+     score-named copies; each image's features within 1e-3 in cosine of the
+     crops phase 15's embed CLI wrote for the same file,
+ 19. the subset CLI on phase 17's directory with a score range: the copied
+     files exactly the plain version's (rescaled human labels, predictions,
+     the aspect and pixel gates on each JPEG header's size),
+then print one JSON line with phase 14's records, one with phases 16-19's,
+one JSON line listing the kernels, each row with its launches
 read from the counter of the main path above that runs its case (0 for a
 shape no path runs; K7, K8, K10 and K5 with RoPE, which no path of the JAX
 package reaches, summed over all of them) and, last, the device line.
@@ -325,7 +348,8 @@ def bound(flops: float, peak: float, nbytes: float, fma_peak: float | None = Non
 
 def check_kernels(gen: torch.Generator, pgen: torch.Generator, qgen: torch.Generator,
                   rgen: torch.Generator, sgen: torch.Generator,
-                  tgen: torch.Generator, ugen: torch.Generator) -> list[dict]:
+                  tgen: torch.Generator, ugen: torch.Generator,
+                  vgen: torch.Generator) -> list[dict]:
     """Phase 3: every kernel against its plain version at the main paths'
     shapes, with times. Launches here are comparisons and are not counted
     (the counters are zeroed before each main path). Each row names, as
@@ -336,8 +360,9 @@ def check_kernels(gen: torch.Generator, pgen: torch.Generator, qgen: torch.Gener
     their inputs from ``pgen``, so that every older row keeps the inputs
     ``gen`` gave it before they were added; rows added after those draw
     from ``qgen``, so that the rows of ``pgen`` keep theirs too, then from
-    ``rgen``, then ``sgen``, K6's newer rows from ``tgen``, and the latest
-    (K2's SO400M-384 row) from ``ugen``. K2's rows also carry ``device_ms``."""
+    ``rgen``, then ``sgen``, K6's newer rows from ``tgen``, K2's SO400M-384
+    row from ``ugen``, and the latest (K1 at the single-image scorer's one
+    image of 4 crops) from ``vgen``. K2's rows also carry ``device_ms``."""
     import torch.nn.functional as F
 
     from clip_assisted_data_labeling_tpu_torch.ops.attention import (
@@ -368,7 +393,8 @@ def check_kernels(gen: torch.Generator, pgen: torch.Generator, qgen: torch.Gener
     for b, s, (dtype, tol, peak, fma), path, rg in (
             (4 * BATCH, 577, bf16, ("l336", "K1"), gen), (16, 257, f32tc, ("l14_f32", "K1"), pgen),
             (64, 577, bf16, None, gen), (64, 577, f32tc, None, gen), (64, 257, bf16, None, gen),
-            (64, 257, f32tc, None, gen), (4 * BATCH, 576, bf16, None, rgen)):
+            (64, 257, f32tc, None, gen), (4 * BATCH, 576, bf16, None, rgen),
+            (4, 577, bf16, ("scorer", "K1"), vgen)):
         qkv = torch.randn((b, s, 3 * w), generator=rg, device="cuda").to(dtype)
         got = fused_attention_packed(qkv, heads, d ** -0.5)
         ref = fused_attention_packed_plain(qkv, heads, d ** -0.5)
@@ -1543,10 +1569,12 @@ def dedup_cli(root: str) -> dict:
     the pairs its copies name equal the plain route's on the same store
     (random-weight towers make a narrow cone, so other pairs may pass too),
     and every pair's file groups are in near_duplicates_cosine_0.99. Returns
-    the embed's launch counts."""
+    the embed's launch counts and, for phase 18, the crops of img_000 to
+    img_003 in the store the embed wrote (name → [4, D] float32)."""
     from clip_assisted_data_labeling_tpu_torch.config import DedupConfig
     from clip_assisted_data_labeling_tpu_torch.pipeline.dedup import load_embeddings
     from clip_assisted_data_labeling_tpu_torch.pipeline.embed import main as embed_main
+    from clip_assisted_data_labeling_tpu_torch.store.columnar import EmbeddingStore
 
     base = tempfile.mkdtemp(prefix="chip_smoke_dedup_")
     try:
@@ -1562,6 +1590,9 @@ def dedup_cli(root: str) -> dict:
                     "--device", "cuda"])
         torch.cuda.synchronize()
         embed_counts = counts()
+        store = EmbeddingStore.open(droot, MODEL)
+        rows = {f"img_{i:03d}.png": np.asarray(store.embeddings[store.index_of(f"img_{i:03d}")],
+                                               np.float32) for i in range(4)}
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-X", "importtime", "-m",
@@ -1599,7 +1630,375 @@ def dedup_cli(root: str) -> dict:
               f"plain route {len(plain)} pairs; embed launches {embed_counts}", flush=True)
         if not (planted <= pairs and pairs == plain and groups_ok):
             fail(f"dedup CLI: pairs {pairs}, plain route {plain}, planted {planted}")
-        return embed_counts
+        return embed_counts, rows
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+STAGE_D = 768  # ViT-L-14-336's embedding width: 2 crops make the regressor's 1536 inputs
+TRAIN_N = 9400  # the labels of the reference's shipped single_crop_regression_9.4k_imgs
+PREDICT_N = 131072  # two of predict's ASSEMBLE_CHUNKs of 65536 rows
+PREDICT_WIRES = ("float16", "float32", "int8")
+N_LABELLED = 2048  # rows of the predict set with a human label (subset rescales them)
+# the latent's share of a crop's variance: with the signal along one direction
+# of 1/768 of it, the default run's weight decay outweighs the data's gradient
+# and the regressor learns only the mean (a first card run: test MSE 0.0506
+# against the dummy baseline's 0.0506); at 8% it learns
+LATENT_SHARE = 0.08
+SUBSET_RANGE, SUBSET_MIN_PIXELS = (0.54, 0.56), 64 * 64  # label 5 (5/9) falls inside
+
+
+def write_feature_store(root: str, n: int, seed: int) -> tuple[list[str], np.ndarray]:
+    """A float16 columnar store of MODEL as the embed stage writes it: n rows
+    of 4 unit-norm crops of STAGE_D and 22 stats, drawn on the card from
+    ``seed``. Each row has a latent z ~ N(0, 1) that moves each crop along a
+    unit direction of its own (LATENT_SHARE of the crop's variance before
+    the norm), the signal a label can carry. Returns the uuids (32 hex
+    digits) and z."""
+    from clip_assisted_data_labeling_tpu_torch.config import ALL_CROPS
+    from clip_assisted_data_labeling_tpu_torch.store.columnar import EmbeddingStore
+
+    uuids = [f"{seed:04x}{i:028x}" for i in range(n)]
+    store = EmbeddingStore.create(root, MODEL, list(ALL_CROPS), STAGE_D, uuids,
+                                  dtype="float16", with_stats=True)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    directions = torch.randn((len(ALL_CROPS), STAGE_D), generator=gen, device="cuda")
+    directions = directions / directions.norm(dim=-1, keepdim=True)
+    latent = torch.randn((n,), generator=gen, device="cuda")
+    alpha = math.sqrt(LATENT_SHARE / (1 - LATENT_SHARE))
+    for s in range(0, n, 16384):
+        k = min(16384, n - s)
+        emb = (torch.randn((k, len(ALL_CROPS), STAGE_D), generator=gen, device="cuda")
+               / math.sqrt(STAGE_D) + alpha * latent[s:s + k, None, None] * directions)
+        emb = emb / emb.norm(dim=-1, keepdim=True)
+        stats = torch.randn((k, 22), generator=gen, device="cuda")
+        store.write_rows(s, emb.half().cpu().numpy(), stats.cpu().numpy())
+    store.flush()
+    return uuids, latent.cpu().numpy()
+
+
+def write_labels(root: str, uuids: list[str], labels: np.ndarray) -> None:
+    """The label CSV of ``root``: ``labels`` on the first rows, the rest
+    without a row (predict adds them)."""
+    from clip_assisted_data_labeling_tpu_torch.store.database import (
+        LabelDatabase,
+        database_path_for,
+    )
+
+    n = len(labels)
+    LabelDatabase({"uuid": uuids[:n], "label": labels, "timestamp": np.full(n, 1.7e9),
+                   "predicted_label": np.full(n, np.nan)}, database_path_for(root)).save()
+
+
+def train_on_card(base: str) -> dict:
+    """Phase 16: stage 4 at the reference's label-set size. TRAIN_N rows of
+    ViT-L-14-336's width in a float16 store, labelled 0-9 as the labelling
+    UI writes them: the rows' latent (2 label steps a standard deviation)
+    plus noise (0.5), rounded. The train CLI in the default configuration (hidden 264, 128,
+    64, dropout 0.5, batch 16, 60 epochs) on the card: seconds, steps/s and
+    the final test MSE, which must be under half the dummy baseline's. Then
+    the same initial regressor without dropout for 3 epochs on the card and
+    on the CPU, in the same permutations (drawn on the CPU): parameters
+    within 1e-5. Returns the record and the checkpoint's path."""
+    from clip_assisted_data_labeling_tpu_torch.config import TrainConfig
+    from clip_assisted_data_labeling_tpu_torch.models.regressor import SimpleFCRegressor
+    from clip_assisted_data_labeling_tpu_torch.pipeline import train as ttrain
+
+    t_phase = time.perf_counter()
+    data = os.path.join(base, "data")
+    root = os.path.join(data, "labelled")
+    os.makedirs(root)
+    uuids, z = write_feature_store(root, TRAIN_N, 16)
+    rng = np.random.default_rng(16)
+    labels = np.clip(np.round(4.5 + 2.0 * z + rng.normal(0, 0.5, TRAIN_N)), 0, 9)
+    write_labels(root, uuids, labels)
+
+    t0 = time.perf_counter()
+    with contextlib.chdir(base):
+        _model, history, path = ttrain.main(["--train_data_dir", data, "--train_data_names",
+                                             "labelled", "--device", "cuda"])
+    wall = time.perf_counter() - t0
+    mse, dummy = history["test"][-1], history["third"][-1]
+    rec = {"stage": "train", "rows": TRAIN_N, "features": 2 * STAGE_D, "epochs": 60,
+           "steps": history["steps"], "train_s": history["seconds"],
+           "steps_per_s": history["steps"] / history["seconds"], "cli_s": wall,
+           "test_mse": mse, "dummy_mse": dummy}
+    print(f"phase 16 train CLI: {TRAIN_N} rows x {2 * STAGE_D} features, {history['steps']} "
+          f"steps in {history['seconds']:.2f} s = {rec['steps_per_s']:.0f} steps/s "
+          f"({wall:.2f} s with loading and saving); test MSE {mse:.4f} against the dummy "
+          f"baseline's {dummy:.4f}", flush=True)
+    if not mse < 0.5 * dummy:
+        fail(f"train: test MSE {mse} is not under half the dummy baseline's {dummy}")
+
+    cfg = TrainConfig(dropout_prob=0.0, n_epochs=3)
+    np.random.seed(cfg.random_seed)
+    x_all, y_all, models = ttrain.load_training_data(data, ["labelled"], ["all"],
+                                                     list(cfg.crop_names), False)
+    targets, _ = ttrain._prepare_labels(y_all, cfg)
+    _test_idx, train_idx = ttrain._split(len(x_all), cfg)
+    xp, yp, wp = ttrain._pad_to_batches(x_all[train_idx], targets[train_idx], cfg.batch_size)
+    meta = ttrain._make_meta(x_all, y_all, cfg, models, None)
+    cpu_gen = torch.Generator().manual_seed(160)
+    perms = [torch.randperm(len(xp), generator=cpu_gen) for _ in range(cfg.n_epochs)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        model = SimpleFCRegressor.create(meta, cfg.random_seed, dev)
+        opt = ttrain.make_optimizer(model, cfg)
+        x, y, w = (torch.from_numpy(a).to(dev) for a in (xp, yp, wp))
+        t0 = time.perf_counter()
+        for epoch, perm in enumerate(perms):
+            loss = ttrain._train_epoch(model, opt, x, y, w, perm.to(dev),
+                                       ttrain._lr_at_epoch(epoch, cfg), cfg.batch_size, 0, None)
+        runs[dev] = (model.params(), loss.item(), time.perf_counter() - t0)
+    err = max(float(np.abs(p[k] - q[k]).max())
+              for p, q in zip(runs["cuda"][0], runs["cpu"][0]) for k in ("kernel", "bias"))
+    rec.update(card_vs_cpu_param_err=err, card_3_epochs_s=runs["cuda"][2],
+               cpu_3_epochs_s=runs["cpu"][2], phase_s=time.perf_counter() - t_phase)
+    print(f"phase 16 card vs CPU: 3 epochs without dropout in the same permutations, "
+          f"parameters within {err:.3g} (loss {runs['cuda'][1]:.6f} / {runs['cpu'][1]:.6f}; "
+          f"card {runs['cuda'][2]:.2f} s, CPU {runs['cpu'][2]:.2f} s); phase "
+          f"{rec['phase_s']:.1f} s", flush=True)
+    if not err <= 1e-5:
+        fail(f"train: card and CPU parameters differ by {err} after 3 epochs")
+    return {"record": rec, "path": os.path.join(base, path)}
+
+
+PREDICT_TIMING = re.compile(
+    r"predict timing: (\d+) rows in ([\d.]+) s \(([\d,]+) rows/s; gather ([\d.]+) s, "
+    r"forward ([\d.]+) s, side_effects ([\d.]+) s")
+
+
+def cli_imports(proc) -> set:
+    """Top-level modules a ``python -X importtime`` run imported."""
+    return {ln.split("|")[-1].strip().split(".")[0] for ln in proc.stderr.splitlines()
+            if ln.startswith("import time:")}
+
+
+def forbidden_imports(proc) -> set:
+    """pandas, JAX or the JAX package among the imports a CLI run tried
+    (``-X importtime`` lists a failed import too). matplotlib is not among
+    them: predict tries it for its optional histogram and goes on without."""
+    return cli_imports(proc) & {"pandas", "jax", "clip_assisted_data_labeling_tpu"}
+
+
+def predict_at_scale(base: str, ckpt: str) -> dict:
+    """Phase 17: the predict CLI at N = PREDICT_N rows, in a process of its
+    own for each wire. A float16 store of ViT-L-14-336 (4 crops of 768,
+    0.8 GB), a baseline gray JPEG of a seeded size for each row (predict
+    never decodes it; subset reads its header), a .json for every 16th row
+    and human labels on the first N_LABELLED. On each wire: every row in the
+    CSV with its label kept, the .json writeback, the preview copies that
+    the CLI's seeded picks name, and the scores within 1e-5 of the same wire
+    computed by the port on the CPU from the same store; rows/s with the
+    gather, forward and side effects' seconds from the CLI's timing line.
+    Returns the records and what phase 19 needs."""
+    from clip_assisted_data_labeling_tpu_torch.data.imsize import gray_jpeg_bytes
+    from clip_assisted_data_labeling_tpu_torch.pipeline.predict import (
+        _gather_features,
+        load_model,
+    )
+    from clip_assisted_data_labeling_tpu_torch.store.database import LabelDatabase
+
+    t_phase = time.perf_counter()
+    root = os.path.join(base, "pool", "mydata")
+    os.makedirs(root)
+    uuids, _z = write_feature_store(root, PREDICT_N, 17)
+    rng = np.random.default_rng(17)
+    shapes = [tuple(int(v) for v in wh) for wh in rng.integers(16, 161, (64, 2))]
+    blobs = [gray_jpeg_bytes(w, h) for w, h in shapes]
+    sizes = {}
+    for u, k in zip(uuids, rng.integers(0, len(shapes), PREDICT_N).tolist()):
+        with open(os.path.join(root, u + ".jpg"), "wb") as f:
+            f.write(blobs[k])
+        sizes[u] = shapes[k]
+    json_uuids = uuids[::16]
+    for u in json_uuids:
+        with open(os.path.join(root, u + ".json"), "w") as f:
+            json.dump({"uuid": u}, f)
+    labels = rng.integers(0, 10, N_LABELLED).astype(np.float64)
+    write_labels(root, uuids, labels)
+    setup_s = time.perf_counter() - t_phase
+    listing = [os.path.splitext(f)[0] for f in os.listdir(root) if f.endswith(".jpg")]
+
+    cpu_model = load_model(ckpt, "cpu")
+    kept, feats = _gather_features(root, listing, cpu_model)
+    if kept != listing:
+        fail("predict: the CPU gather dropped rows")
+    records, preview = [], root + "_predicted_scores"
+    for wire in PREDICT_WIRES:
+        shutil.rmtree(preview, ignore_errors=True)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-X", "importtime", "-m",
+             "clip_assisted_data_labeling_tpu_torch.pipeline.predict", "--root_dir", root,
+             "--model_file", ckpt, "--wire", wire],
+            capture_output=True, text=True, timeout=900,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            fail(f"predict CLI ({wire}) exited {proc.returncode}: {proc.stderr[-2000:]}")
+        if forbidden_imports(proc):
+            fail(f"the predict CLI imported {sorted(forbidden_imports(proc))}")
+        timing = PREDICT_TIMING.search(proc.stdout)
+        if timing is None:
+            fail(f"predict CLI ({wire}) printed no timing line: {proc.stdout[-1000:]}")
+        db = LabelDatabase.load_or_create(root)
+        pred = dict(zip(db.column("uuid"), db.column("predicted_label")))
+        got = np.array([pred.get(u, np.nan) for u in listing])
+        kept_labels = np.array([db.get_label(u) for u in uuids[:N_LABELLED]])
+        if not (len(db) == PREDICT_N and np.isfinite(got).all()
+                and np.array_equal(kept_labels, labels)):
+            fail(f"predict ({wire}): {len(db)} CSV rows, {np.isfinite(got).sum()} finite "
+                 "scores, or a human label changed")
+        bad_json = 0
+        for u in json_uuids:
+            with open(os.path.join(root, u + ".json")) as f:
+                bad_json += json.load(f).get("predicted_label") != pred[u]
+        pick_rng, want_previews = np.random.default_rng(0), set()
+        for s in range(0, len(listing), 512):
+            batch = listing[s:s + 512]
+            for u, take in zip(batch, pick_rng.random(len(batch)) < 0.01):
+                if take:
+                    want_previews.add(f"{pred[u]:.3f}_{u}.jpg")
+        previews = set(os.listdir(preview)) if os.path.isdir(preview) else set()
+        ref = cpu_model.predict(feats, wire=wire)
+        err = float(np.abs(got - ref).max())
+        n_rows, cli_wall, rate, gather, forward, side = (
+            float(v.replace(",", "")) for v in timing.groups())
+        rec = {"stage": "predict", "wire": wire, "rows": int(n_rows), "seconds": cli_wall,
+               "rows_per_s": n_rows / cli_wall, "gather_s": gather, "forward_s": forward,
+               "side_effects_s": side, "process_s": wall, "cpu_max_abs_err": err,
+               "previews": len(previews), "json_rows": len(json_uuids)}
+        records.append(rec)
+        print(f"phase 17 predict CLI, {wire} wire: {int(n_rows)} rows in {cli_wall:.3f} s = "
+              f"{rec['rows_per_s']:,.0f} rows/s (gather {gather:.3f} s on its thread, forward "
+              f"{forward:.3f} s, side effects {side:.3f} s; the process {wall:.1f} s); scores "
+              f"against the CPU's same wire within {err:.3g}; {len(previews)} previews, "
+              f"{len(json_uuids) - bad_json}/{len(json_uuids)} .json rows written", flush=True)
+        if not (err <= 1e-5 and bad_json == 0 and previews == want_previews and previews):
+            fail(f"predict ({wire}): CPU error {err}, {bad_json} stale .json rows, previews "
+                 f"{len(previews)} against {len(want_previews)} picked")
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s ({setup_s:.1f} s writing the "
+          f"store, {PREDICT_N} JPEG headers and the CSV)", flush=True)
+    return {"records": records, "root": root, "sizes": sizes, "json_uuids": set(json_uuids)}
+
+
+def scorer_cli(png_dir: str, ckpt: str, phase15_rows: dict) -> dict:
+    """Phase 18: the single-image scorer. ``predict_simple``'s CLI on four
+    of phase 15's PNGs with phase 16's checkpoint (clip_models
+    ViT-L-14-336/openai, centre_crop and subcrop2_0.1: 1536 inputs), its
+    encoder in bfloat16 with the random weights phase 15's embed made from
+    the model name: K1 24 times an image (one forward of 4 crops a layer)
+    and no other kernel; scores finite in [0, 1]; the copies named with
+    their scores; then each image's features within bf16's cosine limit
+    (1e-3) of the crops phase 15's embed CLI wrote for the same file (at
+    the bucketed canvas the embed chose; the scorer's is 1024). Returns the
+    launch counts."""
+    from clip_assisted_data_labeling_tpu_torch.data.loader import decode_rgb
+    from clip_assisted_data_labeling_tpu_torch.models.aesthetic import AestheticRegressor
+    from clip_assisted_data_labeling_tpu_torch.pipeline import predict_simple
+
+    t_phase = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="chip_smoke_scorer_")
+    try:
+        imgs = os.path.join(base, "imgs")
+        os.makedirs(imgs)
+        for name in phase15_rows:
+            shutil.copy(os.path.join(png_dir, name), imgs)
+        reset_counts()
+        t0 = time.perf_counter()
+        scores = predict_simple.main(["--input_img_dir", imgs, "--model_path", ckpt,
+                                      "--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        want = {k: 24 * len(phase15_rows) if k == "K1" else 0 for k in got}
+        copies = sorted(os.listdir(imgs + "_aesthetic_scores"))
+        want_copies = sorted(f"{v:.3f}_{os.path.basename(p)}" for p, v in scores.items())
+        vals = np.array(list(scores.values()))
+        print(f"phase 18 predict_simple CLI: {len(scores)} images in {wall:.2f} s (encoder "
+              f"init included), scores {np.round(vals, 4).tolist()}; launches {got} (want "
+              f"{want})", flush=True)
+        if got != want:
+            fail(f"scorer: launch counters {got}, expected {want}")
+        if not (len(vals) == len(phase15_rows) and np.isfinite(vals).all()
+                and ((vals >= 0) & (vals <= 1)).all() and copies == want_copies):
+            fail(f"scorer: scores {vals}, copies {copies} (want {want_copies})")
+
+        scorer = AestheticRegressor(ckpt, verbose=0, device="cuda")
+        errs = []
+        for name, row in phase15_rows.items():
+            _score, feats = scorer.predict_score(decode_rgb(os.path.join(imgs, name)))
+            for part, crop in zip(feats[0].reshape(2, -1), (0, 3)):  # centre, subcrop2
+                ref = row[crop]
+                errs.append(1.0 - float(part @ ref / (np.linalg.norm(part) * np.linalg.norm(ref))))
+        print(f"phase 18 features against phase 15's embed rows: 1 - cosine max "
+              f"{max(errs):.3g} over {len(errs)} crops; phase {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+        if not max(errs) <= 1e-3:
+            fail(f"scorer: features differ from the embed stage's (1 - cosine {max(errs)})")
+        return got
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def subset_cli(predicted: dict) -> dict:
+    """Phase 19: the subset CLI (in a process of its own) on phase 17's
+    directory with scores in SUBSET_RANGE and SUBSET_MIN_PIXELS: the copied
+    files are exactly those of the plain version, which rescales the human
+    labels by the largest, takes the prediction elsewhere, and gates each
+    row on the size phase 17 wrote into its JPEG header (aspect 0.25 to 4,
+    pixels over the minimum), and the folder is named with their count."""
+    from clip_assisted_data_labeling_tpu_torch.store.database import LabelDatabase
+
+    t0 = time.perf_counter()
+    root, (lo, hi) = predicted["root"], SUBSET_RANGE
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m",
+         "clip_assisted_data_labeling_tpu_torch.pipeline.subset", "--input_dir", root,
+         "--min_score", str(lo), "--max_score", str(hi), "--min_n_pixels",
+         str(SUBSET_MIN_PIXELS), "--extensions", ".jpg", ".json", ".txt"],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"subset CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    if forbidden_imports(proc) | (cli_imports(proc) & {"torch"}):
+        fail(f"the subset CLI imported {sorted(cli_imports(proc) & {'pandas', 'jax', 'torch'})}")
+
+    db = LabelDatabase.load_or_create(root)
+    labels, preds = db.column("label"), db.column("predicted_label")
+    max_label = np.nanmax(labels)
+    want = set()
+    for u, label, pred in zip(db.column("uuid"), labels, preds):
+        score = label / max_label if not np.isnan(label) else pred
+        w, h = predicted["sizes"][u]
+        if lo <= score <= hi and 0.25 <= w / h <= 4.0 and w * h > SUBSET_MIN_PIXELS:
+            want.add(u + ".jpg")
+            if u in predicted["json_uuids"]:
+                want.add(u + ".json")
+    n_imgs = sum(f.endswith(".jpg") for f in want)
+    out = f"{root}_{lo:.2f}_to_{hi:.2f}_subset_{n_imgs}_imgs"
+    got = set(os.listdir(out)) if os.path.isdir(out) else set()
+    print(f"phase 19 subset CLI: {n_imgs} of {len(db)} rows copied with their .json files "
+          f"({len(got)} files) in {wall:.2f} s (the process)", flush=True)
+    if not (got == want and n_imgs > 0):
+        fail(f"subset: {len(got)} files copied to {out}, the plain version {len(want)}")
+    return {"stage": "subset", "rows": len(db), "copied_images": n_imgs, "files": len(got),
+            "process_s": wall}
+
+
+def stages(png_dir: str, phase15_rows: dict) -> tuple[list[dict], dict]:
+    """Phases 16-19 in a directory of their own: train, predict on every
+    wire, the single-image scorer, subset. Returns the records and the
+    scorer's launch counts."""
+    base = tempfile.mkdtemp(prefix="chip_smoke_stages_")
+    try:
+        trained = train_on_card(base)
+        predicted = predict_at_scale(base, trained["path"])
+        scorer = scorer_cli(png_dir, trained["path"], phase15_rows)
+        subset = subset_cli(predicted)
+        return [trained["record"], *predicted["records"], subset], scorer
     finally:
         shutil.rmtree(base, ignore_errors=True)
 
@@ -1704,7 +2103,7 @@ def main() -> None:
     # --- phase 3: kernels against their plain versions ----------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = check_kernels(gen, *(torch.Generator(device="cuda").manual_seed(i)
-                                for i in (1, 2, 3, 4, 5, 6)))
+                                for i in (1, 2, 3, 4, 5, 6, 7)))
     quant_out_long_sequences()
     torch.cuda.empty_cache()
 
@@ -1754,7 +2153,11 @@ def main() -> None:
         # --- phases 14-15: stage 2 (no kernel of the table: torch products)
         # at N = 262144, then the dedup CLI end to end on embedded PNGs
         dedup_records = dedup_at_scale()
-        dedup_embed = dedup_cli(root)
+        dedup_embed, phase15_rows = dedup_cli(root)
+
+        # --- phases 16-19: stages 4-6 (train, predict, the single-image
+        # scorer: K1 through its bf16 encoder, subset) on a dataset of their own
+        stage_records, scorer = stages(root, phase15_rows)
 
     # each row's launches: the counter its ``path`` names, read from that
     # main path; "all" (the kernels no path of the JAX package reaches) sums
@@ -1764,7 +2167,7 @@ def main() -> None:
              "so400m": so400m["launches"], "so400m_bf16": bf16, "so400m_f32": so400m_f32,
              "pe": pe["launches"],
              "pe_f32": pe_f32, "g14": g14, "l336_ln0": routes[0], "l336_wire": routes[1],
-             "so400m_wire0": routes[2]}
+             "so400m_wire0": routes[2], "scorer": scorer}
     every = [*paths.values(), *dyn_routes[:-1], pe_bf16, dedup_embed]
 
     def path_launches(path) -> int:
@@ -1776,6 +2179,7 @@ def main() -> None:
     rows = [dict(r, path=r["path"] and "/".join(r["path"]), launches=path_launches(r["path"]))
             for r in rows]
     print(json.dumps({"dedup": dedup_records}))
+    print(json.dumps({"stages": stage_records}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """Shared constants and the stage-1 config (port of the JAX package's
 ``config.py``: the crop names and aliases, CLIP and SigLIP normalization, image
-extensions, the label database's columns, ``EmbedConfig`` and
-``DedupConfig``)."""
+extensions, the label database's columns and the stage configs
+``EmbedConfig``, ``DedupConfig``, ``TrainConfig``, ``PredictConfig`` and
+``SubsetConfig``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -73,3 +74,54 @@ class DedupConfig:
     # on-device embedding format: int8 (half the host-to-device bytes; exact
     # pair set through the float32 host recheck) or fp16 (the reference's)
     wire: str = "int8"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Stage-4 regressor training (same fields and defaults as the JAX
+    package's ``TrainConfig``; the device is ``train_regressor``'s argument)."""
+
+    clip_models_to_use: Sequence[str] = ("all",)
+    crop_names: Sequence[str] = (CROP_CENTRE, CROP_SUB2)
+    use_img_stat_features: bool = False
+    test_fraction: float = 0.25
+    n_epochs: int = 60
+    batch_size: int = 16
+    lr: float = 2e-4
+    min_lr: float = 1e-6
+    restart_epochs: int = 10
+    weight_decay: float = 6e-4
+    dropout_prob: float = 0.5
+    hidden_sizes: Sequence[int] = (264, 128, 64)
+    random_seed: int = 42
+    model_name: str = "regressor"
+    dont_save: bool = False
+    export_torch: bool = False  # also write a reference-loadable .pth pickle
+    print_network_layout: bool = False
+    # softmax classes over the distinct label values; predictions are the
+    # softmax-expected label value (the CSV contract is unchanged)
+    classification: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class PredictConfig:
+    """Stage-5 batch prediction (same fields and defaults as the JAX
+    package's ``PredictConfig``)."""
+
+    batch_size: int = 512
+    copy_imgs_fraction: float = 0.01
+    num_workers: int = 4
+
+
+@dataclasses.dataclass(frozen=True)
+class SubsetConfig:
+    """Stage-6 subset export (same fields and defaults as the JAX package's
+    ``SubsetConfig``)."""
+
+    min_score: float = 0.0
+    max_score: float = 1.0
+    extensions: Sequence[str] = (".jpg", ".txt", ".pt", ".pth")
+    min_aspect_ratio: float = 0.25
+    max_aspect_ratio: float = 4.0
+    min_n_pixels: int = 512 * 512
+    test: bool = False

@@ -24,7 +24,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from clip_assisted_data_labeling_tpu_torch.config import ALL_CROPS, IMG_EXTENSIONS
-from clip_assisted_data_labeling_tpu_torch.data.png import png_size, read_png
+from clip_assisted_data_labeling_tpu_torch.data.imsize import image_size
+from clip_assisted_data_labeling_tpu_torch.data.png import read_png
 from clip_assisted_data_labeling_tpu_torch.ops.crops import make_crop_params
 from clip_assisted_data_labeling_tpu_torch.ops.image_stats import make_stat_params
 
@@ -99,12 +100,10 @@ def _box_downscale(img: np.ndarray, new_w: int, new_h: int) -> np.ndarray:
     return np.clip(np.round(out), 0, 255).astype(np.uint8)
 
 
-def _decode_one(path: str, canvas_size: int):
-    try:
-        img = decode_rgb(path)
-    except Exception as e:  # a bad file is skipped and reported, not fatal
-        log.warning("Could not decode %s: %s", path, e)
-        return None
+def fit_to_canvas(img: np.ndarray, canvas_size: int):
+    """(img, w, h): an [H, W, 3] uint8 image shrunk so that its longer edge
+    fits ``canvas_size`` (cv2 INTER_AREA, else PIL's box filter, else
+    ``_box_downscale``), or as it is where it fits already."""
     h, w = img.shape[:2]
     if max(h, w) > canvas_size:
         scale = canvas_size / max(h, w)
@@ -119,14 +118,19 @@ def _decode_one(path: str, canvas_size: int):
     return img, w, h
 
 
+def _decode_one(path: str, canvas_size: int):
+    try:
+        img = decode_rgb(path)
+    except Exception as e:  # a bad file is skipped and reported, not fatal
+        log.warning("Could not decode %s: %s", path, e)
+        return None
+    return fit_to_canvas(img, canvas_size)
+
+
 def _probe_size(path: str) -> int | None:
     """Longest edge from the file header (no pixel decode), or None."""
     try:
-        if Image is not None:
-            with Image.open(path) as im:
-                return max(im.size)
-        size = png_size(path)
-        return max(size) if size else None
+        return max(image_size(path))
     except Exception:  # unreadable: sorts last, skipped at decode
         return None
 

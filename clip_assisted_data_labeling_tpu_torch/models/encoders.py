@@ -250,3 +250,10 @@ class CLIPImageEncoder:
         self._maybe_calibrate(flat)
         emb = vit_encode_image(self.model, flat, self.compute_dtype)
         return emb.reshape(b, n, -1)
+
+
+def create_encoder(model_name: str, model_path: str | None = None, **kw) -> CLIPImageEncoder:
+    """The reference's dispatch: 'Arch/pretrained' and 'PE-…' names both
+    resolve to a ``CLIPImageEncoder`` (``kw`` as its arguments: compute
+    dtype, device, ...)."""
+    return CLIPImageEncoder(model_name, model_path=model_path, **kw)

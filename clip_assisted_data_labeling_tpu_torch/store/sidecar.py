@@ -6,7 +6,8 @@ Layout: a torch-pickled dict
     {model_name: {crop_name: float32 tensor [1, D], "img_stat_*": float32 scalar}}
 
 merged incrementally per model (a second model run adds its key without
-touching the first).
+touching the first). ``assemble_features`` builds the regressor's feature
+vector from one sidecar, as train and predict read it.
 """
 from __future__ import annotations
 
@@ -82,3 +83,39 @@ def resolve_crop_key(feature_dict: Mapping, crop_name: str) -> str | None:
     if alias is not None and alias in feature_dict:
         return alias
     return None
+
+
+def assemble_features(
+    sidecar: Mapping[str, Mapping],
+    clip_models: list[str],
+    crop_names: list[str],
+    use_img_stat_features: bool = False,
+) -> np.ndarray:
+    """One image's feature vector, as the reference trainer builds it: per
+    model, the requested crops in ``crop_names`` order (KeyError naming any
+    that are missing), then the ``img_stat_*`` scalars in the sidecar's
+    order when asked; the models' parts concatenated in ``clip_models``
+    order."""
+    parts = []
+    for model in clip_models:
+        d = sidecar[model]
+        crop_parts = []
+        missing = []
+        for crop in crop_names:
+            key = resolve_crop_key(d, crop)
+            if key is None:
+                missing.append(crop)
+            else:
+                crop_parts.append(np.asarray(d[key], np.float32).reshape(-1))
+        if missing:
+            raise KeyError(
+                f"Missing crops {missing} for model {model}; re-embed the image or "
+                "adjust crop_names"
+            )
+        feats = np.concatenate(crop_parts, axis=0)
+        if use_img_stat_features:
+            stat_keys = [k for k in d.keys() if k.startswith("img_stat_")]
+            stats = np.asarray([float(d[k]) for k in stat_keys], np.float32)
+            feats = np.concatenate([feats, stats], axis=0)
+        parts.append(feats)
+    return np.concatenate(parts, axis=0)

@@ -3,7 +3,8 @@ of the JAX package's ``utils/plots.py``): training_progress.png,
 test_set_predictions.png and label_distribution_<dir>.png.
 
 matplotlib is imported at call time (``_plt``), so nothing that merely
-imports this module needs it.
+imports this module needs it; ``plot_or_say`` draws a plot where matplotlib
+is installed and otherwise prints that its PNG was not written.
 """
 from __future__ import annotations
 
@@ -19,6 +20,19 @@ def _plt():
     import matplotlib.pyplot as plt
 
     return plt
+
+
+def plot_or_say(plot, *args, **kwargs):
+    """``plot(*args, **kwargs)``; where matplotlib is not installed, one
+    printed line that names the PNG not written instead (None returned)."""
+    try:
+        return plot(*args, **kwargs)
+    except ModuleNotFoundError as e:
+        if e.name != "matplotlib":
+            raise
+        what = kwargs.get("out_path") or f"the {plot.__name__} PNG"
+        print(f"matplotlib is not installed: {what} not written")
+        return None
 
 
 def plot_losses(train_losses, test_losses, lrs, out_path="training_progress.png",
