@@ -119,8 +119,23 @@ Phases (any failure exits nonzero and prints no result line):
  19. the subset CLI on phase 17's directory with a score range: the copied
      files exactly the plain version's (rescaled human labels, predictions,
      the aspect and pixel gates on each JPEG header's size),
+ 20. the prep CLI in copy mode on phase 4's PNGs and two prompt files (no
+     PIL imported): every file copied byte for byte under a uuid name, a
+     basename group under one uuid, the natural order kept,
+ 21. the store CLI's rebuild from phase 15's sidecars: its rows equal to the
+     embed-written store's, per uuid; ``info`` one line for the model,
+ 22. the farthest-point diversity order (torch products: no kernel of the
+     table) at N = 262,144 and 1,048,576 of width 768, 500 picks, exact and
+     sampled, timed in host preparation and device loop with peak memory,
+     and replayed in float64 on the card (each pick within 1e-5 of the
+     minimum over every row, or over its own draws),
+ 23. the loop CLI (no pandas or JAX imported) for three laps of 100 keys
+     over 8,192 images with the middle sort: 100/200/300 labels, every row
+     predicted each lap, each lap's shown uuids the re-sort of the lap
+     before, seconds a lap by part; then a label CLI session with the
+     diversity sort, its first 100 uuids the farthest-point order,
 then print one JSON line with phase 14's records, one with phases 16-19's,
-one JSON line listing the kernels, each row with its launches
+one with phases 20-23's, one JSON line listing the kernels, each row with its launches
 read from the counter of the main path above that runs its case (0 for a
 shape no path runs; K7, K8, K10 and K5 with RoPE, which no path of the JAX
 package reaches, summed over all of them) and, last, the device line.
@@ -1559,9 +1574,9 @@ def dedup_at_scale() -> list[dict]:
     return records
 
 
-def dedup_cli(root: str) -> dict:
+def dedup_cli(root: str, base: str) -> dict:
     """Phase 15: the dedup CLI end to end on the card. Six of the PNGs and
-    byte-identical copies of two of them in a fresh directory, embedded by
+    byte-identical copies of two of them in ``base``/mydata, embedded by
     the embed CLI (ViT-L-14-336/openai, bfloat16; counters zeroed before and
     read after), then ``python -m ...pipeline.dedup --threshold 0.99 --mode
     copy`` in a process of its own (``-X importtime``: neither pandas nor
@@ -1570,69 +1585,66 @@ def dedup_cli(root: str) -> dict:
     (random-weight towers make a narrow cone, so other pairs may pass too),
     and every pair's file groups are in near_duplicates_cosine_0.99. Returns
     the embed's launch counts and, for phase 18, the crops of img_000 to
-    img_003 in the store the embed wrote (name → [4, D] float32)."""
+    img_003 in the store the embed wrote (name → [4, D] float32); phase 21
+    rebuilds that store from the embed's sidecars."""
     from clip_assisted_data_labeling_tpu_torch.config import DedupConfig
     from clip_assisted_data_labeling_tpu_torch.pipeline.dedup import load_embeddings
     from clip_assisted_data_labeling_tpu_torch.pipeline.embed import main as embed_main
     from clip_assisted_data_labeling_tpu_torch.store.columnar import EmbeddingStore
 
-    base = tempfile.mkdtemp(prefix="chip_smoke_dedup_")
-    try:
-        droot = os.path.join(base, "mydata")
-        os.makedirs(droot)
-        for i in range(6):
-            shutil.copy(os.path.join(root, f"img_{i:03d}.png"), droot)
-        shutil.copy(os.path.join(root, "img_001.png"), os.path.join(droot, "zz_copy_a.png"))
-        shutil.copy(os.path.join(root, "img_004.png"), os.path.join(droot, "zz_copy_b.png"))
-        reset_counts()
-        embed_main(["--root_dir", droot, "--models_to_use", MODEL, "--compute_dtype",
-                    "bfloat16", "--batch_size", str(BATCH), "--num_workers", "4",
-                    "--device", "cuda"])
-        torch.cuda.synchronize()
-        embed_counts = counts()
-        store = EmbeddingStore.open(droot, MODEL)
-        rows = {f"img_{i:03d}.png": np.asarray(store.embeddings[store.index_of(f"img_{i:03d}")],
-                                               np.float32) for i in range(4)}
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-X", "importtime", "-m",
-             "clip_assisted_data_labeling_tpu_torch.pipeline.dedup", "--root_dir", droot,
-             "--threshold", "0.99", "--mode", "copy"],
-            capture_output=True, text=True, timeout=600, cwd=os.path.dirname(
-                os.path.abspath(__file__)))
-        wall = time.perf_counter() - t0
-        if proc.returncode != 0:
-            fail(f"dedup CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
-        imported = {ln.split("|")[-1].strip().split(".")[0] for ln in proc.stderr.splitlines()
-                    if ln.startswith("import time:")}
-        if imported & {"pandas", "matplotlib", "jax"}:
-            fail(f"the dedup CLI imported {sorted(imported & {'pandas', 'matplotlib', 'jax'})}")
-        outdir = os.path.join(base, "near_duplicates_cosine_0.99")
-        found: dict[int, dict[str, set]] = {}  # pair → role → file group
-        for f in os.listdir(outdir) if os.path.isdir(outdir) else []:
-            _sim, idx, role, name = f.split("_", 3)
-            found.setdefault(int(idx), {}).setdefault(role, set()).add(name)
-        # each image's group is its PNG and its sidecar
-        groups_ok = all(
-            set(p) == {"source", "target"}
-            and all(len(g) == 2 and {os.path.splitext(n)[1] for n in g} == {".png", ".pt"}
-                    and len({os.path.splitext(n)[0] for n in g}) == 1 for g in p.values())
-            for p in found.values())
-        pairs = {frozenset(n for g in p.values() for n in g if n.endswith(".png"))
-                 for p in found.values()}
-        paths, emb = load_embeddings(droot, DedupConfig())
-        names = [os.path.basename(p) for p in paths]
-        plain = {frozenset((names[i], names[j])) for i, j in plain_pairs(emb, 0.99, False)}
-        planted = {frozenset(("img_001.png", "zz_copy_a.png")),
-                   frozenset(("img_004.png", "zz_copy_b.png"))}
-        print(f"dedup CLI on {len(paths)} images ({wall:.2f} s, its own process): "
-              f"{proc.stdout.strip().splitlines()[-2:]}; pairs {sorted(map(sorted, pairs))}; "
-              f"plain route {len(plain)} pairs; embed launches {embed_counts}", flush=True)
-        if not (planted <= pairs and pairs == plain and groups_ok):
-            fail(f"dedup CLI: pairs {pairs}, plain route {plain}, planted {planted}")
-        return embed_counts, rows
-    finally:
-        shutil.rmtree(base, ignore_errors=True)
+    droot = os.path.join(base, "mydata")
+    os.makedirs(droot)
+    for i in range(6):
+        shutil.copy(os.path.join(root, f"img_{i:03d}.png"), droot)
+    shutil.copy(os.path.join(root, "img_001.png"), os.path.join(droot, "zz_copy_a.png"))
+    shutil.copy(os.path.join(root, "img_004.png"), os.path.join(droot, "zz_copy_b.png"))
+    reset_counts()
+    embed_main(["--root_dir", droot, "--models_to_use", MODEL, "--compute_dtype",
+                "bfloat16", "--batch_size", str(BATCH), "--num_workers", "4",
+                "--device", "cuda"])
+    torch.cuda.synchronize()
+    embed_counts = counts()
+    store = EmbeddingStore.open(droot, MODEL)
+    rows = {f"img_{i:03d}.png": np.asarray(store.embeddings[store.index_of(f"img_{i:03d}")],
+                                           np.float32) for i in range(4)}
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-X", "importtime", "-m",
+         "clip_assisted_data_labeling_tpu_torch.pipeline.dedup", "--root_dir", droot,
+         "--threshold", "0.99", "--mode", "copy"],
+        capture_output=True, text=True, timeout=600, cwd=os.path.dirname(
+            os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"dedup CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    imported = {ln.split("|")[-1].strip().split(".")[0] for ln in proc.stderr.splitlines()
+                if ln.startswith("import time:")}
+    if imported & {"pandas", "matplotlib", "jax"}:
+        fail(f"the dedup CLI imported {sorted(imported & {'pandas', 'matplotlib', 'jax'})}")
+    outdir = os.path.join(base, "near_duplicates_cosine_0.99")
+    found: dict[int, dict[str, set]] = {}  # pair → role → file group
+    for f in os.listdir(outdir) if os.path.isdir(outdir) else []:
+        _sim, idx, role, name = f.split("_", 3)
+        found.setdefault(int(idx), {}).setdefault(role, set()).add(name)
+    # each image's group is its PNG and its sidecar
+    groups_ok = all(
+        set(p) == {"source", "target"}
+        and all(len(g) == 2 and {os.path.splitext(n)[1] for n in g} == {".png", ".pt"}
+                and len({os.path.splitext(n)[0] for n in g}) == 1 for g in p.values())
+        for p in found.values())
+    pairs = {frozenset(n for g in p.values() for n in g if n.endswith(".png"))
+             for p in found.values()}
+    paths, emb = load_embeddings(droot, DedupConfig())
+    names = [os.path.basename(p) for p in paths]
+    plain = {frozenset((names[i], names[j])) for i, j in plain_pairs(emb, 0.99, False)}
+    planted = {frozenset(("img_001.png", "zz_copy_a.png")),
+               frozenset(("img_004.png", "zz_copy_b.png"))}
+    print(f"dedup CLI on {len(paths)} images ({wall:.2f} s, its own process): "
+          f"{proc.stdout.strip().splitlines()[-2:]}; pairs {sorted(map(sorted, pairs))}; "
+          f"plain route {len(plain)} pairs; embed launches {embed_counts}", flush=True)
+    if not (planted <= pairs and pairs == plain and groups_ok):
+        fail(f"dedup CLI: pairs {pairs}, plain route {plain}, planted {planted}")
+    return embed_counts, rows
 
 
 STAGE_D = 768  # ViT-L-14-336's embedding width: 2 crops make the regressor's 1536 inputs
@@ -2003,6 +2015,381 @@ def stages(png_dir: str, phase15_rows: dict) -> tuple[list[dict], dict]:
         shutil.rmtree(base, ignore_errors=True)
 
 
+# --- phases 20-23: the rest of the active-learning loop ------------------------------
+HEX32 = re.compile(r"[0-9a-f]{32}")
+DIVERSITY_NS = (262144, 1048576)  # phase 14's N, and the north star's
+DIVERSITY_ORDER, DIVERSITY_CANDIDATES = 500, 100  # the label stage's prefix and sample
+LOOP_N, LOOP_KEYS, LOOP_LAPS = 8192, 100, 3
+SHOWN = re.compile(r"^headless (.+?): (\d+) frames shown: (.*)$", re.M)
+
+
+def run_cli(module: str, args: list, label: str, timeout: int = 600,
+            also_forbidden: frozenset = frozenset()) -> tuple:
+    """``python -X importtime -m <module> <args>`` from the repository root
+    in a process of its own; fails on a nonzero exit, or where it imported
+    pandas, JAX, the JAX package or any of ``also_forbidden``. Returns the
+    process and its seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-X", "importtime", "-m", module, *map(str, args)],
+                          capture_output=True, text=True, timeout=timeout,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{label} CLI exited {proc.returncode}: {proc.stdout[-1500:]} {proc.stderr[-2000:]}")
+    bad = forbidden_imports(proc) | (cli_imports(proc) & also_forbidden)
+    if bad:
+        fail(f"the {label} CLI imported {sorted(bad)}")
+    return proc, wall
+
+
+def prep_cli(png_dir: str) -> dict:
+    """Phase 20: stage 0. The prep CLI in copy mode on phase 4's PNGs plus a
+    .txt prompt beside two of them, in a process of its own: every file
+    copied byte for byte under a 32-hex-digit uuid name, each basename
+    group under one uuid, the natural-sort order of the groups kept by
+    their uuids, and no PIL imported (no file needs a resize: sizes come
+    from the PNG headers)."""
+    from clip_assisted_data_labeling_tpu_torch.utils.naming import natural_sort
+
+    base = tempfile.mkdtemp(prefix="chip_smoke_prep_")
+    try:
+        raw, out = os.path.join(base, "raw"), os.path.join(base, "prepped")
+        os.makedirs(raw)
+        for i in range(N_IMAGES):
+            shutil.copy(os.path.join(png_dir, f"img_{i:03d}.png"), raw)
+        for i in (2, 17):
+            with open(os.path.join(raw, f"img_{i:03d}.txt"), "w") as f:
+                f.write(f"a prompt for image {i}\n")
+        proc, wall = run_cli("clip_assisted_data_labeling_tpu_torch.pipeline.prep",
+                             ["--root_dir", raw, "--output_dir", out, "--mode", "copy"],
+                             "prep", also_forbidden=frozenset({"PIL", "matplotlib"}))
+
+        def contents(d):
+            got = {}
+            for name in os.listdir(d):
+                with open(os.path.join(d, name), "rb") as f:
+                    got[name] = f.read()
+            return got
+
+        src, dst = contents(raw), contents(out)
+        by_bytes = {v: k for k, v in dst.items()}
+        uuid_of = {}
+        for name, data in src.items():
+            stem, ext = os.path.splitext(name)
+            copy = by_bytes.get(data)
+            if copy is None or os.path.splitext(copy)[1] != ext or not HEX32.fullmatch(
+                    os.path.splitext(copy)[0]):
+                fail(f"prep: {name} has no byte-identical copy under a uuid name ({copy})")
+            uuid_of.setdefault(stem, set()).add(os.path.splitext(copy)[0])
+        groups_ok = all(len(u) == 1 for u in uuid_of.values())
+        stems = natural_sort(list(uuid_of))
+        ordered = [next(iter(uuid_of[s])) for s in stems]
+        done = [ln for ln in proc.stdout.splitlines() if ln.startswith("Prep done:")]
+        print(f"phase 20 prep CLI: {len(src)} files in {len(stems)} groups copied in "
+              f"{wall:.2f} s (the process); {done}", flush=True)
+        if not (len(dst) == len(src) and groups_ok and ordered == natural_sort(ordered)):
+            fail(f"prep: {len(dst)} files out of {len(src)}, groups sharing a uuid "
+                 f"{groups_ok}, natural order kept {ordered == natural_sort(ordered)}")
+        return {"stage": "prep", "files": len(src), "groups": len(stems), "process_s": wall}
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def store_rebuild(droot: str) -> dict:
+    """Phase 21: the store CLI's ``rebuild`` on the .pt sidecars phase 15's
+    embed wrote (copied to a fresh directory, without the store), in a
+    process of its own: the rebuilt store's rows equal the embed-written
+    store's, per uuid, in every crop, every stat and the valid flag; then
+    ``info`` prints one line for its one model."""
+    from clip_assisted_data_labeling_tpu_torch.store.columnar import EmbeddingStore
+
+    base = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    try:
+        ds = os.path.join(base, "mydata")
+        os.makedirs(ds)
+        for name in os.listdir(droot):
+            if name.endswith(".pt"):
+                shutil.copy(os.path.join(droot, name), ds)
+        module = "clip_assisted_data_labeling_tpu_torch.pipeline.store"
+        _proc, wall = run_cli(module, ["rebuild", "--root_dir", ds], "store rebuild",
+                              also_forbidden=frozenset({"matplotlib"}))
+        info, _ = run_cli(module, ["info", "--root_dir", ds], "store info")
+        want, got = EmbeddingStore.open(droot, MODEL), EmbeddingStore.open(ds, MODEL)
+        rows = [(want.index_of(u), got.index_of(u)) for u in want.uuids]
+        w, g = np.array([r[0] for r in rows]), np.array([r[1] for r in rows])
+        same = (sorted(want.uuids) == sorted(got.uuids)
+                and want.meta["crop_names"] == got.meta["crop_names"]
+                and np.array_equal(np.asarray(want.embeddings)[w], np.asarray(got.embeddings)[g])
+                and np.array_equal(np.asarray(want.img_stats)[w], np.asarray(got.img_stats)[g])
+                and np.array_equal(np.asarray(want.valid)[w], np.asarray(got.valid)[g]))
+        lines = info.stdout.strip().splitlines()
+        print(f"phase 21 store CLI: rebuilt {len(rows)} rows of {MODEL} from sidecars in "
+              f"{wall:.2f} s (the process); equal to the embed's store: {same}; info: {lines}",
+              flush=True)
+        if not (same and len(rows) == 8 and len(lines) == 1 and lines[0].startswith(f"[{MODEL}]")):
+            fail("store: the rebuilt store differs from the embed's, or info printed "
+                 f"{lines}")
+        return {"stage": "store", "rows": len(rows), "process_s": wall}
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def replay_picks(x64: torch.Tensor, prefix: np.ndarray, draws: torch.Tensor | None):
+    """The card's picks replayed in float64 on the card: at each step i ≥ 1
+    the pick's maxsim less the float64 minimum (over every row, or over the
+    step's draws), and the float64 argmin. Returns (excess [n-1], argmins
+    [n-1]) on the host."""
+    picks = torch.from_numpy(prefix).cuda()
+    maxsim = torch.mv(x64, x64[picks[0]])
+    maxsim[picks[0]] = float("inf")
+    excess = torch.empty(len(prefix) - 1, dtype=torch.float64, device="cuda")
+    argmin = torch.empty(len(prefix) - 1, dtype=torch.int64, device="cuda")
+    for i in range(1, len(prefix)):
+        pool = maxsim if draws is None else maxsim[draws[i - 1]]
+        best = torch.argmin(pool)
+        argmin[i - 1] = best if draws is None else draws[i - 1][best]
+        excess[i - 1] = maxsim[picks[i]] - pool[best]
+        torch.maximum(maxsim, torch.mv(x64, x64[picks[i]]), out=maxsim)
+        maxsim[picks[i]] = float("inf")
+    return excess.cpu().numpy(), argmin.cpu().numpy()
+
+
+def diversity_at_scale() -> list[dict]:
+    """Phase 22: the farthest-point order at a real size. Seeded embeddings
+    of width STAGE_D (ViT-L-14-336's) at N = 262,144 and 1,048,576, 500
+    picks, exact and sampled (100 candidates a step, the function's own
+    draws from its seed), each timed in two parts (host normalization and
+    upload; the device loop up to the prefix on the host) with its peak
+    device memory. Checked by replaying the card's picks in float64 on the
+    card: each exact pick's maxsim within 1e-5 of the float64 minimum over
+    every row, each sampled pick within 1e-5 of it over its own draws (and
+    among them); no repeat in the prefix; the tail the other indices in
+    order. Prints the first step where a pick differs from the float64
+    argmin."""
+    from clip_assisted_data_labeling_tpu_torch.ops.diversity import (
+        draw_candidates,
+        farthest_point_order,
+    )
+    from clip_assisted_data_labeling_tpu_torch.ops.similarity import normalize_rows
+    from clip_assisted_data_labeling_tpu_torch.utils.timer import StageTimer
+
+    farthest_point_order(np.random.default_rng(22).normal(size=(4096, STAGE_D)), n_order=50,
+                         device="cuda")
+    records = []
+    for n in DIVERSITY_NS:
+        gen = torch.Generator(device="cuda").manual_seed(22)
+        emb = torch.randn((n, STAGE_D), generator=gen, device="cuda").cpu().numpy()
+        runs = {}
+        for candidates in (None, DIVERSITY_CANDIDATES):
+            timer = StageTimer()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            order = farthest_point_order(emb, n_order=DIVERSITY_ORDER, candidates=candidates,
+                                         seed=22, device="cuda", timer=timer)
+            runs[candidates] = (order, timer.totals, time.perf_counter() - t0,
+                                torch.cuda.max_memory_allocated() / 1e9)
+        # the replay, in float64 on the card, after the timed runs
+        x64 = torch.from_numpy(normalize_rows(emb)).cuda().double()
+        for candidates, (order, parts, total, peak) in runs.items():
+            form = "exact" if candidates is None else "sampled"
+            prefix, tail = order[:DIVERSITY_ORDER], order[DIVERSITY_ORDER:]
+            draws = (None if candidates is None else
+                     draw_candidates(n, DIVERSITY_ORDER, candidates, 22, "cuda"))
+            excess, argmin = replay_picks(x64, prefix, draws)
+            in_draws = draws is None or all(
+                int(p) in set(d) for p, d in zip(prefix[1:], draws.cpu().numpy().tolist()))
+            tail_ok = np.array_equal(tail, np.setdiff1d(np.arange(n), prefix))
+            repeats = DIVERSITY_ORDER - len(set(prefix.tolist()))
+            differ = np.nonzero(argmin != prefix[1:])[0]
+            first = int(differ[0]) + 1 if len(differ) else None
+            rec = {"stage": "diversity", "form": form, "n": n, "d": STAGE_D,
+                   "n_order": DIVERSITY_ORDER, "candidates": candidates, "seconds": total,
+                   "prepare_s": parts["prepare"], "order_s": parts["order"], "peak_gb": peak,
+                   "max_excess": float(excess.max()), "first_step_off_f64_argmin": first,
+                   "steps_off_f64_argmin": len(differ)}
+            records.append(rec)
+            print(f"phase 22 diversity {form}, N={n} D={STAGE_D}: {total:.3f} s (host "
+                  f"normalization and upload {rec['prepare_s']:.3f} s, device loop "
+                  f"{rec['order_s']:.3f} s), peak {peak:.2f} GB; float64 replay: picks within "
+                  f"{rec['max_excess']:.3g} of the minimum, first step off the float64 argmin: "
+                  f"{'none' if first is None else first} ({len(differ)} steps)", flush=True)
+            if not (repeats == 0 and in_draws and tail_ok and rec["max_excess"] <= 1e-5):
+                fail(f"diversity {form} N={n}: excess {rec['max_excess']}, {repeats} repeats, "
+                     f"picks in their draws {in_draws}, tail in order {tail_ok}")
+        del x64, emb
+        torch.cuda.empty_cache()
+    return records
+
+
+def _shown(stdout: str) -> dict:
+    """session name → the uuids a headless session showed, in order."""
+    return {m.group(1): m.group(3).split(",") for m in SHOWN.finditer(stdout)}
+
+
+def _expected_session(order: list[str], labels: dict, n_keys: int) -> list[str]:
+    """What a headless session of ``n_keys`` digit keys then a quit shows on
+    ``order``: the labelled images skipped from the start up to the first
+    unlabelled one, then n_keys + 1 images in turn."""
+    p = 0
+    while order[p] in labels:
+        p += 1
+    return [order[(p + i) % len(order)] for i in range(n_keys + 1)]
+
+
+def loop_cli() -> dict:
+    """Phase 23: the active-learning loop on the card. LOOP_N images of
+    64x64 under .jpg names (PNG streams: the card's machine has no JPEG
+    codec to promise; the label stage globs .jpg only, and cv2.imread, the
+    JAX package's reader, decodes by content as the port's decode chain
+    does), a float16 store of MODEL's 4 crops with a planted latent (as
+    phase 16's) and a CSV of every row unlabelled. The loop CLI in a
+    process of its own: --laps 3 --sort middle --backend headless, 100
+    keys a lap, each 0 or 9 (lap 1's follow the sign of the latent of the
+    rows it shows, the database order; laps 2 and 3 drawn from a seed).
+    Checks: 100, 200 and 300 labels; every row predicted each lap, a
+    checkpoint each lap; each
+    lap's shown uuids as ``re_order_images`` orders the database the lap
+    before, rebuilt here from the earlier laps' keys and the earlier
+    checkpoint's scores on the card in the CLI's batches (held against the
+    backup lap 3 took of the CSV); seconds a lap in label, train and
+    predict. Then one label CLI session with --sort diversity on the first
+    CSV: its first 100 uuids are ``farthest_point_order`` of the store's
+    square_padded_crop rows computed here on the card."""
+    from clip_assisted_data_labeling_tpu_torch.data.png import write_png
+    from clip_assisted_data_labeling_tpu_torch.ops.diversity import farthest_point_order
+    from clip_assisted_data_labeling_tpu_torch.pipeline.predict import (
+        _gather_features,
+        load_model,
+    )
+    from clip_assisted_data_labeling_tpu_torch.store.columnar import EmbeddingStore
+    from clip_assisted_data_labeling_tpu_torch.store.database import (
+        LabelDatabase,
+        database_path_for,
+    )
+    from clip_assisted_data_labeling_tpu_torch.ui.sorting import re_order_images
+    from clip_assisted_data_labeling_tpu_torch.utils.naming import natural_sort
+
+    t_phase = time.perf_counter()
+    base = tempfile.mkdtemp(prefix="chip_smoke_loop_")
+    try:
+        root = os.path.join(base, "data", "loopset")
+        os.makedirs(root)
+        uuids, z = write_feature_store(root, LOOP_N, 23)
+        rng = np.random.default_rng(23)
+        ramp = np.linspace(0, 255, 64)
+        for i, u in enumerate(uuids):
+            img = np.empty((64, 64, 3), np.uint8)
+            img[..., 0], img[..., 1] = ramp[None, :], ramp[:, None]
+            img[..., 2] = i % 256
+            write_png(os.path.join(root, u + ".jpg"), img)
+        csv_path = database_path_for(root)
+        nan = np.full(LOOP_N, np.nan)
+        LabelDatabase({"uuid": uuids, "label": nan, "timestamp": nan,
+                       "predicted_label": nan}, csv_path).save()
+        first_csv = os.path.join(base, "first.csv")
+        shutil.copy(csv_path, first_csv)
+        setup_s = time.perf_counter() - t_phase
+
+        # keys 0 and 9 only: the middle order ranks rows by |prediction − median|,
+        # and a labelled row's prediction is its label (fix_database), so labels
+        # far from the median keep every labelled row behind the first 100
+        # unlabelled ones; with labels of 4 and 5 a lap re-showed and relabelled
+        # 21 labelled images (a card run), as the reference's navigation does
+        keys = [np.where(z[:LOOP_KEYS] + rng.normal(0, 0.25, LOOP_KEYS) > 0, 9, 0)]
+        keys += [rng.choice([0, 9], LOOP_KEYS) for _ in range(LOOP_LAPS - 1)]
+        script = ";".join(",".join(map(str, k)) for k in keys)
+        models = os.path.join(base, "models")
+        proc, wall = run_cli("clip_assisted_data_labeling_tpu_torch.pipeline.loop",
+                             ["--root_dir", root, "--laps", LOOP_LAPS, "--sort", "middle",
+                              "--backend", "headless", "--keys", script, "--models_dir",
+                              models, "--device", "cuda"], "loop", timeout=900)
+        out = proc.stdout
+        laps = [tuple(map(int, m)) for m in re.findall(r"^Lap \d+/\d+: (\d+) labels, (\d+) "
+                                                       r"predictions", out, re.M)]
+        timing = [tuple(map(float, m)) for m in re.findall(
+            r"^lap \d+ timing: label ([\d.]+) s, train ([\d.]+) s, predict ([\d.]+) s", out,
+            re.M)]
+        ckpts = re.findall(r"^Final model saved as: (.+)$", out, re.M)
+        shown = _shown(out)
+        db = LabelDatabase.load_or_create(root)
+        want_laps = [(LOOP_KEYS * (k + 1), LOOP_N) for k in range(LOOP_LAPS)]
+        if not (laps == want_laps and len(ckpts) == LOOP_LAPS and len(timing) == LOOP_LAPS
+                and all(os.path.exists(c) for c in ckpts)
+                and db.n_labeled() == LOOP_KEYS * LOOP_LAPS
+                and np.isfinite(db.column("predicted_label")).all()):
+            fail(f"loop: laps {laps} (want {want_laps}), checkpoints {ckpts}, timing {timing}, "
+                 f"{db.n_labeled()} labels: {out[-2000:]}")
+
+        files = natural_sort([os.path.join(root, u + ".jpg") for u in uuids])
+        listing = [os.path.splitext(f)[0] for f in os.listdir(root) if f.endswith(".jpg")]
+        labels: dict = {}
+        backup = [f for f in os.listdir(os.path.dirname(root)) if "_db_backup_" in f]
+        orders_ok, backup_ok = [], False
+        for lap in range(LOOP_LAPS):
+            if lap == 0:
+                order = uuids  # no prediction yet: the database's order
+            else:  # the database after the lap before, rebuilt
+                model = load_model(ckpts[lap - 1], "cuda")
+                kept, feats = _gather_features(root, listing, model)
+                scores = np.concatenate([model.predict(feats[s:s + 512], wire="float16")
+                                         for s in range(0, len(kept), 512)])
+                pred = dict(zip(kept, scores.astype(np.float64)))
+                lab = np.array([labels.get(u, np.nan) for u in uuids])
+                state = LabelDatabase({"uuid": uuids, "label": lab, "timestamp": nan,
+                                       "predicted_label": np.array([pred[u] for u in uuids])},
+                                      csv_path)
+                if lap == LOOP_LAPS - 1 and len(backup) == 1:  # lap 3's own backup
+                    saved = LabelDatabase.load_or_create(
+                        os.path.join(os.path.dirname(root), backup[0])[:-len(".csv")])
+                    backup_ok = (saved.column("uuid") == uuids and np.array_equal(
+                        saved.column("label"), lab, equal_nan=True) and np.array_equal(
+                        saved.column("predicted_label"), state.column("predicted_label")))
+                state.fix_database()
+                order = [os.path.splitext(os.path.basename(f))[0]
+                         for f in re_order_images(files, state, root, "middle", "cuda")]
+            want = _expected_session(order, labels, LOOP_KEYS)
+            got = shown.get(f"lap {lap + 1}", [])
+            orders_ok.append(got == want)
+            for u, k in zip(got, keys[lap]):
+                labels[u] = k / 10.0
+        records = {"stage": "loop", "rows": LOOP_N, "laps": LOOP_LAPS, "process_s": wall,
+                   "setup_s": setup_s,
+                   "lap_s": [{"label": a, "train": b, "predict": c} for a, b, c in timing]}
+        print(f"phase 23 loop CLI: {LOOP_LAPS} laps on {LOOP_N} rows, labels "
+              f"{[n for n, _ in laps]}, {LOOP_N} predicted each lap, in {wall:.1f} s (the "
+              f"process; writing the images, store and CSV took {setup_s:.1f} s); per lap "
+              f"label/train/predict seconds {timing}; shown orders as re-sorted: {orders_ok}; "
+              f"rebuilt lap-3 database equal to its backup: {backup_ok}", flush=True)
+        if not (all(orders_ok) and backup_ok):
+            fail(f"loop: shown orders {orders_ok}, backup equal {backup_ok}")
+
+        shutil.copy(first_csv, csv_path)
+        session, dwall = run_cli(
+            "clip_assisted_data_labeling_tpu_torch.pipeline.label",
+            ["--root_dir", root, "--sort", "diversity", "--backend", "headless", "--keys",
+             ",".join(map(str, keys[0])), "--device", "cuda"], "label",
+            also_forbidden=frozenset({"matplotlib"}))
+        store = EmbeddingStore.open(root, MODEL)
+        rows = np.array([store.index_of(os.path.splitext(os.path.basename(f))[0])
+                         for f in files])
+        emb = np.asarray(store.embeddings[rows, store.crop_index("square_padded_crop")],
+                         np.float32)
+        order = farthest_point_order(emb, n_order=min(DIVERSITY_ORDER, len(emb)), device="cuda")
+        want = [os.path.splitext(os.path.basename(files[i]))[0] for i in order[:LOOP_KEYS]]
+        got = _shown(session.stdout).get("session", [])
+        print(f"phase 23 label CLI, --sort diversity: {len(got)} frames in {dwall:.1f} s (the "
+              f"process); first {LOOP_KEYS} equal to farthest_point_order on the card: "
+              f"{got[:LOOP_KEYS] == want}; phase {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+        if got[:LOOP_KEYS] != want:
+            fail("label --sort diversity: the shown order is not the farthest-point order")
+        records["diversity_session_s"] = dwall
+        return records
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
 # mangled builtin types and classes a kernel's template arguments name
 MANGLED_TYPES = {"f": "f32", "a": "i8", "__nv_bfloat16": "bf16"}
 
@@ -2153,11 +2540,18 @@ def main() -> None:
         # --- phases 14-15: stage 2 (no kernel of the table: torch products)
         # at N = 262144, then the dedup CLI end to end on embedded PNGs
         dedup_records = dedup_at_scale()
-        dedup_embed, phase15_rows = dedup_cli(root)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_dedup_") as dedup_base:
+            dedup_embed, phase15_rows = dedup_cli(root, dedup_base)
 
-        # --- phases 16-19: stages 4-6 (train, predict, the single-image
-        # scorer: K1 through its bf16 encoder, subset) on a dataset of their own
-        stage_records, scorer = stages(root, phase15_rows)
+            # --- phases 16-19: stages 4-6 (train, predict, the single-image
+            # scorer: K1 through its bf16 encoder, subset) on a dataset of their own
+            stage_records, scorer = stages(root, phase15_rows)
+
+            # --- phases 20-23: prep, the store CLI on phase 15's sidecars, the
+            # diversity order at scale and the loop (torch products, no kernel)
+            loop_records = [prep_cli(root), store_rebuild(os.path.join(dedup_base, "mydata"))]
+        loop_records += diversity_at_scale()
+        loop_records.append(loop_cli())
 
     # each row's launches: the counter its ``path`` names, read from that
     # main path; "all" (the kernels no path of the JAX package reaches) sums
@@ -2180,6 +2574,7 @@ def main() -> None:
             for r in rows]
     print(json.dumps({"dedup": dedup_records}))
     print(json.dumps({"stages": stage_records}))
+    print(json.dumps({"loop": loop_records}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

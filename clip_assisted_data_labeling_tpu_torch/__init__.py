@@ -8,16 +8,20 @@ calibration files) so either package reads what the other wrote.
 
 It imports torch and numpy only — never jax, and nothing from the JAX package.
 
-Ported so far: stages 1 (embed), 2 (dedup), 4 (train), 5 (predict, and the
-single-image scorer) and 6 (subset).
+Ported: all seven stages — 0 (prep), 1 (embed), 2 (dedup), 3 (label), 4
+(train), 5 (predict, and the single-image scorer) and 6 (subset) — the
+active-learning loop and the store CLI; ``python -m
+clip_assisted_data_labeling_tpu_torch`` prints the stage map.
   store/     sidecar features, the columnar store and the label CSV
-  ops/       crops, image stats, quantization, similarity, and the hand-written
-             CUDA kernels in csrc/
+  ops/       crops, image stats, quantization, similarity, the farthest-point
+             order, and the hand-written CUDA kernels in csrc/
   models/    the ViT image towers, weight carry-over, the encoder, the FC
              regressor and the single-image scorer
   data/      host-side image decode, bucketed batching, image-header sizes
+  ui/        the labelling backends (opencv, headless, oracle) and sort orders
   pipeline/  the stage CLIs (``python -m clip_assisted_data_labeling_tpu_torch.pipeline.<stage>``:
-             embed, dedup, train, predict, predict_simple, subset)
+             prep, embed, dedup, label, train, predict, predict_simple, subset,
+             loop, store)
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (CLI: ``--device cpu``); asking for the card where there is none raises.

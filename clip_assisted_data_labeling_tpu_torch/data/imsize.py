@@ -2,9 +2,10 @@
 
 The subset stage gates images by width and height, and a GPU host may have
 no PIL. :func:`image_size` asks PIL where it is installed and otherwise
-reads the header itself: the PNG IHDR chunk (``data/png.png_size``) or the
-JPEG SOF segment. :func:`gray_jpeg_bytes` makes a valid baseline JPEG of
-one gray level at any size, in two bits a block, for synthetic test data.
+reads the header itself (:func:`header_size`: the PNG IHDR chunk,
+``data/png.png_size``, or the JPEG SOF segment). :func:`gray_jpeg_bytes`
+makes a valid baseline JPEG of one gray level at any size, in two bits a
+block, for synthetic test data.
 """
 from __future__ import annotations
 
@@ -12,10 +13,23 @@ import struct
 
 from clip_assisted_data_labeling_tpu_torch.data.png import png_size
 
-try:  # optional: a GPU host may not have it
-    from PIL import Image
-except ImportError:
-    Image = None
+_UNSET = object()
+# PIL's Image module, or None without PIL: optional (a GPU host may not have
+# it) and imported at the first image_size call, so that a reader of headers
+# alone (prep, for files it only copies) does not import it
+Image = _UNSET
+
+
+def _pil():
+    global Image
+    if Image is _UNSET:
+        try:
+            from PIL import Image as pil_image
+        except ImportError:
+            pil_image = None
+        Image = pil_image
+    return Image
+
 
 # start-of-frame markers: every C0-CF except DHT (C4), JPG (C8) and DAC (CC)
 _SOF = frozenset(range(0xC0, 0xD0)) - {0xC4, 0xC8, 0xCC}
@@ -59,15 +73,22 @@ def jpeg_size(path: str) -> tuple[int, int] | None:
             f.seek(length - 2, 1)
 
 
+def header_size(path: str) -> tuple[int, int] | None:
+    """(width, height) from a PNG's IHDR or a JPEG's SOF segment, with no
+    decoder, or None for any other content."""
+    return png_size(path) or jpeg_size(path)
+
+
 def image_size(path: str) -> tuple[int, int]:
     """(width, height) of an image file: PIL's ``size`` where PIL is
     installed, else the PNG or JPEG header, told apart by their signatures.
     Raises (OSError, ValueError, PIL's UnidentifiedImageError) for a file
     that is neither or cannot be read."""
-    if Image is not None:
-        with Image.open(path) as im:
+    pil = _pil()
+    if pil is not None:
+        with pil.open(path) as im:
             return im.size
-    size = png_size(path) or jpeg_size(path)
+    size = header_size(path)
     if size is None:
         raise ValueError(f"{path}: neither a PNG nor a JPEG (and no PIL to ask)")
     return size

@@ -2,8 +2,9 @@
 (port of the JAX package's ``data/loader.py``; the native C++ decoder,
 ``data/native_loader.py``, is not ported yet).
 
-  * Decode with cv2 if installed, else PIL, else — for ``.png`` files — the
-    port's own reader (data/png.py); anything else raises and the file is
+  * Decode with cv2 if installed, else PIL, else — for PNG content, told by
+    its signature whatever the file's name — the port's own reader
+    (data/png.py); anything else raises and the file is
     skipped and reported. PNG is lossless, so all three give the same pixels.
   * Images larger than the canvas are pre-downscaled (cv2 INTER_AREA, else
     PIL's box filter, else a numpy box filter).
@@ -25,7 +26,7 @@ import numpy as np
 
 from clip_assisted_data_labeling_tpu_torch.config import ALL_CROPS, IMG_EXTENSIONS
 from clip_assisted_data_labeling_tpu_torch.data.imsize import image_size
-from clip_assisted_data_labeling_tpu_torch.data.png import read_png
+from clip_assisted_data_labeling_tpu_torch.data.png import is_png, read_png
 from clip_assisted_data_labeling_tpu_torch.ops.crops import make_crop_params
 from clip_assisted_data_labeling_tpu_torch.ops.image_stats import make_stat_params
 
@@ -80,7 +81,7 @@ def decode_rgb(path: str) -> np.ndarray:
     if Image is not None:
         with Image.open(path) as im:
             return np.asarray(im.convert("RGB"))
-    if path.lower().endswith(".png"):
+    if is_png(path):  # by content: a PNG stream under a .jpg name loads too
         return read_png(path)
     raise ValueError(f"cannot decode {path}: no cv2 or PIL, and not a PNG")
 

@@ -1,7 +1,8 @@
 """A small PNG reader and writer with zlib and numpy only.
 
 A GPU host may have neither cv2 nor PIL installed. The loader then decodes
-``.png`` files with :func:`read_png` (8-bit grayscale, RGB or RGBA,
+PNG content (:func:`is_png`, by its signature, whatever the file's name)
+with :func:`read_png` (8-bit grayscale, RGB or RGBA,
 non-interlaced; PNG is lossless, so cv2, PIL and this reader give the same
 pixels). :func:`write_png` writes 8-bit RGB with filter type 0, for
 synthetic test data.
@@ -23,6 +24,13 @@ def _chunks(data: bytes):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
         yield kind, data[pos + 8:pos + 8 + length]
         pos += 12 + length
+
+
+def is_png(path: str) -> bool:
+    """Whether the file's content starts with the PNG signature, whatever
+    its name (as cv2 and PIL tell formats apart)."""
+    with open(path, "rb") as f:
+        return f.read(len(_SIGNATURE)) == _SIGNATURE
 
 
 def png_size(path: str) -> tuple[int, int] | None:
