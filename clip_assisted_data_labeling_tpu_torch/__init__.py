@@ -15,9 +15,11 @@ clip_assisted_data_labeling_tpu_torch`` prints the stage map.
   store/     sidecar features, the columnar store and the label CSV
   ops/       crops, image stats, quantization, similarity, the farthest-point
              order, and the hand-written CUDA kernels in csrc/
-  models/    the ViT image towers, weight carry-over, the encoder, the FC
-             regressor and the single-image scorer
-  data/      host-side image decode, bucketed batching, image-header sizes
+  models/    the ViT image towers (CLIP, SigLIP, naflex, PE, EVA, CoCa,
+             CLIPA), weight carry-over, the encoder, the FC regressor and the
+             single-image scorer
+  data/      host-side image decode (the native JPEG decoder, cv2, PIL, PNG),
+             bucketed batching, image-header sizes
   ui/        the labelling backends (opencv, headless, oracle) and sort orders
   pipeline/  the stage CLIs (``python -m clip_assisted_data_labeling_tpu_torch.pipeline.<stage>``:
              prep, embed, dedup, label, train, predict, predict_simple, subset,

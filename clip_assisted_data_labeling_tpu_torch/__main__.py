@@ -3,7 +3,9 @@ USAGE = """clip_assisted_data_labeling_tpu_torch — CLIP-assisted dataset label
 
 Pipeline stages (python -m clip_assisted_data_labeling_tpu_torch.pipeline.<stage>):
   prep            uuid-rename + normalize a raw image directory (host)
-  embed           4-crop CLIP embeddings + image stats (GPU, hand-written kernels)
+  embed           4-crop CLIP embeddings + image stats (GPU, hand-written kernels;
+                  every ViT-trunk tower: CLIP, SigLIP/SigLIP2 with naflex, PE,
+                  EVA, CoCa, CLIPA — ResNet and ConvNeXt not ported yet)
   dedup           all-pairs near-duplicate removal (one GPU)
   label           interactive labeling UI (opencv or headless)
   train           FC regressor on (embedding -> label) pairs
@@ -17,8 +19,7 @@ Pipeline stages (python -m clip_assisted_data_labeling_tpu_torch.pipeline.<stage
 Every stage that touches the device runs on cuda unless given --device cpu.
 
 Flags not ported yet, refused:
-  embed    --exact_stats, --profile_dir, --debug_nans, --host_count > 1,
-           --distributed, --aspect native
+  embed    --host_count > 1, --distributed
   dedup    --distributed
   train    --debug_nans
   predict  --sharded

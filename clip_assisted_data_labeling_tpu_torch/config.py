@@ -35,8 +35,9 @@ DB_COLUMNS = ("uuid", "label", "timestamp", "predicted_label")
 
 @dataclasses.dataclass(frozen=True)
 class EmbedConfig:
-    """Stage-1 embedding configuration (same fields and defaults as the JAX
-    package's ``EmbedConfig``, plus the torch ``device``)."""
+    """Stage-1 embedding configuration (the JAX package's ``EmbedConfig``
+    fields and defaults but the multi-host ones, plus the torch ``device``
+    and ``debug_nans``)."""
 
     models_to_use: Sequence[str] = ("ViT-L-14-336/openai",)
     batch_size: int = 64
@@ -50,12 +51,19 @@ class EmbedConfig:
     # strict-parity paths
     compute_dtype: str = "int8_static"
     with_image_stats: bool = True
+    exact_stats: bool = False  # host cv2 img_stat path (reference-exact values)
     shuffle_filenames: bool = True
     write_sidecars: bool = True
     # "auto" = <root_dir>/<model>.calib.npz, "none" = in memory only,
     # anything else = an explicit npz path
     calibration: str = "auto"
+    # "native" (naflex towers, bfloat16/float32): also embed each image at its
+    # native aspect ratio, stored as a fifth pseudo-crop "native_aspect"
+    aspect: str = "square"
     device: str = "cuda"
+    # the port's counterpart of jax_debug_nans: check each block's output and
+    # the readout, and raise FloatingPointError at the first NaN
+    debug_nans: bool = False
 
 
 @dataclasses.dataclass(frozen=True)

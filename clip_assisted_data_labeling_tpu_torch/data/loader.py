@@ -1,11 +1,14 @@
 """Host-side image pipeline: threaded decode → centered canvas → batches
-(port of the JAX package's ``data/loader.py``; the native C++ decoder,
-``data/native_loader.py``, is not ported yet).
+(port of the JAX package's ``data/loader.py``).
 
-  * Decode with cv2 if installed, else PIL, else — for PNG content, told by
-    its signature whatever the file's name — the port's own reader
-    (data/png.py); anything else raises and the file is
-    skipped and reported. PNG is lossless, so all three give the same pixels.
+  * Decode with the native C++ JPEG decoder (``data/native_loader.py``,
+    built at first use) by default, as the JAX loader does; a file it
+    refuses (not a JPEG), and every file where it could not be built, goes
+    to cv2 if installed, else PIL, else — for PNG content, told by its
+    signature whatever the file's name — the port's own reader
+    (data/png.py); anything else raises and the file is skipped and
+    reported. PNG is lossless, so the last three give the same pixels.
+    ``BatchedImageLoader.decoders`` counts the files each decoder took.
   * Images larger than the canvas are pre-downscaled (cv2 INTER_AREA, else
     PIL's box filter, else a numpy box filter).
   * Batches have static shapes (canvas [B, c, c, 3] uint8); the final
@@ -15,6 +18,7 @@
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import logging
 import os
@@ -26,6 +30,7 @@ import numpy as np
 
 from clip_assisted_data_labeling_tpu_torch.config import ALL_CROPS, IMG_EXTENSIONS
 from clip_assisted_data_labeling_tpu_torch.data.imsize import image_size
+from clip_assisted_data_labeling_tpu_torch.data.native_loader import decode_batch_native
 from clip_assisted_data_labeling_tpu_torch.data.png import is_png, read_png
 from clip_assisted_data_labeling_tpu_torch.ops.crops import make_crop_params
 from clip_assisted_data_labeling_tpu_torch.ops.image_stats import make_stat_params
@@ -150,8 +155,12 @@ class BatchedImageLoader:
         prefetch_batches: int = 4,
         bucketed: bool = False,
         sort_by_size: bool = False,
+        use_native: bool = True,
     ):
         self.image_paths = list(image_paths)
+        self.use_native = use_native
+        # files decoded so far, by decoder: 'native' or decoder_name()'s
+        self.decoders: collections.Counter = collections.Counter()
         self.canvas_size = canvas_size + (canvas_size % 2)
         self.out_size = out_size
         self.batch_size = batch_size
@@ -184,16 +193,39 @@ class BatchedImageLoader:
             sizes = list(pool.map(key, paths))
         return [p for _s, p in sorted(zip(sizes, paths))]
 
-    def _make_batch(self, chunk: list[str], pool: ThreadPoolExecutor) -> Batch:
-        bs, c = self.batch_size, self.canvas_size
+    def _decode_chunk(self, chunk: list[str], pool: ThreadPoolExecutor) -> list:
+        """[(path, (kind, array), w, h)] for the decodable files: kind
+        'canvas' for a native decode (the image centered in a full canvas
+        slot), 'img' for the image alone."""
+        c = self.canvas_size
+        # only JPEG-named files go to the native decoder: it refuses others,
+        # and each file it is handed costs a zeroed canvas slot
+        jpegs = ([i for i, p in enumerate(chunk) if p.lower().endswith((".jpg", ".jpeg"))]
+                 if self.use_native else [])
+        native = decode_batch_native([chunk[i] for i in jpegs], c, self.num_workers) if jpegs else None
+        slots = ({i: k for k, i in enumerate(jpegs) if native[1][k, 0] > 0}
+                 if native is not None else {})
+        retry = [i for i in range(len(chunk)) if i not in slots]
+        fallback = dict(zip(retry, pool.map(_decode_one, [chunk[i] for i in retry],
+                                            [c] * len(retry))))
         decoded = []
-        for path, dec in zip(chunk, pool.map(_decode_one, chunk, [c] * len(chunk))):
-            if dec is None:
+        for i, path in enumerate(chunk):
+            if i in slots:
+                w, h = (int(v) for v in native[1][slots[i]])
+                decoded.append((path, ("canvas", native[0][slots[i]]), w, h))
+                self.decoders["native"] += 1
+            elif fallback[i] is not None:
+                img, w, h = fallback[i]
+                decoded.append((path, ("img", img), w, h))
+                self.decoders[decoder_name()] += 1
+            else:
                 log.warning("Skipping unreadable image %s", path)
                 self.skipped.append(path)
-                continue
-            decoded.append((path, *dec))
+        return decoded
 
+    def _make_batch(self, chunk: list[str], pool: ThreadPoolExecutor) -> Batch:
+        bs, c = self.batch_size, self.canvas_size
+        decoded = self._decode_chunk(chunk, pool)
         chunk_max = max((max(w, h) for _p, _i, w, h in decoded), default=0)
         cb = next((b for b in self.bucket_sizes if b >= chunk_max), c)
 
@@ -205,9 +237,15 @@ class BatchedImageLoader:
         ).copy()
         stat_params = np.broadcast_to(make_stat_params(cb, cb, cb), (bs, 8)).copy()
         paths: list[str] = []
-        for fill, (path, img, w, h) in enumerate(decoded):
-            oy, ox = (cb - h) // 2, (cb - w) // 2
-            canvas[fill, oy: oy + h, ox: ox + w] = img
+        lo = (c - cb) // 2
+        for fill, (path, (kind, img), w, h) in enumerate(decoded):
+            if kind == "canvas":
+                # centered in the (even) full canvas, so its centre slice is
+                # the image centered in the bucket canvas
+                canvas[fill] = img[lo: lo + cb, lo: lo + cb]
+            else:
+                oy, ox = (cb - h) // 2, (cb - w) // 2
+                canvas[fill, oy: oy + h, ox: ox + w] = img
             crop_params[fill] = make_crop_params(w, h, cb, self.out_size, self.crop_names)
             stat_params[fill] = make_stat_params(w, h, cb)
             paths.append(path)

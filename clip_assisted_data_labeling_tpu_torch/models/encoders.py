@@ -1,17 +1,22 @@
 """The CLIP image encoder (port of the JAX package's ``models/encoders.py``
-for the plain CLIP, the fixed-resolution SigLIP and the PE ViT towers).
+for the ViT-trunk towers: CLIP, SigLIP/SigLIP2 with naflex, PE, EVA, CoCa,
+CLIPA).
 
 A ``CLIPImageEncoder`` owns the ViT config and module and exposes:
 
   * ``img_resolution`` — drives the fused preprocess output size,
   * ``embed_crops(canvas, crop_params)`` — uint8 canvases → 4-crop
-    preprocess → ViT → [B, n_crops, D] embeddings on the device.
+    preprocess → ViT → [B, n_crops, D] embeddings on the device,
+  * ``encode_variable(images)`` — a naflex tower's native-aspect path
+    (``models/naflex.py``), float32 or bfloat16 only.
 
 Modes: ``float32`` and ``bfloat16`` (strict parity), ``int8`` (W8A8 with
 dynamic per-row activation scales: quantized weights, bf16 compute, no
 calibration) and ``int8_static`` (W8A8 with per-layer activation scales
 calibrated on the first batch and persisted to ``.calib.npz`` in the JAX
-package's format, so either package reads the other's file). Where
+package's format, so either package reads the other's file). EVA02's
+swiglu/sub-LN block has no dynamic-int8 form: ``int8`` runs it in bfloat16,
+with the JAX package's warning. Where
 ``models.vit.int8_wire_enabled`` says so (SO400M-384 by default; every tower
 under ``CTPU_INT8_WIRE=1``, none under ``=0``), int8_static also calibrates
 and attaches the per-channel ``qkv_amax``, and a file saved without it is
@@ -125,14 +130,25 @@ class CLIPImageEncoder:
         calibration_path: str | None = None,
         device: str | torch.device = "cuda",
         wire: bool | None = None,
+        debug_nans: bool = False,
     ):
         """``wire`` forces the int8_static attention wire on or off; None
-        takes the JAX package's per-shape rule."""
+        takes the JAX package's per-shape rule. ``debug_nans``: every
+        forward checks each block's output and the readout and raises
+        ``FloatingPointError`` at the first NaN."""
         self.model_name = model_name
         self.device = resolve_device(device)
         self.calibration_path = calibration_path
+        self.debug_nans = debug_nans
         self.cfg = resolve_config(model_name)
         self.wire = int8_wire_enabled(self.cfg, wire)
+        if compute_dtype == "int8" and (self.cfg.mlp_type == "swiglu" or self.cfg.attn_inner_ln):
+            # the int8_static lnk block has EVA02 branches; dynamic int8 none
+            log.warning(
+                "%s (EVA02 swiglu/sub-LN block) has no dynamic-int8 formulation — use "
+                "int8_static for the fast path; running bfloat16", model_name,
+            )
+            compute_dtype = "bfloat16"
         # "int8" quantizes the weights once here and the activations per row
         # on the fly; "int8_static" also calibrates fixed activation scales
         # on the first batch. Both compute the rest in bf16.
@@ -248,8 +264,37 @@ class CLIPImageEncoder:
         b, n = crops.shape[:2]
         flat = crops.reshape((b * n,) + crops.shape[2:])
         self._maybe_calibrate(flat)
-        emb = vit_encode_image(self.model, flat, self.compute_dtype)
+        emb = vit_encode_image(self.model, flat, self.compute_dtype, debug_nans=self.debug_nans)
         return emb.reshape(b, n, -1)
+
+    def encode_variable(self, images: list) -> torch.Tensor:
+        """A naflex tower's native-aspect path: [H, W, 3] uint8 arrays →
+        [B, width] float32 unit embeddings on the device, each image on its
+        own aspect-preserving patch grid (``models/naflex.py``). The square
+        crops never need it: ``embed_crops`` fills the whole positional
+        grid."""
+        if not self.cfg.naflex:
+            raise ValueError(f"{self.model_name} is not a naflex tower; use embed_crops")
+        if self.quantized:
+            raise ValueError(
+                "the masked variable-aspect path has no int8 formulation — construct the "
+                "encoder with compute_dtype='bfloat16' (the square-crop path does support "
+                "the int8 modes)"
+            )
+        from clip_assisted_data_labeling_tpu_torch.models.naflex import (
+            build_pos_weights,
+            naflex_encode,
+            preprocess_variable,
+        )
+
+        n_max = self.cfg.seq_len
+        prepped = [preprocess_variable(np.asarray(im), self.cfg, n_max) for im in images]
+        patches = torch.from_numpy(np.stack([p for p, _, _ in prepped])).to(self.device)
+        masks = torch.from_numpy(np.stack([m for _, m, _ in prepped])).to(self.device)
+        pos_w = torch.from_numpy(build_pos_weights([s for _, _, s in prepped], n_max,
+                                                   self.cfg.grid)).to(self.device)
+        return naflex_encode(self.model, patches, pos_w, masks, self.compute_dtype,
+                             debug_nans=self.debug_nans)
 
 
 def create_encoder(model_name: str, model_path: str | None = None, **kw) -> CLIPImageEncoder:

@@ -17,8 +17,8 @@ The dynamic (new_h, new_w) resample grid lives inside a fixed 1536×768
 container (orientation-normalized so rows ≥ cols; every stat is transpose-
 invariant) with masked reductions over the valid region, replicating both
 cv2 INTER_AREA regimes: box-overlap averaging when both axes shrink, cv2's
-2-tap zoom emulation otherwise. The host cv2 path (``--exact_stats``) is not
-ported yet.
+2-tap zoom emulation otherwise. :func:`image_stats_reference` is the host
+cv2 path (``--exact_stats``): the reference's own computation on one image.
 """
 from __future__ import annotations
 
@@ -242,3 +242,57 @@ def image_stats_batch(canvas_u8: torch.Tensor, params: torch.Tensor) -> torch.Te
         ],
         dim=1,
     )
+
+
+def image_stats_reference(rgb_image: np.ndarray, max_n_pixels: int = 768 * 768) -> dict:
+    """Host replica of the reference's cv2 stats (utils/image_features.py:
+    51-94) on one [H, W, 3] uint8 RGB image, every quirk included (JAX
+    ``image_stats_reference``, ops/image_stats.py:280). Imports cv2 here, at
+    the first call."""
+    import cv2
+
+    h_dim, w_dim = rgb_image.shape[:2]
+    new_w = int(np.sqrt(max_n_pixels * h_dim / w_dim))
+    new_h = int(np.sqrt(max_n_pixels * w_dim / h_dim))
+    img = cv2.resize(rgb_image, (new_w, new_h), interpolation=cv2.INTER_AREA)
+    gray = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+    hsv = cv2.cvtColor(img, cv2.COLOR_BGR2HSV)
+
+    bf, gf, rf = cv2.split(img.astype("float"))
+    rg = np.abs(rf - gf)
+    yb = np.abs(0.5 * (rf + gf) - bf)
+    colorfulness = (np.sqrt(rg.std() ** 2 + yb.std() ** 2)
+                    + 0.3 * np.sqrt(rg.mean() ** 2 + yb.mean() ** 2)) / 100.0
+
+    hist = cv2.calcHist([gray], [0], None, [256], [0, 256]).astype(np.float64)
+    hist /= hist.sum()
+    entropy = float(-np.sum(hist * np.log2(hist + _EPS)) / 8.0)
+
+    lap = cv2.Laplacian(gray, cv2.CV_64F)
+    lap_var = float(np.tanh(np.var(lap) * 1e-4))
+
+    vals = [
+        img.shape[1] / 768,
+        img.shape[0] / 768,
+        img.shape[1] / img.shape[0],
+        np.mean(img) / 255,
+        np.std(img) / 255,
+        np.mean(img[:, :, 0]) / 255,
+        np.mean(img[:, :, 1]) / 255,
+        np.mean(img[:, :, 2]) / 255,
+        np.std(img[:, :, 0]) / 255,
+        np.std(img[:, :, 1]) / 255,
+        np.std(img[:, :, 2]) / 255,
+        np.mean(gray) / 255,
+        np.std(gray) / 255,
+        np.mean(hsv[:, :, 0]) / 255,
+        np.mean(hsv[:, :, 1]) / 255,
+        np.mean(hsv[:, :, 2]) / 255,
+        np.std(hsv[:, :, 0]) / 255,
+        np.std(hsv[:, :, 1]) / 255,
+        np.std(hsv[:, :, 2]) / 255,
+        colorfulness,
+        entropy,
+        lap_var,
+    ]
+    return dict(zip(IMG_STAT_KEYS, [float(v) for v in vals]))

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from clip_assisted_data_labeling_tpu_torch.ops import knobs
 
@@ -65,13 +66,38 @@ def is_quantized(params: dict) -> bool:
     return "patch_kernel_scale" in params or "blocks/qkv_kernel_scale" in params
 
 
+# the stored int8 weights' K (their [N, K] rows) is padded to a multiple of
+# this once, where the module takes them (models/clip_weights.py):
+# ``torch._int_mm`` needs K % 8 == 0 on the card, the GEMM of K8/K9 K % 16
+K_ALIGN = 16
+
+
+def pad_k(wq_t: torch.Tensor) -> torch.Tensor:
+    """int8 weights stored [N, K] → [N, K'] with K' the next multiple of
+    :data:`K_ALIGN`, the new columns zero (exact in the int32 sums)."""
+    extra = -wq_t.shape[1] % K_ALIGN
+    return F.pad(wq_t, (0, extra)) if extra else wq_t
+
+
+def match_k(x: torch.Tensor, wq_t: torch.Tensor) -> torch.Tensor:
+    """x [M, K] with zero columns up to the K' of weights that :func:`pad_k`
+    padded ([N, K'], K' = K rounded up to :data:`K_ALIGN`); x as it is for
+    any other weight, so a weight of the wrong width still fails its
+    product's checks."""
+    k, kw = x.shape[1], wq_t.shape[1]
+    return F.pad(x, (0, kw - k)) if kw > k and kw == k + (-k % K_ALIGN) else x
+
+
 def int_matmul(xq: torch.Tensor, wq_t: torch.Tensor) -> torch.Tensor:
-    """int8 [M, K] × int8 weights stored [N, K] → int32 [M, N].
+    """int8 [M, K] × int8 weights stored [N, K'] → int32 [M, N], K' ≥ K the
+    weights' padded K (:func:`pad_k`): the activations get K' - K zero
+    columns to match (EVA02-L's fc2 has K = 2730).
 
     ``torch._int_mm`` takes the second operand column-major on the card
     (``wq_t.t()`` of the contiguous [N, K] layout) and needs M > 16 and
     N % 8 == 0 there; smaller M is padded with zero rows, other N with zero
     weight rows."""
+    xq = match_k(xq, wq_t)
     m, n = xq.shape[0], wq_t.shape[0]
     if xq.is_cuda and (m <= 16 or n % 8):
         xq = torch.cat([xq, xq.new_zeros((max(17 - m, 0), xq.shape[1]))])

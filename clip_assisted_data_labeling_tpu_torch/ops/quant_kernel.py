@@ -46,7 +46,12 @@ import torch
 
 from clip_assisted_data_labeling_tpu_torch.ops import _cuda_build
 from clip_assisted_data_labeling_tpu_torch.ops.activations import gelu_tanh
-from clip_assisted_data_labeling_tpu_torch.ops.quant import _dequant_epilogue, _num, int_matmul
+from clip_assisted_data_labeling_tpu_torch.ops.quant import (
+    _dequant_epilogue,
+    _num,
+    int_matmul,
+    match_k,
+)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _ACT_CODE = {None: 0, "quick_gelu": 1, "gelu_tanh": 2, "gelu": 3}
@@ -312,7 +317,10 @@ def q_linear_fused(x: torch.Tensor, wq_t: torch.Tensor, w_scale: torch.Tensor,
                    bias: torch.Tensor | None = None, out_dtype=torch.bfloat16) -> torch.Tensor:
     """Fused W8A8 linear: x [M, K] float32 or bfloat16, wq_t [N, K] int8 (the
     [K, N] kernel stored transposed), w_scale [N] and bias [N] (or None)
-    float32 → [M, N] of ``out_dtype`` (float32 or bfloat16)."""
+    float32 → [M, N] of ``out_dtype`` (float32 or bfloat16). Weights whose K
+    was padded (``ops/quant.pad_k``) get x padded with zero columns to match:
+    they change neither a row's amax nor its products."""
+    x = match_k(x, wq_t)
     if x.device.type == "cpu":
         return q_linear_fused_plain(x, wq_t, w_scale, bias, out_dtype)
     if not x.is_cuda:

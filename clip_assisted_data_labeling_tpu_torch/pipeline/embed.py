@@ -5,17 +5,22 @@ The host loader decodes onto fixed canvases; per batch the device runs the
 4-crop extraction, resize, normalization, the ViT forward and the 22 image
 stats. Outputs go to the reference-compatible ``.pt`` sidecars (incremental
 per-model merge, skip-if-already-embedded) and the columnar store that later
-stages (the JAX package's dedup/train/predict/subset) read.
+stages read.
 
-Towers: the plain CLIP ViTs, the fixed-resolution SigLIP/SigLIP2 ViTs and
-the PE cores (``models/vit.resolve_config``; PE names take no pretrained
-tag, e.g. ``PE-Core-L14-336``); a SigLIP store's ``embed_dim`` is the
-tower's width (1152 for ViT-SO400M-14-SigLIP-384).
+Towers: every ViT-trunk name ``models/vit.resolve_config`` resolves (CLIP,
+SigLIP/SigLIP2 with naflex, PE — no pretrained tag, e.g.
+``PE-Core-L14-336`` —, EVA, CoCa, CLIPA); a SigLIP store's ``embed_dim`` is
+the tower's width (1152 for ViT-SO400M-14-SigLIP-384).
 
 CLI: the JAX stage's flags plus ``--device`` (default ``cuda``; ``cpu`` for
-the CPU). Not ported yet, and refused: ``--host_count > 1``,
-``--distributed``, ``--aspect native``, ``--exact_stats``, ``--profile_dir``
-and ``--debug_nans``.
+the CPU). ``--aspect native`` (naflex towers) adds a fifth pseudo-crop
+``native_aspect`` (int8 modes run bfloat16 then); ``--exact_stats``
+computes the stats on the host with cv2 from each file at its original
+resolution; ``--profile_dir`` writes a torch.profiler trace (CPU and CUDA
+activity, Chrome trace format) of the run; ``--debug_nans`` checks each
+block's output and the readout and raises ``FloatingPointError`` at the
+first NaN. Not ported yet, and refused: ``--host_count > 1`` and
+``--distributed``.
 """
 from __future__ import annotations
 
@@ -30,9 +35,17 @@ import numpy as np
 import torch
 
 from clip_assisted_data_labeling_tpu_torch.config import ALL_CROPS, EmbedConfig
-from clip_assisted_data_labeling_tpu_torch.data.loader import BatchedImageLoader, find_images
+from clip_assisted_data_labeling_tpu_torch.data.loader import (
+    BatchedImageLoader,
+    decode_rgb,
+    find_images,
+)
 from clip_assisted_data_labeling_tpu_torch.models.encoders import CLIPImageEncoder, calibration_file
-from clip_assisted_data_labeling_tpu_torch.ops.image_stats import IMG_STAT_KEYS, image_stats_batch
+from clip_assisted_data_labeling_tpu_torch.ops.image_stats import (
+    IMG_STAT_KEYS,
+    image_stats_batch,
+    image_stats_reference,
+)
 from clip_assisted_data_labeling_tpu_torch.store.columnar import EmbeddingStore
 from clip_assisted_data_labeling_tpu_torch.store.sidecar import (
     has_model_key,
@@ -52,6 +65,18 @@ def _uuid_of(path: str) -> str:
 
 def _sidecar_path(path: str) -> str:
     return os.path.splitext(path)[0] + ".pt"
+
+
+def _host_exact_stats(batch) -> np.ndarray:
+    """Reference-exact img stats (host cv2) for --exact_stats runs: each
+    image re-decoded from its file at its original resolution (the canvas
+    copy may be pre-downscaled, which would skew the width/height/detail
+    stats against the reference)."""
+    out = np.zeros((batch.n_valid, len(IMG_STAT_KEYS)), np.float32)
+    for i, path in enumerate(batch.paths):
+        stats = image_stats_reference(decode_rgb(path))
+        out[i] = [stats[k] for k in IMG_STAT_KEYS]
+    return out
 
 
 def embed_dataset(root_dir: str, cfg: EmbedConfig) -> dict[str, EmbeddingStore]:
@@ -105,14 +130,27 @@ def _embed_one_model(root_dir, img_paths, model_name, cfg: EmbedConfig, device):
     if cfg.compute_dtype == "int8_static" and cfg.calibration != "none":
         calibration_path = (calibration_file(model_name, root_dir)
                             if cfg.calibration == "auto" else cfg.calibration)
+    compute = cfg.compute_dtype
+    if cfg.aspect == "native" and compute.startswith("int8"):
+        # the masked variable-patch-grid path has no int8 formulation
+        print("--aspect native has no int8 formulation; running bfloat16 "
+              "(pass --compute_dtype float32 for the strict-parity path)")
+        compute = "bfloat16"
     encoder = CLIPImageEncoder(
-        model_name, model_path=cfg.model_path, compute_dtype=cfg.compute_dtype,
-        calibration_path=calibration_path, device=device,
+        model_name, model_path=cfg.model_path, compute_dtype=compute,
+        calibration_path=calibration_path, device=device, debug_nans=cfg.debug_nans,
     )
+    # --aspect native: one more embedding per image at its native aspect
+    # through the naflex masked path, stored as a fifth pseudo-crop
+    native_aspect = cfg.aspect == "native"
+    if native_aspect and not encoder.cfg.naflex:
+        raise ValueError(f"--aspect native requires a naflex tower; {model_name} is "
+                         "fixed-resolution (use a '…-naflex' SigLIP2 model name)")
+    crop_names_out = list(cfg.crop_names) + (["native_aspect"] if native_aspect else [])
 
     uuids_all = [_uuid_of(p) for p in img_paths]
     store = EmbeddingStore.create(
-        root_dir, model_name, list(cfg.crop_names), encoder.embed_dim, uuids_all,
+        root_dir, model_name, crop_names_out, encoder.embed_dim, uuids_all,
         with_stats=cfg.with_image_stats,
         rel_paths=[os.path.relpath(p, root_dir) for p in img_paths],
     )
@@ -126,11 +164,13 @@ def _embed_one_model(root_dir, img_paths, model_name, cfg: EmbedConfig, device):
 
     def write_batch_sidecars(paths, emb_np, stats_arr):
         for bi, path in enumerate(paths):
-            crop_embs = {crop: emb_np[bi, ci] for ci, crop in enumerate(cfg.crop_names)}
+            crop_embs = {crop: emb_np[bi, ci] for ci, crop in enumerate(crop_names_out)}
             img_stats = (dict(zip(IMG_STAT_KEYS, map(float, stats_arr[bi])))
                          if stats_arr is not None else None)
             write_sidecar(_sidecar_path(path), model_name, crop_embs, img_stats,
                           merge=not cfg.force_reencode)
+
+    device_stats = cfg.with_image_stats and not cfg.exact_stats
 
     def dispatch(batch):
         """Enqueue the batch's device work; returns device tensors (async on
@@ -138,7 +178,7 @@ def _embed_one_model(root_dir, img_paths, model_name, cfg: EmbedConfig, device):
         canvas = torch.from_numpy(batch.canvas).to(device, non_blocking=True)
         emb_dev = encoder.embed_crops(canvas, batch.crop_params)
         stats_dev = None
-        if cfg.with_image_stats:
+        if device_stats:
             with torch.inference_mode():
                 stats_dev = image_stats_batch(canvas, torch.from_numpy(batch.stat_params))
         return emb_dev, stats_dev
@@ -151,7 +191,19 @@ def _embed_one_model(root_dir, img_paths, model_name, cfg: EmbedConfig, device):
             nonlocal n_done
             with timer.time("device", batch.n_valid):
                 emb = emb_dev[: batch.n_valid].cpu().numpy()
+                if native_aspect:
+                    # each image's pixels back off its centered canvas
+                    # (stat_params = [ox, oy, w, h, …]) through the masked path
+                    imgs = []
+                    for bi in range(batch.n_valid):
+                        ox, oy, w, h = (int(v) for v in batch.stat_params[bi, :4])
+                        imgs.append(batch.canvas[bi, oy: oy + h, ox: ox + w])
+                    nat = encoder.encode_variable(imgs).cpu().numpy()
+                    emb = np.concatenate([emb, nat[:, None, :]], axis=1)
                 stats_np = None if stats_dev is None else stats_dev[: batch.n_valid].cpu().numpy()
+            if cfg.with_image_stats and cfg.exact_stats:
+                with timer.time("exact_stats", batch.n_valid):
+                    stats_np = _host_exact_stats(batch)
             with timer.time("store_write", batch.n_valid):
                 for bi, path in enumerate(batch.paths):
                     store.write_rows(row_of[_uuid_of(path)], emb[bi: bi + 1],
@@ -232,8 +284,12 @@ def main(argv=None):
     parser.add_argument("--no_sidecars", action="store_true",
                         help="Skip per-image .pt sidecars (columnar store only)")
     parser.add_argument("--no_image_stats", action="store_true")
-    parser.add_argument("--exact_stats", action="store_true", help="not ported yet")
-    parser.add_argument("--profile_dir", type=str, default=None, help="not ported yet")
+    parser.add_argument("--exact_stats", action="store_true",
+                        help="compute img_stat_* on the host with cv2 from each file at its "
+                        "original resolution (reference-exact values; slower)")
+    parser.add_argument("--profile_dir", type=str, default=None,
+                        help="write a torch.profiler trace of the run (CPU and CUDA "
+                        "activity, Chrome trace format) into this directory")
     parser.add_argument("--host_index", type=int, default=0)
     parser.add_argument("--host_count", type=int, default=1,
                         help="multi-host runs: not ported yet (must be 1)")
@@ -241,9 +297,14 @@ def main(argv=None):
     parser.add_argument("--coordinator_address", type=str, default=None)
     parser.add_argument("--num_processes", type=int, default=None)
     parser.add_argument("--process_id", type=int, default=None)
-    parser.add_argument("--debug_nans", action="store_true", help="not ported yet")
+    parser.add_argument("--debug_nans", action="store_true",
+                        help="check each block's output and the readout, and raise "
+                        "FloatingPointError naming the first block that produced a NaN")
     parser.add_argument("--aspect", type=str, default="square", choices=["square", "native"],
-                        help="'native' (naflex towers): not ported yet")
+                        help="'native' (naflex towers, bfloat16/float32 only): also embed "
+                        "each image at its native aspect ratio through the masked "
+                        "variable-patch-grid path, stored as a fifth pseudo-crop "
+                        "'native_aspect'")
     parser.add_argument("--calibration", type=str, default="auto",
                         help="int8_static activation-scale persistence: 'auto' "
                         "(default) pins scales to <root_dir>/<model>.calib.npz; "
@@ -254,10 +315,6 @@ def main(argv=None):
     refused = [flag for flag, on in (
         ("--host_count > 1", args.host_count > 1),
         ("--distributed", args.distributed),
-        ("--aspect native", args.aspect == "native"),
-        ("--exact_stats", args.exact_stats),
-        ("--profile_dir", args.profile_dir is not None),
-        ("--debug_nans", args.debug_nans),
     ) if on]
     if refused:
         parser.error(f"{', '.join(refused)}: not ported yet to the PyTorch port "
@@ -272,11 +329,36 @@ def main(argv=None):
         canvas_size=args.canvas_size,
         compute_dtype=args.compute_dtype,
         with_image_stats=not args.no_image_stats,
+        exact_stats=args.exact_stats,
         write_sidecars=not args.no_sidecars,
         calibration=args.calibration,
+        aspect=args.aspect,
         device=args.device,
+        debug_nans=args.debug_nans,
     )
-    return embed_dataset(args.root_dir, cfg)
+    if args.profile_dir is None:
+        return embed_dataset(args.root_dir, cfg)
+    return _profiled(args.root_dir, cfg, args.profile_dir)
+
+
+def _profiled(root_dir: str, cfg: EmbedConfig, profile_dir: str):
+    """embed_dataset under torch.profiler (CPU activity, and CUDA activity
+    where the run is on the card), the trace written into ``profile_dir`` as
+    ``embed_trace.json`` (Chrome trace format; the JAX stage's
+    jax.profiler writes TensorBoard's format instead)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    on_card = resolve_device(cfg.device).type == "cuda"
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        stores = embed_dataset(root_dir, cfg)
+        if on_card:
+            torch.cuda.synchronize()
+    path = os.path.join(profile_dir, "embed_trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profiler trace written to {path}")
+    return stores
 
 
 if __name__ == "__main__":

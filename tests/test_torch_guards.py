@@ -117,7 +117,6 @@ def test_dedup_path_imports_no_pandas_or_matplotlib(tmp_path):
 def test_unported_cli_options_refused(tmp_path):
     from clip_assisted_data_labeling_tpu_torch.pipeline.embed import main
 
-    for extra in (["--host_count", "2"], ["--distributed"], ["--aspect", "native"],
-                  ["--exact_stats"], ["--profile_dir", "p"]):
+    for extra in (["--host_count", "2"], ["--distributed"]):
         with pytest.raises(SystemExit):
             main(["--root_dir", str(tmp_path), "--device", "cpu", *extra])

@@ -88,7 +88,7 @@ def _jax_encode(params, x, cfg, dtype, monkeypatch):
 def test_pe_config_matches_jax(name):
     j, t = _cfgs(name)
     assert {f: getattr(t, f) for f in FIELDS} == {f: getattr(j, f) for f in FIELDS}
-    with pytest.raises(ValueError, match="not ported yet"):
+    with pytest.raises(ValueError, match="Unknown model format"):
         tvit.resolve_config(name + "/somewhere")  # PE names take no pretrained tag
 
 

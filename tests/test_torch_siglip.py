@@ -96,8 +96,9 @@ def test_so400m_384_routes_to_flash_and_the_wire():
     assert tvit.int8_wire_enabled(cfg) and tattn.flash_panel(729) == 368
     assert not tvit.int8_wire_enabled(tvit.resolve_config("ViT-L-14-336/openai"))
     assert tvit.int8_wire_enabled(cfg, wire=False) is False
-    with pytest.raises(ValueError, match="naflex"):
-        tvit.resolve_config("ViT-SO400M-16-SigLIP2-naflex/webli")
+    # the naflex towers resolve since their port: a full 16×16 grid at patch 16
+    naflex = tvit.resolve_config("ViT-SO400M-16-SigLIP2-naflex/webli")
+    assert naflex.naflex and (naflex.seq_len, naflex.image_size) == (256, 256)
 
 
 def _jax_encode(params, x, cfg, dtype, monkeypatch):

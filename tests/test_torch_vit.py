@@ -129,5 +129,8 @@ def test_registry_and_unported_families():
         assert (j.width, j.layers, j.heads, j.patch_size, j.image_size, j.embed_dim,
                 j.mlp_dim, j.act) == (t.width, t.layers, t.heads, t.patch_size,
                                       t.image_size, t.embed_dim, t.mlp_dim, t.act)
+    # every ViT-trunk family resolves; the convolutional towers wait for the
+    # next slice of the port
+    assert tvit.resolve_config("EVA02-L-14-336/merged2b_s6b_b61k").mlp_type == "swiglu"
     with pytest.raises(ValueError, match="not ported yet"):
-        tvit.resolve_config("EVA02-L-14-336/merged2b_s6b_b61k")
+        tvit.resolve_config("RN50/openai")
