@@ -165,8 +165,31 @@ Phases (any failure exits nonzero and prints no result line):
      (a nonzero exit naming block 5),
  31. the native JPEG decoder: whether it built (why not, if not: no
      failure), and where it did, its canvases against the cv2/PIL path,
-then print one JSON line with phase 14's records, one with phases 16-19's,
-one with phases 20-23's, one with phase 31's, one JSON line listing the kernels, each row with its launches
+ 32. the embed CLI on the 32 PNGs: RN50x64/openai int8_static at full width
+     and depth (448 px, layers 3, 15, 36, 10; int8_static auto-resolves on at
+     final width 4096), on random weights whose residual branches are damped
+     by chosen scales (every block's bn3 0.2, ConvNeXt's layer scale 0.1; an
+     .npz the CLI finds through --model_path, as phases 33-34 use): outputs,
+     the .calib.npz's 64 s{s}b{b}_act_amax of (2,), steady state and
+     profile, the first batch (8 images) against the same encoder, weights
+     and calibration on the CPU (1 - cosine ≤ 2e-3),
+ 33. the same for convnext_large_d_320 int8_static (the mlp head; auto on
+     at 1536): s{s}_act_amax of (3, 2), (3, 2), (27, 2), (3, 2),
+ 34. four images each at full width and depth, timed (ms a forward of 16
+     crops): RN50 float32 against the CPU (1 - cosine ≤ 1e-5); RN50
+     int8_static (auto off: bfloat16, the JAX log line) and int8
+     (bfloat16, the JAX warning); RN101, RN50x4, RN50x16 bfloat16; RN50x64
+     int8_static;
+     convnext_base_w int8_static (auto off: bfloat16); convnext_xxlarge_320
+     bfloat16 and int8_static. Phases 32-34 launch no kernel of the table:
+     every counter reads 0,
+ 35. (with phase 16, on its store) the train CLI with --debug_nans in a
+     process of its own, 3 epochs: the checkpoint equal bit for bit to the
+     flag-off run's; on a copy of the store with one feature row of NaN it
+     exits nonzero naming an epoch and a step,
+then print one JSON line with phase 14's records, one with phases 16-19's
+and 35's, one with phases 20-23's, one with phase 31's, one with phases
+32-34's, one JSON line listing the kernels, each row with its launches
 read from the counter of the main path above that runs its case (0 for a
 shape no path runs; K7, K8, K10 and K5 with RoPE, which no path of the JAX
 package reaches, summed over all of them) and, last, the device line.
@@ -1255,7 +1278,7 @@ def check_standalone_attention(gen: torch.Generator) -> list[dict]:
 
 
 def profile_steady(model: str, root: str, calib: str, cfg, per_batch: dict,
-                   dtype: str) -> None:
+                   dtype: str, model_path: str | None = None) -> None:
     """A main path's device work again, steady state: the encoder (with the
     saved calibration, for int8_static), all batches decoded up front, then
     (a) wall time over every batch (crops + ViT + image stats, H2D included,
@@ -1269,7 +1292,8 @@ def profile_steady(model: str, root: str, calib: str, cfg, per_batch: dict,
     from clip_assisted_data_labeling_tpu_torch.models.encoders import CLIPImageEncoder
     from clip_assisted_data_labeling_tpu_torch.ops.image_stats import image_stats_batch
 
-    enc = CLIPImageEncoder(model, compute_dtype=dtype, calibration_path=calib, device="cuda")
+    enc = CLIPImageEncoder(model, model_path=model_path, compute_dtype=dtype,
+                           calibration_path=calib, device="cuda")
     if dtype == "int8_static" and not enc.load_calibration():
         fail(f"{model}: the saved calibration did not load")
     batches = list(BatchedImageLoader(find_images(root), canvas_size=1024,
@@ -1307,8 +1331,9 @@ def profile_steady(model: str, root: str, calib: str, cfg, per_batch: dict,
     total = sum(e.self_device_time_total for e in events)
     if total <= 0:
         fail(f"torch.profiler recorded no device time for {model}")
-    print(f"profile of one batch of {model} {dtype} ({BATCH} images, 4 crops, "
-          f"S={cfg.seq_len}): "
+    shape = f"S={cfg.seq_len}" if hasattr(cfg, "patch_size") and cfg.patch_size else (
+        f"{cfg.image_size} px")
+    print(f"profile of one batch of {model} {dtype} ({BATCH} images, 4 crops, {shape}): "
           f"device time {total / 1e3:.2f} ms", flush=True)
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms "
@@ -1319,14 +1344,17 @@ def profile_steady(model: str, root: str, calib: str, cfg, per_batch: dict,
 
 
 def embed_and_check(root: str, model: str, cfg, per_forward: dict,
-                    dtype: str = "int8_static") -> dict:
+                    dtype: str = "int8_static", calib_shapes: dict | None = None,
+                    model_path: str | None = None) -> dict:
     """A main path through the user's entry point: the embed CLI on the PNGs
     (``dtype``, batch BATCH), with the launch counters zeroed just before
     and read just after — ``per_forward`` for each batch's forward, none for
     int8_static's calibration forward (its attention is the plain XLA-style
-    path); then its outputs (a .calib.npz exactly for int8_static), steady
-    state and profile. Returns the launch counts, the sidecar paths and their
-    embeddings [N_IMAGES, 4, D]."""
+    path); then its outputs (a .calib.npz exactly for int8_static, holding
+    exactly ``calib_shapes``: by default a ViT's act_amax and qkv_amax),
+    steady state and profile; ``model_path`` is passed to the CLI. Returns
+    the launch counts, the sidecar paths and their embeddings [N_IMAGES, 4,
+    D]."""
     from clip_assisted_data_labeling_tpu_torch.pipeline.embed import main as embed_main
     from clip_assisted_data_labeling_tpu_torch.store.columnar import EmbeddingStore
     from clip_assisted_data_labeling_tpu_torch.store.sidecar import read_sidecar
@@ -1336,7 +1364,8 @@ def embed_and_check(root: str, model: str, cfg, per_forward: dict,
     t0 = time.perf_counter()
     stores = embed_main(["--root_dir", root, "--models_to_use", model,
                          "--compute_dtype", dtype, "--batch_size", str(BATCH),
-                         "--num_workers", "4", "--device", "cuda"])
+                         "--num_workers", "4", "--device", "cuda"]
+                        + (["--model_path", model_path] if model_path else []))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     got = counts()
@@ -1355,10 +1384,15 @@ def embed_and_check(root: str, model: str, cfg, per_forward: dict,
         fail(f"{len(pts)} sidecars (want {N_IMAGES}), calib exists: {os.path.exists(calib)}")
     shapes = None
     if static:
+        want_shapes = calib_shapes or {"act_amax": (cfg.layers, 4),
+                                       "qkv_amax": (cfg.layers, 3 * cfg.width)}
         with np.load(calib) as f:
-            shapes = {k: f[k].shape for k in ("act_amax", "qkv_amax")}
-        if shapes != {"act_amax": (cfg.layers, 4), "qkv_amax": (cfg.layers, 3 * cfg.width)}:
-            fail(f"{model}: calibration shapes {shapes}")
+            shapes = {k: f[k].shape for k in f.files if k != "_model_name"}
+            named = str(f["_model_name"]) if "_model_name" in f.files else None
+        if shapes != want_shapes or named != model:
+            fail(f"{model}: calibration shapes {shapes} (model {named})")
+        if calib_shapes:
+            shapes = f"{len(shapes)} sites"
     reopened = EmbeddingStore.open(root, model)
     emb = np.asarray(reopened.embeddings, np.float32)
     if emb.shape != (N_IMAGES, 4, cfg.embed_dim) or not np.asarray(reopened.valid).all():
@@ -1375,7 +1409,7 @@ def embed_and_check(root: str, model: str, cfg, per_forward: dict,
           f"{np.abs(norms - 1).max():.2e}", flush=True)
     del stores, store, reopened
     torch.cuda.empty_cache()
-    profile_steady(model, root, calib, cfg, per_forward, dtype)
+    profile_steady(model, root, calib, cfg, per_forward, dtype, model_path)
     return {"launches": got, "side": side, "pts": pts}
 
 
@@ -1861,6 +1895,281 @@ def native_decoder() -> dict:
 
 DEDUP_N, DEDUP_D = 262144, 768  # ViT-L-14-336's embedding width
 DEDUP_PAIRS, DEDUP_GROUP = 400, 40
+
+
+# --- phases 32-35: the conv towers in stage 1, train's --debug_nans ----------------
+
+RN50X64 = "RN50x64/openai"  # 448 px, layers (3, 15, 36, 10), final width 4096
+CNX_LD320 = "convnext_large_d_320/laion2b_s29b_b131k_ft_soup"  # mlp head, final width 1536
+RN50, RN101 = "RN50/openai", "RN101/openai"
+RN50X4, RN50X16 = "RN50x4/openai", "RN50x16/openai"
+CNX_BW = "convnext_base_w/laion2b_s13b_b82k"  # final width 1024: int8_static auto-resolves off
+CNX_XXL320 = "convnext_xxlarge_320/laion2b_s34b_b82k_augreg_soup"
+
+
+@contextlib.contextmanager
+def encoder_log():
+    """The encoder module's log records (INFO and up) during the block."""
+    import logging
+
+    records = []
+    handler = logging.Handler(logging.INFO)
+    handler.emit = records.append
+    logger = logging.getLogger("clip_assisted_data_labeling_tpu_torch.models.encoders")
+    level = logger.level
+    logger.addHandler(handler)
+    logger.setLevel(logging.INFO)
+    try:
+        yield records
+    finally:
+        logger.removeHandler(handler)
+        logger.setLevel(level)
+
+
+# chosen damping scales (not trained values) for the residual branches of the
+# random weights of phases 32-34, by key: every bottleneck's folded bn3 scale
+# (the encoder's random init, as the JAX package's, leaves it at 1) and every
+# ConvNeXt stage's layer scale (initialized at 1e-6, which leaves the blocks out
+# of the output); the ResNet stem's bn3 keeps its init
+DAMPING = {re.compile(r"s\d+b\d+_bn3_scale"): 0.2, re.compile(r"s\d+_gamma"): 0.1}
+
+
+def conv_params(model: str) -> dict:
+    """The random weights phases 32-34 give a conv tower: the encoder's own
+    random init on the card (seeded by the model name), with the residual
+    branches damped by DAMPING, as CPU tensors. Undamped (bn3 at 1), the
+    random RN50x64's residual stream grows ~80x over its 64 blocks and its
+    attention pool's softmax saturates to one token a head: card and CPU
+    then part on near-tied argmaxes (bf16 1 - cosine 3.4e-3, int8_static
+    1.6e-2, where each block alone agrees within 2e-7), and so do the CPU's
+    own bf16 and float32 runs (7e-3)."""
+    from clip_assisted_data_labeling_tpu_torch.models.conv_tower import conv_family
+    from clip_assisted_data_labeling_tpu_torch.models.encoders import _stable_seed
+    from clip_assisted_data_labeling_tpu_torch.models.vit import resolve_config
+
+    cfg = resolve_config(model)
+    gen = torch.Generator(device="cuda").manual_seed(_stable_seed(model))
+    params = conv_family(cfg).init(cfg, gen, "cuda")
+    for k, v in params.items():
+        for pattern, scale in DAMPING.items():
+            if pattern.fullmatch(k):
+                params[k] = torch.full_like(v, scale)
+    return {k: v.cpu() for k, v in params.items()}
+
+
+def conv_cpu_check(model: str, dtype: str, cfg, pngs: list, emb: np.ndarray, limit: float,
+                   params: dict, calib: str | None = None) -> float:
+    """The card's embeddings ``emb`` [n, 4, D] of ``pngs`` against the same
+    encoder on the CPU: the same weights ``params`` and, for int8_static,
+    the same calibration file. 1 - cosine of every crop within ``limit``;
+    returns it."""
+    from clip_assisted_data_labeling_tpu_torch.data.loader import BatchedImageLoader
+    from clip_assisted_data_labeling_tpu_torch.models.encoders import CLIPImageEncoder
+
+    cpu = CLIPImageEncoder(model, params=params, compute_dtype=dtype,
+                           calibration_path=calib, device="cpu")
+    if calib is not None and not cpu.load_calibration():
+        fail(f"{model}: the CPU encoder did not load {calib}")
+    batch = next(iter(BatchedImageLoader(pngs, canvas_size=1024, out_size=cfg.image_size,
+                                         batch_size=len(pngs), num_workers=2)))
+    t0 = time.perf_counter()
+    ref = cpu.embed_crops(batch.canvas, batch.crop_params)[: batch.n_valid].numpy()
+    cpu_s = time.perf_counter() - t0
+    order = [pngs.index(p) for p in batch.paths]
+    err = float(1.0 - np.sum(emb[order] * ref, axis=-1).min())
+    print(f"{model} {dtype} card vs CPU (same weights{', same .calib.npz' if calib else ''}; "
+          f"{ref.shape[0]} x {ref.shape[1]} crops, CPU {cpu_s:.1f} s): 1 - cosine max "
+          f"{err:.3g} (limit {limit:g})", flush=True)
+    if not err <= limit:
+        fail(f"{model} {dtype}: card and CPU embeddings disagree (1 - cosine {err})")
+    return err
+
+
+def conv_cli(root: str, model: str, cfg, calib_shapes: dict, cpu_images: int = BATCH) -> dict:
+    """Phases 32-33: a conv tower in int8_static through the embed CLI on the
+    32 PNGs at full width and depth, its weights (:func:`conv_params`) found
+    by the CLI as ``<model>.npz`` in a ``--model_path`` directory (no kernel
+    of the table: every launch counter 0), its outputs and .calib.npz
+    (exactly ``calib_shapes``), steady state and profile, then the first
+    ``cpu_images`` images of the store (the first batch) against the same
+    encoder, weights and calibration on the CPU (1 - cosine ≤ 2e-3). Returns its record and
+    launch counts."""
+    from clip_assisted_data_labeling_tpu_torch.models.clip_weights import save_params_npz
+
+    params = conv_params(model)
+    weights = tempfile.mkdtemp(prefix="chip_smoke_weights_")
+    try:
+        save_params_npz(os.path.join(weights, model.replace("/", "-") + ".npz"), params)
+        res = embed_and_check(root, model, cfg, {}, calib_shapes=calib_shapes,
+                              model_path=weights)
+    finally:
+        shutil.rmtree(weights, ignore_errors=True)
+    calib = os.path.join(root, model.replace("/", "-") + ".calib.npz")
+    pngs = [p[:-3] + ".png" for p in res["pts"][:cpu_images]]
+    err = conv_cpu_check(model, "int8_static", cfg, pngs, res["side"][:cpu_images], 2e-3,
+                         params, calib)
+    return {"record": {"model": model, "dtype": "int8_static", "cpu_cos_err": err},
+            "launches": res["launches"], "pts": res["pts"]}
+
+
+def conv_tower(model: str, dtype: str, pts: list, cfg, runs_as: str | None = None,
+               note: str | None = None, cpu_limit: float | None = None) -> dict:
+    """Phase 34: four images through the encoder in ``dtype`` at full width
+    and depth on the weights of :func:`conv_params`, on the card: finite
+    unit embeddings, no launch of a kernel of
+    the table, the downgrade the JAX package makes (``runs_as``, the log
+    line containing ``note``), the steady ms of a forward of the 16 crops
+    (CUDA events), and with ``cpu_limit`` all four images against the same
+    encoder on the CPU. Returns the record and the launch counts."""
+    from clip_assisted_data_labeling_tpu_torch.data.loader import BatchedImageLoader
+    from clip_assisted_data_labeling_tpu_torch.models.encoders import CLIPImageEncoder
+
+    params = conv_params(model)
+    with encoder_log() as records:
+        enc = CLIPImageEncoder(model, params=params, compute_dtype=dtype, device="cuda")
+    runs = ("int8_static" if enc.static_quant else "int8" if enc.quantized
+            else str(enc.compute_dtype).replace("torch.", ""))
+    lines = [r.getMessage() for r in records if "running bfloat16" in r.getMessage()]
+    if runs != (runs_as or dtype) or (note and not any(note in m for m in lines)):
+        fail(f"{model} {dtype}: runs {runs}, log {lines}")
+    pngs = [p[:-3] + ".png" for p in pts[:4]]
+    batch = next(iter(BatchedImageLoader(pngs, canvas_size=1024, out_size=cfg.image_size,
+                                         batch_size=4, num_workers=4)))
+    reset_counts()
+    emb = enc.embed_crops(batch.canvas, batch.crop_params)[: batch.n_valid].cpu().numpy()
+    got = counts()
+    norms = np.linalg.norm(emb, axis=-1)
+    if any(got.values()) or not (np.isfinite(emb).all() and np.abs(norms - 1).max() < 1e-3):
+        fail(f"{model} {dtype}: launches {got}, norms {norms.min()}..{norms.max()}")
+    canvas = torch.from_numpy(batch.canvas).to("cuda")
+    ms = time_ms(lambda: enc.embed_crops(canvas, batch.crop_params), min_reps=3, min_s=0.5)
+    order = [pngs.index(p) for p in batch.paths]
+    emb = emb[np.argsort(order)]  # in the order of pts
+    rec = {"model": model, "dtype": dtype, "runs": runs, "ms_per_forward_16_crops": ms}
+    print(f"phase 34 {model} {dtype} (runs {runs}{'; ' + lines[0] if lines else ''}): "
+          f"{ms:.3f} ms per forward of {emb.shape[0]} images x 4 crops ({cfg.image_size} px); "
+          f"launches {got}", flush=True)
+    del enc, canvas
+    torch.cuda.empty_cache()
+    if cpu_limit is not None:
+        rec["cpu_cos_err"] = conv_cpu_check(model, dtype, cfg, pngs, emb, cpu_limit, params)
+    return {"record": rec, "launches": got}
+
+
+def conv_towers(root: str) -> tuple[list[dict], dict]:
+    """Phases 32-34: the modified ResNets and ConvNeXt in stage 1, on random
+    weights with damped residual branches (:func:`conv_params`).
+    Returns the records and each path's launch counts (all 0: the conv towers run
+    cuDNN convolutions and torch products, as the JAX package runs XLA's,
+    and int8_static's 1x1 products through ``torch._int_mm``).
+      32. the embed CLI, RN50x64 int8_static (auto on: final width 4096) at
+          448 px and all 64 blocks: 64 s{s}b{b}_act_amax of (2,), steady
+          state, profile, the first batch against the CPU,
+      33. the same for convnext_large_d_320 int8_static (the mlp head, auto
+          on at 1536): s{s}_act_amax of (3, 2), (3, 2), (27, 2), (3, 2),
+      34. four images each: RN50 float32 against the CPU (1 - cosine ≤
+          1e-5); RN50 int8_static (auto off: bfloat16, the JAX log line) and
+          int8 (bfloat16, the JAX warning); RN101, RN50x4, RN50x16 bf16;
+          RN50x64 int8_static; convnext_base_w int8_static (auto off: bfloat16);
+          convnext_xxlarge_320 bf16 and int8_static; each timed."""
+    from clip_assisted_data_labeling_tpu_torch.models.resnet import _block_widths
+    from clip_assisted_data_labeling_tpu_torch.models.vit import resolve_config
+
+    records, paths = [], {}
+    rcfg = resolve_config(RN50X64)
+    rn = conv_cli(root, RN50X64, rcfg, {f"s{s}b{b}_act_amax": (2,)
+                                       for s, b, *_ in _block_widths(rcfg)})
+    ccfg = resolve_config(CNX_LD320)
+    cnx = conv_cli(root, CNX_LD320, ccfg, {f"s{s}_act_amax": (d, 2)
+                                          for s, d in enumerate(ccfg.depths)})
+    records += [rn["record"], cnx["record"]]
+    paths["rn50x64_static"], paths["cnx_ld320_static"] = rn["launches"], cnx["launches"]
+    pts = rn["pts"]
+    for key, model, dtype, kw in (
+            ("rn50_f32", RN50, "float32", dict(cpu_limit=1e-5)),
+            ("rn50_static", RN50, "int8_static",
+             dict(runs_as="bfloat16", note="int8_static auto-resolves OFF")),
+            ("rn50_int8", RN50, "int8",
+             dict(runs_as="bfloat16", note="no dynamic-int8 formulation")),
+            ("rn101", RN101, "bfloat16", {}),
+            ("rn50x4", RN50X4, "bfloat16", {}),
+            ("rn50x16", RN50X16, "bfloat16", {}),
+            ("rn50x64_static_fwd", RN50X64, "int8_static", {}),
+            ("cnx_bw_static", CNX_BW, "int8_static",
+             dict(runs_as="bfloat16", note="int8_static auto-resolves OFF")),
+            ("cnx_xxl320_bf16", CNX_XXL320, "bfloat16", {}),
+            ("cnx_xxl320_static", CNX_XXL320, "int8_static", {})):
+        out = conv_tower(model, dtype, pts, resolve_config(model), **kw)
+        records.append(out["record"])
+        paths[key] = out["launches"]
+    return records, paths
+
+
+def train_debug_nans(base: str) -> dict:
+    """Phase 35: the train CLI with --debug_nans, each run in a process of
+    its own (3 epochs of phase 16's configuration): on phase 16's store the
+    checkpoint equals the flag-off run's bit for bit; on a copy of the store
+    with one feature row set to NaN it exits nonzero, naming an epoch and a
+    step."""
+    from clip_assisted_data_labeling_tpu_torch.config import TrainConfig
+    from clip_assisted_data_labeling_tpu_torch.pipeline import train as ttrain
+    from clip_assisted_data_labeling_tpu_torch.store.columnar import EmbeddingStore
+
+    data = os.path.join(base, "data")
+    argv = ["--train_data_dir", data, "--train_data_names", "labelled", "--n_epochs", "3",
+            "--device", "cuda"]
+    ckpts, walls = {}, {}
+    for flag in ("off", "on"):
+        cwd = os.path.join(base, f"debug_nans_{flag}")
+        os.makedirs(cwd)
+        t0 = time.perf_counter()
+        run_cli("clip_assisted_data_labeling_tpu_torch.pipeline.train",
+                argv + (["--debug_nans"] if flag == "on" else []),
+                f"phase 35 train --debug_nans {flag}", cwd=cwd)
+        walls[flag] = time.perf_counter() - t0
+        found = glob.glob(os.path.join(cwd, "models", "*.npz"))
+        if len(found) != 1:
+            fail(f"phase 35: train --debug_nans {flag} wrote {found}")
+        with np.load(found[0]) as f:
+            ckpts[flag] = {k: f[k] for k in f.files}
+    same = (set(ckpts["on"]) == set(ckpts["off"])
+            and all(np.array_equal(ckpts["on"][k], ckpts["off"][k]) for k in ckpts["off"]))
+    nan_data = os.path.join(base, "data_nan")
+    shutil.copytree(data, nan_data)  # the store and its label CSV beside it
+    # one row, and one that the CLI's split puts in the training rows
+    cfg = TrainConfig()
+    store = EmbeddingStore.open(os.path.join(nan_data, "labelled"), MODEL, mode="r+")
+    for row in range(len(store.embeddings)):
+        keep = np.array(store.embeddings[row])
+        store.embeddings[row] = np.nan
+        store.flush()
+        np.random.seed(cfg.random_seed)
+        x, _y, _models = ttrain.load_training_data(
+            nan_data, ["labelled"], list(cfg.clip_models_to_use), list(cfg.crop_names),
+            cfg.use_img_stat_features)
+        if np.isin(np.flatnonzero(np.isnan(x).any(axis=1)), ttrain._split(len(x), cfg)[1]).any():
+            break
+        store.embeddings[row] = keep
+    store.flush()
+    del store, x
+    cwd = os.path.join(base, "debug_nans_nan")
+    os.makedirs(cwd)
+    proc = subprocess.run([sys.executable, "-m", "clip_assisted_data_labeling_tpu_torch.pipeline"
+                           ".train", "--train_data_dir", nan_data, *argv[2:], "--debug_nans"],
+                          capture_output=True, text=True, timeout=600, cwd=cwd,
+                          env=dict(os.environ, PYTHONPATH=os.path.dirname(
+                              os.path.abspath(__file__))))
+    last = (proc.stderr.strip().splitlines() or [""])[-1]
+    named = re.search(r"FloatingPointError: .* at epoch (\d+), step (\d+)", last)
+    rec = {"stage": "train --debug_nans", "checkpoint_bit_equal": same, "nan_row": row,
+           "off_s": walls["off"], "on_s": walls["on"], "nan_exit": proc.returncode,
+           "nan_error": last}
+    print(f"phase 35 train CLI --debug_nans: 3 epochs off {walls['off']:.1f} s, on "
+          f"{walls['on']:.1f} s, checkpoints bit-equal {same}; with NaN in row {row}: exit "
+          f"{proc.returncode}, {last}", flush=True)
+    if not same or proc.returncode == 0 or named is None:
+        fail(f"train --debug_nans: bit-equal {same}, NaN run exit {proc.returncode}: {last}")
+    return rec
 
 
 def plain_pairs(emb: np.ndarray, threshold: float, euclidean: bool,
@@ -2408,16 +2717,17 @@ def subset_cli(predicted: dict) -> dict:
 
 
 def stages(png_dir: str, phase15_rows: dict) -> tuple[list[dict], dict]:
-    """Phases 16-19 in a directory of their own: train, predict on every
-    wire, the single-image scorer, subset. Returns the records and the
-    scorer's launch counts."""
+    """Phases 16-19 in a directory of their own: train (and phase 35, train
+    with --debug_nans), predict on every wire, the single-image scorer,
+    subset. Returns the records and the scorer's launch counts."""
     base = tempfile.mkdtemp(prefix="chip_smoke_stages_")
     try:
         trained = train_on_card(base)
+        debug_nans = train_debug_nans(base)  # phase 35, on phase 16's store
         predicted = predict_at_scale(base, trained["path"])
         scorer = scorer_cli(png_dir, trained["path"], phase15_rows)
         subset = subset_cli(predicted)
-        return [trained["record"], *predicted["records"], subset], scorer
+        return [trained["record"], debug_nans, *predicted["records"], subset], scorer
     finally:
         shutil.rmtree(base, ignore_errors=True)
 
@@ -2431,15 +2741,17 @@ SHOWN = re.compile(r"^headless (.+?): (\d+) frames shown: (.*)$", re.M)
 
 
 def run_cli(module: str, args: list, label: str, timeout: int = 600,
-            also_forbidden: frozenset = frozenset()) -> tuple:
+            also_forbidden: frozenset = frozenset(), cwd: str | None = None) -> tuple:
     """``python -X importtime -m <module> <args>`` from the repository root
-    in a process of its own; fails on a nonzero exit, or where it imported
-    pandas, JAX, the JAX package or any of ``also_forbidden``. Returns the
-    process and its seconds."""
+    (or from ``cwd``, with the repository on the path) in a process of its
+    own; fails on a nonzero exit, or where it imported pandas, JAX, the JAX
+    package or any of ``also_forbidden``. Returns the process and its
+    seconds."""
+    repo = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-X", "importtime", "-m", module, *map(str, args)],
-                          capture_output=True, text=True, timeout=timeout,
-                          cwd=os.path.dirname(os.path.abspath(__file__)))
+                          capture_output=True, text=True, timeout=timeout, cwd=cwd or repo,
+                          env=dict(os.environ, PYTHONPATH=repo) if cwd else None)
     wall = time.perf_counter() - t0
     if proc.returncode != 0:
         fail(f"{label} CLI exited {proc.returncode}: {proc.stdout[-1500:]} {proc.stderr[-2000:]}")
@@ -2960,6 +3272,11 @@ def main() -> None:
         tower_paths["flags"] = embed_flags(root)
         decoder = native_decoder()
 
+        # --- phases 32-34: the modified ResNets and ConvNeXt (cuDNN convolutions
+        # and torch products, as the JAX package runs XLA's: no kernel of the table)
+        conv_records, conv_paths = conv_towers(root)
+        tower_paths.update(conv_paths)
+
         # --- phases 14-15: stage 2 (no kernel of the table: torch products)
         # at N = 262144, then the dedup CLI end to end on embedded PNGs
         dedup_records = dedup_at_scale()
@@ -3000,6 +3317,7 @@ def main() -> None:
     print(json.dumps({"stages": stage_records}))
     print(json.dumps({"loop": loop_records}))
     print(json.dumps({"native_decoder": decoder}))
+    print(json.dumps({"conv_towers": conv_records}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

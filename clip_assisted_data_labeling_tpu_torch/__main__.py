@@ -4,8 +4,9 @@ USAGE = """clip_assisted_data_labeling_tpu_torch — CLIP-assisted dataset label
 Pipeline stages (python -m clip_assisted_data_labeling_tpu_torch.pipeline.<stage>):
   prep            uuid-rename + normalize a raw image directory (host)
   embed           4-crop CLIP embeddings + image stats (GPU, hand-written kernels;
-                  every ViT-trunk tower: CLIP, SigLIP/SigLIP2 with naflex, PE,
-                  EVA, CoCa, CLIPA — ResNet and ConvNeXt not ported yet)
+                  every tower of the open_clip surface: CLIP, SigLIP/SigLIP2
+                  with naflex, PE, EVA, CoCa, CLIPA, the modified ResNets,
+                  ConvNeXt)
   dedup           all-pairs near-duplicate removal (one GPU)
   label           interactive labeling UI (opencv or headless)
   train           FC regressor on (embedding -> label) pairs
@@ -21,7 +22,6 @@ Every stage that touches the device runs on cuda unless given --device cpu.
 Flags not ported yet, refused:
   embed    --host_count > 1, --distributed
   dedup    --distributed
-  train    --debug_nans
   predict  --sharded
 
 Tools (find_similar_imgs, svm_similarity, merge_datasets, move_subset_of_files,

@@ -12,8 +12,16 @@
     ``CLIPVisionModelWithProjection``, HF ``SiglipVisionModel`` (naflex's
     Linear patch embed too), Meta's Perception Encoder, open_clip's CoCa with
     its attentional pooler, and BAAI/timm EVA ``blocks.N.*`` with separate or
-    fused q/k/v and a SwiGLU MLP) → that flat layout; ``convert_torch_state_dict``
-    picks the converter by the checkpoint's keys and the config,
+    fused q/k/v and a SwiGLU MLP) → that flat layout;
+    ``convert_rn_visual`` / ``convert_cnx_visual``: open_clip's modified
+    ResNet (BatchNorm folded into per-channel affines) and ConvNeXt (the
+    open_clip/timm layout or HF ``ConvNextModel``'s) → the conv towers' flat
+    layout (HWIO kernels, ConvNeXt's block leaves stacked per stage);
+    ``convert_torch_state_dict`` picks the converter by the checkpoint's keys
+    and the config,
+  * ``load_safetensors``: a ``.safetensors`` file's tensors — through the
+    ``safetensors`` package where it is installed, else read here (the
+    format is a little-endian header length, a JSON header, raw buffers),
   * ``rope_interleaved_to_half`` / ``ensure_rope_half``: PE and EVA02
     checkpoints pair RoPE features interleaved; the port (like the JAX
     package) pairs halves, so the q/k projection columns are permuted once and
@@ -23,16 +31,25 @@
     the port's module state. The ``[in, out]`` kernel convention stays, so
     ``x @ W`` means the same in both packages; only quantized int8 block
     kernels are stored transposed (``[out, in]``, the layout ``torch._int_mm``
-    takes on the card) with their K padded to ``ops/quant.K_ALIGN``.
+    takes on the card) with their K padded to ``ops/quant.K_ALIGN``, and the
+    conv towers' HWIO kernels are stored OIHW in channels-last memory.
     ``params_from_module`` goes back.
 """
 from __future__ import annotations
 
+import json
 from typing import Mapping
 
 import numpy as np
 import torch
 
+from clip_assisted_data_labeling_tpu_torch.models.conv_tower import (
+    ConvFamily,
+    ConvTower,
+    conv_family,
+)
+from clip_assisted_data_labeling_tpu_torch.models.convnext import CNXConfig
+from clip_assisted_data_labeling_tpu_torch.models.resnet import RNConfig, _block_widths
 from clip_assisted_data_labeling_tpu_torch.models.vit import VisionTransformer, VitConfig
 from clip_assisted_data_labeling_tpu_torch.ops.quant import pad_k
 
@@ -360,11 +377,148 @@ def convert_eva_visual(state_dict: Mapping, cfg: VitConfig) -> dict:
     return rope_interleaved_to_half(out, cfg) if cfg.use_rope2d else out
 
 
-def convert_torch_state_dict(state_dict: Mapping, cfg: VitConfig) -> dict:
+def _fold_bn(sd: Mapping, key: str, eps: float) -> tuple[np.ndarray, np.ndarray]:
+    """BatchNorm running stats → the exact inference-time per-channel affine
+    (JAX ``_fold_bn``, in float32 numpy as there): scale = gamma /
+    sqrt(var + eps), bias = beta - mean · scale."""
+    gamma, beta = _t(sd[key + ".weight"]), _t(sd[key + ".bias"])
+    mean, var = _t(sd[key + ".running_mean"]), _t(sd[key + ".running_var"])
+    scale = gamma / np.sqrt(var + eps)
+    return scale, beta - mean * scale
+
+
+def _conv_hwio(weight) -> np.ndarray:
+    """Conv2d weight [out, in, kh, kw] → HWIO [kh, kw, in, out]."""
+    return _t(weight).transpose(2, 3, 1, 0)
+
+
+def convert_rn_visual(state_dict: Mapping, cfg: RNConfig) -> dict:
+    """open_clip modified-ResNet 'visual.*' (or bare) state dict → flat params
+    (JAX ``convert_rn_visual``, models/clip_weights.py:411-444): HWIO conv
+    kernels, BatchNorm folded; a shortcut's 1x1 conv is
+    ``layerS.B.downsample.0`` (index -1 is the weightless pool), its
+    BatchNorm ``downsample.1``."""
+    sd = _visual(state_dict)
+    eps = cfg.bn_eps
+    out = {}
+    for i in (1, 2, 3):
+        out[f"conv{i}"] = _conv_hwio(sd[f"conv{i}.weight"])
+        out[f"bn{i}_scale"], out[f"bn{i}_bias"] = _fold_bn(sd, f"bn{i}", eps)
+    for s, b, cin, mid, stride in _block_widths(cfg):
+        pre, tpre = f"s{s}b{b}_", f"layer{s + 1}.{b}."
+        for i in (1, 2, 3):
+            out[pre + f"conv{i}"] = _conv_hwio(sd[tpre + f"conv{i}.weight"])
+            out[pre + f"bn{i}_scale"], out[pre + f"bn{i}_bias"] = _fold_bn(
+                sd, tpre + f"bn{i}", eps)
+        if stride > 1 or cin != mid * cfg.expansion:
+            out[pre + "down_conv"] = _conv_hwio(sd[tpre + "downsample.0.weight"])
+            out[pre + "down_scale"], out[pre + "down_bias"] = _fold_bn(
+                sd, tpre + "downsample.1", eps)
+    out["pool_pos_emb"] = _t(sd["attnpool.positional_embedding"])
+    for name in ("q", "k", "v", "c"):
+        out[f"pool_{name}_kernel"] = _t(sd[f"attnpool.{name}_proj.weight"]).T
+        out[f"pool_{name}_bias"] = _t(sd[f"attnpool.{name}_proj.bias"])
+    return out
+
+
+def convert_cnx_visual(state_dict: Mapping, cfg: CNXConfig) -> dict:
+    """open_clip/timm ConvNeXt ('visual.trunk.*' + 'visual.head.*') or HF
+    ``ConvNextModel`` ('embeddings.*' / 'encoder.stages.*') state dict → flat
+    params (JAX ``convert_cnx_visual``, models/clip_weights.py:447-540): HWIO
+    kernels, each stage's block leaves stacked [depth, …]. The head is
+    ``head.proj`` (linear) or ``head.mlp`` (mlp); a trunk-only checkpoint (HF
+    ``ConvNextModel`` has no projection) converts with an identity projection
+    where ``cfg.embed_dim`` is the trunk's width. The HF post-pool LN's eps is
+    its ``layer_norm_eps``, which the config's ``head_ln_eps`` carries."""
+    sd = {}
+    for k, v in state_dict.items():
+        for pre in ("visual.", "convnext.", "module."):
+            if k.startswith(pre):
+                k = k[len(pre):]
+        sd[k] = v
+    hf = any(k.startswith("embeddings.") for k in sd)
+
+    def conv(k):  # torch OIHW → HWIO
+        return _t(sd[k]).transpose(2, 3, 1, 0)
+
+    if hf:
+        stem_conv, stem_ln = "embeddings.patch_embeddings", "embeddings.layernorm"
+        down = "encoder.stages.{s}.downsampling_layer"
+        blk = "encoder.stages.{s}.layers.{b}."
+        names = dict(dw="dwconv", ln="layernorm", fc1="pwconv1", fc2="pwconv2",
+                     gamma="layer_scale_parameter")
+        head_ln = "layernorm"
+    else:
+        stem_conv, stem_ln = "trunk.stem.0", "trunk.stem.1"
+        down = "trunk.stages.{s}.downsample"
+        blk = "trunk.stages.{s}.blocks.{b}."
+        names = dict(dw="conv_dw", ln="norm", fc1="mlp.fc1", fc2="mlp.fc2", gamma="gamma")
+        head_ln = "trunk.head.norm"
+    p = {
+        "stem_kernel": conv(stem_conv + ".weight"),
+        "stem_bias": _t(sd[stem_conv + ".bias"]),
+        "stem_ln_scale": _t(sd[stem_ln + ".weight"]),
+        "stem_ln_bias": _t(sd[stem_ln + ".bias"]),
+        "head_ln_scale": _t(sd[head_ln + ".weight"]),
+        "head_ln_bias": _t(sd[head_ln + ".bias"]),
+    }
+    for s, (depth, c) in enumerate(zip(cfg.depths, cfg.dims)):
+        if s > 0:
+            d = down.format(s=s)
+            p[f"s{s}_down_ln_scale"] = _t(sd[d + ".0.weight"])
+            p[f"s{s}_down_ln_bias"] = _t(sd[d + ".0.bias"])
+            p[f"s{s}_down_kernel"] = conv(d + ".1.weight")
+            p[f"s{s}_down_bias"] = _t(sd[d + ".1.bias"])
+        stacks: dict[str, list] = {k: [] for k in (
+            "dw_kernel", "dw_bias", "ln_scale", "ln_bias", "fc1_kernel", "fc1_bias",
+            "fc2_kernel", "fc2_bias", "gamma")}
+        for b in range(depth):
+            pre = blk.format(s=s, b=b)
+            stacks["dw_kernel"].append(conv(pre + names["dw"] + ".weight"))
+            stacks["dw_bias"].append(_t(sd[pre + names["dw"] + ".bias"]))
+            stacks["ln_scale"].append(_t(sd[pre + names["ln"] + ".weight"]))
+            stacks["ln_bias"].append(_t(sd[pre + names["ln"] + ".bias"]))
+            stacks["fc1_kernel"].append(_t(sd[pre + names["fc1"] + ".weight"]).T)
+            stacks["fc1_bias"].append(_t(sd[pre + names["fc1"] + ".bias"]))
+            stacks["fc2_kernel"].append(_t(sd[pre + names["fc2"] + ".weight"]).T)
+            stacks["fc2_bias"].append(_t(sd[pre + names["fc2"] + ".bias"]))
+            g = pre + names["gamma"]
+            stacks["gamma"].append(_t(sd[g]) if g in sd else np.ones((c,), np.float32))
+        for k, v in stacks.items():
+            p[f"s{s}_{k}"] = np.stack(v)
+    if "head.proj.weight" in sd:  # open_clip TimmModel proj='linear'
+        p["proj_kernel"] = _t(sd["head.proj.weight"]).T
+        p["proj_bias"] = (_t(sd["head.proj.bias"]) if "head.proj.bias" in sd
+                          else np.zeros((cfg.embed_dim,), np.float32))
+    elif "head.mlp.fc1.weight" in sd:  # proj='mlp' (the _d towers)
+        p["proj_fc1_kernel"] = _t(sd["head.mlp.fc1.weight"]).T
+        p["proj_fc1_bias"] = _t(sd["head.mlp.fc1.bias"])
+        p["proj_fc2_kernel"] = _t(sd["head.mlp.fc2.weight"]).T
+        p["proj_fc2_bias"] = (_t(sd["head.mlp.fc2.bias"]) if "head.mlp.fc2.bias" in sd
+                              else np.zeros((cfg.embed_dim,), np.float32))
+    elif cfg.embed_dim == cfg.final_width:
+        p["proj_kernel"] = np.eye(cfg.final_width, dtype=np.float32)
+        p["proj_bias"] = np.zeros((cfg.embed_dim,), np.float32)
+    else:
+        raise ValueError(
+            "ConvNeXt checkpoint has no projection head (looked for head.proj / head.mlp) "
+            "and cfg.embed_dim != trunk width — trunk-only checkpoints need embed_dim == "
+            "final_width"
+        )
+    return p
+
+
+def convert_torch_state_dict(state_dict: Mapping, cfg) -> dict:
     """A torch checkpoint → flat params, the converter picked as the JAX
     package's ``convert_torch_state_dict`` (models/clip_weights.py:543-575)
-    picks it for the ViT-trunk towers."""
+    picks it: ConvNeXt keys (or a ConvNeXt config) first, then the modified
+    ResNet's (``attnpool.``, or a ResNet config), then the ViT trunks."""
     keys = list(state_dict.keys())
+    if (any(".dwconv." in k or ".conv_dw." in k or ".pwconv1." in k for k in keys)
+            or hasattr(cfg, "dims")):
+        return convert_cnx_visual(state_dict, cfg)
+    if any("attnpool." in k for k in keys) or hasattr(cfg, "bn_eps"):
+        return convert_rn_visual(state_dict, cfg)
     if any(k.endswith("head.probe") for k in keys) or cfg.pool == "map":
         # SigLIP's HF layout also starts with vision_model. — check first
         return convert_siglip_visual(state_dict, cfg)
@@ -382,10 +536,52 @@ def convert_torch_state_dict(state_dict: Mapping, cfg: VitConfig) -> dict:
     if any("resblocks" in k for k in keys):
         return convert_open_clip_visual(state_dict, cfg)
     raise ValueError(
-        "Unrecognized checkpoint layout; the port converts HF CLIP, HF SigLIP, PE, "
-        "CoCa, EVA and open_clip/OpenAI ViT checkpoints (the ResNet and ConvNeXt "
-        "towers are not ported yet)"
+        "Unrecognized checkpoint layout; expected HF CLIP, SigLIP, open_clip, or PE keys"
     )
+
+
+# the safetensors dtypes the reader takes: numpy's, or (BF16) torch's
+_SAFETENSORS_NP = {"F32": np.float32, "F16": np.float16, "F64": np.float64,
+                   "I64": np.int64, "I32": np.int32, "I16": np.int16, "I8": np.int8,
+                   "U8": np.uint8, "BOOL": np.bool_}
+
+
+def _read_safetensors(path: str) -> dict[str, torch.Tensor]:
+    """A ``.safetensors`` file read without the package: an 8-byte
+    little-endian header length, a JSON header ``{name: {dtype, shape,
+    data_offsets}}`` (plus an optional ``__metadata__``), then the raw
+    little-endian buffers. BF16 tensors come back as float32 (numpy has no
+    bf16); any other dtype outside ``_SAFETENSORS_NP`` raises."""
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+        data = f.read()
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        start, end = info["data_offsets"]
+        buf, shape, dtype = data[start:end], tuple(info["shape"]), info["dtype"]
+        if dtype == "BF16":
+            t = torch.frombuffer(bytearray(buf), dtype=torch.bfloat16).float()
+        elif dtype in _SAFETENSORS_NP:
+            t = torch.from_numpy(np.frombuffer(buf, dtype=np.dtype(
+                _SAFETENSORS_NP[dtype]).newbyteorder("<")).astype(_SAFETENSORS_NP[dtype]))
+        else:
+            raise ValueError(f"{path}: tensor {name} has dtype {dtype}, which this reader "
+                             "does not take (F32, F16, BF16, F64 and the integer types)")
+        out[name] = t.reshape(shape)
+    return out
+
+
+def load_safetensors(path: str) -> dict[str, torch.Tensor]:
+    """A ``.safetensors`` checkpoint's tensors on the CPU: through the
+    ``safetensors`` package where it imports, else :func:`_read_safetensors`."""
+    try:
+        from safetensors.torch import load_file
+    except ImportError:
+        return _read_safetensors(path)
+    return load_file(path)
 
 
 def save_params_npz(path: str, params: Mapping) -> None:
@@ -440,17 +636,61 @@ def _top_keys(cfg: VitConfig) -> list[str]:
     return keys
 
 
-def module_from_params(params: Mapping, cfg: VitConfig,
-                       device: torch.device | str = "cpu") -> VisionTransformer:
-    """Flat (or JAX-nested) params → the port's VisionTransformer on
-    ``device``. Float leaves keep their dtype; int8 block kernels
-    ([L, in, out]) are stored per layer as contiguous [out, in];
-    ``blocks/act_amax`` and ``blocks/qkv_amax`` leaves (a calibrated pytree)
-    are attached as they are. An int8 kernel's K is padded to
-    ``ops/quant.K_ALIGN`` with zero columns (``ops/quant.pad_k``). A RoPE
-    tower's params must carry the ``rope_half`` marker
+def _conv_module_from_params(flat: dict, cfg, fam: ConvFamily, device) -> ConvTower:
+    """Flat conv-tower params → its module on ``device``: 4-D float kernels
+    HWIO → OIHW in channels-last memory, ConvNeXt's stacked depthwise
+    kernels [D, 7, 7, 1, C] → [D, C, 1, 7, 7], int8 kernels ([K, N], or
+    stacked [D, K, N]) → [N, K'] / [D, N, K'] with K padded to
+    ``ops/quant.K_ALIGN`` (K kept in the module's ``k_in``); every other leaf
+    (folded affines, biases, float fc kernels, ``act_amax``) as it is."""
+    missing = [k for k in fam.required_keys(cfg) if k not in flat]
+    if missing:
+        raise KeyError(f"params lack {missing} for {cfg}")
+    tensors, k_in = {}, {}
+    for k, v in flat.items():
+        t = _tensor(v, device)
+        if t.dtype == torch.int8 and t.dim() == 2:  # a ResNet 1x1 kernel [K, N]
+            k_in[k] = t.shape[0]
+            t = pad_k(t.t().contiguous())
+        elif t.dtype == torch.int8 and t.dim() == 3:  # a ConvNeXt fc stack [D, K, N]
+            k_in[k] = t.shape[1]
+            t = torch.stack([pad_k(layer.t().contiguous()) for layer in t])
+        elif t.dim() == 4:  # HWIO
+            t = t.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+        elif t.dim() == 5:  # stacked depthwise HWIO [D, 7, 7, 1, C]
+            t = t.permute(0, 4, 3, 1, 2).contiguous()
+        tensors[k] = t
+    return fam.module(cfg, tensors, k_in)
+
+
+def _conv_params_from_module(model: ConvTower) -> dict[str, np.ndarray]:
+    out = {}
+    for k, t in model.named_buffers():
+        t = t.detach().cpu()
+        if k in model.k_in:
+            t = t[..., : model.k_in[k]].transpose(-1, -2)
+        elif t.dim() == 4:
+            t = t.permute(2, 3, 1, 0)
+        elif t.dim() == 5:
+            t = t.permute(0, 3, 4, 2, 1)
+        out[k] = np.ascontiguousarray(t.numpy())
+    return out
+
+
+def module_from_params(params: Mapping, cfg, device: torch.device | str = "cpu"):
+    """Flat (or JAX-nested) params → the port's tower module on ``device``:
+    a ``VisionTransformer``, or for the conv towers a ``ResNetTower`` /
+    ``ConvNeXtTower`` (:func:`_conv_module_from_params`). Float leaves keep
+    their dtype; int8 block kernels ([L, in, out]) are stored per layer as
+    contiguous [out, in]; ``blocks/act_amax`` and ``blocks/qkv_amax`` leaves
+    (a calibrated pytree) are attached as they are. An int8 kernel's K is
+    padded to ``ops/quant.K_ALIGN`` with zero columns (``ops/quant.pad_k``).
+    A RoPE tower's params must carry the ``rope_half`` marker
     (:func:`ensure_rope_half` adds it to older ones)."""
     flat = flatten_params(params)
+    fam = conv_family(cfg)
+    if fam is not None:
+        return _conv_module_from_params(flat, cfg, fam, device)
     top, stacked = {}, {}
     for k, v in flat.items():
         if k.startswith("blocks/"):
@@ -473,9 +713,12 @@ def module_from_params(params: Mapping, cfg: VitConfig,
     return VisionTransformer(cfg, top, blocks)
 
 
-def params_from_module(model: VisionTransformer) -> dict[str, np.ndarray]:
+def params_from_module(model) -> dict[str, np.ndarray]:
     """The module's state back in the flat ``.npz`` layout (int8 block
-    kernels without their K padding, transposed back to [L, in, out])."""
+    kernels without their K padding, transposed back to [L, in, out]; the
+    conv towers' kernels back to HWIO), keyed as the JAX package keys it."""
+    if isinstance(model, ConvTower):
+        return _conv_params_from_module(model)
     cfg = model.cfg
     out = {k: v.detach().cpu().numpy() for k, v in model.named_buffers()
            if not k.startswith("blocks.")}

@@ -3,7 +3,10 @@
 ViT-trunk surface (``-quickgelu`` aliases, generic ``ViT-{S..e}-{patch}``
 geometry names, the multilingual and NLLB-CLIP combos), the SigLIP/SigLIP2
 towers (fixed-resolution and naflex), the Perception Encoder cores, the EVA
-family (EVA01, EVA02 pre-norm, EVA02-E post-norm), CoCa and CLIPA.
+family (EVA01, EVA02 pre-norm, EVA02-E post-norm), CoCa and CLIPA. Its
+``resolve_config`` serves the whole open_clip name surface: the modified
+ResNet and ConvNeXt names resolve to the configs of ``models/resnet.py`` and
+``models/convnext.py``.
 
   * patch embedding as reshape + matmul (a stride-p Conv2d is exactly a
     patchify-matmul; no cuDNN, so no TF32 enters a float32 run); SigLIP's
@@ -63,6 +66,12 @@ from clip_assisted_data_labeling_tpu_torch.config import (
     SIGLIP_MEAN,
     SIGLIP_STD,
 )
+from clip_assisted_data_labeling_tpu_torch.models.convnext import (
+    _CNX_ARCHS,
+    CNXConfig,
+    resolve_cnx_config,
+)
+from clip_assisted_data_labeling_tpu_torch.models.resnet import _RN_ARCHS, RNConfig, resolve_rn_config
 from clip_assisted_data_labeling_tpu_torch.ops import knobs
 from clip_assisted_data_labeling_tpu_torch.ops.activations import gelu_tanh
 from clip_assisted_data_labeling_tpu_torch.ops.attention import (
@@ -317,16 +326,6 @@ _NLLB_VISION = {
     "nllb-clip-large-siglip": "ViT-SO400M-14-SigLIP-384",
 }
 
-# The convolutional towers the JAX package resolves (modified ResNets,
-# ConvNeXt): named here only to refuse them with one pinned error.
-_RN_NAMES = ("RN50", "RN101", "RN50x4", "RN50x16", "RN50x64", "RN-Test")
-_CNX_NAMES = ("convnext_base", "convnext_base_w", "convnext_base_w_320", "convnext_large_d",
-              "convnext_large_d_320", "convnext_xxlarge", "convnext_xxlarge_320",
-              "convnext_tiny", "convnext_small", "convnext_large", "convnext_xlarge",
-              "CNX-Test", "CNX-Test-mlp")
-CONV_NOT_PORTED = ("{name}: the {family} towers are not ported yet — they come in the next "
-                   "slice of the PyTorch port (ResNet + ConvNeXt); use the JAX package")
-
 # trunk dims shared by every SigLIP/SigLIP2 tower of a size family
 _SIGLIP_FAMS = {
     "B": dict(width=768, layers=12, heads=12, mlp_hidden=3072, attn_pooler_heads=12),
@@ -387,15 +386,17 @@ def _parse_vit_name(arch: str) -> VitConfig | None:
     return VitConfig(patch_size=int(m.group(2)), image_size=res, **_VIT_FAMS[famkey])
 
 
-def resolve_config(model_name: str) -> VitConfig:
+def resolve_config(model_name: str) -> VitConfig | RNConfig | CNXConfig:
     """The tower of an 'Arch/pretrained' or 'PE-…' name, as the JAX
     ``resolve_config`` (models/vit.py:468-571) resolves it: the registry,
     then (after the NLLB-CLIP alias, a '-quickgelu' suffix, which pins the
-    OpenAI activation, and a multilingual text-tower prefix) the SigLIP,
-    EVA, CoCa, CLIPA and plain-ViT families. 'hf-hub:' names, the
+    OpenAI activation, and a multilingual text-tower prefix) the SigLIP
+    families, the modified-ResNet and ConvNeXt towers (``models/resnet``,
+    ``models/convnext``: an RNConfig or CNXConfig, which '-quickgelu' leaves
+    as it is — the suffix only changes open_clip's text side there), then
+    the EVA, CoCa, CLIPA and plain-ViT families. 'hf-hub:' names, the
     MobileCLIP/ViTamin families and unknown names raise the JAX package's
-    errors; the modified-ResNet and ConvNeXt towers raise
-    :data:`CONV_NOT_PORTED`."""
+    errors."""
     if model_name in MODEL_REGISTRY:
         return MODEL_REGISTRY[model_name]
     if model_name.startswith("hf-hub:"):
@@ -424,9 +425,9 @@ def resolve_config(model_name: str) -> VitConfig:
     sig = _parse_siglip_name(arch)
     if sig is not None:
         return finish(sig)
-    if arch in _RN_NAMES or arch in _CNX_NAMES:
-        family = "modified-ResNet" if arch in _RN_NAMES else "ConvNeXt"
-        raise ValueError(CONV_NOT_PORTED.format(name=model_name, family=family))
+    conv = resolve_rn_config(arch) or resolve_cnx_config(arch)
+    if conv is not None:
+        return conv
     for table in (_EVA_ARCHS, _COCA_ARCHS, _CLIPA_ARCHS):
         if arch in table:
             return finish(VitConfig(**table[arch]))
@@ -441,7 +442,8 @@ def resolve_config(model_name: str) -> VitConfig:
             "published open_clip vision tower resolves."
         )
     known = [a for table in (_ARCHS, _SIGLIP_ARCHS, _PE_ARCHS, _EVA_ARCHS, _COCA_ARCHS,
-                             _CLIPA_ARCHS, _NLLB_VISION) for a in sorted(table)]
+                             _CLIPA_ARCHS, _NLLB_VISION, _RN_ARCHS, _CNX_ARCHS)
+             for a in sorted(table)]
     raise ValueError(
         f"Unknown model format: {model_name}. Expected 'PE-…' or 'Arch/pretrained' (any "
         "'-quickgelu'-suffixed alias or 'ViT-{S,M,B[-plus|-alt],L,H,g,bigG,e}-{patch}"

@@ -17,10 +17,23 @@
     int8_static blocks that would run K2's layernorm + static quantize to the
     generic block with static scales, whose layernorm output rounds to bf16
     before the quantize (``models/vit.block_route``).
+  * ``CNX_INT8`` (``CTPU_CNX_INT8``: ``1`` → ``on``, ``0`` → ``off``,
+    anything else → ``auto``): whether int8_static runs a ConvNeXt tower's
+    pointwise matmuls in W8A8 or the whole tower in bfloat16 — ``auto`` where
+    the final width is at least 1536 (``models/convnext.cnx_int8_static_enabled``).
+  * ``RN_INT8`` (``CTPU_RN_INT8``, the same contract): the same for a
+    modified-ResNet tower's bottleneck 1x1 convs — ``auto`` where the final
+    width is at least 3072 (``models/resnet.rn_int8_static_enabled``).
+  * ``RN_INT8_MIN_MID`` (``CTPU_RN_INT8_MIN_MID``, an int, default 0): the
+    ResNet blocks narrower than this keep float 1x1 kernels in int8_static
+    (``models/resnet.quantize_rn_params``).
 
 Each of these changes which arithmetic a block runs, so each changes the
 embeddings. The JAX package's other knobs pick TPU schedules of the same
-arithmetic and have no counterpart here. Set a variable before the import,
+arithmetic and have no counterpart here: ``CTPU_RN_INT8_CONV=1``, for one,
+runs a ResNet int8_static 1x1 as an int8 convolution, the same int32 product
+and epilogue as its matmul form, which the port runs either way
+(``models/resnet._pointwise_static``). Set a variable before the import,
 or call :func:`reload` after changing it.
 """
 from __future__ import annotations
@@ -35,11 +48,17 @@ def reload() -> None:
     g["FUSED_QMATMUL"] = os.environ.get("CTPU_FUSED_QMATMUL") == "1"
     g["INT8_WIRE"] = {"1": "on", "0": "off"}.get(os.environ.get("CTPU_INT8_WIRE", ""), "auto")
     g["LN_KERNEL"] = os.environ.get("CTPU_LN_KERNEL", "1") == "1"
+    g["CNX_INT8"] = {"1": "on", "0": "off"}.get(os.environ.get("CTPU_CNX_INT8", ""), "auto")
+    g["RN_INT8"] = {"1": "on", "0": "off"}.get(os.environ.get("CTPU_RN_INT8", ""), "auto")
+    g["RN_INT8_MIN_MID"] = int(os.environ.get("CTPU_RN_INT8_MIN_MID", "0"))
 
 
 INT8_BLOCK: str
 FUSED_QMATMUL: bool
 INT8_WIRE: str
 LN_KERNEL: bool
+CNX_INT8: str
+RN_INT8: str
+RN_INT8_MIN_MID: int
 
 reload()

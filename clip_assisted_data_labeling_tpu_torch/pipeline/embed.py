@@ -2,14 +2,15 @@
 (port of the JAX package's ``pipeline/embed.py``, one card).
 
 The host loader decodes onto fixed canvases; per batch the device runs the
-4-crop extraction, resize, normalization, the ViT forward and the 22 image
+4-crop extraction, resize, normalization, the tower's forward and the 22 image
 stats. Outputs go to the reference-compatible ``.pt`` sidecars (incremental
 per-model merge, skip-if-already-embedded) and the columnar store that later
 stages read.
 
-Towers: every ViT-trunk name ``models/vit.resolve_config`` resolves (CLIP,
+Towers: every name ``models/vit.resolve_config`` resolves (CLIP,
 SigLIP/SigLIP2 with naflex, PE — no pretrained tag, e.g.
-``PE-Core-L14-336`` —, EVA, CoCa, CLIPA); a SigLIP store's ``embed_dim`` is
+``PE-Core-L14-336`` —, EVA, CoCa, CLIPA, the modified ResNets ``RN50`` …
+``RN50x64``, ConvNeXt ``convnext_*``); a SigLIP store's ``embed_dim`` is
 the tower's width (1152 for ViT-SO400M-14-SigLIP-384).
 
 CLI: the JAX stage's flags plus ``--device`` (default ``cuda``; ``cpu`` for
@@ -143,7 +144,7 @@ def _embed_one_model(root_dir, img_paths, model_name, cfg: EmbedConfig, device):
     # --aspect native: one more embedding per image at its native aspect
     # through the naflex masked path, stored as a fifth pseudo-crop
     native_aspect = cfg.aspect == "native"
-    if native_aspect and not encoder.cfg.naflex:
+    if native_aspect and not getattr(encoder.cfg, "naflex", False):
         raise ValueError(f"--aspect native requires a naflex tower; {model_name} is "
                          "fixed-resolution (use a '…-naflex' SigLIP2 model name)")
     crop_names_out = list(cfg.crop_names) + (["native_aspect"] if native_aspect else [])

@@ -17,7 +17,10 @@ reported beside the test loss each epoch, and the loss and scatter plots
 where matplotlib is installed.
 
 CLI: the JAX stage's flags plus ``--device`` (default ``cuda``; ``cpu`` for
-the CPU). Not ported yet, and refused: ``--debug_nans``.
+the CPU). ``--debug_nans`` (the JAX stage's ``jax_debug_nans``) checks each
+step's loss and, after the optimizer step, the parameters, and raises
+``FloatingPointError`` naming the epoch and the step (0-based) at the first
+non-finite value; without it nothing is checked.
 """
 from __future__ import annotations
 
@@ -161,22 +164,40 @@ def _pad_to_batches(x, y, batch_size):
     return x, y, w
 
 
+def _check_finite(model: SimpleFCRegressor, loss: torch.Tensor, epoch: int, step: int) -> None:
+    """``--debug_nans``: raise ``FloatingPointError`` naming the epoch and
+    the step (0-based) if the step's loss or an updated parameter is not
+    finite (one host sync a step)."""
+    params = list(model.net.named_parameters())
+    ok = torch.stack([torch.isfinite(loss).all()]
+                     + [torch.isfinite(p).all() for _, p in params]).cpu().numpy()
+    if ok.all():
+        return
+    where = ("the loss" if not ok[0] else
+             "parameter " + next(n for (n, _), good in zip(params, ok[1:]) if not good)
+             + " after the optimizer step")
+    raise FloatingPointError(f"debug_nans: non-finite value in {where} at epoch {epoch}, "
+                             f"step {step}")
+
+
 def _train_epoch(model: SimpleFCRegressor, opt: torch.optim.Optimizer, x, y, w,
                  perm: torch.Tensor, lr: float, batch_size: int, n_classes: int,
-                 gen: torch.Generator | None) -> torch.Tensor:
+                 gen: torch.Generator | None, debug_nans: bool = False,
+                 epoch: int = 0) -> torch.Tensor:
     """One epoch over the padded device arrays x, y, w in the order of
     ``perm`` (a permutation of their rows on their device, drawn by the
     caller; the rows are gathered once, as the JAX epoch does, and each
     batch is a slice): forward, backward and an Adam step a batch, each
     batch's loss Σ(per-sample loss · w) / max(Σw, 1). Dropout draws its
-    masks from ``gen`` (None: no dropout). Returns the mean batch loss as a
-    device scalar."""
+    masks from ``gen`` (None: no dropout). ``debug_nans``: each step's loss
+    and updated parameters are checked (:func:`_check_finite`; ``epoch``
+    names the epoch). Returns the mean batch loss as a device scalar."""
     for group in opt.param_groups:
         group["lr"] = lr
     net = model.net
     xs, ys, ws = x[perm], y[perm], w[perm]
     losses = []
-    for start in range(0, x.shape[0] - batch_size + 1, batch_size):
+    for step, start in enumerate(range(0, x.shape[0] - batch_size + 1, batch_size)):
         end = start + batch_size
         xi, yi, wi = xs[start:end], ys[start:end], ws[start:end]
         if n_classes:
@@ -187,6 +208,8 @@ def _train_epoch(model: SimpleFCRegressor, opt: torch.optim.Optimizer, x, y, w,
         opt.zero_grad(set_to_none=True)
         loss.backward()
         opt.step()
+        if debug_nans:
+            _check_finite(model, loss, epoch, step)
         losses.append(loss.detach())
     return torch.stack(losses).mean()
 
@@ -208,7 +231,7 @@ def _evaluate(model: SimpleFCRegressor, x_test, y_test, n_classes: int):
 
 
 def _train_run(model: SimpleFCRegressor, x, y, w, x_test, y_test, cfg: TrainConfig,
-               n_classes: int, gen: torch.Generator):
+               n_classes: int, gen: torch.Generator, debug_nans: bool = False):
     """The whole run from ``model``'s weights (trained in place): per epoch
     a permutation from ``gen`` on the device, ``_train_epoch`` at that
     epoch's rate, then the test metrics. Nothing returns to the host until
@@ -218,10 +241,10 @@ def _train_run(model: SimpleFCRegressor, x, y, w, x_test, y_test, cfg: TrainConf
     lrs = [_lr_at_epoch(e, cfg) for e in range(cfg.n_epochs)]
     dropout_gen = gen if cfg.dropout_prob > 0.0 else None
     history = []
-    for lr in lrs:
+    for epoch, lr in enumerate(lrs):
         perm = torch.randperm(x.shape[0], generator=gen, device=x.device)
         train_loss = _train_epoch(model, opt, x, y, w, perm, lr, cfg.batch_size, n_classes,
-                                  dropout_gen)
+                                  dropout_gen, debug_nans, epoch)
         history.append(torch.stack([train_loss, *_evaluate(model, x_test, y_test,
                                                           n_classes)]))
     return torch.stack(history, dim=1).cpu().numpy(), lrs
@@ -277,11 +300,14 @@ def train_regressor(
     plot_dir: str = ".",
     verbose: bool = True,
     device: str | torch.device = "cuda",
+    debug_nans: bool = False,
 ):
     """Train a fresh regressor (initialized from ``cfg.random_seed``) on
     ``device``. Returns (model, history): history holds the per-epoch train
     and test losses and third metric, the rates, the number of training
-    rows, and the training's seconds and optimizer steps."""
+    rows, and the training's seconds and optimizer steps. ``debug_nans``:
+    raise ``FloatingPointError`` at the first non-finite loss or parameter
+    (:func:`_check_finite`)."""
     device = resolve_device(device)
     targets, class_values = _prepare_labels(labels, cfg)
     if class_values is not None:
@@ -304,7 +330,7 @@ def train_regressor(
     gen = torch.Generator(device=device).manual_seed(cfg.random_seed + 1)
 
     t0 = time.perf_counter()
-    hist, lrs = _train_run(model, x, y, w, x_test, y_test, cfg, n_classes, gen)
+    hist, lrs = _train_run(model, x, y, w, x_test, y_test, cfg, n_classes, gen, debug_nans)
     seconds = time.perf_counter() - t0  # the history's copy to the host waited for the device
     train_losses, test_losses, third_metric = (row.astype(float).tolist() for row in hist)
 
@@ -401,13 +427,13 @@ def main(argv=None):
                         help="train a softmax classifier over the distinct "
                         "label values instead of the sigmoid regressor; "
                         "predicted_label becomes the softmax-expected label value")
-    parser.add_argument("--debug_nans", action="store_true", help="not ported yet")
+    parser.add_argument("--debug_nans", action="store_true",
+                        help="check each step's loss and updated parameters and raise "
+                        "FloatingPointError, naming the epoch and step, at the first "
+                        "non-finite value (the port's jax_debug_nans)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device: cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.debug_nans:
-        parser.error("--debug_nans: not ported yet to the PyTorch port "
-                     "(use the JAX package's train stage)")
 
     cfg = TrainConfig(
         clip_models_to_use=args.clip_models_to_use,
@@ -436,7 +462,8 @@ def main(argv=None):
         list(cfg.crop_names), cfg.use_img_stat_features,
     )
     print("Features shape:", features.shape, "Labels shape:", labels.shape)
-    model, history = train_regressor(features, labels, cfg, models, device=device)
+    model, history = train_regressor(features, labels, cfg, models, device=device,
+                                     debug_nans=args.debug_nans)
     path = None if cfg.dont_save else save_model(model, history, cfg)
     return model, history, path
 

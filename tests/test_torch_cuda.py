@@ -790,3 +790,37 @@ def test_int8_static_knob_routes_two_layers_on_card_match_cpu(card, monkeypatch,
         monkeypatch.undo()
         knobs.reload()
     assert 1.0 - np.min(np.sum(got * ref, axis=-1)) <= 2e-3
+
+
+@pytest.mark.parametrize("dtype,limit", [("float32", 1e-5), ("bfloat16", 1e-3),
+                                         ("int8_static", 2e-3)])
+@pytest.mark.parametrize("name", ["RN-Test/openai", "CNX-Test-mlp/x"])
+def test_conv_towers_on_card_match_cpu(card, name, dtype, limit):
+    """The modified-ResNet and ConvNeXt towers on the card (cuDNN
+    convolutions with TF32 off, ``torch._int_mm``) against the same weights,
+    calibration and images on the CPU; no kernel of the table launches."""
+    from clip_assisted_data_labeling_tpu_torch.models import vit
+    from clip_assisted_data_labeling_tpu_torch.models.clip_weights import module_from_params
+    from clip_assisted_data_labeling_tpu_torch.models.conv_tower import conv_family
+    from clip_assisted_data_labeling_tpu_torch.utils.device import resolve_device
+
+    resolve_device(card)  # the entry points' TF32 switches
+    cfg = vit.resolve_config(name)
+    fam = conv_family(cfg)
+    params = fam.init(cfg, torch.Generator().manual_seed(3))
+    if dtype == "int8_static":
+        params = fam.quantize(params)
+    cpu, gpu = module_from_params(params, cfg), module_from_params(params, cfg, card)
+    images = _normal((4, cfg.image_size, cfg.image_size, 3), seed=7)
+    tdtype = torch.float32 if dtype == "float32" else torch.bfloat16
+    if dtype == "int8_static":
+        amax = fam.act_amax(cpu, images)
+        for m in (cpu, gpu):
+            m.attach_act_amax(amax)
+    kernels = (fused_attention_packed, fused_attention_packed_grouped, flash_attention_packed,
+               rowquant, rowquant_static, q_linear_fused, fused_attention_packed_q8s)
+    before = [fn.launches for fn in kernels]
+    got = fam.encode(gpu, images.to(card), tdtype).cpu().numpy()
+    assert [fn.launches for fn in kernels] == before
+    ref = fam.encode(cpu, images, tdtype).numpy()
+    assert 1.0 - np.min(np.sum(got * ref, axis=-1)) <= limit

@@ -1,7 +1,7 @@
 """The port's name surface, CoCa and CLIPA towers against the JAX package's:
 every name of the JAX package's open_clip list resolves to the JAX geometry
-(ViT trunks) or raises the port's pinned "not ported yet" error (the
-modified-ResNet and ConvNeXt towers); the CoCa pooler readout and CLIPA's
+field for field (the ViT trunks, the modified ResNets and ConvNeXt); the
+CoCa pooler readout and CLIPA's
 mean-pool readout in float32, bfloat16 and int8_static on shared params; and
 open_clip-style CoCa and CLIPA state dicts written by the JAX tests' mirrors
 through both converters."""
@@ -33,16 +33,16 @@ def _fields(cfg) -> dict:
 
 @pytest.mark.parametrize("name", [n for n, _ in OPEN_CLIP_NAMES])
 def test_open_clip_name_surface(name):
-    """Each ViT-trunk name resolves to the JAX package's config field for
-    field; each modified-ResNet or ConvNeXt name raises the pinned error."""
-    ref = jvit.resolve_config(name)
+    """Each name resolves to the JAX package's config field for field: a
+    ViT trunk, a modified ResNet or a ConvNeXt tower, of the same family and
+    with the same derived geometry."""
+    ref, got = jvit.resolve_config(name), tvit.resolve_config(name)
+    assert type(got).__name__ == type(ref).__name__
+    assert _fields(got) == _fields(ref)
     if isinstance(ref, (RNConfig, CNXConfig)):
-        family = "modified-ResNet" if isinstance(ref, RNConfig) else "ConvNeXt"
-        with pytest.raises(ValueError) as err:
-            tvit.resolve_config(name)
-        assert str(err.value) == tvit.CONV_NOT_PORTED.format(name=name, family=family)
-        return
-    assert _fields(tvit.resolve_config(name)) == _fields(ref)
+        props = ("final_width", "grid") + (("seq_len", "stage_widths")
+                                           if isinstance(ref, RNConfig) else ())
+        assert {p: getattr(got, p) for p in props} == {p: getattr(ref, p) for p in props}
 
 
 @pytest.mark.parametrize("name,match", [
@@ -51,17 +51,28 @@ def test_open_clip_name_surface(name):
     ("ViTamin-L-336/datacomp1b", "recognized open_clip family"),
     ("ViT-Q-99/nope", "Unknown model format"),
     ("not-a-model", "Unknown model format"),
-    ("RN-Test/tiny", "not ported yet"),
-    ("convnext_base_w-quickgelu/laion2b_s13b_b82k", "not ported yet"),
+    ("RN42/openai", "Unknown model format"),
+    ("convnext_huge/laion2b", "Unknown model format"),
 ])
 def test_name_surface_refusals_match_jax(name, match):
-    """The refusals the JAX package raises, with its guidance (the port
-    raises the pinned error where the JAX package resolves a conv tower)."""
-    with pytest.raises(ValueError, match=match):
+    """The refusals the JAX package raises, with its guidance and message."""
+    with pytest.raises(ValueError, match=match) as got:
         tvit.resolve_config(name)
-    if match != "not ported yet":
-        with pytest.raises(ValueError, match=match):
-            jvit.resolve_config(name)
+    with pytest.raises(ValueError, match=match) as want:
+        jvit.resolve_config(name)
+    if match == "Unknown model format":
+        assert str(got.value) == str(want.value)
+
+
+@pytest.mark.parametrize("name", ["RN-Test/tiny", "convnext_base_w-quickgelu/laion2b_s13b_b82k"])
+def test_conv_test_and_quickgelu_names_resolve_as_jax(name):
+    """The two conv names the port refused before its conv towers: the test
+    tower and a '-quickgelu' conv alias, which keeps the plain config (the
+    suffix changes only open_clip's text side)."""
+    ref, got = jvit.resolve_config(name), tvit.resolve_config(name)
+    assert isinstance(got, (tvit.RNConfig, tvit.CNXConfig))
+    assert type(got).__name__ == type(ref).__name__ and _fields(got) == _fields(ref)
+    assert got == tvit.resolve_config(name.replace("-quickgelu", ""))
 
 
 @pytest.mark.parametrize("name", ["ViT-Test2/tiny", "ViT-Test-HF/tiny", "CoCa-Test/tiny",

@@ -233,15 +233,73 @@ def test_train_cli_writes_a_checkpoint_jax_reads(tmp_path, monkeypatch, classifi
 
 
 def test_train_cli_refusals(tmp_path, monkeypatch):
+    """The default device is the card, refused where there is none;
+    --debug_nans is accepted, and on clean data it changes nothing."""
     _write_dataset(tmp_path)
     monkeypatch.chdir(tmp_path)
     argv = ["--train_data_dir", str(tmp_path / "data"), "--train_data_names", "mydata",
-            "--n_epochs", "1", "--dont_save"]
-    with pytest.raises(SystemExit):
-        ttrain.main(argv + ["--debug_nans", "--device", "cpu"])
+            "--n_epochs", "2", "--batch_size", "4", "--dont_save"]
+    runs = [ttrain.main(argv + extra + ["--device", "cpu"]) for extra in ([], ["--debug_nans"])]
+    for p, q in zip(runs[0][0].params(), runs[1][0].params()):
+        for k in ("kernel", "bias"):
+            np.testing.assert_array_equal(p[k], q[k])
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="cuda"):
             ttrain.main(argv)
+
+
+def _nan_epoch(lr, nan_row, epoch):
+    """One epoch of ``_train_epoch`` with --debug_nans on 16 rows in batches
+    of 4 (the identity order), a NaN planted in feature row ``nan_row`` (or
+    none)."""
+    x, y = _data(3, 16, False)
+    if nan_row is not None:
+        x[nan_row, 5] = np.nan
+    _jcfg, pcfg = _cfgs(batch_size=4)
+    targets, _ = ttrain._prepare_labels(y, pcfg)
+    meta = ttrain._make_meta(x, y, pcfg, [MODEL], None)
+    model = treg.SimpleFCRegressor.create(meta, 0, "cpu")
+    xp, yp, wp = ttrain._pad_to_batches(x, targets.astype(np.float32), 4)
+    return ttrain._train_epoch(model, ttrain.make_optimizer(model, pcfg),
+                               *(torch.from_numpy(a) for a in (xp, yp, wp)),
+                               torch.arange(len(xp)), lr, 4, 0, None, debug_nans=True,
+                               epoch=epoch)
+
+
+@pytest.mark.parametrize("nan_row,epoch,step,where", [
+    (9, 0, 2, "the loss"),
+    (0, 4, 0, "the loss"),
+    (None, 1, 0, "parameter linears.0.weight after the optimizer step"),
+])
+def test_debug_nans_names_the_epoch_and_step(nan_row, epoch, step, where):
+    """The first non-finite loss (a NaN feature row in the step's batch), or
+    parameter (a NaN learning rate: the step's loss is finite, its update is
+    not), raises FloatingPointError naming the epoch and the step, 0-based."""
+    lr = float("nan") if nan_row is None else 1e-3
+    with pytest.raises(FloatingPointError) as err:
+        _nan_epoch(lr, nan_row, epoch)
+    assert str(err.value) == (f"debug_nans: non-finite value in {where} at epoch {epoch}, "
+                              f"step {step}")
+
+
+def test_debug_nans_off_is_bit_for_bit(tmp_path):
+    """train_regressor with and without the flag on clean data: the same
+    parameters and history, bit for bit; with it, a NaN in a training row
+    stops the run in epoch 0."""
+    x, y = _data(4, 30, False)
+    _jcfg, pcfg = _cfgs(n_epochs=3, batch_size=4, dropout_prob=0.2)
+    runs = [ttrain.train_regressor(x, y, pcfg, [MODEL], verbose=False, device="cpu",
+                                   debug_nans=flag, plot_dir=str(tmp_path))
+            for flag in (False, True)]
+    for p, q in zip(runs[0][0].params(), runs[1][0].params()):
+        for k in ("kernel", "bias"):
+            np.testing.assert_array_equal(p[k], q[k])
+    for key in ("train", "test", "third"):
+        np.testing.assert_array_equal(runs[0][1][key], runs[1][1][key])
+    x[ttrain._split(len(x), pcfg)[1][0], 0] = np.nan  # a training row
+    with pytest.raises(FloatingPointError, match="in the loss at epoch 0, step"):
+        ttrain.train_regressor(x, y, pcfg, [MODEL], verbose=False, device="cpu",
+                               debug_nans=True, plot_dir=str(tmp_path))
 
 
 def test_plots_skipped_without_matplotlib(tmp_path, monkeypatch, capsys):

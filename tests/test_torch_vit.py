@@ -129,8 +129,12 @@ def test_registry_and_unported_families():
         assert (j.width, j.layers, j.heads, j.patch_size, j.image_size, j.embed_dim,
                 j.mlp_dim, j.act) == (t.width, t.layers, t.heads, t.patch_size,
                                       t.image_size, t.embed_dim, t.mlp_dim, t.act)
-    # every ViT-trunk family resolves; the convolutional towers wait for the
-    # next slice of the port
+    # every family resolves, the convolutional towers to their own configs
     assert tvit.resolve_config("EVA02-L-14-336/merged2b_s6b_b61k").mlp_type == "swiglu"
-    with pytest.raises(ValueError, match="not ported yet"):
-        tvit.resolve_config("RN50/openai")
+    rn = tvit.resolve_config("RN50/openai")
+    assert isinstance(rn, tvit.RNConfig) and (rn.final_width, rn.seq_len) == (2048, 50)
+    jrn = jvit.resolve_config("RN50/openai")
+    assert (rn.layers, rn.width, rn.embed_dim, rn.heads) == (jrn.layers, jrn.width,
+                                                             jrn.embed_dim, jrn.heads)
+    cnx = tvit.resolve_config("convnext_large_d_320/laion2b_s29b_b131k_ft_soup")
+    assert isinstance(cnx, tvit.CNXConfig) and (cnx.proj, cnx.final_width) == ("mlp", 1536)
