@@ -187,9 +187,37 @@ Phases (any failure exits nonzero and prints no result line):
      process of its own, 3 epochs: the checkpoint equal bit for bit to the
      flag-off run's; on a copy of the store with one feature row of NaN it
      exits nonzero naming an epoch and a step,
+ 36. (the parallel layer on the one card: a repeated device makes the mesh,
+     whose shards run one after another; correctness and launches, not
+     scaling) embed_dataset with a mesh of the card listed twice on copies of
+     the PNGs with phase 5's .calib.npz: ViT-L-14-336 int8_static, K1 once
+     and K2 twice a layer a shard forward, every crop within 1 - cosine 1e-5
+     of phase 5's,
+ 37. tensor parallel on a (1, 2) mesh against the same encoder on one
+     device, 4 images: L-336 int8_static (K2 on the replicated stream, K1 at
+     8 heads) and SO400M-384 int8_static (K3 at the local width) at full
+     depth, bit-equal where every shard takes the single device's route
+     (else within 1 - cosine 2e-3, the routes printed); L-336 bf16 within
+     1e-3; exact counters; steady ms beside the single device's,
+ 38. (after phase 14) find_duplicate_pairs_sharded over the card listed 4
+     times at N = 262,144, both wires: phase 14's pair set and overflow
+     rows, with the seconds of the ring's counts and of the extract,
+ 39. (after phase 19) predict over the card listed twice at phase 17's
+     131,072 rows: the float32 wire through predict_labels(sharded=True),
+     its CSV within 1e-6 of phase 17's; the float16 wire through
+     predict_sharded within 2e-3 of phase 17's,
+ 40. two processes on the card over gloo (COORDINATOR_ADDRESS on localhost,
+     JAX_NUM_PROCESSES/JAX_PROCESS_ID): the embed CLI with --distributed on
+     copies of the PNGs and two byte-identical copies (each process its
+     [rank::2] shard, phase 5's .calib.npz), the store CLI's rebuild, the
+     dedup CLI with --distributed --mode copy: both processes report the
+     one-process run's pairs, the planted ones among them; the crops within
+     1 - cosine 1e-5 of one process embedding the same host shards, and
+     within 2e-3 of phase 5's (other batches, other canvas buckets); only
+     rank 0 copies,
 then print one JSON line with phase 14's records, one with phases 16-19's
 and 35's, one with phases 20-23's, one with phase 31's, one with phases
-32-34's, one JSON line listing the kernels, each row with its launches
+32-34's, one with phases 36-40's, one JSON line listing the kernels, each row with its launches
 read from the counter of the main path above that runs its case (0 for a
 shape no path runs; K7, K8, K10 and K5 with RoPE, which no path of the JAX
 package reaches, summed over all of them) and, last, the device line.
@@ -450,8 +478,6 @@ def check_kernels(gen: torch.Generator, pgen: torch.Generator, qgen: torch.Gener
         flash_attention_packed_plain,
         fused_attention_packed,
         fused_attention_packed_plain,
-        fused_attention_packed_q8s,
-        fused_attention_packed_q8s_plain,
     )
     from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import (
         rowquant_static,
@@ -555,46 +581,60 @@ def check_kernels(gen: torch.Generator, pgen: torch.Generator, qgen: torch.Gener
     # BATCH, x 4 crops, S=577, 16 heads of 64
     for b, s, w, path, rg in ((4 * BATCH, s, w, ("so400m", "K3"), gen),
                               (4 * BATCH, 577, 1024, ("l336_wire", "K3"), sgen)):
-        d = w // heads
-        qkv = torch.randint(-127, 128, (b, s, 3 * w), generator=rg, device="cuda",
-                            dtype=torch.int8)
-        # scores of std ~3, outputs over much of the int8 range (as the tests)
-        cs = torch.cat([torch.rand(2 * w, generator=rg, device="cuda") * 8e-3 + 4e-3,
-                        torch.rand(w, generator=rg, device="cuda") * 0.5 + 0.25])
-        diff = (fused_attention_packed_q8s(qkv, cs, heads).int()
-                - fused_attention_packed_q8s_plain(qkv, cs, heads).int()).abs()
-
-        def q8s_library():  # dequantize, SDPA, requantize
-            deq = (qkv.float() * cs).to(torch.bfloat16).view(b, s, 3, heads, d)
-            o = F.scaled_dot_product_attention(*deq.permute(2, 0, 3, 1, 4).unbind(0), scale=1.0)
-            return o.transpose(1, 2).reshape(b, s, w).float().round_().clamp_(-127, 127).to(
-                torch.int8)
-
-        row = {
-            "name": "packed_attention_q8s", "route": "cuda", "source": K3_SRC,
-            "replaces": K3_TPU, "case": f"int8 [{b},{s},{3 * w}] h={heads}", "path": path,
-            "max_abs_err": diff.max().item(), "tol": 1,
-            "flip_share": (diff > 0).float().mean().item(),
-            "ms": time_ms(lambda: fused_attention_packed_q8s(qkv, cs, heads)),
-            "plain_ms": time_ms(lambda: fused_attention_packed_q8s_plain(qkv, cs, heads),
-                                min_reps=3),
-            "library_ms": time_ms(q8s_library),
-            **bound(4.0 * b * heads * s * s * d, H100_BF16_FLOPS, b * s * 4 * w + 3 * w * 4),
-        }
-        rows.append(row)
-        print(f"K3 {row['case']}: max |diff| {row['max_abs_err']} on {row['flip_share']:.2e} "
-              f"of entries, kernel {row['ms']:.3f} ms plain {row['plain_ms']:.3f} "
-              f"dequant+sdpa+quant {row['library_ms']:.3f} bound {row['bound_ms']:.4f} ms "
-              f"({row['bound_by']})", flush=True)
-        if row["flip_share"] > 1e-3:
-            fail(f"packed_attention_q8s {row['case']}: ±1 flips on {row['flip_share']:.2e} of "
-                 "entries (> 1e-3)")
-        del qkv, diff
-        torch.cuda.empty_cache()
+        rows.append(q8s_case(b, s, w, heads, path, rg))
     for r in rows:
         if not (r["max_abs_err"] <= r["tol"]):
             fail(f"{r['name']} {r['case']} disagrees with its plain version: {r['max_abs_err']}")
     return rows
+
+
+def q8s_case(b: int, s: int, w: int, heads: int, path, rg: torch.Generator) -> dict:
+    """One phase-3 row of K3 at int8 [b, s, 3w] with ``heads`` heads (qkv,
+    then the channel scales, from ``rg``) against its plain version: ±1 on
+    ≤ 0.1% of entries, timed beside dequantize + SDPA + requantize."""
+    import torch.nn.functional as F
+
+    from clip_assisted_data_labeling_tpu_torch.ops.attention import (
+        fused_attention_packed_q8s,
+        fused_attention_packed_q8s_plain,
+    )
+
+    d = w // heads
+    qkv = torch.randint(-127, 128, (b, s, 3 * w), generator=rg, device="cuda",
+                        dtype=torch.int8)
+    # scores of std ~3, outputs over much of the int8 range (as the tests)
+    cs = torch.cat([torch.rand(2 * w, generator=rg, device="cuda") * 8e-3 + 4e-3,
+                    torch.rand(w, generator=rg, device="cuda") * 0.5 + 0.25])
+    diff = (fused_attention_packed_q8s(qkv, cs, heads).int()
+            - fused_attention_packed_q8s_plain(qkv, cs, heads).int()).abs()
+
+    def q8s_library():  # dequantize, SDPA, requantize
+        deq = (qkv.float() * cs).to(torch.bfloat16).view(b, s, 3, heads, d)
+        o = F.scaled_dot_product_attention(*deq.permute(2, 0, 3, 1, 4).unbind(0), scale=1.0)
+        return o.transpose(1, 2).reshape(b, s, w).float().round_().clamp_(-127, 127).to(
+            torch.int8)
+
+    row = {
+        "name": "packed_attention_q8s", "route": "cuda", "source": K3_SRC,
+        "replaces": K3_TPU, "case": f"int8 [{b},{s},{3 * w}] h={heads}", "path": path,
+        "max_abs_err": diff.max().item(), "tol": 1,
+        "flip_share": (diff > 0).float().mean().item(),
+        "ms": time_ms(lambda: fused_attention_packed_q8s(qkv, cs, heads)),
+        "plain_ms": time_ms(lambda: fused_attention_packed_q8s_plain(qkv, cs, heads),
+                            min_reps=3),
+        "library_ms": time_ms(q8s_library),
+        **bound(4.0 * b * heads * s * s * d, H100_BF16_FLOPS, b * s * 4 * w + 3 * w * 4),
+    }
+    print(f"K3 {row['case']}: max |diff| {row['max_abs_err']} on {row['flip_share']:.2e} "
+          f"of entries, kernel {row['ms']:.3f} ms plain {row['plain_ms']:.3f} "
+          f"dequant+sdpa+quant {row['library_ms']:.3f} bound {row['bound_ms']:.4f} ms "
+          f"({row['bound_by']})", flush=True)
+    if row["flip_share"] > 1e-3:
+        fail(f"packed_attention_q8s {row['case']}: ±1 flips on {row['flip_share']:.2e} of "
+             "entries (> 1e-3)")
+    del qkv, diff
+    torch.cuda.empty_cache()
+    return row
 
 
 def rowquant_static_case(m: int, k: int, g: torch.Tensor, bta: torch.Tensor,
@@ -2204,7 +2244,7 @@ def plain_pairs(emb: np.ndarray, threshold: float, euclidean: bool,
     return set(zip(rows[keep].tolist(), cols[keep].tolist()))
 
 
-def dedup_at_scale() -> list[dict]:
+def dedup_at_scale() -> tuple[list[dict], dict]:
     """Phase 14: stage 2 at a real size. N = DEDUP_N embeddings of width
     DEDUP_D from a seeded generator on the card, with DEDUP_PAIRS planted
     pairs at cosine ~0.999 and one group of DEDUP_GROUP near-identical rows
@@ -2215,7 +2255,8 @@ def dedup_at_scale() -> list[dict]:
     with the recheck), against the plain route; then the euclidean metric
     at N = 32768 (its most dissimilar pairs) over both wires against the
     plain route. Fails unless the sets are identical, every planted pair is
-    found and the wires' overflow rows agree. Returns one record a run."""
+    found and the wires' overflow rows agree. Returns one record a run, and
+    for phase 38 the embeddings, the pair set and the overflow rows."""
     from clip_assisted_data_labeling_tpu_torch.ops.similarity import find_duplicate_pairs
     from clip_assisted_data_labeling_tpu_torch.utils.timer import StageTimer
 
@@ -2272,6 +2313,7 @@ def dedup_at_scale() -> list[dict]:
           f"found, {len(plain - planted)} others), overflow rows "
           f"{len(results['int8'].overflow_rows)} on both wires", flush=True)
 
+    phase14 = {"emb": emb, "pairs": plain, "overflow_rows": results["int8"].overflow_rows}
     sub = emb[:32768]
     ref = plain_pairs(sub, 1.52, True)
     for wire in ("int8", "fp16"):
@@ -2286,8 +2328,7 @@ def dedup_at_scale() -> list[dict]:
               f"{len(ref)}) in {dt:.3f} s", flush=True)
         if got != ref or not got:
             fail(f"stage 2 euclidean {wire}: {len(got)} pairs, the plain route {len(ref)}")
-    del emb
-    return records
+    return records, phase14
 
 
 def dedup_cli(root: str, base: str) -> dict:
@@ -2519,7 +2560,8 @@ def predict_at_scale(base: str, ckpt: str) -> dict:
     the CLI's seeded picks name, and the scores within 1e-5 of the same wire
     computed by the port on the CPU from the same store; rows/s with the
     gather, forward and side effects' seconds from the CLI's timing line.
-    Returns the records and what phase 19 needs."""
+    Returns the records, what phase 19 needs, and for phase 39 each wire's
+    scores in listing order with the features."""
     from clip_assisted_data_labeling_tpu_torch.data.imsize import gray_jpeg_bytes
     from clip_assisted_data_labeling_tpu_torch.pipeline.predict import (
         _gather_features,
@@ -2552,7 +2594,7 @@ def predict_at_scale(base: str, ckpt: str) -> dict:
     kept, feats = _gather_features(root, listing, cpu_model)
     if kept != listing:
         fail("predict: the CPU gather dropped rows")
-    records, preview = [], root + "_predicted_scores"
+    records, preview, scores = [], root + "_predicted_scores", {}
     for wire in PREDICT_WIRES:
         shutil.rmtree(preview, ignore_errors=True)
         t0 = time.perf_counter()
@@ -2573,6 +2615,7 @@ def predict_at_scale(base: str, ckpt: str) -> dict:
         db = LabelDatabase.load_or_create(root)
         pred = dict(zip(db.column("uuid"), db.column("predicted_label")))
         got = np.array([pred.get(u, np.nan) for u in listing])
+        scores[wire] = got
         kept_labels = np.array([db.get_label(u) for u in uuids[:N_LABELLED]])
         if not (len(db) == PREDICT_N and np.isfinite(got).all()
                 and np.array_equal(kept_labels, labels)):
@@ -2608,7 +2651,8 @@ def predict_at_scale(base: str, ckpt: str) -> dict:
                  f"{len(previews)} against {len(want_previews)} picked")
     print(f"phase 17: {time.perf_counter() - t_phase:.1f} s ({setup_s:.1f} s writing the "
           f"store, {PREDICT_N} JPEG headers and the CSV)", flush=True)
-    return {"records": records, "root": root, "sizes": sizes, "json_uuids": set(json_uuids)}
+    return {"records": records, "root": root, "sizes": sizes, "json_uuids": set(json_uuids),
+            "listing": listing, "feats": feats, "scores": scores}
 
 
 def scorer_cli(png_dir: str, ckpt: str, phase15_rows: dict) -> dict:
@@ -2716,10 +2760,11 @@ def subset_cli(predicted: dict) -> dict:
             "process_s": wall}
 
 
-def stages(png_dir: str, phase15_rows: dict) -> tuple[list[dict], dict]:
+def stages(png_dir: str, phase15_rows: dict) -> tuple[list[dict], dict, dict]:
     """Phases 16-19 in a directory of their own: train (and phase 35, train
     with --debug_nans), predict on every wire, the single-image scorer,
-    subset. Returns the records and the scorer's launch counts."""
+    subset, then phase 39 (predict over a mesh) on predict's directory.
+    Returns the records, the scorer's launch counts and phase 39's record."""
     base = tempfile.mkdtemp(prefix="chip_smoke_stages_")
     try:
         trained = train_on_card(base)
@@ -2727,7 +2772,8 @@ def stages(png_dir: str, phase15_rows: dict) -> tuple[list[dict], dict]:
         predicted = predict_at_scale(base, trained["path"])
         scorer = scorer_cli(png_dir, trained["path"], phase15_rows)
         subset = subset_cli(predicted)
-        return [trained["record"], debug_nans, *predicted["records"], subset], scorer
+        sharded = sharded_predict(predicted, trained["path"])  # phase 39
+        return [trained["record"], debug_nans, *predicted["records"], subset], scorer, sharded
     finally:
         shutil.rmtree(base, ignore_errors=True)
 
@@ -3109,6 +3155,420 @@ def loop_cli() -> dict:
         shutil.rmtree(base, ignore_errors=True)
 
 
+# --- phases 36-40: the parallel layer ------------------------------------------------
+# a repeated device makes a mesh on the one card: its shards run one after
+# another there, so these phases measure correctness and launches, not scaling
+DP_DEVICES, RING_DEVICES = 2, 4
+PARALLEL_TIMEOUT_S = 600  # each spawned process of phase 40
+
+
+def check_parallel_kernels(xgen: torch.Generator) -> list[dict]:
+    """Phase 3, the parallel layer's shard shapes (inputs from ``xgen``):
+    K1 bf16 at phase 36's data-parallel shard of ViT-L-14-336 (4 images x 4
+    crops: [16, 577, 3072]) and at phase 37's tensor-parallel shard of it (8
+    heads of 64: [16, 577, 1536], in int8_static and bfloat16), K2 at both
+    phases' rows [9232, 1024], K3 at SO400M-384's tensor-parallel shard (8
+    heads of 72: [16, 729, 1728])."""
+    import dataclasses
+
+    from clip_assisted_data_labeling_tpu_torch.models.vit import resolve_config
+
+    l336, so400m = resolve_config(MODEL), resolve_config(SIGLIP)
+    bf16 = (torch.bfloat16, 2e-2, H100_BF16_FLOPS, None)
+    half = dataclasses.replace(l336, width=l336.width // 2, heads=l336.heads // 2)
+    rows = [attention_case("K1", l336, 16, bf16, False, ("dp_l336", "K1"), xgen),
+            attention_case("K1", half, 16, bf16, False, ("tp_l336_all", "K1"), xgen)]
+    g = 1 + 0.1 * torch.randn((l336.width,), generator=xgen, device="cuda")
+    bta = 0.1 * torch.randn((l336.width,), generator=xgen, device="cuda")
+    rows.append(rowquant_static_case(16 * 577, l336.width, g, bta,
+                                     torch.tensor([6.0], device="cuda"),
+                                     ("l336_parallel", "K2"), xgen))
+    rows.append(q8s_case(16, so400m.seq_len, so400m.width // 2, so400m.heads // 2,
+                         ("tp_so400m", "K3"), xgen))
+    for r in rows:
+        if not (r["max_abs_err"] <= r["tol"]):
+            fail(f"{r['name']} {r['case']} disagrees with its plain version: {r['max_abs_err']}")
+    return rows
+
+
+def read_sides(root: str, model: str, names: list) -> np.ndarray:
+    """The sidecars' crops of ``names`` (PNG basenames) → [n, 4, D]."""
+    from clip_assisted_data_labeling_tpu_torch.config import ALL_CROPS
+    from clip_assisted_data_labeling_tpu_torch.store.sidecar import read_sidecar
+
+    return np.stack([np.stack([read_sidecar(os.path.join(root, n[:-4] + ".pt"))[model][c]
+                               .reshape(-1) for c in ALL_CROPS]) for n in names])
+
+
+def cos_err(a: np.ndarray, b: np.ndarray) -> float:
+    """1 − the least cosine between matching rows of a and b."""
+    a = a.reshape(-1, a.shape[-1]).astype(np.float64)
+    b = b.reshape(-1, b.shape[-1]).astype(np.float64)
+    cos = np.sum(a * b, -1) / (np.linalg.norm(a, axis=-1) * np.linalg.norm(b, axis=-1))
+    return float(1.0 - cos.min())
+
+
+def dp_embed(root: str, l336: dict) -> dict:
+    """Phase 36: ``embed_dataset`` with a mesh of the card listed
+    DP_DEVICES times, on copies of the PNGs with phase 5's .calib.npz beside
+    them: ViT-L-14-336/openai int8_static at full width and depth, each
+    batch of BATCH split into DP_DEVICES shard forwards. The counters
+    (zeroed just before, read just after): K1 once and K2 twice a layer a
+    shard forward, nothing else; the calibration file left as it was; every
+    crop within 1 − cosine 1e-5 of phase 5's, the max abs difference
+    printed."""
+    from clip_assisted_data_labeling_tpu_torch.config import EmbedConfig
+    from clip_assisted_data_labeling_tpu_torch.models.vit import resolve_config
+    from clip_assisted_data_labeling_tpu_torch.parallel.mesh import get_mesh
+    from clip_assisted_data_labeling_tpu_torch.pipeline.embed import embed_dataset
+
+    cfg = resolve_config(MODEL)
+    droot = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    try:
+        names = [os.path.basename(p)[:-3] + ".png" for p in l336["pts"]]
+        for n in names:
+            shutil.copy(os.path.join(root, n), droot)
+        calib = MODEL.replace("/", "-") + ".calib.npz"
+        shutil.copy(os.path.join(root, calib), droot)
+        with open(os.path.join(droot, calib), "rb") as f:
+            published = f.read()
+        mesh = get_mesh(devices=["cuda:0"] * DP_DEVICES)
+        reset_counts()
+        t0 = time.perf_counter()
+        embed_dataset(droot, EmbedConfig(models_to_use=(MODEL,), batch_size=BATCH,
+                                         num_workers=4, device="cuda"), mesh=mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        forwards = math.ceil(N_IMAGES / BATCH) * DP_DEVICES
+        want = {k: {"K1": cfg.layers, "K2": 2 * cfg.layers}.get(k, 0) * forwards for k in got}
+        side = read_sides(droot, MODEL, names)
+        err = cos_err(side, l336["side"])
+        diff = float(np.abs(side - l336["side"]).max())
+        with open(os.path.join(droot, calib), "rb") as f:
+            same_calib = f.read() == published
+        print(f"phase 36 data-parallel embed over {mesh}: {N_IMAGES} images in {wall:.2f} s "
+              f"({forwards} shard forwards of {BATCH // DP_DEVICES} images); launches {got} "
+              f"(want {want}); against phase 5: 1 - cosine max {err:.3g}, max abs {diff:.3g}; "
+              f"calibration unchanged: {same_calib}", flush=True)
+        if got != want or not same_calib or not err <= 1e-5:
+            fail(f"phase 36: launches {got} (want {want}), 1 - cosine {err}, calibration "
+                 f"unchanged {same_calib}")
+        return {"launches": got, "record": {"phase": 36, "path": "data-parallel embed",
+                                             "model": MODEL, "devices": DP_DEVICES,
+                                             "seconds": wall, "cos_err": err,
+                                             "max_abs_diff": diff}}
+    finally:
+        shutil.rmtree(droot, ignore_errors=True)
+
+
+def tensor_parallel(root: str, pts: list) -> tuple[dict, list[dict]]:
+    """Phase 37: a (1, 2) mesh of the card listed twice; for each tower the
+    same encoder's single-device forward on 4 images x 4 crops against the
+    tensor-parallel one with the same weights and scales: ViT-L-14-336
+    int8_static at full depth (K2 on the replicated stream, twice a layer;
+    K1 at 8 heads a shard), ViT-SO400M-14-SigLIP-384 int8_static at full
+    depth (the int8 wire: K3 at the local width 3·w/2), each bit-equal
+    (``torch.equal``) where every shard's route is the single device's, else
+    within 1 − cosine 2e-3 (the routes printed); ViT-L-14-336 bfloat16 (K1
+    at 8 heads a shard) within 1 − cosine 1e-3. The TP forward's counters
+    are exact; each forward's steady ms beside the single device's."""
+    from clip_assisted_data_labeling_tpu_torch.data.loader import BatchedImageLoader
+    from clip_assisted_data_labeling_tpu_torch.models.encoders import CLIPImageEncoder
+    from clip_assisted_data_labeling_tpu_torch.models.vit import vit_encode_image
+    from clip_assisted_data_labeling_tpu_torch.ops.crops import fused_crop_resize_normalize
+    from clip_assisted_data_labeling_tpu_torch.parallel.mesh import get_mesh_2d
+    from clip_assisted_data_labeling_tpu_torch.parallel.tp import apply_tp_sharding, vit_encode_tp
+    from clip_assisted_data_labeling_tpu_torch.parallel.tp_static import (
+        place_tp_static,
+        tp_static_routes,
+        vit_encode_tp_static,
+    )
+
+    mesh = get_mesh_2d(1, 2, devices=["cuda:0"] * 2)
+    launches, records = {}, []
+    for path, model, dtype in (("tp_l336", MODEL, "int8_static"),
+                               ("tp_so400m", SIGLIP, "int8_static"),
+                               ("tp_l336_bf16", MODEL, "bfloat16")):
+        t_tower = time.perf_counter()
+        enc = CLIPImageEncoder(model, compute_dtype=dtype, device="cuda")
+        cfg = enc.cfg
+        loader = BatchedImageLoader([p[:-3] + ".png" for p in pts[:4]], canvas_size=1024,
+                                    out_size=cfg.image_size, batch_size=4, num_workers=4)
+        batch = next(iter(loader))
+        crops = fused_crop_resize_normalize(
+            torch.from_numpy(batch.canvas).cuda(), torch.from_numpy(batch.crop_params).cuda(),
+            out_size=cfg.image_size, parity=enc.parity_preprocess, dtype=enc.compute_dtype,
+            mean=cfg.norm_mean, std=cfg.norm_std)
+        flat = crops.reshape((-1,) + crops.shape[2:])
+        static = dtype == "int8_static"
+        if static:
+            enc._maybe_calibrate(flat)
+            routes = tp_static_routes(cfg, 2, enc.wire)
+            tpm = place_tp_static(enc.model, mesh, cfg)
+            fn = vit_encode_tp_static
+        else:
+            routes = None
+            tpm = apply_tp_sharding(enc.model, mesh)
+            fn = vit_encode_tp
+        single = vit_encode_image(enc.model, flat, enc.compute_dtype)
+        reset_counts()
+        got = fn(tpm, flat, enc.compute_dtype)
+        torch.cuda.synchronize()
+        c = counts()
+        want = {k: 0 for k in c}
+        if static and enc.wire:
+            want["K3"] = 2 * cfg.layers
+        else:
+            want["K1"] = 2 * cfg.layers
+            if static:
+                want["K2"] = 2 * cfg.layers
+        launches[path] = c
+        equal = torch.equal(got, single)
+        err = cos_err(got.cpu().numpy(), single.cpu().numpy())
+        diff = (got - single).abs().max().item()
+        single_ms = time_ms(lambda: vit_encode_image(enc.model, flat, enc.compute_dtype),
+                            min_reps=3, min_s=0.3)
+        tp_ms = time_ms(lambda: fn(tpm, flat, enc.compute_dtype), min_reps=3, min_s=0.3)
+        print(f"phase 37 tensor parallel {model} {dtype} over {mesh}: routes (single, shard) "
+              f"{routes}; torch.equal {equal}, 1 - cosine {err:.3g}, max abs {diff:.3g}; "
+              f"launches {c} (want {want}); {single_ms:.3f} ms single, {tp_ms:.3f} ms TP a "
+              f"forward of 16 crops; {time.perf_counter() - t_tower:.1f} s", flush=True)
+        if c != want:
+            fail(f"phase 37 {model} {dtype}: launches {c}, expected {want}")
+        if static and routes[0] == routes[1]:
+            ok = equal
+        else:
+            ok = err <= (2e-3 if static else 1e-3)
+        if not ok:
+            fail(f"phase 37 {model} {dtype}: TP against single device: equal {equal}, "
+                 f"1 - cosine {err}, routes {routes}")
+        records.append({"phase": 37, "path": "tensor parallel", "model": model, "dtype": dtype,
+                        "routes": routes, "equal": equal, "cos_err": err, "max_abs_diff": diff,
+                        "single_ms": single_ms, "tp_ms": tp_ms})
+        del enc, tpm, single, got, crops, flat
+        torch.cuda.empty_cache()
+    return launches, records
+
+
+def ring_dedup(phase14: dict) -> list[dict]:
+    """Phase 38: ``find_duplicate_pairs_sharded`` over a mesh of the card
+    listed RING_DEVICES times, at phase 14's embeddings, on both wires: the
+    pair set and the overflow rows equal to phase 14's, with the seconds of
+    the host preparation, the ring's counts and the extract."""
+    from clip_assisted_data_labeling_tpu_torch.parallel.dedup_sharded import (
+        find_duplicate_pairs_sharded,
+    )
+    from clip_assisted_data_labeling_tpu_torch.parallel.mesh import get_mesh
+    from clip_assisted_data_labeling_tpu_torch.utils.timer import StageTimer
+
+    mesh = get_mesh(devices=["cuda:0"] * RING_DEVICES)
+    records = []
+    for wire in ("int8", "fp16"):
+        timer = StageTimer()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = find_duplicate_pairs_sharded(phase14["emb"], threshold=0.96, wire=wire,
+                                           mesh=mesh, timer=timer)
+        total = time.perf_counter() - t0
+        got = set(zip(res.rows.tolist(), res.cols.tolist()))
+        same = got == phase14["pairs"] and np.array_equal(res.overflow_rows,
+                                                          phase14["overflow_rows"])
+        rec = {"phase": 38, "path": "ring dedup", "n": len(phase14["emb"]), "wire": wire,
+               "devices": RING_DEVICES, "seconds": total,
+               **{f"{k}_s": v for k, v in timer.totals.items()}, "pairs": len(got),
+               "same_as_phase_14": same}
+        records.append(rec)
+        print(f"phase 38 ring dedup, {wire} wire, N={len(phase14['emb'])} over {mesh}: "
+              f"{total:.3f} s (prepare {rec['prepare_s']:.3f} s, counts {rec['counts_s']:.3f} s, "
+              f"extract {rec.get('extract_s', 0.0):.3f} s); {len(got)} pairs, "
+              f"{len(res.overflow_rows)} overflow rows; equal to phase 14: {same}", flush=True)
+        if not same:
+            fail(f"phase 38 {wire}: {len(got)} pairs against phase 14's "
+                 f"{len(phase14['pairs'])}, or other overflow rows")
+    return records
+
+
+def sharded_predict(predicted: dict, ckpt: str) -> dict:
+    """Phase 39: predict over a mesh of the card listed DP_DEVICES times at
+    phase 17's rows: ``predict_labels(..., sharded=True, mesh=...)`` on the
+    float32 wire (the whole stage, its CSV scores within 1e-6 of phase
+    17's float32 CLI run: the float32 sums of a product of 65,536 / 2 rows
+    may round otherwise than those of 512 rows), then ``predict_sharded`` on
+    the float16 wire over the same features (within 2e-3 of phase 17's
+    float16 run)."""
+    from clip_assisted_data_labeling_tpu_torch.parallel.mesh import get_mesh
+    from clip_assisted_data_labeling_tpu_torch.parallel.predict_sharded import predict_sharded
+    from clip_assisted_data_labeling_tpu_torch.pipeline.predict import (
+        load_model,
+        predict_labels,
+    )
+    from clip_assisted_data_labeling_tpu_torch.store.database import LabelDatabase
+
+    mesh = get_mesh(devices=["cuda:0"] * DP_DEVICES)
+    root, listing = predicted["root"], predicted["listing"]
+    t0 = time.perf_counter()
+    n = predict_labels(root, ckpt, wire="float32", device="cuda", sharded=True, mesh=mesh)
+    wall = time.perf_counter() - t0
+    db = LabelDatabase.load_or_create(root)
+    pred = dict(zip(db.column("uuid"), db.column("predicted_label")))
+    got32 = np.array([pred.get(u, np.nan) for u in listing])
+    diff32 = float(np.abs(got32 - predicted["scores"]["float32"]).max())
+    model = load_model(ckpt, "cuda")
+    t0 = time.perf_counter()
+    got16 = predict_sharded(model.params(), predicted["feats"], mesh, wire="float16",
+                            class_values=model.meta.class_values)
+    forward16 = time.perf_counter() - t0
+    diff16 = float(np.abs(got16 - predicted["scores"]["float16"]).max())
+    print(f"phase 39 sharded predict over {mesh}: {n} rows, float32 wire through the stage "
+          f"in {wall:.2f} s (max |diff| against phase 17: {diff32:.3g}), float16 wire "
+          f"predict_sharded {forward16:.3f} s (max |diff| {diff16:.3g})", flush=True)
+    if not (n == len(listing) and diff32 <= 1e-6 and diff16 <= 2e-3):
+        fail(f"phase 39: {n} rows, float32 diff {diff32}, float16 diff {diff16}")
+    return {"phase": 39, "path": "sharded predict", "rows": n, "devices": DP_DEVICES,
+            "float32_stage_s": wall, "float16_forward_s": forward16,
+            "float32_max_abs_diff": diff32, "float16_max_abs_diff": diff16}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_ranks(args_of, env_extra: dict) -> list[str]:
+    """Two processes (``args_of(rank)``: the command) with
+    COORDINATOR_ADDRESS on localhost and the JAX package's
+    JAX_NUM_PROCESSES/JAX_PROCESS_ID; each joined with a timeout, and a
+    process still running then is killed (and the run fails). Returns their
+    outputs."""
+    port = _free_port()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    procs = [subprocess.Popen(args_of(rank), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True, cwd=repo,
+                              env=dict(os.environ, COORDINATOR_ADDRESS=f"localhost:{port}",
+                                       JAX_NUM_PROCESSES="2", JAX_PROCESS_ID=str(rank),
+                                       **env_extra))
+             for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=PARALLEL_TIMEOUT_S)
+            outs.append(out)
+            if p.returncode != 0:
+                fail(f"phase 40: a process exited {p.returncode}: {out[-3000:]}")
+    except subprocess.TimeoutExpired:
+        fail("phase 40: a process ran past its timeout")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def two_processes(root: str, l336: dict) -> dict:
+    """Phase 40: two processes on the one card over gloo. Copies of the 32
+    PNGs, byte-identical copies of two of them, and phase 5's .calib.npz:
+    the embed CLI with --distributed in two processes (ViT-L-14-336
+    int8_static, batch BATCH; COORDINATOR_ADDRESS on localhost, the rank
+    from JAX_PROCESS_ID), each embedding its [rank::2] shard of the files;
+    the store CLI's rebuild; the dedup CLI with --distributed --mode copy in
+    two processes (a ring of two shards, one a process), each printing its
+    pairs. Fails unless each process embeds its shard, every crop is within
+    1 − cosine 1e-5 of one process embedding the same two host shards
+    (``embed_dataset`` with ``host_index``/``host_count`` in turn, on a copy:
+    the same batches) and within the int8_static budget, 2e-3, of phase 5's
+    (a batch's canvas bucket follows its largest image, so other batches
+    may resample a crop on another canvas), both processes report the pairs
+    of a one-process run of the same store (the planted ones among them),
+    and only rank 0 copied files."""
+    from clip_assisted_data_labeling_tpu_torch.config import DedupConfig, EmbedConfig
+    from clip_assisted_data_labeling_tpu_torch.pipeline.dedup import load_embeddings, run_dedup
+    from clip_assisted_data_labeling_tpu_torch.pipeline.embed import embed_dataset
+
+    base = tempfile.mkdtemp(prefix="chip_smoke_mp_")
+    try:
+        t_phase = time.perf_counter()
+        droot = os.path.join(base, "mydata")
+        os.makedirs(droot)
+        names = [os.path.basename(p)[:-3] + ".png" for p in l336["pts"]]
+        for n in names:
+            shutil.copy(os.path.join(root, n), droot)
+        shutil.copy(os.path.join(root, "img_001.png"), os.path.join(droot, "zz_copy_a.png"))
+        shutil.copy(os.path.join(root, "img_004.png"), os.path.join(droot, "zz_copy_b.png"))
+        calib = MODEL.replace("/", "-") + ".calib.npz"
+        shutil.copy(os.path.join(root, calib), droot)
+        one_root = os.path.join(base, "one_process")
+        shutil.copytree(droot, one_root)
+        embed_args = ["-m", "clip_assisted_data_labeling_tpu_torch.pipeline.embed",
+                      "--root_dir", droot, "--models_to_use", MODEL, "--compute_dtype",
+                      "int8_static", "--batch_size", str(BATCH), "--num_workers", "4",
+                      "--distributed"]
+        t0 = time.perf_counter()
+        outs = _spawn_ranks(lambda rank: [sys.executable, *embed_args], {})
+        embed_s = time.perf_counter() - t0
+        n_files = len(names) + 2
+        for rank, out in enumerate(outs):
+            shard = len(range(rank, n_files, 2))
+            if f"Host shard {rank}/2: {shard} images" not in out:
+                fail(f"phase 40: rank {rank} did not embed its shard: {out[-2000:]}")
+        proc, rebuild_s = run_cli("clip_assisted_data_labeling_tpu_torch.pipeline.store",
+                                  ["rebuild", "--root_dir", droot], "store")
+        side = read_sides(droot, MODEL, names + ["zz_copy_a.png", "zz_copy_b.png"])
+        for rank in range(2):
+            embed_dataset(one_root, EmbedConfig(models_to_use=(MODEL,), batch_size=BATCH,
+                                                num_workers=4, host_index=rank, host_count=2,
+                                                device="cuda"))
+        one_err = cos_err(side, read_sides(one_root, MODEL, names + ["zz_copy_a.png",
+                                                                     "zz_copy_b.png"]))
+        err = cos_err(side[:len(names)], l336["side"])
+        diff = float(np.abs(side[:len(names)] - l336["side"]).max())
+        code = ("import json, sys; from clip_assisted_data_labeling_tpu_torch.pipeline import "
+                "dedup; r = dedup.main(sys.argv[1:]); print('PAIRS', json.dumps(r.pairs()))")
+        t0 = time.perf_counter()
+        outs = _spawn_ranks(lambda rank: [sys.executable, "-c", code, "--root_dir", droot,
+                                          "--threshold", "0.99", "--mode", "copy",
+                                          "--distributed"], {})
+        dedup_s = time.perf_counter() - t0
+        reported = []
+        for out in outs:
+            lines = [ln for ln in out.splitlines() if ln.startswith("PAIRS ")]
+            if not lines:
+                fail(f"phase 40: a dedup process printed no pairs: {out[-2000:]}")
+            reported.append(sorted((i, j) for i, j, _m in json.loads(lines[-1][6:])))
+        one = sorted((i, j) for i, j, _m in run_dedup(
+            droot, DedupConfig(threshold=0.99, test=True), device="cuda").pairs())
+        paths, _emb = load_embeddings(droot, DedupConfig())
+        stem = [os.path.splitext(os.path.basename(p))[0] for p in paths]
+        found = {frozenset((stem[i], stem[j])) for i, j in one}
+        planted = {frozenset(("img_001", "zz_copy_a")), frozenset(("img_004", "zz_copy_b"))}
+        outdir = os.path.join(base, "near_duplicates_cosine_0.99")
+        copied = len(os.listdir(outdir)) if os.path.isdir(outdir) else 0
+        copiers = sum("copying" in out for out in outs)
+        print(f"phase 40 two processes on one card (gloo): embed --distributed {embed_s:.1f} s, "
+              f"store rebuild {rebuild_s:.1f} s, dedup --distributed {dedup_s:.1f} s; crops "
+              f"against one process's host shards: 1 - cosine max {one_err:.3g}; against "
+              f"phase 5: 1 - cosine max {err:.3g}, max abs {diff:.3g}; pairs "
+              f"{reported[0]} on rank 0, {reported[1]} on rank 1, {one} in one process; "
+              f"{copied} files copied by {copiers} process; phase "
+              f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+        if not (reported[0] == reported[1] == one and planted <= found and one_err <= 1e-5
+                and err <= 2e-3 and copiers == 1 and "copying" in outs[0]
+                and copied == 4 * len(one)):
+            fail(f"phase 40: pairs {reported} against {one}, planted found "
+                 f"{planted <= found}, 1 - cosine {one_err} (one process), {err} (phase 5), "
+                 f"{copied} files by {copiers} processes")
+        return {"phase": 40, "path": "two processes, gloo", "processes": 2,
+                "embed_s": embed_s, "rebuild_s": rebuild_s, "dedup_s": dedup_s,
+                "cos_err_one_process": one_err, "cos_err_phase5": err,
+                "max_abs_diff_phase5": diff, "pairs": len(one)}
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
 # mangled builtin types and classes a kernel's template arguments name
 MANGLED_TYPES = {"f": "f32", "a": "i8", "__nv_bfloat16": "bf16"}
 
@@ -3215,6 +3675,7 @@ def main() -> None:
     rows = check_kernels(gen, *(torch.Generator(device="cuda").manual_seed(i)
                                 for i in (1, 2, 3, 4, 5, 6, 7)))
     rows += check_tower_kernels(torch.Generator(device="cuda").manual_seed(8))
+    rows += check_parallel_kernels(torch.Generator(device="cuda").manual_seed(9))
     quant_out_long_sequences()
     torch.cuda.empty_cache()
 
@@ -3279,19 +3740,30 @@ def main() -> None:
 
         # --- phases 14-15: stage 2 (no kernel of the table: torch products)
         # at N = 262144, then the dedup CLI end to end on embedded PNGs
-        dedup_records = dedup_at_scale()
+        dedup_records, phase14 = dedup_at_scale()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_dedup_") as dedup_base:
             dedup_embed, phase15_rows = dedup_cli(root, dedup_base)
 
             # --- phases 16-19: stages 4-6 (train, predict, the single-image
-            # scorer: K1 through its bf16 encoder, subset) on a dataset of their own
-            stage_records, scorer = stages(root, phase15_rows)
+            # scorer: K1 through its bf16 encoder, subset) on a dataset of
+            # their own, then phase 39: predict over a mesh on phase 17's rows
+            stage_records, scorer, phase39 = stages(root, phase15_rows)
 
             # --- phases 20-23: prep, the store CLI on phase 15's sidecars, the
             # diversity order at scale and the loop (torch products, no kernel)
             loop_records = [prep_cli(root), store_rebuild(os.path.join(dedup_base, "mydata"))]
         loop_records += diversity_at_scale()
         loop_records.append(loop_cli())
+
+        # --- phases 36-40: the parallel layer on the one card (a repeated
+        # device makes the mesh): data-parallel embed, tensor parallel, the
+        # ring dedup (phase 38, at phase 14's N), then two processes over gloo
+        dp = dp_embed(root, l336)
+        tp_paths, tp_records = tensor_parallel(root, l336["pts"])
+        ring_records = ring_dedup(phase14)
+        del phase14
+        mp = two_processes(root, l336)
+        parallel_records = [dp["record"], *tp_records, *ring_records, phase39, mp]
 
     # each row's launches: the counter its ``path`` names, read from that
     # main path; "all" (the kernels no path of the JAX package reaches) sums
@@ -3301,8 +3773,15 @@ def main() -> None:
              "so400m": so400m["launches"], "so400m_bf16": bf16, "so400m_f32": so400m_f32,
              "pe": pe["launches"],
              "pe_f32": pe_f32, "g14": g14, "l336_ln0": routes[0], "l336_wire": routes[1],
-             "so400m_wire0": routes[2], "scorer": scorer, **tower_paths}
+             "so400m_wire0": routes[2], "scorer": scorer, **tower_paths,
+             "dp_l336": dp["launches"], **tp_paths}
+    # shapes that two paths run: K2's [9232, 1024] on phase 36's shards and
+    # phase 37's L-336, K1's 8-head shard in phase 37's int8_static and bf16
+    summed = {"l336_parallel": ("dp_l336", "tp_l336"),
+              "tp_l336_all": ("tp_l336", "tp_l336_bf16")}
     every = [*paths.values(), *dyn_routes[:-1], pe_bf16, dedup_embed]
+    paths.update({name: {k: sum(paths[p][k] for p in parts) for k in paths[parts[0]]}
+                  for name, parts in summed.items()})
 
     def path_launches(path) -> int:
         if path is None:
@@ -3318,6 +3797,7 @@ def main() -> None:
     print(json.dumps({"loop": loop_records}))
     print(json.dumps({"native_decoder": decoder}))
     print(json.dumps({"conv_towers": conv_records}))
+    print(json.dumps({"parallel": parallel_records}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

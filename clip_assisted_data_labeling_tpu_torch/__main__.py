@@ -7,7 +7,8 @@ Pipeline stages (python -m clip_assisted_data_labeling_tpu_torch.pipeline.<stage
                   every tower of the open_clip surface: CLIP, SigLIP/SigLIP2
                   with naflex, PE, EVA, CoCa, CLIPA, the modified ResNets,
                   ConvNeXt)
-  dedup           all-pairs near-duplicate removal (one GPU)
+  dedup           all-pairs near-duplicate removal (one GPU, or a ring over
+                  every local GPU or every process's)
   label           interactive labeling UI (opencv or headless)
   train           FC regressor on (embedding -> label) pairs
   predict         score every image, update the CSV database
@@ -17,12 +18,9 @@ Pipeline stages (python -m clip_assisted_data_labeling_tpu_torch.pipeline.<stage
   predict_simple  standalone per-image scorer
   store           columnar-store management (rebuild from sidecars / info; host)
 
-Every stage that touches the device runs on cuda unless given --device cpu.
-
-Flags not ported yet, refused:
-  embed    --host_count > 1, --distributed
-  dedup    --distributed
-  predict  --sharded
+Every stage that touches the device runs on cuda unless given --device cpu;
+embed, dedup and predict --sharded use every local GPU, and embed and dedup
+--distributed every process's (torch.distributed over gloo).
 
 Tools (find_similar_imgs, svm_similarity, merge_datasets, move_subset_of_files,
 fix_img_dir, investigate_embedding, train_latent_regressor): not ported yet;

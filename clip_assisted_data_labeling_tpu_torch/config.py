@@ -36,8 +36,7 @@ DB_COLUMNS = ("uuid", "label", "timestamp", "predicted_label")
 @dataclasses.dataclass(frozen=True)
 class EmbedConfig:
     """Stage-1 embedding configuration (the JAX package's ``EmbedConfig``
-    fields and defaults but the multi-host ones, plus the torch ``device``
-    and ``debug_nans``)."""
+    fields and defaults, plus the torch ``device`` and ``debug_nans``)."""
 
     models_to_use: Sequence[str] = ("ViT-L-14-336/openai",)
     batch_size: int = 64
@@ -53,6 +52,10 @@ class EmbedConfig:
     with_image_stats: bool = True
     exact_stats: bool = False  # host cv2 img_stat path (reference-exact values)
     shuffle_filenames: bool = True
+    # multi-host runs: this host embeds the sorted file list's [i::n] shard
+    # (sidecars only; merge with 'pipeline.store rebuild')
+    host_index: int = 0
+    host_count: int = 1
     write_sidecars: bool = True
     # "auto" = <root_dir>/<model>.calib.npz, "none" = in memory only,
     # anything else = an explicit npz path

@@ -701,8 +701,15 @@ def module_from_params(params: Mapping, cfg, device: torch.device | str = "cpu")
     missing += [f"blocks/{k}" for k in _block_keys(cfg) if k not in stacked]
     if missing:
         raise KeyError(f"params lack {missing} for {cfg}")
+    return VisionTransformer(cfg, top, block_tensors(stacked, cfg.layers, device))
+
+
+def block_tensors(stacked: Mapping, layers: int, device) -> list[dict[str, torch.Tensor]]:
+    """Stacked ``[L, …]`` block leaves (keyed without ``blocks/``) → one dict
+    of tensors a layer on ``device``, int8 kernels stored [out, in] with K
+    padded (``ops/quant.pad_k``)."""
     blocks = []
-    for i in range(cfg.layers):
+    for i in range(layers):
         blk = {}
         for name, v in stacked.items():
             t = _tensor(v[i], device)
@@ -710,7 +717,7 @@ def module_from_params(params: Mapping, cfg, device: torch.device | str = "cpu")
                 t = pad_k(t.t().contiguous())
             blk[name] = t
         blocks.append(blk)
-    return VisionTransformer(cfg, top, blocks)
+    return blocks
 
 
 def params_from_module(model) -> dict[str, np.ndarray]:

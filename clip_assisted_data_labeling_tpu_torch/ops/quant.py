@@ -140,14 +140,24 @@ def q_matmul(x: torch.Tensor, wq_t: torch.Tensor, w_scale: torch.Tensor,
         out = q_linear_fused(x.reshape(-1, x.shape[-1]), wq_t, w_scale, bias,
                              out_dtype=out_dtype).reshape(lead + (n,))
         return out if residual is None else residual + out
-    xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
-    amax = torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=1e-8)
-    x_scale = amax / torch.full_like(amax, 127.0)
-    xq = torch.clamp(torch.round(xf / x_scale), -127, 127).to(torch.int8)
+    xq, x_scale = quant_rows(x.reshape(-1, x.shape[-1]))
     acc = int_matmul(xq, wq_t)
     res = None if residual is None else residual.reshape(-1, n)
     y = _dequant_epilogue(acc, x_scale, w_scale, bias, res, out_dtype)
     return y.reshape(lead + (n,))
+
+
+def quant_rows(x: torch.Tensor, amax: torch.Tensor | None = None):
+    """Dynamic per-row int8 quantization of x [M, K] → (int8 [M, K], float32
+    scales [M, 1]): ``amax`` the rows' max |x| (given by the caller where
+    the row is split over devices: the maximum of the parts'), floored at
+    1e-8, the scale amax/127."""
+    xf = x.to(torch.float32)
+    if amax is None:
+        amax = xf.abs().amax(dim=-1, keepdim=True)
+    amax = torch.clamp(amax, min=1e-8)
+    x_scale = amax / torch.full_like(amax, 127.0)
+    return torch.clamp(torch.round(xf / x_scale), -127, 127).to(torch.int8), x_scale
 
 
 def quant_static(x: torch.Tensor, amax) -> torch.Tensor:

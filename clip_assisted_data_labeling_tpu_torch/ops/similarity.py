@@ -207,34 +207,41 @@ def warn_if_degenerate(counts: np.ndarray, n: int, threshold: float,
         )
 
 
+def tile_metric(rows: torch.Tensor, rows_s: torch.Tensor | None, cols: torch.Tensor,
+                cols_s: torch.Tensor | None, euclidean: bool) -> torch.Tensor:
+    """[len(rows), len(cols)] float32 metric between a row panel and a
+    column panel of one wire: int8 rows (with their float32 scales) or fp16
+    rows (scales None)."""
+    if rows_s is not None:
+        # int32 sums, then (f32(acc) · rs) · cs, each step rounded
+        sim = torch._int_mm(rows, cols.t()).float()
+        sim.mul_(rows_s[:, None]).mul_(cols_s[None, :])
+    elif rows.is_cuda:
+        sim = torch.mm(rows, cols.t(), out_dtype=torch.float32)
+    else:  # fp16 values are exact in float32: products exact, f32 sums
+        sim = torch.mm(rows.float(), cols.float().t())
+    if euclidean:
+        return sim.mul_(-2.0).add_(2.0).clamp_(min=0.0).sqrt_()
+    return sim
+
+
 class _Wire:
     """The embeddings on the device in one wire format (int8 rows with their
     float32 scales, or fp16 rows), and the tile metric between a row panel
     and a column panel."""
 
-    def __init__(self, x: np.ndarray, s_row: np.ndarray | None, device: torch.device,
-                 euclidean: bool):
+    def __init__(self, x, s_row, device: torch.device, euclidean: bool):
         self.euclidean = euclidean
         self.int8 = s_row is not None
-        self.x = torch.from_numpy(x).to(device)
-        self.s = torch.from_numpy(s_row).to(device) if self.int8 else None
+        self.x = torch.as_tensor(x).to(device)
+        self.s = torch.as_tensor(s_row).to(device) if self.int8 else None
 
     def metric(self, rows: torch.Tensor, rows_s: torch.Tensor | None,
                c0: int, c1: int) -> torch.Tensor:
         """[len(rows), c1 − c0] float32 metric of ``rows`` against columns
         c0:c1."""
-        cols = self.x[c0:c1]
-        if self.int8:
-            # int32 sums, then (f32(acc) · rs) · cs, each step rounded
-            sim = torch._int_mm(rows, cols.t()).float()
-            sim.mul_(rows_s[:, None]).mul_(self.s[c0:c1][None, :])
-        elif rows.is_cuda:
-            sim = torch.mm(rows, cols.t(), out_dtype=torch.float32)
-        else:  # fp16 values are exact in float32: products exact, f32 sums
-            sim = torch.mm(rows.float(), cols.float().t())
-        if self.euclidean:
-            return sim.mul_(-2.0).add_(2.0).clamp_(min=0.0).sqrt_()
-        return sim
+        return tile_metric(rows, rows_s, self.x[c0:c1],
+                           self.s[c0:c1] if self.int8 else None, self.euclidean)
 
 
 def _scan_counts(wire: _Wire, b: int, n_panels: int, n: int,
@@ -270,10 +277,12 @@ def _topk_lower_first(vals: torch.Tensor, idx: torch.Tensor, k: int):
 
 
 def _extract_chunk(wire: _Wire, hit_rows: torch.Tensor, hit_s: torch.Tensor | None,
-                   gidx: torch.Tensor, b: int, n_panels: int, n: int, k: int):
+                   gidx: torch.Tensor, b: int, n_panels: int, n: int, k: int,
+                   offset: int = 0):
     """Pass 2 for one hit panel: the exact top-k (ties to the lower column)
     of every hit row over all later columns → (values, global columns)
-    [h, k]."""
+    [h, k]. ``offset``: the global index of the wire's first row (a mesh
+    shard's panel)."""
     dev = wire.x.device
     h = hit_rows.shape[0]
     k_tile = min(k, b)
@@ -281,7 +290,7 @@ def _extract_chunk(wire: _Wire, hit_rows: torch.Tensor, hit_s: torch.Tensor | No
     run_i = torch.zeros((h, k), dtype=torch.int64, device=dev)
     lane = torch.arange(b, device=dev)
     for bj in range(n_panels):
-        gj = bj * b + lane
+        gj = offset + bj * b + lane
         valid = (gj[None, :] > gidx[:, None]) & (gj[None, :] < n)
         masked = wire.metric(hit_rows, hit_s, bj * b, bj * b + b).masked_fill_(
             ~valid, float("-inf"))

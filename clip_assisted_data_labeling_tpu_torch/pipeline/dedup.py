@@ -1,10 +1,11 @@
 """Stage 2 — near-duplicate removal via all-pairs cosine similarity (port of
-the JAX package's ``pipeline/dedup.py``, one card).
+the JAX package's ``pipeline/dedup.py``).
 
 Embeddings stream from the columnar store (sidecar fallback), the similarity
-runs tiled on the card (``ops/similarity.py``), and the whole dataset is
-searched in one global pass: no chunk boundaries, no missed cross-chunk
-pairs.
+runs tiled on the card (``ops/similarity.py``), or over every local card in
+a ring (``parallel/dedup_sharded.py``) with ``--device cuda`` and more than
+one card, and the whole dataset is searched in one global pass: no chunk
+boundaries, no missed cross-chunk pairs.
 
 File handling replicates the reference: above-threshold pairs send the
 *target* file group (every file whose basename stem is the image's) to a
@@ -12,8 +13,10 @@ sibling ``near_duplicates_{sim}_{thr}`` dir with ``{sim:.3f}_{idx:08d}_``
 prefixes; copy mode also copies the source group; ``--test`` dry-runs.
 
 CLI: the JAX stage's flags plus ``--device`` (default ``cuda``; ``cpu`` for
-the CPU). Not ported yet, and refused: ``--distributed`` (the search over
-several hosts' cards).
+the CPU). ``--distributed`` (launched in every process at once, after
+``pipeline.store rebuild`` merged the hosts' shards) rings the search over
+every process's devices (``parallel/mesh.multihost_init``: gloo); every
+process computes the pairs, and only rank 0 copies or moves files.
 """
 from __future__ import annotations
 
@@ -32,6 +35,13 @@ from clip_assisted_data_labeling_tpu_torch.ops.similarity import (
 )
 from clip_assisted_data_labeling_tpu_torch.store.columnar import EmbeddingStore, list_models
 from clip_assisted_data_labeling_tpu_torch.store.sidecar import read_sidecar, resolve_crop_key
+from clip_assisted_data_labeling_tpu_torch.parallel.mesh import (
+    get_global_mesh,
+    get_mesh,
+    multihost_init,
+    multihost_shutdown,
+    stage_devices,
+)
 from clip_assisted_data_labeling_tpu_torch.utils.device import resolve_device
 
 
@@ -111,19 +121,38 @@ def fix_duplicate(index: int, pair_paths, outdir: str, sim_value: float, mode: s
                 os.rename(src, dst)
 
 
-def run_dedup(root_dir: str, cfg: DedupConfig,
-              device: str | torch.device = "cuda") -> DedupResult:
-    """Find the near-duplicate pairs on one device and copy or move their
-    file groups. ``device`` is the card unless the caller asks for the CPU."""
+def run_dedup(root_dir: str, cfg: DedupConfig, device: str | torch.device = "cuda",
+              use_mesh: bool | None = None, global_mesh: bool = False) -> DedupResult:
+    """Find the near-duplicate pairs and copy or move their file groups.
+    ``device`` is the card unless the caller asks for the CPU. ``use_mesh``
+    rings the search over a mesh of this process's devices (by default where
+    ``device`` is a bare ``cuda`` and there are several cards: every card;
+    else the one ``device``); ``global_mesh=True`` over every process's
+    (all processes call this at once, after ``multihost_init``), and only
+    process 0 then copies or moves files."""
     device = resolve_device(device)
     paths, emb = load_embeddings(root_dir, cfg)
     print(f"Loaded {len(paths)} embeddings, computing similarities..")
     if len(paths) < 2:
         return empty_result()
-    result = find_duplicate_pairs(
-        emb, threshold=cfg.threshold, sim_type=cfg.sim_type,
-        max_per_row=cfg.max_pairs_per_row, wire=cfg.wire, device=device,
-    )
+    devices = stage_devices(device)
+    if use_mesh is None:
+        use_mesh = global_mesh or (devices is None and torch.cuda.device_count() > 1)
+    if use_mesh:
+        from clip_assisted_data_labeling_tpu_torch.parallel.dedup_sharded import (
+            find_duplicate_pairs_sharded,
+        )
+
+        result = find_duplicate_pairs_sharded(
+            emb, threshold=cfg.threshold, sim_type=cfg.sim_type,
+            mesh=get_global_mesh(devices=devices) if global_mesh else get_mesh(devices=devices),
+            max_per_row=cfg.max_pairs_per_row, wire=cfg.wire,
+        )
+    else:
+        result = find_duplicate_pairs(
+            emb, threshold=cfg.threshold, sim_type=cfg.sim_type,
+            max_per_row=cfg.max_pairs_per_row, wire=cfg.wire, device=device,
+        )
     if result.overflow_rows.size:
         print(
             f"Note: {len(result.overflow_rows)} rows had more matches than the "
@@ -132,6 +161,8 @@ def run_dedup(root_dir: str, cfg: DedupConfig,
         )
 
     print(f"Found {len(result.rows)} duplicates!")
+    if global_mesh and torch.distributed.is_initialized() and torch.distributed.get_rank() != 0:
+        return result  # every process computed the pairs; rank 0 moves files
     if len(result.rows) and not cfg.test:
         output_dir = os.path.join(
             os.path.dirname(root_dir.rstrip("/")),
@@ -181,7 +212,9 @@ def main(argv=None):
                         "host recheck); fp16 is the reference-parity format")
     parser.add_argument("--test", action="store_true")
     parser.add_argument("--distributed", action="store_true",
-                        help="the search over several hosts: not ported yet")
+                        help="ring the similarity over ALL processes' devices; launch "
+                        "this CLI in every process at once (torch.distributed over "
+                        "gloo, as embed --distributed); rank 0 handles the file moves")
     parser.add_argument("--coordinator_address", type=str, default=None)
     parser.add_argument("--num_processes", type=int, default=None)
     parser.add_argument("--process_id", type=int, default=None)
@@ -189,8 +222,9 @@ def main(argv=None):
                         help="torch device: cuda (default) or cpu")
     args = parser.parse_args(argv)
     if args.distributed:
-        parser.error("--distributed: not ported yet to the PyTorch port, which "
-                     "searches on one device (use the JAX package's dedup stage)")
+        rank, count = multihost_init(args.coordinator_address, args.num_processes,
+                                     args.process_id)
+        print(f"torch.distributed up: process {rank}/{count}")
     cfg = DedupConfig(
         threshold=args.threshold,
         mode=args.mode,
@@ -201,7 +235,11 @@ def main(argv=None):
         max_pairs_per_row=args.max_pairs_per_row,
         wire=args.wire,
     )
-    return run_dedup(args.root_dir, cfg, device=args.device)
+    try:
+        return run_dedup(args.root_dir, cfg, device=args.device, global_mesh=args.distributed)
+    finally:
+        if args.distributed:
+            multihost_shutdown()
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
 """Stage 1 — embed every image with CLIP: 4 crops + handcrafted stats
-(port of the JAX package's ``pipeline/embed.py``, one card).
+(port of the JAX package's ``pipeline/embed.py``).
 
 The host loader decodes onto fixed canvases; per batch the device runs the
 4-crop extraction, resize, normalization, the tower's forward and the 22 image
@@ -20,8 +20,17 @@ computes the stats on the host with cv2 from each file at its original
 resolution; ``--profile_dir`` writes a torch.profiler trace (CPU and CUDA
 activity, Chrome trace format) of the run; ``--debug_nans`` checks each
 block's output and the readout and raises ``FloatingPointError`` at the
-first NaN. Not ported yet, and refused: ``--host_count > 1`` and
-``--distributed``.
+first NaN.
+
+Several cards: with ``--device cuda`` (no index) and more than one card,
+every batch is split over all local cards (``parallel/embed_sharded``;
+``embed_dataset(..., mesh=...)`` takes any mesh). Several hosts:
+``--host_count n --host_index i`` embeds the sorted file list's ``[i::n]``
+shard, sidecars only (build the store afterwards with ``pipeline.store
+rebuild``); int8_static shards share host 0's ``.calib.npz``, which the
+other hosts wait for. ``--distributed`` derives both from the process rank
+(``parallel/mesh.multihost_init``: gloo, ``--coordinator_address`` or
+``COORDINATOR_ADDRESS``).
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ import collections
 import logging
 import os
 import random
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -42,6 +52,13 @@ from clip_assisted_data_labeling_tpu_torch.data.loader import (
     find_images,
 )
 from clip_assisted_data_labeling_tpu_torch.models.encoders import CLIPImageEncoder, calibration_file
+from clip_assisted_data_labeling_tpu_torch.parallel.mesh import (
+    Mesh,
+    get_mesh,
+    multihost_init,
+    multihost_shutdown,
+    stage_devices,
+)
 from clip_assisted_data_labeling_tpu_torch.ops.image_stats import (
     IMG_STAT_KEYS,
     image_stats_batch,
@@ -56,6 +73,10 @@ from clip_assisted_data_labeling_tpu_torch.store.sidecar import (
 )
 from clip_assisted_data_labeling_tpu_torch.utils.device import resolve_device
 from clip_assisted_data_labeling_tpu_torch.utils.timer import StageTimer
+
+# how long non-zero hosts wait for host 0's published int8_static
+# calibration (shared-filesystem multi-host runs; tests shrink it)
+CALIB_WAIT_S = 1800.0
 
 log = logging.getLogger(__name__)
 
@@ -80,9 +101,22 @@ def _host_exact_stats(batch) -> np.ndarray:
     return out
 
 
-def embed_dataset(root_dir: str, cfg: EmbedConfig) -> dict[str, EmbeddingStore]:
-    """Run every requested model over the dataset. Returns per-model stores."""
+def _default_mesh(device: torch.device) -> Mesh | None:
+    """Every local card where the device names no index and there are
+    several; else None (one device)."""
+    if stage_devices(device) is None and torch.cuda.device_count() > 1:
+        return get_mesh()
+    return None
+
+
+def embed_dataset(root_dir: str, cfg: EmbedConfig,
+                  mesh: Mesh | None = None) -> dict[str, EmbeddingStore | None]:
+    """Run every requested model over the dataset. Returns per-model stores
+    (None on a multi-host run, which writes sidecars only). ``mesh``: embed
+    data-parallel over its devices (by default every local card where
+    ``cfg.device`` is a bare ``cuda`` and there are several)."""
     device = resolve_device(cfg.device)
+    mesh = mesh if mesh is not None else _default_mesh(device)
     img_paths = find_images(root_dir)
     if cfg.shuffle_filenames:
         random.shuffle(img_paths)
@@ -102,15 +136,40 @@ def embed_dataset(root_dir: str, cfg: EmbedConfig) -> dict[str, EmbeddingStore]:
             continue
         seen.add(u)
         unique_paths.append(p)
+    img_paths = unique_paths
 
-    stores: dict[str, EmbeddingStore] = {}
+    if cfg.host_count > 1:
+        if not cfg.write_sidecars:
+            raise ValueError(
+                "--host_count > 1 requires sidecars (the per-shard results have "
+                "no other output); drop --no_sidecars"
+            )
+        # each host embeds a deterministic disjoint shard of the sorted file
+        # list; sidecars are per image, so the shards compose
+        img_paths.sort()
+        img_paths = img_paths[cfg.host_index:: cfg.host_count]
+        print(f"Host shard {cfg.host_index}/{cfg.host_count}: {len(img_paths)} images")
+
+    stores: dict[str, EmbeddingStore | None] = {}
     for model_name in cfg.models_to_use:
         print(f"\n--- Processing model: {model_name} ---")
-        stores[model_name] = _embed_one_model(root_dir, unique_paths, model_name, cfg, device)
+        stores[model_name] = _embed_one_model(root_dir, img_paths, model_name, cfg, device, mesh)
     return stores
 
 
-def _embed_one_model(root_dir, img_paths, model_name, cfg: EmbedConfig, device):
+def _wait_for_calibration(path: str, host_index: int) -> None:
+    """A non-zero host of a multi-host int8_static run: wait for host 0's
+    ``.calib.npz`` on the shared filesystem, up to ``CALIB_WAIT_S``."""
+    print(f"Host {host_index}: waiting for host 0's calibration at {path} ...")
+    deadline = time.time() + CALIB_WAIT_S
+    while not os.path.exists(path):
+        if time.time() > deadline:
+            raise TimeoutError(f"host 0 never published {path}")
+        time.sleep(min(5.0, CALIB_WAIT_S / 10))
+
+
+def _embed_one_model(root_dir, img_paths, model_name, cfg: EmbedConfig, device,
+                     mesh: Mesh | None = None):
     timer = StageTimer()
 
     # incremental skip: only embed images whose sidecar lacks this model's key
@@ -128,9 +187,24 @@ def _embed_one_model(root_dir, img_paths, model_name, cfg: EmbedConfig, device):
     # int8_static scales pinned to one npz next to the dataset, so re-runs,
     # other orders and incremental resumes embed identically
     calibration_path = None
+    publish_calib = False  # host 0 with nothing to embed: publish the scales
     if cfg.compute_dtype == "int8_static" and cfg.calibration != "none":
         calibration_path = (calibration_file(model_name, root_dir)
                             if cfg.calibration == "auto" else cfg.calibration)
+        if cfg.host_count > 1 and not os.path.exists(calibration_path):
+            # every host's shard must embed with ONE set of static scales:
+            # host 0 calibrates and atomically publishes the npz (from its
+            # first batch, or from an already-embedded image when its own
+            # shard has nothing left to embed); a host with work waits for
+            # it, a host without work never needs it
+            if cfg.host_index == 0:
+                publish_calib = bool(img_paths) and not todo
+                if not img_paths:
+                    print("WARNING: host 0 sees no images, so no calibration will be "
+                          "published — other hosts with work will time out; pass "
+                          "--calibration")
+            elif todo:
+                _wait_for_calibration(calibration_path, cfg.host_index)
     compute = cfg.compute_dtype
     if cfg.aspect == "native" and compute.startswith("int8"):
         # the masked variable-patch-grid path has no int8 formulation
@@ -139,7 +213,8 @@ def _embed_one_model(root_dir, img_paths, model_name, cfg: EmbedConfig, device):
         compute = "bfloat16"
     encoder = CLIPImageEncoder(
         model_name, model_path=cfg.model_path, compute_dtype=compute,
-        calibration_path=calibration_path, device=device, debug_nans=cfg.debug_nans,
+        calibration_path=calibration_path,
+        device=device if mesh is None else mesh.devices.flat[0], debug_nans=cfg.debug_nans,
     )
     # --aspect native: one more embedding per image at its native aspect
     # through the naflex masked path, stored as a fifth pseudo-crop
@@ -149,17 +224,54 @@ def _embed_one_model(root_dir, img_paths, model_name, cfg: EmbedConfig, device):
                          "fixed-resolution (use a '…-naflex' SigLIP2 model name)")
     crop_names_out = list(cfg.crop_names) + (["native_aspect"] if native_aspect else [])
 
+    # data-parallel: the batch splits over the mesh's devices, so its size
+    # rounds up to a multiple of their count
+    sharded = None
+    batch_size = cfg.batch_size
+    if mesh is not None:
+        from clip_assisted_data_labeling_tpu_torch.parallel.embed_sharded import ShardedEmbedder
+
+        sharded = ShardedEmbedder(
+            encoder.model, encoder.cfg, mesh, compute_dtype=encoder.compute_dtype,
+            parity_preprocess=encoder.parity_preprocess, calibration_path=calibration_path,
+            model_name=encoder.model_name, debug_nans=cfg.debug_nans,
+        )
+        n_dev = sharded.n_devices
+        batch_size = -(-cfg.batch_size // n_dev) * n_dev
+        print(f"Data-parallel embedding over {n_dev} devices (batch {batch_size})")
+
+    if publish_calib:
+        print("Host 0: publishing calibration from an already-embedded batch")
+        tiny = BatchedImageLoader(
+            img_paths[:batch_size], canvas_size=cfg.canvas_size,
+            out_size=encoder.img_resolution, batch_size=batch_size,
+            num_workers=cfg.num_workers, crop_names=cfg.crop_names,
+        )
+        for batch in tiny:
+            if sharded is not None:
+                sharded.calibrate_static(batch.canvas, batch.crop_params)
+            else:
+                encoder.embed_crops(batch.canvas, batch.crop_params)
+            break
+
     uuids_all = [_uuid_of(p) for p in img_paths]
-    store = EmbeddingStore.create(
-        root_dir, model_name, crop_names_out, encoder.embed_dim, uuids_all,
-        with_stats=cfg.with_image_stats,
-        rel_paths=[os.path.relpath(p, root_dir) for p in img_paths],
-    )
+    store = None
+    if cfg.host_count > 1:
+        # the hosts share the filesystem: the per-image sidecars compose
+        # across shards, but the store is one file, built once afterwards
+        print("Multi-host shard run: writing sidecars only; build the columnar store "
+              "afterwards with 'pipeline.store rebuild'.")
+    else:
+        store = EmbeddingStore.create(
+            root_dir, model_name, crop_names_out, encoder.embed_dim, uuids_all,
+            with_stats=cfg.with_image_stats,
+            rel_paths=[os.path.relpath(p, root_dir) for p in img_paths],
+        )
     row_of = {u: i for i, u in enumerate(uuids_all)}
 
     loader = BatchedImageLoader(
         todo, canvas_size=cfg.canvas_size, out_size=encoder.img_resolution,
-        batch_size=cfg.batch_size, num_workers=cfg.num_workers,
+        batch_size=batch_size, num_workers=cfg.num_workers,
         crop_names=cfg.crop_names, bucketed=True, sort_by_size=True,
     )
 
@@ -176,6 +288,13 @@ def _embed_one_model(root_dir, img_paths, model_name, cfg: EmbedConfig, device):
     def dispatch(batch):
         """Enqueue the batch's device work; returns device tensors (async on
         the card)."""
+        if sharded is not None:
+            if encoder.static_quant:
+                # one calibration forward on the first batch, then a no-op
+                sharded.calibrate_static(batch.canvas, batch.crop_params)
+            if device_stats:
+                return sharded.embed(batch.canvas, batch.crop_params, batch.stat_params)
+            return sharded.embed(batch.canvas, batch.crop_params), None
         canvas = torch.from_numpy(batch.canvas).to(device, non_blocking=True)
         emb_dev = encoder.embed_crops(canvas, batch.crop_params)
         stats_dev = None
@@ -205,10 +324,11 @@ def _embed_one_model(root_dir, img_paths, model_name, cfg: EmbedConfig, device):
             if cfg.with_image_stats and cfg.exact_stats:
                 with timer.time("exact_stats", batch.n_valid):
                     stats_np = _host_exact_stats(batch)
-            with timer.time("store_write", batch.n_valid):
-                for bi, path in enumerate(batch.paths):
-                    store.write_rows(row_of[_uuid_of(path)], emb[bi: bi + 1],
-                                     None if stats_np is None else stats_np[bi: bi + 1])
+            if store is not None:
+                with timer.time("store_write", batch.n_valid):
+                    for bi, path in enumerate(batch.paths):
+                        store.write_rows(row_of[_uuid_of(path)], emb[bi: bi + 1],
+                                         None if stats_np is None else stats_np[bi: bi + 1])
             if cfg.write_sidecars:
                 writer_futures.append(
                     writer_pool.submit(write_batch_sidecars, batch.paths, emb, stats_np))
@@ -233,7 +353,7 @@ def _embed_one_model(root_dir, img_paths, model_name, cfg: EmbedConfig, device):
                            f"first error: {write_errors[0]!r}")
 
     # backfill store rows for already-embedded images from their sidecars
-    for path in skipped:
+    for path in skipped if store is not None else []:
         try:
             d = read_sidecar(_sidecar_path(path))[model_name]
             keys = [resolve_crop_key(d, c) for c in store.meta["crop_names"]]
@@ -250,9 +370,10 @@ def _embed_one_model(root_dir, img_paths, model_name, cfg: EmbedConfig, device):
         except Exception as e:  # keep going; the row stays invalid
             log.warning("Could not backfill %s: %s", path, e)
             store.valid[row_of[_uuid_of(path)]] = False
-    for path in loader.skipped:
-        store.valid[row_of[_uuid_of(path)]] = False
-    store.flush()
+    if store is not None:
+        for path in loader.skipped:
+            store.valid[row_of[_uuid_of(path)]] = False
+        store.flush()
 
     print("\n--- Feature encoding done! ---")
     print(f"Embedded {n_done} images ({len(skipped)} already embedded); model key '{model_name}'")
@@ -291,11 +412,18 @@ def main(argv=None):
     parser.add_argument("--profile_dir", type=str, default=None,
                         help="write a torch.profiler trace of the run (CPU and CUDA "
                         "activity, Chrome trace format) into this directory")
-    parser.add_argument("--host_index", type=int, default=0)
+    parser.add_argument("--host_index", type=int, default=0,
+                        help="multi-host runs: this host's index in [0, host_count)")
     parser.add_argument("--host_count", type=int, default=1,
-                        help="multi-host runs: not ported yet (must be 1)")
-    parser.add_argument("--distributed", action="store_true", help="not ported yet")
-    parser.add_argument("--coordinator_address", type=str, default=None)
+                        help="multi-host runs: total hosts; each embeds a "
+                        "deterministic disjoint shard of the file list")
+    parser.add_argument("--distributed", action="store_true",
+                        help="join a multi-process run (torch.distributed over gloo; "
+                        "coordinator from --coordinator_address or $COORDINATOR_ADDRESS) "
+                        "and derive --host_index/--host_count from the process rank; "
+                        "merge afterwards with 'pipeline.store rebuild'")
+    parser.add_argument("--coordinator_address", type=str, default=None,
+                        help="host:port of process 0 for --distributed")
     parser.add_argument("--num_processes", type=int, default=None)
     parser.add_argument("--process_id", type=int, default=None)
     parser.add_argument("--debug_nans", action="store_true",
@@ -313,13 +441,10 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device: cuda (default) or cpu")
     args = parser.parse_args(argv)
-    refused = [flag for flag, on in (
-        ("--host_count > 1", args.host_count > 1),
-        ("--distributed", args.distributed),
-    ) if on]
-    if refused:
-        parser.error(f"{', '.join(refused)}: not ported yet to the PyTorch port "
-                     "(use the JAX package's embed stage)")
+    if args.distributed:
+        args.host_index, args.host_count = multihost_init(
+            args.coordinator_address, args.num_processes, args.process_id)
+        print(f"torch.distributed up: host {args.host_index}/{args.host_count}")
     cfg = EmbedConfig(
         models_to_use=args.models_to_use,
         batch_size=args.batch_size,
@@ -331,15 +456,21 @@ def main(argv=None):
         compute_dtype=args.compute_dtype,
         with_image_stats=not args.no_image_stats,
         exact_stats=args.exact_stats,
+        host_index=args.host_index,
+        host_count=args.host_count,
         write_sidecars=not args.no_sidecars,
         calibration=args.calibration,
         aspect=args.aspect,
         device=args.device,
         debug_nans=args.debug_nans,
     )
-    if args.profile_dir is None:
-        return embed_dataset(args.root_dir, cfg)
-    return _profiled(args.root_dir, cfg, args.profile_dir)
+    try:
+        if args.profile_dir is None:
+            return embed_dataset(args.root_dir, cfg)
+        return _profiled(args.root_dir, cfg, args.profile_dir)
+    finally:
+        if args.distributed:
+            multihost_shutdown()
 
 
 def _profiled(root_dir: str, cfg: EmbedConfig, profile_dir: str):

@@ -1,5 +1,5 @@
 """Stage 5 — predict labels for all images with a trained regressor (port of
-the JAX package's ``pipeline/predict.py``, one device).
+the JAX package's ``pipeline/predict.py``).
 
 Features stream from the columnar store where every model the regressor
 needs has one (else from the ``.pt`` sidecars) in chunks of
@@ -16,7 +16,9 @@ pickles; a name that is not a file is looked up as a substring in
 ``models/``, the newest match winning.
 
 CLI: the JAX stage's flags plus ``--device`` (default ``cuda``; ``cpu`` for
-the CPU). Not ported yet, and refused: ``--sharded``.
+the CPU). ``--sharded`` scores every chunk data-parallel over every local
+card (``parallel/predict_sharded.py``; over the one device that ``--device``
+names where it names one); a single card runs the same program.
 """
 from __future__ import annotations
 
@@ -178,10 +180,19 @@ def predict_labels(
     seed: int = 0,
     wire: str = "float16",
     device: str | torch.device = "cuda",
+    sharded: bool = False,
+    mesh=None,
 ) -> int:
     """Score every ``<uuid>.jpg`` in ``root_dir`` with its store or sidecar
-    features on ``device``; returns the number of images predicted."""
+    features on ``device``; returns the number of images predicted.
+    ``sharded``: each chunk scored data-parallel over ``mesh`` (given, or
+    every local card where ``device`` is a bare ``cuda``, else the one
+    ``device``; a given ``mesh`` implies it)."""
     device = resolve_device(device)
+    if sharded and mesh is None:
+        from clip_assisted_data_labeling_tpu_torch.parallel.mesh import get_mesh, stage_devices
+
+        mesh = get_mesh(devices=stage_devices(device))
     if wire not in WIRES:
         raise ValueError(f"unknown wire {wire!r} (one of {', '.join(WIRES)})")
     model_path = find_model(model_file)
@@ -195,6 +206,11 @@ def predict_labels(
         os.path.splitext(f)[0] for f in os.listdir(root_dir) if f.endswith(".jpg")
     ]
     print(f"Predicting labels for up to {len(uuids)} images...")
+    if mesh is not None:
+        from clip_assisted_data_labeling_tpu_torch.parallel.predict_sharded import predict_sharded
+
+        params = model.params()
+        print(f"Sharded prediction over {mesh.size} devices")
     stores = _open_feature_stores(root_dir, model)
     timer = StageTimer()
     chunks = _prefetched_chunks(root_dir, uuids, model, stores,
@@ -212,10 +228,18 @@ def predict_labels(
         with timer.time("side_effects"):
             # rows registered once a chunk: the merges below update in place
             db.ensure_rows(kept)
+        chunk_scores = None
+        if mesh is not None:  # the whole chunk in one sharded pass
+            with timer.time("forward"):
+                chunk_scores = predict_sharded(params, feats, mesh, wire=wire,
+                                               class_values=model.meta.class_values)
         for start in range(0, len(kept), batch_size):
             batch_uuids = kept[start: start + batch_size]
             with timer.time("forward", len(batch_uuids)):
-                scores = model.predict(feats[start: start + batch_size], wire=wire)
+                if chunk_scores is not None:
+                    scores = chunk_scores[start: start + batch_size]
+                else:
+                    scores = model.predict(feats[start: start + batch_size], wire=wire)
             with timer.time("side_effects", len(batch_uuids)):
                 db.merge_predictions(batch_uuids, scores)
                 _write_json_predictions(root_dir, batch_uuids, scores)
@@ -265,13 +289,12 @@ def main(argv=None):
                         help="host->device format for the feature matrix: "
                         "float16 (default) halves the transfer, int8 halves it "
                         "again by per-row quantization, float32 is exact")
-    parser.add_argument("--sharded", action="store_true", help="not ported yet")
+    parser.add_argument("--sharded", action="store_true",
+                        help="shard inference over all local cards (data-parallel; a "
+                        "single card runs unchanged)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device: cuda (default) or cpu")
     args = parser.parse_args(argv)
-    if args.sharded:
-        parser.error("--sharded: not ported yet to the PyTorch port, which "
-                     "predicts on one device (use the JAX package's predict stage)")
     device = resolve_device(args.device)
 
     # every subdirectory that holds .jpg files, as the reference walks them
@@ -280,7 +303,8 @@ def main(argv=None):
         if any(f.endswith(".jpg") for f in files) and "_predicted_scores" not in root:
             print(f"\nPredicting labels for {root}...")
             total += predict_labels(root, args.model_file, args.batch_size,
-                                    args.copy_imgs_fraction, wire=args.wire, device=device)
+                                    args.copy_imgs_fraction, wire=args.wire, device=device,
+                                    sharded=args.sharded)
     return total
 
 

@@ -248,9 +248,14 @@ def test_load_embeddings_matches_jax(embedded, tmp_path):
     np.testing.assert_array_equal(et, ej)
 
 
-def test_cli_refuses_distributed_and_a_missing_card(tmp_path):
-    with pytest.raises(SystemExit):
-        tdedup.main(["--root_dir", str(tmp_path), "--distributed", "--device", "cpu"])
+def test_cli_refuses_distributed_and_a_missing_card(tmp_path, monkeypatch, capsys):
+    """--distributed is accepted: without a coordinator the process group is
+    (0, 1) and the run is the one-process run; without --device the CLI asks
+    for the card and raises where there is none."""
+    monkeypatch.delenv("COORDINATOR_ADDRESS", raising=False)
+    res = tdedup.main(["--root_dir", str(tmp_path), "--distributed", "--device", "cpu"])
+    assert res.rows.size == 0 and not torch.distributed.is_initialized()
+    assert "torch.distributed up: process 0/1" in capsys.readouterr().out
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             tdedup.main(["--root_dir", str(tmp_path)])

@@ -114,9 +114,20 @@ def test_dedup_path_imports_no_pandas_or_matplotlib(tmp_path):
     assert out.stdout.strip().splitlines()[-1] == "[]", out.stdout
 
 
-def test_unported_cli_options_refused(tmp_path):
+def test_unported_cli_options_refused(tmp_path, monkeypatch, capsys):
+    """The multi-host flags, once refused, carry the JAX semantics:
+    ``--host_count 2`` without sidecars raises the JAX package's ValueError,
+    and ``--distributed`` without a coordinator runs as one host."""
+    from clip_assisted_data_labeling_tpu.pipeline.embed import main as jax_main
     from clip_assisted_data_labeling_tpu_torch.pipeline.embed import main
 
-    for extra in (["--host_count", "2"], ["--distributed"]):
-        with pytest.raises(SystemExit):
-            main(["--root_dir", str(tmp_path), "--device", "cpu", *extra])
+    args = ["--root_dir", str(tmp_path), "--models_to_use", "ViT-Test/tiny"]
+    with pytest.raises(ValueError, match="requires sidecars") as port_err:
+        main([*args, "--device", "cpu", "--host_count", "2", "--no_sidecars"])
+    with pytest.raises(ValueError) as jax_err:
+        jax_main([*args, "--host_count", "2", "--no_sidecars"])
+    assert str(port_err.value) == str(jax_err.value)
+    monkeypatch.delenv("COORDINATOR_ADDRESS", raising=False)
+    stores = main([*args, "--device", "cpu", "--distributed"])
+    assert stores["ViT-Test/tiny"].meta["n"] == 0
+    assert "torch.distributed up: host 0/1" in capsys.readouterr().out

@@ -285,8 +285,8 @@ def test_each_cli_runs_alone_without_jax_optax_or_pandas(tmp_path):
 
 def test_entry_points_default_to_the_card(tmp_path):
     """Without --device each stage asks for the card, and where there is
-    none it raises instead of running on the CPU; predict refuses
-    --sharded."""
+    none it raises instead of running on the CPU; so does predict
+    --sharded, whose mesh takes every card."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device exists")
     with pytest.raises(RuntimeError, match="cuda"):
@@ -295,6 +295,9 @@ def test_entry_points_default_to_the_card(tmp_path):
         tpredict_simple.main(["--input_img_dir", str(tmp_path), "--model_path", "x.npz"])
     with pytest.raises(RuntimeError, match="cuda"):
         AestheticRegressor("x.npz")
-    with pytest.raises(SystemExit):
-        tpredict.main(["--root_dir", str(tmp_path), "--model_file", "x", "--sharded",
-                       "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        tpredict.main(["--root_dir", str(tmp_path), "--model_file", "x", "--sharded"])
+    from clip_assisted_data_labeling_tpu_torch.parallel.mesh import get_mesh
+
+    with pytest.raises(RuntimeError, match="cuda"):
+        get_mesh()  # the mesh of --sharded: every local card
