@@ -2,7 +2,8 @@
 
     python3 chip_smoke.py
 
-Phases (any failure exits nonzero and prints no result line):
+Phases (any failure exits nonzero and prints no result line; each group
+starts with a line of the script's seconds so far):
   1. print the card's name and power limit (nvidia-smi); no card → exit 2,
   2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel)
      and print each kernel's registers and stack frame (ptxas), by name and
@@ -37,7 +38,10 @@ Phases (any failure exits nonzero and prints no result line):
      [32, 577, 3072], K4 at d=80 [16, 577, 3840] and with RoPE at
      PE-Core-G14-448 int8_static's [16, 1024, 4608], K2 at [18464, 1024],
      [9232, 1280], [4112, 1408] and [16384, 1536], K6 ln and gelu_tanh and K1
-     quant_out at SO400M-384 hybrid's 4 images,
+     quant_out at SO400M-384 hybrid's 4 images; the shards of phases 36-37;
+     and phase 44's shapes: K1 bf16 at entry()'s [8, 257, 3072], at the dry
+     run's tiny shards (bf16 and float32 [16, 17, 96], bf16 with RoPE [2, 17,
+     192], bf16 [8, 17, 192]) and K2 at [34, 128],
   3b. K1's and K7's quant_out scales against their plain versions at S = 729,
      2048, 8192 and 24000 (one head of 128): within 2^-8, int8 within ±1 on
      at most 5e-3 of entries, with the share of tokens over 1e-5 printed,
@@ -106,7 +110,7 @@ Phases (any failure exits nonzero and prints no result line):
  16. stage 4 at the reference's label-set size: 9,400 rows of width 768 x 2
      crops in a float16 store, labelled 0-9 from a latent the crops carry;
      the train CLI on the card in the default configuration (hidden 264,
-     128, 64, dropout 0.5, batch 16, 60 epochs): seconds, steps/s, and a
+     128, 64, dropout 0.5, batch 16) for 20 epochs: seconds, steps/s, and a
      test MSE under half the dummy baseline's; then the same initial
      regressor without dropout for 3 epochs on the card and on the CPU in
      the same permutations: parameters within 1e-5,
@@ -215,9 +219,34 @@ Phases (any failure exits nonzero and prints no result line):
      1 - cosine 1e-5 of one process embedding the same host shards, and
      within 2e-3 of phase 5's (other batches, other canvas buckets); only
      rank 0 copies,
+ 41. the host tools through their CLIs, each in a process of its own (no
+     pandas, scikit-learn, JAX or the JAX package imported): merge_datasets
+     on two datasets of 4,096 rows (labelled and unlabelled halves, one uuid
+     in both), its CSVs byte for byte as pandas writes them; move_subset_of_files
+     over 8,192 stems x 2 extensions at --fraction_f 0.25 --seed 0, the tree
+     random.Random(0)'s draw; fix_img_dir on phase 4's PNGs and planted
+     files (a zero-byte file, junk, a broken CRC and a JPEG cut after its SOF
+     quarantined; a PNG named .jpg and a JPEG cut in its scan data kept), by
+     PIL where installed and by the port's own check in process;
+     investigate_embedding on a phase-5 sidecar,
+ 42. find_similar_imgs (cosine, l2) and svm_similarity through their CLIs on
+     phase 17's float16 ViT-L-14-336 store of 131,072 rows x 4 crops x 768
+     (kept for this phase) with 30 planted rows near a 40-row context: the
+     top 30 the planted rows for each; every distance within 1e-6 of float64 on the card; the SVM's
+     gradient norm within 1e-8 of its first, its margins on 16,384 rows
+     within 1e-6 of the CPU's; seconds by collection, device and copies,
+ 43. train_latent_regressor in its default configuration on the card: 1,024
+     prompts of [2, 77, 768] latents, a quarter with only a predicted_label;
+     a test MSE under half the dummy baseline's, the checkpoint loading with
+     the port's regressor; seconds and steps/s,
+ 44. dryrun_multichip(4) (the 2-D branch) and dryrun_multichip(2) on the
+     card listed n times, every check passing, exact launches (K1, and K2 in
+     EVA-Test-Wide's lnk blocks); entry()'s flagship step at full width (K1
+     24 times), finite unit embeddings,
 then print one JSON line with phase 14's records, one with phases 16-19's
 and 35's, one with phases 20-23's, one with phase 31's, one with phases
-32-34's, one with phases 36-40's, one JSON line listing the kernels, each row with its launches
+32-34's, one with phases 36-40's, one with phases 41-43's, one with phase
+44's, one JSON line listing the kernels, each row with its launches
 read from the counter of the main path above that runs its case (0 for a
 shape no path runs; K7, K8, K10 and K5 with RoPE, which no path of the JAX
 package reaches, summed over all of them) and, last, the device line.
@@ -233,6 +262,7 @@ import math
 import os
 import re
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -2406,6 +2436,9 @@ def dedup_cli(root: str, base: str) -> dict:
 
 STAGE_D = 768  # ViT-L-14-336's embedding width: 2 crops make the regressor's 1536 inputs
 TRAIN_N = 9400  # the labels of the reference's shipped single_crop_regression_9.4k_imgs
+# a third of the default 60 (two of its 10-epoch rate cycles): the eager steps
+# took 82-91 s at 60, the largest share of the script's time limit one phase held
+TRAIN_EPOCHS = 20
 PREDICT_N = 131072  # two of predict's ASSEMBLE_CHUNKs of 65536 rows
 PREDICT_WIRES = ("float16", "float32", "int8")
 N_LABELLED = 2048  # rows of the predict set with a human label (subset rescales them)
@@ -2464,7 +2497,7 @@ def train_on_card(base: str) -> dict:
     ViT-L-14-336's width in a float16 store, labelled 0-9 as the labelling
     UI writes them: the rows' latent (2 label steps a standard deviation)
     plus noise (0.5), rounded. The train CLI in the default configuration (hidden 264, 128,
-    64, dropout 0.5, batch 16, 60 epochs) on the card: seconds, steps/s and
+    64, dropout 0.5, batch 16) for TRAIN_EPOCHS epochs on the card: seconds, steps/s and
     the final test MSE, which must be under half the dummy baseline's. Then
     the same initial regressor without dropout for 3 epochs on the card and
     on the CPU, in the same permutations (drawn on the CPU): parameters
@@ -2485,10 +2518,11 @@ def train_on_card(base: str) -> dict:
     t0 = time.perf_counter()
     with contextlib.chdir(base):
         _model, history, path = ttrain.main(["--train_data_dir", data, "--train_data_names",
-                                             "labelled", "--device", "cuda"])
+                                             "labelled", "--n_epochs", str(TRAIN_EPOCHS),
+                                             "--device", "cuda"])
     wall = time.perf_counter() - t0
     mse, dummy = history["test"][-1], history["third"][-1]
-    rec = {"stage": "train", "rows": TRAIN_N, "features": 2 * STAGE_D, "epochs": 60,
+    rec = {"stage": "train", "rows": TRAIN_N, "features": 2 * STAGE_D, "epochs": TRAIN_EPOCHS,
            "steps": history["steps"], "train_s": history["seconds"],
            "steps_per_s": history["steps"] / history["seconds"], "cli_s": wall,
            "test_mse": mse, "dummy_mse": dummy}
@@ -2544,10 +2578,11 @@ def cli_imports(proc) -> set:
 
 
 def forbidden_imports(proc) -> set:
-    """pandas, JAX or the JAX package among the imports a CLI run tried
-    (``-X importtime`` lists a failed import too). matplotlib is not among
-    them: predict tries it for its optional histogram and goes on without."""
-    return cli_imports(proc) & {"pandas", "jax", "clip_assisted_data_labeling_tpu"}
+    """pandas, scikit-learn, JAX or the JAX package among the imports a CLI
+    run tried (``-X importtime`` lists a failed import too). matplotlib is
+    not among them: predict tries it for its optional histogram and goes on
+    without."""
+    return cli_imports(proc) & {"pandas", "sklearn", "jax", "clip_assisted_data_labeling_tpu"}
 
 
 def predict_at_scale(base: str, ckpt: str) -> dict:
@@ -2760,22 +2795,22 @@ def subset_cli(predicted: dict) -> dict:
             "process_s": wall}
 
 
-def stages(png_dir: str, phase15_rows: dict) -> tuple[list[dict], dict, dict]:
-    """Phases 16-19 in a directory of their own: train (and phase 35, train
-    with --debug_nans), predict on every wire, the single-image scorer,
-    subset, then phase 39 (predict over a mesh) on predict's directory.
-    Returns the records, the scorer's launch counts and phase 39's record."""
-    base = tempfile.mkdtemp(prefix="chip_smoke_stages_")
-    try:
-        trained = train_on_card(base)
-        debug_nans = train_debug_nans(base)  # phase 35, on phase 16's store
-        predicted = predict_at_scale(base, trained["path"])
-        scorer = scorer_cli(png_dir, trained["path"], phase15_rows)
-        subset = subset_cli(predicted)
-        sharded = sharded_predict(predicted, trained["path"])  # phase 39
-        return [trained["record"], debug_nans, *predicted["records"], subset], scorer, sharded
-    finally:
-        shutil.rmtree(base, ignore_errors=True)
+def stages(png_dir: str, phase15_rows: dict,
+           base: str) -> tuple[list[dict], dict, dict, str]:
+    """Phases 16-19 in ``base``, a directory of their own (the caller removes
+    it; phase 42 searches phase 17's store): train (and phase 35, train with
+    --debug_nans), predict on every wire, the single-image scorer, subset,
+    then phase 39 (predict over a mesh) on predict's directory. Returns the
+    records, the scorer's launch counts, phase 39's record and predict's
+    directory."""
+    trained = train_on_card(base)
+    debug_nans = train_debug_nans(base)  # phase 35, on phase 16's store
+    predicted = predict_at_scale(base, trained["path"])
+    scorer = scorer_cli(png_dir, trained["path"], phase15_rows)
+    subset = subset_cli(predicted)
+    sharded = sharded_predict(predicted, trained["path"])  # phase 39
+    return ([trained["record"], debug_nans, *predicted["records"], subset], scorer, sharded,
+            predicted["root"])
 
 
 # --- phases 20-23: the rest of the active-learning loop ------------------------------
@@ -3569,6 +3604,475 @@ def two_processes(root: str, l336: dict) -> dict:
         shutil.rmtree(base, ignore_errors=True)
 
 
+# --- phases 41-44: the tools and the dry run ------------------------------------------
+TOOLS_PKG = "clip_assisted_data_labeling_tpu_torch.tools."
+MERGE_N = 4096  # rows of each merged dataset
+SUBSET_STEMS, SUBSET_FRACTION = 8192, 0.25
+SEARCH_N, CONTEXT_N, PLANTED_N = PREDICT_N, 40, 30  # phase 17's N; the tools' default top_n
+SVM_SUBSET = 16384  # rows of the card-against-CPU solve
+SEARCH_CROP = "square_padded_crop"  # the search tools' default crop
+LATENT_N, LATENT_SEQ = 1024, 77  # prompts of [2, 77, 768] c/uc latents
+DRYRUN_LAYERS = 2  # every tiny tower of the dry run
+
+
+def merge_cli(base: str) -> dict:
+    """Phase 41a: the merge_datasets CLI on two datasets of MERGE_N rows
+    (the odd rows labelled, integer timestamps, one uuid in both datasets'
+    labelled halves), each row a .jpg: the labelled and unlabelled CSVs
+    byte for byte as pandas writes them (written here from the same rows),
+    every file moved, the clash kept under its ``<subdir>_`` prefix."""
+    data, out = os.path.join(base, "merge", "data"), os.path.join(base, "merge", "out")
+    rng = np.random.default_rng(41)
+    clash = "c1a5" * 8
+    want = {"labeled": [], "unlabeled": []}
+    for k, name in enumerate(("set_a", "set_b")):
+        os.makedirs(os.path.join(data, name))
+        lines = ["uuid,label,timestamp,predicted_label"]
+        labels = rng.integers(0, 10, MERGE_N)
+        preds = np.round(rng.uniform(0, 9, MERGE_N), 4)
+        for i in range(MERGE_N):
+            u = clash if i == 1 else f"{k:02x}{i:030x}"
+            label = repr(float(labels[i])) if i % 2 else ""
+            row = f"{u},{label},{1700000000 + i},{preds[i]!r}"
+            lines.append(row)
+            want["labeled" if i % 2 else "unlabeled"].append(f"{row},{name}")
+            with open(os.path.join(data, name, u + ".jpg"), "wb") as f:
+                f.write(u.encode())
+        with open(os.path.join(data, f"{name}.csv"), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    proc, wall = run_cli(TOOLS_PKG + "merge_datasets", ["--data_dir", data, "--output_dir", out],
+                         "merge_datasets")
+    header = "uuid,label,timestamp,predicted_label,source_datadir"
+    same = {}
+    for split, rows in want.items():
+        with open(os.path.join(out, f"{split}.csv")) as f:
+            same[split] = f.read() == "\n".join([header, *rows]) + "\n"
+    moved = {split: sorted(os.listdir(os.path.join(out, split))) for split in want}
+    left = sum(len(os.listdir(os.path.join(data, n))) for n in ("set_a", "set_b"))
+    ok = (all(same.values()) and len(moved["labeled"]) == len(moved["unlabeled"]) == MERGE_N
+          and f"set_b_{clash}.jpg" in moved["labeled"] and left == 0
+          and "WARNING: 1 files shared a uuid" in proc.stdout)
+    print(f"phase 41 merge_datasets CLI: 2 x {MERGE_N} rows in {wall:.2f} s; CSVs as pandas "
+          f"writes them {same}; moved {len(moved['labeled'])} + {len(moved['unlabeled'])} "
+          f"files, {left} left, the clash kept as set_b_{clash}.jpg: "
+          f"{f'set_b_{clash}.jpg' in moved['labeled']}", flush=True)
+    if not ok:
+        fail(f"phase 41 merge_datasets: {same}, {left} files left, {proc.stdout[-800:]}")
+    return {"phase": 41, "tool": "merge_datasets", "rows": 2 * MERGE_N, "seconds": wall}
+
+
+def subset_tool_cli(base: str) -> dict:
+    """Phase 41b: the move_subset_of_files CLI over SUBSET_STEMS stems x 2
+    extensions in two subdirectories at --fraction_f 0.25 --seed 0: the
+    copied tree exactly the stems of ``random.Random(0)``'s draw, one per
+    stem in the walk's order, each with both files."""
+    import random
+
+    root, out = os.path.join(base, "subset", "root"), os.path.join(base, "subset", "out")
+    for i in range(SUBSET_STEMS):
+        sub = os.path.join(root, "a" if i % 2 else "b")
+        os.makedirs(sub, exist_ok=True)
+        for ext in (".jpg", ".txt"):
+            with open(os.path.join(sub, f"s{i:05d}{ext}"), "wb") as f:
+                f.write(f"{i}{ext}".encode())
+    order = [(os.path.relpath(d, root), os.path.splitext(n)[0])
+             for d, _subs, names in os.walk(root) for n in names]
+    stems = list(dict.fromkeys(s for _d, s in order))
+    where = {s: d for d, s in order}
+    draw = random.Random(0)
+    chosen = [s for s in stems if draw.random() < SUBSET_FRACTION]
+    proc, wall = run_cli(TOOLS_PKG + "move_subset_of_files",
+                         ["--root_dir", root, "--out_dir", out, "--fraction_f",
+                          str(SUBSET_FRACTION), "--seed", "0", "--file_extensions", ".jpg",
+                          ".txt"], "move_subset_of_files")
+    got = {os.path.relpath(os.path.join(d, n), out) for d, _s, names in os.walk(out)
+           for n in names}
+    want = {os.path.join(where[s], s + ext) for s in chosen for ext in (".jpg", ".txt")}
+    line = f"Sampled {len(chosen)}/{SUBSET_STEMS} stems (target fraction 0.25) into {out}"
+    print(f"phase 41 move_subset_of_files CLI: {len(chosen)} of {SUBSET_STEMS} stems in "
+          f"{wall:.2f} s; the tree is random.Random(0)'s draw: {got == want}", flush=True)
+    if got != want or line not in proc.stdout:
+        fail(f"phase 41 move_subset_of_files: {len(got)} files against {len(want)}; "
+             f"{proc.stdout[-500:]}")
+    return {"phase": 41, "tool": "move_subset_of_files", "stems": SUBSET_STEMS,
+            "chosen": len(chosen), "seconds": wall}
+
+
+def quarantine_cli(base: str, png_dir: str) -> dict:
+    """Phase 41c: the fix_img_dir CLI on phase 4's 32 PNGs and planted
+    files: a valid gray JPEG, a PNG named .jpg and a JPEG cut inside its
+    scan data (readable, as under PIL), a zero-byte file, junk, a PNG with
+    a flipped IDAT byte (broken CRC) and a JPEG cut after its SOF (all
+    quarantined). Where PIL is installed the tool asks it and the port's
+    own check (``verify_image``) is held to the same verdicts in process."""
+    from clip_assisted_data_labeling_tpu_torch.data.imsize import gray_jpeg_bytes
+    from clip_assisted_data_labeling_tpu_torch.tools.fix_img_dir import verify_image
+
+    src = os.path.join(base, "quarantine", "imgs")
+    os.makedirs(src)
+    pngs = sorted(glob.glob(os.path.join(png_dir, "img_*.png")))
+    for p in pngs:
+        shutil.copy(p, src)
+    with open(pngs[0], "rb") as f:
+        png = bytearray(f.read())
+    png[len(png) // 2] ^= 0xFF
+    jpg = gray_jpeg_bytes(64, 48)
+    sof = jpg.index(b"\xff\xc0")
+    sos = jpg.index(b"\xff\xda")
+    planted = {"gray.jpg": jpg, "png_named.jpg": open(pngs[1], "rb").read(),
+               "cut_in_scan.jpg": jpg[:sos + 2 + 8 + 4], "zero.png": b"",
+               "junk.jpg": np.random.default_rng(41).bytes(256), "bad_crc.png": bytes(png),
+               "cut_after_sof.jpg": jpg[:sof + 2 + struct.unpack(">H", jpg[sof + 2:sof + 4])[0]]}
+    for name, data in planted.items():
+        with open(os.path.join(src, name), "wb") as f:
+            f.write(data)
+    want = ["bad_crc.png", "cut_after_sof.jpg", "junk.jpg", "zero.png"]
+    proc, wall = run_cli(TOOLS_PKG + "fix_img_dir", ["--src_folder", src], "fix_img_dir")
+    errored = src + "_errored"
+    got = sorted(os.listdir(errored))
+    with_pil = "PIL" in cli_imports(proc)
+    own = []
+    for d in (src, errored):
+        for name in sorted(os.listdir(d)):
+            try:
+                verify_image(os.path.join(d, name))
+            except (OSError, ValueError):
+                own.append(name)
+    print(f"phase 41 fix_img_dir CLI ({'PIL' if with_pil else 'the port’s own check'}): "
+          f"{len(pngs) + len(planted)} files in {wall:.2f} s, quarantined {got}; the port's "
+          f"own check quarantines {sorted(own)}", flush=True)
+    if got != want or sorted(own) != want or len(os.listdir(src)) != len(pngs) + 3:
+        fail(f"phase 41 fix_img_dir: quarantined {got}, own check {own}, want {want}")
+    return {"phase": 41, "tool": "fix_img_dir", "files": len(pngs) + len(planted),
+            "quarantined": len(got), "verdict_by": "PIL" if with_pil else "port",
+            "seconds": wall}
+
+
+def investigate_cli(sidecar: str) -> dict:
+    """Phase 41d: the investigate_embedding CLI on a phase-5 sidecar: one
+    block a model, each crop's shape and dtype and each image stat's value."""
+    from clip_assisted_data_labeling_tpu_torch.store.sidecar import read_sidecar
+
+    want = []
+    for model, feats in read_sidecar(sidecar).items():
+        want.append(f"{model}:")
+        for k, v in feats.items():
+            want.append(f"  {k}: " + (f"scalar {float(v):.6f}" if np.ndim(v) == 0 else
+                                       f"array shape={tuple(v.shape)} dtype={v.dtype}"))
+    proc, wall = run_cli(TOOLS_PKG + "investigate_embedding", [sidecar], "investigate_embedding")
+    got = proc.stdout.splitlines()
+    print(f"phase 41 investigate_embedding CLI: {len(got)} lines in {wall:.2f} s, as "
+          f"expected: {got == want}; {got[:2]}", flush=True)
+    if got != want or f"{MODEL}:" not in got:
+        fail(f"phase 41 investigate_embedding printed {got[:8]}")
+    return {"phase": 41, "tool": "investigate_embedding", "lines": len(got), "seconds": wall}
+
+
+def host_tools(png_dir: str, sidecar: str) -> list[dict]:
+    """Phase 41: the four host tools through their CLIs, each in a process
+    of its own (no pandas, scikit-learn, JAX or the JAX package imported)."""
+    base = tempfile.mkdtemp(prefix="chip_smoke_tools_")
+    try:
+        return [merge_cli(base), subset_tool_cli(base), quarantine_cli(base, png_dir),
+                investigate_cli(sidecar)]
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def _near(u: torch.Tensor, n: int, gen: torch.Generator) -> torch.Tensor:
+    """n unit rows of 4 crops near the unit vector u (noise of norm ~0.3)."""
+    x = u + 0.3 * torch.randn((n, 4, u.numel()), generator=gen, device="cuda") / math.sqrt(
+        u.numel())
+    return x / x.norm(dim=-1, keepdim=True)
+
+
+def search_at_scale(phase17_root: str | None) -> dict:
+    """Phase 42: find_similar_imgs (cosine and l2) and svm_similarity through
+    their CLIs on the card at a user's scale. The search set: phase 17's
+    directory where it still exists (its float16 ViT-L-14-336 store of
+    PREDICT_N rows x 4 crops x 768 and a gray JPEG a row), else a store of
+    SEARCH_N rows from ``write_feature_store`` with an empty .jpg beside each
+    row (the tools check and copy, and decode nothing); PLANTED_N of its rows
+    replaced by rows near a planted direction; the context: CONTEXT_N
+    sidecars near the same direction (the context's collection takes the
+    sidecar walk, the search set's the store). Each run's top PLANTED_N
+    must be the planted rows; every distance within 1e-6 of a float64
+    recomputation on the card; the SVM's final gradient norm within 1e-8 of
+    its first, and its margins on a SVM_SUBSET-row subset within 1e-6 of the
+    same solver in float64 on the CPU. Seconds by collection, device and
+    copies."""
+    from clip_assisted_data_labeling_tpu_torch.config import ALL_CROPS
+    from clip_assisted_data_labeling_tpu_torch.store.columnar import EmbeddingStore
+    from clip_assisted_data_labeling_tpu_torch.store.sidecar import write_sidecar
+    from clip_assisted_data_labeling_tpu_torch.tools import find_similar_imgs as fsi
+    from clip_assisted_data_labeling_tpu_torch.tools import svm_similarity as svm
+
+    base = tempfile.mkdtemp(prefix="chip_smoke_search_")
+    try:
+        t0 = time.perf_counter()
+        ctx = os.path.join(base, "context")
+        if phase17_root and EmbeddingStore.exists(phase17_root, MODEL):
+            search = phase17_root
+        else:
+            search = os.path.join(base, "search")
+            os.makedirs(search)
+            write_feature_store(search, SEARCH_N, 42)
+            for name in EmbeddingStore.open(search, MODEL).uuids:
+                open(os.path.join(search, name + ".jpg"), "wb").close()
+        uuids = EmbeddingStore.open(search, MODEL).uuids
+        n_rows = len(uuids)
+        gen = torch.Generator(device="cuda").manual_seed(42)
+        u = torch.randn(STAGE_D, generator=gen, device="cuda")
+        u = u / u.norm()
+        planted = np.sort(np.random.default_rng(42).choice(n_rows, PLANTED_N, replace=False))
+        store = EmbeddingStore.open(search, MODEL, mode="r+")
+        store.embeddings[planted] = _near(u, PLANTED_N, gen).half().cpu().numpy()
+        store.flush()
+        del store
+        os.makedirs(ctx)  # a context dir holds .pt sidecars (one without is a dir of contexts)
+        for i, row in enumerate(_near(u, CONTEXT_N, gen).cpu().numpy()):
+            write_sidecar(os.path.join(ctx, f"ctx{i:029x}.pt"), MODEL, dict(zip(ALL_CROPS, row)))
+        setup_s = time.perf_counter() - t0
+        want = {uuids[i] for i in planted}
+
+        def top(results) -> set:
+            return {os.path.basename(p)[:-4] for _score, p in results}
+
+        records = []
+        _names, _paths, ctx_emb = fsi._collect_embeddings(ctx, ["all"], SEARCH_CROP)
+        _names, _paths, emb = fsi._collect_embeddings(search, ["all"], SEARCH_CROP)
+        c64 = torch.from_numpy(ctx_emb).cuda().double().mean(dim=0)
+        e64 = torch.from_numpy(emb).cuda().double()
+        exact = {"cosine": ((1 - (e64 / e64.norm(dim=1, keepdim=True)) @ (c64 / c64.norm()))
+                            / 2).cpu().numpy(),
+                 "l2": torch.sqrt(((e64 - c64) ** 2).sum(dim=1) + 1e-12).cpu().numpy()}
+        del e64
+        for measure in ("cosine", "l2"):
+            out = os.path.join(base, f"similar_{measure}")
+            seconds: list = []
+            runs = fsi.main(["--context_dir", ctx, "--search_dir", search, "--output_dir", out,
+                             "--similarity_measure", measure, "--top_n", str(PLANTED_N),
+                             "--device", "cuda"], timings=seconds)
+            got = top(runs[0])
+            dists = fsi.compute_distances(ctx_emb.mean(axis=0), emb, measure, "cuda")
+            err = float(np.abs(dists - exact[measure]).max())
+            rows = {u_: i for i, u_ in enumerate(uuids)}
+            cli_err = max(abs(d - exact[measure][rows[os.path.basename(p)[:-4]]])
+                          for d, p in runs[0])
+            rec = {"phase": 42, "tool": "find_similar_imgs", "measure": measure,
+                   "rows": n_rows, **seconds[0], "max_abs_err_vs_float64": err,
+                   "top_is_planted": got == want}
+            records.append(rec)
+            print(f"phase 42 find_similar_imgs {measure}: {n_rows} rows; collect "
+                  f"{rec['collect_s']:.2f} s, device {rec['device_s']:.3f} s, copies "
+                  f"{rec['copy_s']:.3f} s; top {PLANTED_N} the planted rows: {got == want}; "
+                  f"distances against float64 on the card: max {err:.3g} (the CLI's "
+                  f"{cli_err:.3g}); {len(os.listdir(out))} files copied", flush=True)
+            if not (got == want and err <= 1e-6 and cli_err <= 1e-6
+                    and len(os.listdir(out)) == PLANTED_N):
+                fail(f"phase 42 {measure}: top planted {got == want}, distance error {err} "
+                     f"(CLI {cli_err}), {len(os.listdir(out))} copies")
+        seconds = {}
+        results = svm.main(["--context_dir", ctx, "--search_dir", search, "--output_dir",
+                            os.path.join(base, "svm"), "--top_n", str(PLANTED_N),
+                            "--device", "cuda"], timings=seconds)
+        got = top(results)
+        rel = seconds["grad_norm"] / seconds["grad_norm_0"]
+        sub = emb[:SVM_SUBSET]
+        t1 = time.perf_counter()
+        card = svm.svm_rank(ctx_emb, sub, device="cuda")
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        cpu = svm.svm_rank(ctx_emb, sub, device="cpu")
+        cpu_s = time.perf_counter() - t1
+        sub_err = float(np.abs(card - cpu).max())
+        rec = {"phase": 42, "tool": "svm_similarity", "rows": n_rows,
+               "collect_s": seconds["collect_s"], "device_s": seconds["device_s"],
+               "copy_s": seconds["copy_s"], "newton_steps": seconds["steps"],
+               "grad_norm_rel": rel, "top_is_planted": got == want,
+               "subset_rows": SVM_SUBSET, "subset_card_s": card_s, "subset_cpu_s": cpu_s,
+               "subset_max_abs_err_vs_cpu": sub_err, "setup_s": setup_s,
+               "search_set": "phase 17's" if search == phase17_root else "its own"}
+        records.append(rec)
+        print(f"phase 42 svm_similarity: {n_rows} + {CONTEXT_N} rows x {STAGE_D + 1}; "
+              f"collect {rec['collect_s']:.2f} s, device (fit and scores, float64) "
+              f"{rec['device_s']:.3f} s in {seconds['steps']} Newton steps, copies "
+              f"{rec['copy_s']:.3f} s; gradient norm {rel:.3g} of its first; top "
+              f"{PLANTED_N} the planted rows: {got == want}; {SVM_SUBSET} rows: card "
+              f"{card_s:.2f} s, CPU {cpu_s:.2f} s, margins within {sub_err:.3g}; set-up "
+              f"{setup_s:.1f} s", flush=True)
+        if not (got == want and rel <= 1e-8 and sub_err <= 1e-6):
+            fail(f"phase 42 svm: top planted {got == want}, gradient {rel}, CPU diff {sub_err}")
+        return {"records": records}
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def latent_regressor_on_card() -> dict:
+    """Phase 43: the train_latent_regressor CLI on the card in its default
+    configuration (hidden 264, 128, 64; 40 epochs). LATENT_N prompts of
+    [2, 77, 768] float32 ``.pth`` latents (c: a shared mean, a latent z along
+    a seeded direction, noise; uc: one shared tensor), labelled 0-9 from z,
+    a quarter of the rows carrying only a predicted_label (their target is
+    half of it, the tool's pseudo-label). The final test MSE must be under
+    half the dummy baseline's and the checkpoint must load with the port's
+    regressor and give the trained model's scores."""
+    from clip_assisted_data_labeling_tpu_torch.models.regressor import SimpleFCRegressor
+    from clip_assisted_data_labeling_tpu_torch.store.database import LabelDatabase
+    from clip_assisted_data_labeling_tpu_torch.tools import train_latent_regressor as tlat
+
+    base = tempfile.mkdtemp(prefix="chip_smoke_latents_")
+    try:
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(43)
+        uc = rng.standard_normal((LATENT_SEQ, STAGE_D), dtype=np.float32)
+        mean_c = rng.standard_normal((LATENT_SEQ, STAGE_D), dtype=np.float32)
+        direction = rng.standard_normal((LATENT_SEQ, STAGE_D), dtype=np.float32)
+        z = rng.standard_normal(LATENT_N)
+        labels = np.clip(np.round(4.5 + 2.0 * z + rng.normal(0, 0.5, LATENT_N)), 0, 9)
+        pseudo = np.zeros(LATENT_N, bool)
+        pseudo[rng.permutation(LATENT_N)[: LATENT_N // 4]] = True
+        uuids = [f"{i:032x}" for i in range(LATENT_N)]
+        os.makedirs(os.path.join(base, "data", "prompts"))
+        for i, u in enumerate(uuids):
+            c = (mean_c + np.float32(0.5 * z[i]) * direction
+                 + 0.5 * rng.standard_normal((LATENT_SEQ, STAGE_D), dtype=np.float32))
+            torch.save(torch.from_numpy(np.stack([c, uc])),
+                       os.path.join(base, "data", "prompts", f"{u}.pth"))
+        LabelDatabase({"uuid": uuids, "label": np.where(pseudo, np.nan, labels),
+                       "timestamp": np.full(LATENT_N, 1.7e9),
+                       "predicted_label": np.where(pseudo, 4.5 + 2.0 * z, np.nan)},
+                      os.path.join(base, "data", "prompts.csv")).save()
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with contextlib.chdir(base):
+            model, history, path = tlat.main(["--train_data_dir", os.path.join(base, "data"),
+                                              "--train_data_names", "prompts",
+                                              "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        mse, dummy = history["test"][-1], history["third"][-1]
+        loaded = SimpleFCRegressor.load(os.path.join(base, path), "cuda")
+        feats = np.stack([torch.load(os.path.join(base, "data", "prompts", f"{u}.pth"))
+                          .numpy().reshape(-1) for u in uuids[:64]])
+        load_err = float(np.abs(loaded.predict(feats, wire="float32")
+                                - model.predict(feats, wire="float32")).max())
+        rec = {"phase": 43, "tool": "train_latent_regressor", "prompts": LATENT_N,
+               "features": 2 * LATENT_SEQ * STAGE_D, "epochs": 40, "steps": history["steps"],
+               "train_s": history["seconds"], "steps_per_s": history["steps"] / history["seconds"],
+               "cli_s": wall, "setup_s": setup_s, "test_mse": mse, "dummy_mse": dummy,
+               "checkpoint_score_err": load_err}
+        print(f"phase 43 train_latent_regressor CLI: {LATENT_N} prompts x "
+              f"{rec['features']} features, {history['steps']} steps in "
+              f"{history['seconds']:.2f} s = {rec['steps_per_s']:.0f} steps/s ({wall:.2f} s "
+              f"with loading and saving; data {setup_s:.1f} s); test MSE {mse:.4f} against the "
+              f"dummy baseline's {dummy:.4f}; the checkpoint's scores within {load_err:.3g}",
+              flush=True)
+        if not (mse < 0.5 * dummy and load_err <= 1e-6
+                and loaded.meta.input_size == rec["features"]):
+            fail(f"phase 43: test MSE {mse} against dummy {dummy}, checkpoint {load_err}")
+        return rec
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+
+
+def dryrun_launches(n: int) -> dict:
+    """The dry run's kernel launches on n devices (every tiny tower
+    DRYRUN_LAYERS deep): K1 once a layer in each one-device reference
+    forward and in each shard forward — data-parallel: n shards; 2-D (n/2
+    data rows x 2 model shards): one a (row, shard) pair — for the bf16
+    embed, ViT-Test/tiny's and EVA-Test-Wide's int8_static TP and the
+    post-norm tower's data parallelism; K2 only in EVA-Test-Wide's lnk
+    blocks, three times a layer (ln1, the attention sub-LN, ln2) in the
+    one-device forward and in each data row of the TP forward."""
+    L = DRYRUN_LAYERS
+    if n >= 4 and n % 2 == 0:
+        tp = 1 + n  # the one-device forward and the (n/2) x 2 shard forwards
+        return {"K1": L * (3 * tp + 1 + n), "K2": 3 * L * (1 + n // 2)}
+    return {"K1": 2 * L * (1 + n)}
+
+
+def dryrun_on_card() -> tuple[dict, dict]:
+    """Phase 44: ``dryrun_multichip(4)`` (the 2-D branch) and
+    ``dryrun_multichip(2)`` (1-D) on the card listed n times, each check
+    passing and the launches exactly :func:`dryrun_launches`; then
+    ``entry()``'s flagship step once at full width (ViT-L-14 bf16, 2 canvases
+    x 4 crops: K1 24 times), finite unit embeddings, timed."""
+    from clip_assisted_data_labeling_tpu_torch import dryrun
+
+    record, paths = {"phase": 44}, {}
+    for n in (4, 2):
+        reset_counts()
+        t0 = time.perf_counter()
+        figures = dryrun.dryrun_multichip(n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        want = {k: dryrun_launches(n).get(k, 0) for k in got}
+        paths[f"dryrun{n}"] = got
+        record[f"dryrun_{n}"] = {"seconds": wall, "launches": got, **figures}
+        print(f"phase 44 dryrun_multichip({n}) on the repeated card: {wall:.2f} s; launches "
+              f"{got} (want {want})", flush=True)
+        if got != want:
+            fail(f"phase 44 dryrun({n}): launches {got}, expected {want}")
+    step, args = dryrun.entry("cuda")
+    model, canvases, crop_params = args
+    same_args = all(np.array_equal(a, b) for a, b in zip((canvases, crop_params),
+                                                         dryrun.example_args()))
+    reset_counts()
+    emb = step(*args)
+    torch.cuda.synchronize()
+    got = counts()
+    paths["entry"] = got
+    want = {k: (model.cfg.layers if k == "K1" else 0) for k in got}
+    norms = emb.norm(dim=-1)
+    ms = time_ms(lambda: step(*args), min_reps=3, min_s=0.3)
+    record["entry"] = {"model": dryrun.FLAGSHIP, "shape": list(emb.shape), "launches": got,
+                       "ms": ms, "max_norm_err": float((norms - 1).abs().max())}
+    print(f"phase 44 entry(): {dryrun.FLAGSHIP} bf16 step on {tuple(canvases.shape)} canvases "
+          f"-> {tuple(emb.shape)} in {ms:.2f} ms a step; launches {got} (want {want}); "
+          f"|norm - 1| max {record['entry']['max_norm_err']:.2e}", flush=True)
+    if not (got == want and same_args and torch.isfinite(emb).all()
+            and tuple(emb.shape) == (2, 4, model.cfg.embed_dim)
+            and record["entry"]["max_norm_err"] < 1e-3):
+        fail(f"phase 44 entry: launches {got}, args {same_args}, shape {tuple(emb.shape)}")
+    del model, args, emb
+    torch.cuda.empty_cache()
+    return record, paths
+
+
+def check_dryrun_kernels(xgen: torch.Generator) -> list[dict]:
+    """Phase 3, the shapes of phase 44 (inputs from ``xgen``): K1 bf16 at
+    entry()'s [8, 257, 3072] (ViT-L-14, 16 heads); at the 2-D dry run's
+    shards of ViT-Test/tiny ([16, 17, 96], 2 heads of 16: the bf16 embed,
+    and in float32 the int8_static TP) and of EVA-Test-Wide with RoPE ([2,
+    17, 192], 2 heads of 32); K2 at EVA-Test-Wide's TP data row [34, 128];
+    K1 bf16 at the 1-D dry run's shard [8, 17, 192] (4 heads)."""
+    import dataclasses
+
+    from clip_assisted_data_labeling_tpu_torch.models.vit import resolve_config
+
+    bf16 = (torch.bfloat16, 2e-2, H100_BF16_FLOPS, None)
+    f32tc = (torch.float32, 1e-5, H100_3XTF32_FLOPS, H100_F32_FLOPS)
+    tiny, eva = resolve_config("ViT-Test/tiny"), resolve_config("EVA-Test-Wide/tiny")
+    tiny_half = dataclasses.replace(tiny, width=tiny.width // 2, heads=tiny.heads // 2)
+    eva_half = dataclasses.replace(eva, width=eva.width // 2, heads=eva.heads // 2)
+    rows = [attention_case("K1", resolve_config(L14), 8, bf16, False, ("entry", "K1"), xgen),
+            attention_case("K1", tiny_half, 16, bf16, False, ("dryrun4", "K1"), xgen),
+            attention_case("K1", tiny_half, 16, f32tc, False, ("dryrun4", "K1"), xgen),
+            attention_case("K1", eva_half, 2, bf16, True, ("dryrun4", "K1"), xgen),
+            attention_case("K1", tiny, 8, bf16, False, ("dryrun2", "K1"), xgen)]
+    g = 1 + 0.1 * torch.randn((eva.width,), generator=xgen, device="cuda")
+    bta = 0.1 * torch.randn((eva.width,), generator=xgen, device="cuda")
+    rows.append(rowquant_static_case(2 * eva.seq_len, eva.width, g, bta,
+                                     torch.tensor([6.0], device="cuda"), ("dryrun4", "K2"),
+                                     xgen))
+    for r in rows:
+        if not (r["max_abs_err"] <= r["tol"]):
+            fail(f"{r['name']} {r['case']} disagrees with its plain version: {r['max_abs_err']}")
+    return rows
+
+
 # mangled builtin types and classes a kernel's template arguments name
 MANGLED_TYPES = {"f": "f32", "a": "i8", "__nv_bfloat16": "bf16"}
 
@@ -3638,7 +4142,14 @@ def check_no_jax() -> None:
         fail("JAX or the JAX package was imported")
 
 
+def elapsed(t_start: float, phases: str) -> None:
+    """The script's seconds so far, as the named phases start (the whole run
+    has a time limit; these lines say which phases spend it)."""
+    print(f"[{time.perf_counter() - t_start:.1f} s] phases {phases}", flush=True)
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False — this smoke run needs an NVIDIA card", 2)
     try:
@@ -3661,6 +4172,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    elapsed(t_start, "2")
     # --- phase 2: build ---------------------------------------------------
     t0 = time.perf_counter()
     logs = _cuda_build.build_all()
@@ -3670,23 +4182,28 @@ def main() -> None:
             print(f"  {line}")
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    elapsed(t_start, "3")
     # --- phase 3: kernels against their plain versions ----------------------
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = check_kernels(gen, *(torch.Generator(device="cuda").manual_seed(i)
                                 for i in (1, 2, 3, 4, 5, 6, 7)))
     rows += check_tower_kernels(torch.Generator(device="cuda").manual_seed(8))
     rows += check_parallel_kernels(torch.Generator(device="cuda").manual_seed(9))
+    rows += check_dryrun_kernels(torch.Generator(device="cuda").manual_seed(10))
     quant_out_long_sequences()
     torch.cuda.empty_cache()
 
     cfg, scfg = resolve_config(MODEL), resolve_config(SIGLIP)
     pcfg, gcfg = resolve_config(PE_L), resolve_config(PE_G)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as root:
+    with (tempfile.TemporaryDirectory(prefix="chip_smoke_") as root,
+          tempfile.TemporaryDirectory(prefix="chip_smoke_stages_") as stages_base):
         write_pngs(root)
 
+        elapsed(t_start, "5-6")
         # --- phases 5-6: ViT-L-14-336 int8_static: K1 once and K2 twice a
         # layer; the calibration forward runs the XLA-style attention, no kernel
         l336 = embed_and_check(root, MODEL, cfg, {"K1": cfg.layers, "K2": 2 * cfg.layers})
+        elapsed(t_start, "7")
         # --- phase 7: float32 paths on a few images: L-336 takes K4 (the JAX
         # package's grouped route for its shape), L-14 at 224 px K1
         l336_f32 = encoder_run(MODEL, "float32", l336["pts"], l336["side"], cfg,
@@ -3695,19 +4212,23 @@ def main() -> None:
         l14_f32 = encoder_run(L14, "float32", l336["pts"], None, l14cfg, {"K1": l14cfg.layers},
                               timed=True, cpu_ref=True)
 
+        elapsed(t_start, "7a-7b")
         # --- phases 7a-7b: ViT-L-14-336 dynamic int8 in every block route
         dyn, dyn_routes = dynamic_int8(root, cfg, l336)
 
+        elapsed(t_start, "8-9")
         # --- phases 8-9: ViT-SO400M-14-SigLIP-384 int8_static through the int8
         # attention wire (K3 a layer), then bfloat16 (K5 a layer)
         so400m = embed_and_check(root, SIGLIP, scfg, {"K3": scfg.layers})
         bf16 = encoder_run(SIGLIP, "bfloat16", so400m["pts"], so400m["side"], scfg,
                            {"K5": scfg.layers}, timed=True)
+        elapsed(t_start, "9a")
         # --- phase 9a: its float32 path (K5's float32 kernel a layer), held
         # against the same encoder on the CPU on one image
         so400m_f32 = encoder_run(SIGLIP, "float32", so400m["pts"], so400m["side"], scfg,
                                  {"K5": scfg.layers}, timed=True, cpu_ref=True, cpu_images=1)
 
+        elapsed(t_start, "10-11")
         # --- phases 10-11: PE-Core-L14-336 int8_static (K1 with RoPE once and
         # K2 twice a layer), then its bf16 (K1) and float32 (K4) paths
         pe = embed_and_check(root, PE_L, pcfg, {"K1": pcfg.layers, "K2": 2 * pcfg.layers})
@@ -3715,13 +4236,16 @@ def main() -> None:
                               {"K1": pcfg.layers}, timed=True)
         pe_f32 = encoder_run(PE_L, "float32", pe["pts"], pe["side"], pcfg, {"K4": pcfg.layers},
                              timed=True)
+        elapsed(t_start, "12")
         # --- phase 12: PE-Core-G14-448 bf16, all 50 layers (K4 with RoPE)
         g14 = encoder_run(PE_G, "bfloat16", pe["pts"], None, gcfg, {"K4": gcfg.layers},
                           timed=True)
 
+        elapsed(t_start, "13")
         # --- phase 13: the int8_static routes of CTPU_LN_KERNEL and CTPU_INT8_WIRE
         routes = knob_routes(l336, so400m, cfg, scfg)
 
+        elapsed(t_start, "24-31")
         # --- phases 24-31: the rest of stage 1 on the ViT trunk: EVA02-L-336
         # int8_static through the CLI, EVA02-L f32 against the CPU, G14
         # int8_static, the CLIPA, EVA01, CoCa and EVA02-E towers, naflex with
@@ -3733,28 +4257,34 @@ def main() -> None:
         tower_paths["flags"] = embed_flags(root)
         decoder = native_decoder()
 
+        elapsed(t_start, "32-34")
         # --- phases 32-34: the modified ResNets and ConvNeXt (cuDNN convolutions
         # and torch products, as the JAX package runs XLA's: no kernel of the table)
         conv_records, conv_paths = conv_towers(root)
         tower_paths.update(conv_paths)
 
+        elapsed(t_start, "14-15")
         # --- phases 14-15: stage 2 (no kernel of the table: torch products)
         # at N = 262144, then the dedup CLI end to end on embedded PNGs
         dedup_records, phase14 = dedup_at_scale()
         with tempfile.TemporaryDirectory(prefix="chip_smoke_dedup_") as dedup_base:
             dedup_embed, phase15_rows = dedup_cli(root, dedup_base)
 
+            elapsed(t_start, "16-19")
             # --- phases 16-19: stages 4-6 (train, predict, the single-image
             # scorer: K1 through its bf16 encoder, subset) on a dataset of
             # their own, then phase 39: predict over a mesh on phase 17's rows
-            stage_records, scorer, phase39 = stages(root, phase15_rows)
+            stage_records, scorer, phase39, phase17_root = stages(root, phase15_rows,
+                                                                  stages_base)
 
+            elapsed(t_start, "20-23")
             # --- phases 20-23: prep, the store CLI on phase 15's sidecars, the
             # diversity order at scale and the loop (torch products, no kernel)
             loop_records = [prep_cli(root), store_rebuild(os.path.join(dedup_base, "mydata"))]
         loop_records += diversity_at_scale()
         loop_records.append(loop_cli())
 
+        elapsed(t_start, "36-40")
         # --- phases 36-40: the parallel layer on the one card (a repeated
         # device makes the mesh): data-parallel embed, tensor parallel, the
         # ring dedup (phase 38, at phase 14's N), then two processes over gloo
@@ -3765,6 +4295,19 @@ def main() -> None:
         mp = two_processes(root, l336)
         parallel_records = [dp["record"], *tp_records, *ring_records, phase39, mp]
 
+        elapsed(t_start, "41-44")
+        # --- phases 41-44: the tools (the host tools in processes of their own,
+        # the device tools on the card: torch products and a float64 solve, no
+        # kernel of the table) and the dry run with entry() (K1, K2)
+        tool_records = host_tools(root, l336["pts"][0])
+        elapsed(t_start, "42")
+        tool_records += search_at_scale(phase17_root)["records"]
+        elapsed(t_start, "43")
+        tool_records.append(latent_regressor_on_card())
+        elapsed(t_start, "44")
+        dry, dry_paths = dryrun_on_card()
+    elapsed(t_start, "done")
+
     # each row's launches: the counter its ``path`` names, read from that
     # main path; "all" (the kernels no path of the JAX package reaches) sums
     # the counter over every main path; None (a shape no path runs) is 0
@@ -3774,7 +4317,7 @@ def main() -> None:
              "pe": pe["launches"],
              "pe_f32": pe_f32, "g14": g14, "l336_ln0": routes[0], "l336_wire": routes[1],
              "so400m_wire0": routes[2], "scorer": scorer, **tower_paths,
-             "dp_l336": dp["launches"], **tp_paths}
+             "dp_l336": dp["launches"], **tp_paths, **dry_paths}
     # shapes that two paths run: K2's [9232, 1024] on phase 36's shards and
     # phase 37's L-336, K1's 8-head shard in phase 37's int8_static and bf16
     summed = {"l336_parallel": ("dp_l336", "tp_l336"),
@@ -3798,6 +4341,8 @@ def main() -> None:
     print(json.dumps({"native_decoder": decoder}))
     print(json.dumps({"conv_towers": conv_records}))
     print(json.dumps({"parallel": parallel_records}))
+    print(json.dumps({"tools": tool_records}))
+    print(json.dumps({"dryrun": dry}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -24,6 +24,11 @@ clip_assisted_data_labeling_tpu_torch`` prints the stage map.
   pipeline/  the stage CLIs (``python -m clip_assisted_data_labeling_tpu_torch.pipeline.<stage>``:
              prep, embed, dedup, label, train, predict, predict_simple, subset,
              loop, store)
+  parallel/  the device mesh, data-parallel embed and predict, the ring dedup,
+             tensor parallelism
+  tools/     similarity search, SVM ranking, the prompt-latent regressor,
+             dataset merge, subset, quarantine, the sidecar dump
+  dryrun.py  the flagship embed step and the multi-device dry run
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (CLI: ``--device cpu``); asking for the card where there is none raises.

@@ -18,13 +18,24 @@ Pipeline stages (python -m clip_assisted_data_labeling_tpu_torch.pipeline.<stage
   predict_simple  standalone per-image scorer
   store           columnar-store management (rebuild from sidecars / info; host)
 
-Every stage that touches the device runs on cuda unless given --device cpu;
-embed, dedup and predict --sharded use every local GPU, and embed and dedup
---distributed every process's (torch.distributed over gloo).
+Every stage and tool that touches the device, and the dry run, runs on cuda
+unless given --device cpu; embed, dedup and predict --sharded use every local
+GPU, and embed and dedup --distributed every process's (torch.distributed
+over gloo).
 
-Tools (find_similar_imgs, svm_similarity, merge_datasets, move_subset_of_files,
-fix_img_dir, investigate_embedding, train_latent_regressor): not ported yet;
-the JAX package's clip_assisted_data_labeling_tpu.tools.<tool> run them.
+Tools (python -m clip_assisted_data_labeling_tpu_torch.tools.<tool>):
+  find_similar_imgs       top-N images nearest a context set's mean embedding (GPU)
+  svm_similarity          top-N images by a balanced linear SVM's margin (GPU)
+  train_latent_regressor  prompt-latent -> score regressor (GPU)
+  merge_datasets          merge datasets into labeled/unlabeled splits (host)
+  move_subset_of_files    copy a seeded random fraction of a dataset (host)
+  fix_img_dir             quarantine unreadable images (host)
+  investigate_embedding   print a .pt sidecar's structure (host)
+
+Dry run (python -m clip_assisted_data_labeling_tpu_torch.dryrun --n_devices N):
+the multi-device sequence (data and tensor parallel embed, the ring dedup, a
+data-parallel regressor step, sharded predict) on tiny towers, each step
+against one device; dryrun.entry() is the flagship ViT-L-14 embed step.
 
 Docs: README.md (the port's section), PERF.md, ROADMAP.md.
 """

@@ -19,7 +19,7 @@ from clip_assisted_data_labeling_tpu_torch.models.regressor import (
 from clip_assisted_data_labeling_tpu_torch.parallel.mesh import Mesh
 
 
-def _net(params: list[dict], device: torch.device) -> SimpleFC:
+def net_from_params(params: list[dict], device: torch.device) -> SimpleFC:
     """The regressor network from the JAX layout's ``{"kernel": [in, out],
     "bias": [out]}`` layers, on ``device``."""
     kernels = [np.array(p["kernel"], np.float32) for p in params]
@@ -68,7 +68,7 @@ def predict_sharded(
     cv: dict[torch.device, torch.Tensor | None] = {}
     for d in devs:
         if d not in nets:
-            nets[d] = _net(params, d)
+            nets[d] = net_from_params(params, d)
             cv[d] = (None if class_values is None
                      else torch.tensor(class_values, dtype=torch.float32, device=d))
     chunk = max(n_dev, (batch_size // n_dev) * n_dev)

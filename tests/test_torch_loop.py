@@ -324,8 +324,14 @@ def test_package_entry_point_prints_the_stage_map_without_jax():
                   "predict_simple", "store"):
         assert f"\n  {stage} " in proc.stdout
     assert "python -m clip_assisted_data_labeling_tpu_torch.pipeline.<stage>" in proc.stdout
-    # the tools are the stage map's only "not ported yet"; no flag is refused
-    assert proc.stdout.count("not ported yet") == 1
-    assert "find_similar_imgs" in proc.stdout and "train_latent_regressor" in proc.stdout
+    # every tool is the port's own, as is the dry run; nothing is "not ported
+    # yet" and no flag is refused
+    assert "not ported yet" not in proc.stdout
+    for tool in ("find_similar_imgs", "svm_similarity", "train_latent_regressor",
+                 "merge_datasets", "move_subset_of_files", "fix_img_dir",
+                 "investigate_embedding"):
+        assert f"\n  {tool} " in proc.stdout
+    assert "python -m clip_assisted_data_labeling_tpu_torch.tools.<tool>" in proc.stdout
+    assert "python -m clip_assisted_data_labeling_tpu_torch.dryrun" in proc.stdout
     assert "refused" not in proc.stdout and "--host_count" not in proc.stdout
     assert not _imported(proc.stderr) & {"jax", "torch", "clip_assisted_data_labeling_tpu"}
