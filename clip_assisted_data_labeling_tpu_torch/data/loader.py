@@ -9,6 +9,8 @@
     (data/png.py); anything else raises and the file is skipped and
     reported. PNG is lossless, so the last three give the same pixels.
     ``BatchedImageLoader.decoders`` counts the files each decoder took.
+    Spans (``utils/timer``): ``decode`` each file a worker decodes,
+    ``decode_native`` each native batch, ``probe`` the header probes.
   * Images larger than the canvas are pre-downscaled (cv2 INTER_AREA, else
     PIL's box filter, else a numpy box filter).
   * Batches have static shapes (canvas [B, c, c, 3] uint8); the final
@@ -34,6 +36,7 @@ from clip_assisted_data_labeling_tpu_torch.data.native_loader import decode_batc
 from clip_assisted_data_labeling_tpu_torch.data.png import is_png, read_png
 from clip_assisted_data_labeling_tpu_torch.ops.crops import make_crop_params
 from clip_assisted_data_labeling_tpu_torch.ops.image_stats import make_stat_params
+from clip_assisted_data_labeling_tpu_torch.utils.timer import span
 
 log = logging.getLogger(__name__)
 
@@ -125,12 +128,13 @@ def fit_to_canvas(img: np.ndarray, canvas_size: int):
 
 
 def _decode_one(path: str, canvas_size: int):
-    try:
-        img = decode_rgb(path)
-    except Exception as e:  # a bad file is skipped and reported, not fatal
-        log.warning("Could not decode %s: %s", path, e)
-        return None
-    return fit_to_canvas(img, canvas_size)
+    with span("decode", 1):
+        try:
+            img = decode_rgb(path)
+        except Exception as e:  # a bad file is skipped and reported, not fatal
+            log.warning("Could not decode %s: %s", path, e)
+            return None
+        return fit_to_canvas(img, canvas_size)
 
 
 def _probe_size(path: str) -> int | None:
@@ -189,7 +193,7 @@ class BatchedImageLoader:
             s = _probe_size(p)
             return c + 1 if s is None else min(s, c)
 
-        with ThreadPoolExecutor(self.num_workers) as pool:
+        with span("probe", len(paths)), ThreadPoolExecutor(self.num_workers) as pool:
             sizes = list(pool.map(key, paths))
         return [p for _s, p in sorted(zip(sizes, paths))]
 
@@ -202,7 +206,10 @@ class BatchedImageLoader:
         # and each file it is handed costs a zeroed canvas slot
         jpegs = ([i for i, p in enumerate(chunk) if p.lower().endswith((".jpg", ".jpeg"))]
                  if self.use_native else [])
-        native = decode_batch_native([chunk[i] for i in jpegs], c, self.num_workers) if jpegs else None
+        native = None
+        if jpegs:
+            with span("decode_native", len(jpegs)):
+                native = decode_batch_native([chunk[i] for i in jpegs], c, self.num_workers)
         slots = ({i: k for k, i in enumerate(jpegs) if native[1][k, 0] > 0}
                  if native is not None else {})
         retry = [i for i in range(len(chunk)) if i not in slots]

@@ -74,6 +74,7 @@ from clip_assisted_data_labeling_tpu_torch.models.vit import (
 from clip_assisted_data_labeling_tpu_torch.ops.crops import fused_crop_resize_normalize
 from clip_assisted_data_labeling_tpu_torch.ops.quant import is_quantized, quantize_vit_params
 from clip_assisted_data_labeling_tpu_torch.utils.device import resolve_device
+from clip_assisted_data_labeling_tpu_torch.utils.timer import layer, span
 
 log = logging.getLogger(__name__)
 
@@ -92,6 +93,16 @@ ORBAX_NEEDS_JAX = (
 def _stable_seed(name: str) -> int:
     # hash the WHOLE name so same-geometry towers get different random weights
     return zlib.crc32(name.encode()) % (2**31)
+
+
+def _settled(params: dict) -> dict:
+    """``params`` once the card's work on them has finished, so that the span
+    that made them holds their device time (host tensors pass at once)."""
+    for leaf in params.values():
+        if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+            torch.cuda.synchronize(leaf.device)
+            break
+    return params
 
 
 def calibration_file(model_name: str, directory: str) -> str:
@@ -224,10 +235,12 @@ class CLIPImageEncoder:
             if fam:
                 if not fam.is_quantized(params):
                     log.info("Quantizing %s %s to W8A8", model_name, fam.int8_sites)
-                    params = fam.quantize(params)
+                    with span("quantize_weights"):
+                        params = _settled(fam.quantize(params))
             elif not is_quantized(params):
                 log.info("Quantizing %s weights to W8A8", model_name)
-                params = quantize_vit_params(params)
+                with span("quantize_weights"):
+                    params = _settled(quantize_vit_params(params))
         self.model = clip_weights.module_from_params(params, cfg, self.device)
 
     @property
@@ -337,12 +350,14 @@ class CLIPImageEncoder:
         ``calibration_path`` when set."""
         if not self.static_quant or self.model.calibrated or self.load_calibration():
             return
-        if self.family:
-            log.info("Calibrating %s static int8 scales on the first batch", self.family.label)
-            amax = self.family.act_amax(self.model, images, self.compute_dtype)
-        else:
-            log.info("Calibrating static int8 activation scales on the first batch")
-            amax = vit_act_amax(self.model, images, self.compute_dtype)
+        with span("calibrate", images.shape[0]):
+            if self.family:
+                log.info("Calibrating %s static int8 scales on the first batch",
+                         self.family.label)
+                amax = self.family.act_amax(self.model, images, self.compute_dtype)
+            else:
+                log.info("Calibrating static int8 activation scales on the first batch")
+                amax = vit_act_amax(self.model, images, self.compute_dtype)
         if self.calibration_path:
             save_calibration(self.calibration_path, amax, self.model_name)
             log.info("Saved static int8 calibration to %s", self.calibration_path)
@@ -353,17 +368,19 @@ class CLIPImageEncoder:
         """[B, C, C, 3] uint8 + [B, n_crops, 2, 4] → [B, n_crops, D] float32 on
         the device (asynchronous on the card). Every family takes the same
         [B·n, R, R, 3] crops."""
-        canvas = torch.as_tensor(canvas_u8).to(self.device, non_blocking=True)
-        params = torch.as_tensor(crop_params).to(self.device, non_blocking=True)
-        crops = fused_crop_resize_normalize(
-            canvas, params, out_size=self.cfg.image_size, parity=self.parity_preprocess,
-            dtype=self.compute_dtype, mean=self.cfg.norm_mean, std=self.cfg.norm_std,
-        )
+        with layer("crops"):
+            canvas = torch.as_tensor(canvas_u8).to(self.device, non_blocking=True)
+            params = torch.as_tensor(crop_params).to(self.device, non_blocking=True)
+            crops = fused_crop_resize_normalize(
+                canvas, params, out_size=self.cfg.image_size, parity=self.parity_preprocess,
+                dtype=self.compute_dtype, mean=self.cfg.norm_mean, std=self.cfg.norm_std,
+            )
         b, n = crops.shape[:2]
         flat = crops.reshape((b * n,) + crops.shape[2:])
         self._maybe_calibrate(flat)
         encode = self.family.encode if self.family else vit_encode_image
-        emb = encode(self.model, flat, self.compute_dtype, debug_nans=self.debug_nans)
+        with layer("forward"):
+            emb = encode(self.model, flat, self.compute_dtype, debug_nans=self.debug_nans)
         return emb.reshape(b, n, -1)
 
     def encode_variable(self, images: list) -> torch.Tensor:

@@ -48,6 +48,13 @@ same ``[in, out]`` kernels), one ``VitBlock`` per layer instead of the stacked
 are not padded: the kernels take any sequence length and mask the ragged
 tail themselves. With ``debug_nans`` the forward checks every block's output
 and the readout and raises ``FloatingPointError`` at the first NaN.
+
+Profiler ranges (``utils/timer.layer``, on under ``--profile_dir``): ``block``
+for each block, and inside each block route ``ln``, ``qkv``, ``attention``,
+``out``, ``fc1`` and ``fc2``. A GEMM's range holds its int8 product and its
+epilogue passes; ``fc1`` also the activation, and a GEMM's the static
+quantize of its input where no layernorm writes it (K2 and the wire block's
+ln1 quantize inside ``ln``).
 """
 from __future__ import annotations
 
@@ -90,6 +97,7 @@ from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import (
     rowquant,
     rowquant_static,
 )
+from clip_assisted_data_labeling_tpu_torch.utils.timer import layer
 
 
 @dataclasses.dataclass(frozen=True)
@@ -698,27 +706,37 @@ def _block_generic(x, blk: VitBlock, cfg: VitConfig, rope=None):
     the matmuls, in x's dtype, and int8 blocks take the tanh gelu."""
     a = blk.act_amax if blk.static else None
     post = cfg.block_norm == "post"
-    y = x if post else _layernorm(x, blk.ln1_scale, blk.ln1_bias, cfg.ln_eps)
-    qkv = _linear(y, blk, "qkv_kernel", act_amax=None if a is None else a[0])
-    attn = packed_attention_auto(qkv, heads=cfg.heads, scale=cfg.head_dim ** -0.5, rope=rope)
-    if cfg.attn_inner_ln:
-        attn = _layernorm(attn, blk.attn_ln_scale, blk.attn_ln_bias, cfg.ln_eps)
-    attn_out = _linear(attn, blk, "out_kernel", act_amax=None if a is None else a[1])
-    if post:
-        attn_out = _layernorm(attn_out, blk.ln1_scale, blk.ln1_bias, cfg.ln_eps)
-    x = x + attn_out
-    y = x if post else _layernorm(x, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
+    with layer("ln"):
+        y = x if post else _layernorm(x, blk.ln1_scale, blk.ln1_bias, cfg.ln_eps)
+    with layer("qkv"):
+        qkv = _linear(y, blk, "qkv_kernel", act_amax=None if a is None else a[0])
+    with layer("attention"):
+        attn = packed_attention_auto(qkv, heads=cfg.heads, scale=cfg.head_dim ** -0.5,
+                                     rope=rope)
+        if cfg.attn_inner_ln:
+            attn = _layernorm(attn, blk.attn_ln_scale, blk.attn_ln_bias, cfg.ln_eps)
+    with layer("out"):
+        attn_out = _linear(attn, blk, "out_kernel", act_amax=None if a is None else a[1])
+        if post:
+            attn_out = _layernorm(attn_out, blk.ln1_scale, blk.ln1_bias, cfg.ln_eps)
+        x = x + attn_out
+    with layer("ln"):
+        y = x if post else _layernorm(x, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
     if cfg.mlp_type == "swiglu":
-        return x + _linear(_swiglu_hidden(_linear(y, blk, "fc1_kernel"), blk, cfg), blk,
-                           "fc2_kernel")
-    y = _act(_linear(y, blk, "fc1_kernel", act_amax=None if a is None else a[2]), cfg.act,
-             quantized=blk.quantized)
-    if post:
-        mlp_out = _linear(y, blk, "fc2_kernel", act_amax=None if a is None else a[3])
-        return x + _layernorm(mlp_out, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
-    if a is not None:
-        return _linear(y, blk, "fc2_kernel", residual=x, act_amax=a[3])
-    return x + _linear(y, blk, "fc2_kernel")
+        with layer("fc1"):
+            g = _swiglu_hidden(_linear(y, blk, "fc1_kernel"), blk, cfg)
+        with layer("fc2"):
+            return x + _linear(g, blk, "fc2_kernel")
+    with layer("fc1"):
+        y = _act(_linear(y, blk, "fc1_kernel", act_amax=None if a is None else a[2]), cfg.act,
+                 quantized=blk.quantized)
+    with layer("fc2"):
+        if post:
+            mlp_out = _linear(y, blk, "fc2_kernel", act_amax=None if a is None else a[3])
+            return x + _layernorm(mlp_out, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
+        if a is not None:
+            return _linear(y, blk, "fc2_kernel", residual=x, act_amax=a[3])
+        return x + _linear(y, blk, "fc2_kernel")
 
 
 def _block_int8_xla(x, blk: VitBlock, cfg: VitConfig):
@@ -727,18 +745,25 @@ def _block_int8_xla(x, blk: VitBlock, cfg: VitConfig):
     projection over K1's int8 output and per-token scales with the residual
     in its float32 epilogue; ln1 and ln2 as plain layernorms; tanh gelu."""
     B, S, w = x.shape
-    y = _layernorm(x, blk.ln1_scale, blk.ln1_bias, cfg.ln_eps)
-    qkv = q_matmul(y, blk.qkv_kernel, blk.qkv_kernel_scale, blk.qkv_bias, out_dtype=x.dtype)
-    attn_q, attn_s = fused_attention_packed(qkv, cfg.heads, cfg.head_dim ** -0.5,
-                                            quant_out=True)
-    x = q_matmul_pre(attn_q.reshape(B * S, w), attn_s.reshape(B * S, 1), blk.out_kernel,
-                     blk.out_kernel_scale, blk.out_bias,
-                     residual=x.reshape(B * S, w)).reshape(B, S, w)
-    y = _layernorm(x, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
-    y = _act(q_matmul(y, blk.fc1_kernel, blk.fc1_kernel_scale, blk.fc1_bias, out_dtype=x.dtype),
-             cfg.act, quantized=True)
-    return x + q_matmul(y, blk.fc2_kernel, blk.fc2_kernel_scale, blk.fc2_bias,
-                        out_dtype=x.dtype)
+    with layer("ln"):
+        y = _layernorm(x, blk.ln1_scale, blk.ln1_bias, cfg.ln_eps)
+    with layer("qkv"):
+        qkv = q_matmul(y, blk.qkv_kernel, blk.qkv_kernel_scale, blk.qkv_bias, out_dtype=x.dtype)
+    with layer("attention"):
+        attn_q, attn_s = fused_attention_packed(qkv, cfg.heads, cfg.head_dim ** -0.5,
+                                                quant_out=True)
+    with layer("out"):
+        x = q_matmul_pre(attn_q.reshape(B * S, w), attn_s.reshape(B * S, 1), blk.out_kernel,
+                         blk.out_kernel_scale, blk.out_bias,
+                         residual=x.reshape(B * S, w)).reshape(B, S, w)
+    with layer("ln"):
+        y = _layernorm(x, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
+    with layer("fc1"):
+        y = _act(q_matmul(y, blk.fc1_kernel, blk.fc1_kernel_scale, blk.fc1_bias,
+                          out_dtype=x.dtype), cfg.act, quantized=True)
+    with layer("fc2"):
+        return x + q_matmul(y, blk.fc2_kernel, blk.fc2_kernel_scale, blk.fc2_bias,
+                            out_dtype=x.dtype)
 
 
 def _block_int8_fused(x, blk: VitBlock, cfg: VitConfig):
@@ -749,16 +774,24 @@ def _block_int8_fused(x, blk: VitBlock, cfg: VitConfig):
     the out-projection and fc2 epilogues; K1 with ``quant_out``."""
     B, S, w = x.shape
     x2 = x.reshape(B * S, w)
-    xq, xs = rowquant(x2, blk.ln1_scale, blk.ln1_bias, ln_eps=cfg.ln_eps)
-    qkv = q_matmul_pre(xq, xs, blk.qkv_kernel, blk.qkv_kernel_scale, blk.qkv_bias)
-    attn_q, attn_s = fused_attention_packed(qkv.reshape(B, S, 3 * w), cfg.heads,
-                                            cfg.head_dim ** -0.5, quant_out=True)
-    x2 = q_matmul_pre(attn_q.reshape(B * S, w), attn_s.reshape(B * S, 1), blk.out_kernel,
-                      blk.out_kernel_scale, blk.out_bias, residual=x2)
-    hq, hs = rowquant(x2, blk.ln2_scale, blk.ln2_bias, ln_eps=cfg.ln_eps)
-    h = q_matmul_pre(hq, hs, blk.fc1_kernel, blk.fc1_kernel_scale, blk.fc1_bias)
-    gq, gs = rowquant(h, act=cfg.act)
-    x2 = q_matmul_pre(gq, gs, blk.fc2_kernel, blk.fc2_kernel_scale, blk.fc2_bias, residual=x2)
+    with layer("ln"):
+        xq, xs = rowquant(x2, blk.ln1_scale, blk.ln1_bias, ln_eps=cfg.ln_eps)
+    with layer("qkv"):
+        qkv = q_matmul_pre(xq, xs, blk.qkv_kernel, blk.qkv_kernel_scale, blk.qkv_bias)
+    with layer("attention"):
+        attn_q, attn_s = fused_attention_packed(qkv.reshape(B, S, 3 * w), cfg.heads,
+                                                cfg.head_dim ** -0.5, quant_out=True)
+    with layer("out"):
+        x2 = q_matmul_pre(attn_q.reshape(B * S, w), attn_s.reshape(B * S, 1), blk.out_kernel,
+                          blk.out_kernel_scale, blk.out_bias, residual=x2)
+    with layer("ln"):
+        hq, hs = rowquant(x2, blk.ln2_scale, blk.ln2_bias, ln_eps=cfg.ln_eps)
+    with layer("fc1"):
+        h = q_matmul_pre(hq, hs, blk.fc1_kernel, blk.fc1_kernel_scale, blk.fc1_bias)
+        gq, gs = rowquant(h, act=cfg.act)
+    with layer("fc2"):
+        x2 = q_matmul_pre(gq, gs, blk.fc2_kernel, blk.fc2_kernel_scale, blk.fc2_bias,
+                          residual=x2)
     return x2.reshape(B, S, w)
 
 
@@ -774,25 +807,33 @@ def _block_int8_static_lnk(x, blk: VitBlock, cfg: VitConfig, rope=None):
     a = blk.act_amax
     inv127 = 1.0 / 127.0
     x2 = x.reshape(B * S, w)
-    xq = rowquant_static(x2, blk.ln1_scale, blk.ln1_bias, a[0:1], ln_eps=cfg.ln_eps)
-    qkv = q_matmul_pre(xq, a[0] * inv127, blk.qkv_kernel, blk.qkv_kernel_scale,
-                       blk.qkv_bias)
-    attn = packed_attention_auto(qkv.reshape(B, S, 3 * w), heads=cfg.heads,
-                                 scale=cfg.head_dim ** -0.5, rope=rope).reshape(B * S, w)
-    if cfg.attn_inner_ln:
-        attn_q = rowquant_static(attn, blk.attn_ln_scale, blk.attn_ln_bias, a[1:2],
-                                 ln_eps=cfg.ln_eps)
-        x2 = x2 + q_matmul_pre(attn_q, a[1] * inv127, blk.out_kernel, blk.out_kernel_scale,
-                               blk.out_bias, out_dtype=x.dtype)
-    else:
-        x2 = x2 + _linear(attn, blk, "out_kernel", act_amax=a[1])
-    hq = rowquant_static(x2, blk.ln2_scale, blk.ln2_bias, a[2:3], ln_eps=cfg.ln_eps)
-    h = q_matmul_pre(hq, a[2] * inv127, blk.fc1_kernel, blk.fc1_kernel_scale, blk.fc1_bias)
-    if cfg.mlp_type == "swiglu":
-        g = _swiglu_hidden(h, blk, cfg)
-    else:
-        g = _act(h, cfg.act, quantized=True)
-    return _linear(g, blk, "fc2_kernel", residual=x2, act_amax=a[3]).reshape(B, S, w)
+    with layer("ln"):
+        xq = rowquant_static(x2, blk.ln1_scale, blk.ln1_bias, a[0:1], ln_eps=cfg.ln_eps)
+    with layer("qkv"):
+        qkv = q_matmul_pre(xq, a[0] * inv127, blk.qkv_kernel, blk.qkv_kernel_scale,
+                           blk.qkv_bias)
+    with layer("attention"):
+        attn = packed_attention_auto(qkv.reshape(B, S, 3 * w), heads=cfg.heads,
+                                     scale=cfg.head_dim ** -0.5, rope=rope).reshape(B * S, w)
+    with layer("out"):
+        if cfg.attn_inner_ln:
+            attn_q = rowquant_static(attn, blk.attn_ln_scale, blk.attn_ln_bias, a[1:2],
+                                     ln_eps=cfg.ln_eps)
+            x2 = x2 + q_matmul_pre(attn_q, a[1] * inv127, blk.out_kernel,
+                                   blk.out_kernel_scale, blk.out_bias, out_dtype=x.dtype)
+        else:
+            x2 = x2 + _linear(attn, blk, "out_kernel", act_amax=a[1])
+    with layer("ln"):
+        hq = rowquant_static(x2, blk.ln2_scale, blk.ln2_bias, a[2:3], ln_eps=cfg.ln_eps)
+    with layer("fc1"):
+        h = q_matmul_pre(hq, a[2] * inv127, blk.fc1_kernel, blk.fc1_kernel_scale,
+                         blk.fc1_bias)
+        if cfg.mlp_type == "swiglu":
+            g = _swiglu_hidden(h, blk, cfg)
+        else:
+            g = _act(h, cfg.act, quantized=True)
+    with layer("fc2"):
+        return _linear(g, blk, "fc2_kernel", residual=x2, act_amax=a[3]).reshape(B, S, w)
 
 
 def _block_int8_static_wire(x, blk: VitBlock, cfg: VitConfig):
@@ -806,20 +847,28 @@ def _block_int8_static_wire(x, blk: VitBlock, cfg: VitConfig):
     B, S, w = x.shape
     a, qa = blk.act_amax, blk.qkv_amax
     inv127 = 1.0 / 127.0
-    y = _layernorm(x, blk.ln1_scale, blk.ln1_bias, cfg.ln_eps)
-    yq = quant_static(y, a[0]).reshape(B * S, w)
-    qkv_f = q_matmul_pre(yq, a[0] * inv127, blk.qkv_kernel, blk.qkv_kernel_scale,
-                         blk.qkv_bias, out_dtype=torch.float32)
-    qkv_q = quant_static(qkv_f, qa).reshape(B, S, 3 * w)
-    # in float32 as in the JAX package; qa[2w:] / a[1] is one tensor division
-    cs = torch.cat([qa[:w] * (inv127 * cfg.head_dim ** -0.5), qa[w:2 * w] * inv127,
-                    qa[2 * w:] / a[1]])
-    attn_q = fused_attention_packed_q8s(qkv_q, cs, heads=cfg.heads)
-    x = x + q_matmul_pre(attn_q.reshape(B * S, w), a[1] * inv127, blk.out_kernel,
-                         blk.out_kernel_scale, blk.out_bias, out_dtype=x.dtype).reshape(B, S, w)
-    y = _layernorm(x, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
-    g = _act(_linear(y, blk, "fc1_kernel", act_amax=a[2]), cfg.act, quantized=True)
-    return _linear(g, blk, "fc2_kernel", residual=x, act_amax=a[3])
+    with layer("ln"):
+        y = _layernorm(x, blk.ln1_scale, blk.ln1_bias, cfg.ln_eps)
+        yq = quant_static(y, a[0]).reshape(B * S, w)
+    with layer("qkv"):
+        qkv_f = q_matmul_pre(yq, a[0] * inv127, blk.qkv_kernel, blk.qkv_kernel_scale,
+                             blk.qkv_bias, out_dtype=torch.float32)
+        qkv_q = quant_static(qkv_f, qa).reshape(B, S, 3 * w)
+    with layer("attention"):
+        # in float32 as in the JAX package; qa[2w:] / a[1] is one tensor division
+        cs = torch.cat([qa[:w] * (inv127 * cfg.head_dim ** -0.5), qa[w:2 * w] * inv127,
+                        qa[2 * w:] / a[1]])
+        attn_q = fused_attention_packed_q8s(qkv_q, cs, heads=cfg.heads)
+    with layer("out"):
+        x = x + q_matmul_pre(attn_q.reshape(B * S, w), a[1] * inv127, blk.out_kernel,
+                             blk.out_kernel_scale, blk.out_bias,
+                             out_dtype=x.dtype).reshape(B, S, w)
+    with layer("ln"):
+        y = _layernorm(x, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
+    with layer("fc1"):
+        g = _act(_linear(y, blk, "fc1_kernel", act_amax=a[2]), cfg.act, quantized=True)
+    with layer("fc2"):
+        return _linear(g, blk, "fc2_kernel", residual=x, act_amax=a[3])
 
 
 def _int8_block_mode() -> str:
@@ -870,15 +919,16 @@ def _block(x, blk: VitBlock, cfg: VitConfig, rope=None):
     """One block, by :func:`block_route`. ``rope``: the (cos, sin) tables of
     a RoPE tower, or None."""
     route = block_route(blk, cfg, rope)
-    if route == "wire":
-        return _block_int8_static_wire(x, blk, cfg)
-    if route == "lnk":
-        return _block_int8_static_lnk(x, blk, cfg, rope)
-    if route == "hybrid":
-        return _block_int8_fused(x, blk, cfg)
-    if route == "xla":
-        return _block_int8_xla(x, blk, cfg)
-    return _block_generic(x, blk, cfg, rope)
+    with layer("block"):
+        if route == "wire":
+            return _block_int8_static_wire(x, blk, cfg)
+        if route == "lnk":
+            return _block_int8_static_lnk(x, blk, cfg, rope)
+        if route == "hybrid":
+            return _block_int8_fused(x, blk, cfg)
+        if route == "xla":
+            return _block_int8_xla(x, blk, cfg)
+        return _block_generic(x, blk, cfg, rope)
 
 
 @functools.lru_cache(maxsize=8)

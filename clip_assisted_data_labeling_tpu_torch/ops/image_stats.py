@@ -25,6 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from clip_assisted_data_labeling_tpu_torch.utils.timer import layer
+
 STAT_SIZE = 768  # the reference targets 768*768 total pixels
 GRID_ROWS, GRID_COLS = 1536, 768
 _EPS = float(np.finfo(np.float64).eps)  # the reference uses np.finfo(float).eps
@@ -128,7 +130,13 @@ def _rgb_quirky_hsv(img: torch.Tensor):
 
 
 def image_stats_batch(canvas_u8: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
-    """[B, C, C, 3] uint8 canvases + [B, 8] params → [B, 22] float32 features."""
+    """[B, C, C, 3] uint8 canvases + [B, 8] params → [B, 22] float32 features
+    (the profiler range ``stats``)."""
+    with layer("stats"):
+        return _stats_batch(canvas_u8, params)
+
+
+def _stats_batch(canvas_u8: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
     canvas = canvas_u8.to(torch.float32)
     params = params.to(device=canvas.device, dtype=torch.float32)
     bsz, csize = canvas.shape[0], canvas.shape[1]

@@ -320,10 +320,12 @@ def find_duplicate_pairs(
     every candidate is rechecked in float32 on the host, so the reported pair
     set and metrics are exact and the same for both wires.
 
-    ``timer``, where given, takes the seconds of ``prepare`` (host
-    normalization and quantization, and the upload), ``scan`` and
-    ``extract`` (with the host recheck). Peak device memory is
-    O(row_block² + N·D).
+    ``timer``, where given, takes the seconds of ``prepare`` (within it
+    ``normalize``: the host normalization and the row pad; ``quantize_rows``:
+    the int8 quantization or the float16 cast, and the width pad;
+    ``upload``), ``scan`` and ``extract`` (within it ``topk``: the hit
+    panels, their uploads, the device top-k and its read back; ``recheck``:
+    the host float32 recheck). Peak device memory is O(row_block² + N·D).
     """
     if wire not in ("int8", "fp16"):
         raise ValueError(f"wire must be 'int8' or 'fp16', got {wire!r}")
@@ -340,25 +342,30 @@ def find_duplicate_pairs(
         threshold, euclidean, INT8_SLACK if int8_wire else FP16_SLACK)
 
     with timer.time("prepare", n):
-        normed = normalize_rows(embeddings)
         # panels of a multiple of 8 rows, and the width padded with zero
         # columns to a multiple of 8 (torch._int_mm's shapes; zeros change no
         # dot product and no row's scale)
         b = -(-min(row_block, max(128, n)) // 8) * 8
         n_panels = -(-n // b)
         n_pad = n_panels * b
-        if n_pad != n:
-            normed = np.pad(normed, ((0, n_pad - n), (0, 0)))
+        with timer.time("normalize", n):
+            normed = normalize_rows(embeddings)
+            if n_pad != n:
+                normed = np.pad(normed, ((0, n_pad - n), (0, 0)))
         pad_d = -normed.shape[1] % 8
 
         def widen(a: np.ndarray) -> np.ndarray:
             return np.pad(a, ((0, 0), (0, pad_d))) if pad_d else a
 
-        if int8_wire:
-            q, s_row = quantize_rows_int8(normed)
-            wired = _Wire(widen(q), s_row, dev, euclidean)
-        else:
-            wired = _Wire(widen(normed.astype(np.float16)), None, dev, euclidean)
+        with timer.time("quantize_rows", n):
+            if int8_wire:
+                q, s_row = quantize_rows_int8(normed)
+                rows, scales = widen(q), s_row
+            else:
+                rows, scales = widen(normed.astype(np.float16)), None
+        with timer.time("upload", n):
+            wired = _Wire(rows, scales, dev, euclidean)
+        del rows  # the host copy of the wire is not needed past the upload
     with torch.inference_mode():
         with timer.time("scan", n):
             counts = _scan_counts(wired, b, n_panels, n, scan_threshold)
@@ -377,18 +384,20 @@ def find_duplicate_pairs(
         with timer.time("extract", len(hit)):
             for c0 in range(0, len(hit), chunk):
                 hc = hit[c0:c0 + chunk]
-                if int8_wire:
-                    panel, hit_s, gidx = build_hit_panel_q(hc, q, s_row, n_pad)
-                    hit_s = torch.from_numpy(hit_s).to(dev)
-                else:
-                    panel, gidx = build_hit_panel(hc, normed, n_pad, dtype=np.float16)
-                    hit_s = None
-                panel = torch.from_numpy(widen(panel)).to(dev)
-                v, j = _extract_chunk(wired, panel, hit_s, torch.from_numpy(gidx).to(dev),
-                                      b, n_panels, n, k)
-                r, c, m = filter_and_recheck(v[: len(hc)].cpu().numpy(),
-                                             j[: len(hc)].cpu().numpy(), hc, normed,
-                                             scan_threshold, threshold, euclidean)
+                with timer.time("topk", len(hc)):
+                    if int8_wire:
+                        panel, hit_s, gidx = build_hit_panel_q(hc, q, s_row, n_pad)
+                        hit_s = torch.from_numpy(hit_s).to(dev)
+                    else:
+                        panel, gidx = build_hit_panel(hc, normed, n_pad, dtype=np.float16)
+                        hit_s = None
+                    panel = torch.from_numpy(widen(panel)).to(dev)
+                    v, j = _extract_chunk(wired, panel, hit_s, torch.from_numpy(gidx).to(dev),
+                                          b, n_panels, n, k)
+                    v, j = v[: len(hc)].cpu().numpy(), j[: len(hc)].cpu().numpy()
+                with timer.time("recheck", len(hc)):
+                    r, c, m = filter_and_recheck(v, j, hc, normed, scan_threshold, threshold,
+                                                 euclidean)
                 rows_l.append(r)
                 cols_l.append(c)
                 metrics_l.append(m)

@@ -92,9 +92,10 @@ def find_duplicate_pairs_sharded(
 ) -> DedupResult:
     """The pair set of ``ops/similarity.find_duplicate_pairs`` over the
     ``axis`` devices of ``mesh`` (every local card by default). ``timer``,
-    where given, takes the seconds of ``prepare`` (host normalization,
-    quantization, the upload), ``counts`` (the ring) and ``extract`` (with
-    the host merge and recheck)."""
+    where given, takes the seconds of ``prepare`` (within it ``normalize``,
+    ``quantize_rows`` and ``upload``, as the single-device path's),
+    ``counts`` (the ring) and ``extract`` (within it ``topk``: the panels,
+    the shards' top-k and the host merge; ``recheck``)."""
     if wire not in ("int8", "fp16"):
         raise ValueError(f"wire must be 'int8' or 'fp16', got {wire!r}")
     if mesh is None:
@@ -115,7 +116,6 @@ def find_duplicate_pairs_sharded(
         threshold, euclidean, INT8_SLACK if int8_wire else FP16_SLACK)
 
     with timer.time("prepare", n):
-        normed_f32 = normalize_rows(embeddings)
         # shards of m rows, m a multiple of the tile b (a multiple of 8, at
         # least 128 rows: torch._int_mm's shapes on the card), the width
         # padded with zero columns to a multiple of 8
@@ -123,24 +123,27 @@ def find_duplicate_pairs_sharded(
         b = -(-min(row_block, max(128, m0)) // 8) * 8
         m = -(-m0 // b) * b
         n_pad = m * n_devices
-        normed_f32 = np.pad(normed_f32, ((0, n_pad - n), (0, 0)))
+        with timer.time("normalize", n):
+            normed_f32 = np.pad(normalize_rows(embeddings), ((0, n_pad - n), (0, 0)))
         pad_d = -normed_f32.shape[1] % 8
 
         def widen(a: np.ndarray) -> np.ndarray:
             return np.pad(a, ((0, 0), (0, pad_d))) if pad_d else a
 
-        if int8_wire:
-            q8, s_row = quantize_rows_int8(normed_f32)
-            wide = widen(q8)
-        else:
-            normed16 = normed_f32.astype(np.float16)
-            wide = widen(normed16)
-        panels = []
-        for i, dev in enumerate(devs):
-            g = first + i
-            x = torch.from_numpy(wide[g * m:(g + 1) * m]).to(dev)
-            s = torch.from_numpy(s_row[g * m:(g + 1) * m]).to(dev) if int8_wire else None
-            panels.append((x, s) if int8_wire else (x,))
+        with timer.time("quantize_rows", n):
+            if int8_wire:
+                q8, s_row = quantize_rows_int8(normed_f32)
+                wide = widen(q8)
+            else:
+                normed16 = normed_f32.astype(np.float16)
+                wide = widen(normed16)
+        with timer.time("upload", n):
+            panels = []
+            for i, dev in enumerate(devs):
+                g = first + i
+                x = torch.from_numpy(wide[g * m:(g + 1) * m]).to(dev)
+                s = torch.from_numpy(s_row[g * m:(g + 1) * m]).to(dev) if int8_wire else None
+                panels.append((x, s) if int8_wire else (x,))
         resident = list(panels)
 
     with torch.inference_mode():
@@ -172,31 +175,34 @@ def find_duplicate_pairs_sharded(
         with timer.time("extract", len(hit)):
             for c0 in range(0, len(hit), chunk):
                 hc = hit[c0:c0 + chunk]
-                if int8_wire:
-                    panel, hit_s, gidx = build_hit_panel_q(hc, q8, s_row, n_pad)
-                else:
-                    panel, gidx = build_hit_panel(hc, normed16, n_pad, dtype=np.float16)
-                    hit_s = None
-                panel = widen(panel)
-                parts_v, parts_j = [], []
-                for i, (wired, dev) in enumerate(zip(wires, devs)):
-                    v, j = _extract_chunk(
-                        wired, torch.from_numpy(panel).to(dev),
-                        None if hit_s is None else torch.from_numpy(hit_s).to(dev),
-                        torch.from_numpy(gidx).to(dev), b, m // b, n, k, offset=(first + i) * m)
-                    parts_v.append(v.cpu().numpy())
-                    parts_j.append(j.cpu().numpy())
-                # merge the d per-shard top-k lists: [d, H, k] → [H, d·k]
-                h_pad = len(panel)
-                v = process_allgather(mesh, np.stack(parts_v))
-                j = process_allgather(mesh, np.stack(parts_j))
-                v = v.transpose(1, 0, 2).reshape(h_pad, -1)[: len(hc)]
-                j = j.transpose(1, 0, 2).reshape(h_pad, -1)[: len(hc)]
-                order = np.argsort(-v, axis=1)[:, :k]
-                v = np.take_along_axis(v, order, axis=1)
-                j = np.take_along_axis(j, order, axis=1)
-                r, c, mets = filter_and_recheck(v, j, hc, normed_f32, scan_threshold,
-                                                threshold, euclidean)
+                with timer.time("topk", len(hc)):
+                    if int8_wire:
+                        panel, hit_s, gidx = build_hit_panel_q(hc, q8, s_row, n_pad)
+                    else:
+                        panel, gidx = build_hit_panel(hc, normed16, n_pad, dtype=np.float16)
+                        hit_s = None
+                    panel = widen(panel)
+                    parts_v, parts_j = [], []
+                    for i, (wired, dev) in enumerate(zip(wires, devs)):
+                        v, j = _extract_chunk(
+                            wired, torch.from_numpy(panel).to(dev),
+                            None if hit_s is None else torch.from_numpy(hit_s).to(dev),
+                            torch.from_numpy(gidx).to(dev), b, m // b, n, k,
+                            offset=(first + i) * m)
+                        parts_v.append(v.cpu().numpy())
+                        parts_j.append(j.cpu().numpy())
+                    # merge the d per-shard top-k lists: [d, H, k] → [H, d·k]
+                    h_pad = len(panel)
+                    v = process_allgather(mesh, np.stack(parts_v))
+                    j = process_allgather(mesh, np.stack(parts_j))
+                    v = v.transpose(1, 0, 2).reshape(h_pad, -1)[: len(hc)]
+                    j = j.transpose(1, 0, 2).reshape(h_pad, -1)[: len(hc)]
+                    order = np.argsort(-v, axis=1)[:, :k]
+                    v = np.take_along_axis(v, order, axis=1)
+                    j = np.take_along_axis(j, order, axis=1)
+                with timer.time("recheck", len(hc)):
+                    r, c, mets = filter_and_recheck(v, j, hc, normed_f32, scan_threshold,
+                                                    threshold, euclidean)
                 rows_l.append(r)
                 cols_l.append(c)
                 metrics_l.append(mets)

@@ -43,6 +43,7 @@ from clip_assisted_data_labeling_tpu_torch.parallel.mesh import (
     stage_devices,
 )
 from clip_assisted_data_labeling_tpu_torch.utils.device import resolve_device
+from clip_assisted_data_labeling_tpu_torch.utils.timer import StageTimer
 
 
 def load_embeddings(root_dir: str, cfg: DedupConfig):
@@ -136,6 +137,7 @@ def run_dedup(root_dir: str, cfg: DedupConfig, device: str | torch.device = "cud
     if len(paths) < 2:
         return empty_result()
     devices = stage_devices(device)
+    timer = StageTimer()
     if use_mesh is None:
         use_mesh = global_mesh or (devices is None and torch.cuda.device_count() > 1)
     if use_mesh:
@@ -146,13 +148,14 @@ def run_dedup(root_dir: str, cfg: DedupConfig, device: str | torch.device = "cud
         result = find_duplicate_pairs_sharded(
             emb, threshold=cfg.threshold, sim_type=cfg.sim_type,
             mesh=get_global_mesh(devices=devices) if global_mesh else get_mesh(devices=devices),
-            max_per_row=cfg.max_pairs_per_row, wire=cfg.wire,
+            max_per_row=cfg.max_pairs_per_row, wire=cfg.wire, timer=timer,
         )
     else:
         result = find_duplicate_pairs(
             emb, threshold=cfg.threshold, sim_type=cfg.sim_type,
-            max_per_row=cfg.max_pairs_per_row, wire=cfg.wire, device=device,
+            max_per_row=cfg.max_pairs_per_row, wire=cfg.wire, device=device, timer=timer,
         )
+    print(timer.report())
     if result.overflow_rows.size:
         print(
             f"Note: {len(result.overflow_rows)} rows had more matches than the "

@@ -18,7 +18,8 @@ the CPU). ``--aspect native`` (naflex towers) adds a fifth pseudo-crop
 ``native_aspect`` (int8 modes run bfloat16 then); ``--exact_stats``
 computes the stats on the host with cv2 from each file at its original
 resolution; ``--profile_dir`` writes a torch.profiler trace (CPU and CUDA
-activity, Chrome trace format) of the run; ``--debug_nans`` checks each
+activity, Chrome trace format) of the run, the port's spans and layer ranges
+in it as ``ctpu.<name>``; ``--debug_nans`` checks each
 block's output and the readout and raises ``FloatingPointError`` at the
 first NaN.
 
@@ -36,6 +37,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import concurrent.futures
 import logging
 import os
 import random
@@ -72,7 +74,7 @@ from clip_assisted_data_labeling_tpu_torch.store.sidecar import (
     write_sidecar,
 )
 from clip_assisted_data_labeling_tpu_torch.utils.device import resolve_device
-from clip_assisted_data_labeling_tpu_torch.utils.timer import StageTimer
+from clip_assisted_data_labeling_tpu_torch.utils.timer import StageTimer, profiler_ranges
 
 # how long non-zero hosts wait for host 0's published int8_static
 # calibration (shared-filesystem multi-host runs; tests shrink it)
@@ -166,6 +168,109 @@ def _wait_for_calibration(path: str, host_index: int) -> None:
         if time.time() > deadline:
             raise TimeoutError(f"host 0 never published {path}")
         time.sleep(min(5.0, CALIB_WAIT_S / 10))
+
+
+def embed_batches(embedder, loader: BatchedImageLoader, store: EmbeddingStore | None,
+                  writer_pool: ThreadPoolExecutor, timer: StageTimer, *, device,
+                  row_of: dict[str, int], write_sidecars=None, stats: str | None = "device",
+                  native=None, calibrate: bool = False, total: int = 0) -> int:
+    """Stage 1's loop over ``loader``'s batches, at depth 2: each batch's
+    device work is dispatched before the batch ahead of it is read back, so
+    that transfer, compute and the host's writes overlap. Returns the images
+    embedded.
+
+    ``embedder``: a ``CLIPImageEncoder``, or a ``ShardedEmbedder``
+    (``parallel/embed_sharded``) that runs its int8_static calibration on the
+    first batch where ``calibrate``. ``store``: the columnar store that takes
+    each image's row (``row_of``: uuid → row), or None. ``write_sidecars(paths,
+    emb, stats)`` runs on ``writer_pool`` once a batch, where given; the loop
+    ends once every such write has, and raises if one failed. ``stats``:
+    'device' (on the card), 'exact' (the host's cv2 from each file) or None.
+    ``native(images)``: a fifth pseudo-crop's [B, D] embeddings from each
+    image's pixels (``--aspect native``), or None. ``total``: the images
+    expected, for the progress lines.
+
+    ``timer``'s stages: ``loader_wait`` (the next batch from the loader),
+    ``dispatch`` (the upload and the device work enqueued), ``cpu_wait`` (the
+    read back, which waits for the device; with ``native``, its forward too),
+    ``exact_stats``, ``store_write`` and ``sidecar_wait`` (the wait on the
+    sidecar writes at the end)."""
+    sharded = not isinstance(embedder, CLIPImageEncoder)
+
+    def dispatch(batch):
+        """Enqueue the batch's device work; returns device tensors (async on
+        the card)."""
+        if sharded:
+            if calibrate:
+                # one calibration forward on the first batch, then a no-op
+                embedder.calibrate_static(batch.canvas, batch.crop_params)
+            if stats == "device":
+                return embedder.embed(batch.canvas, batch.crop_params, batch.stat_params)
+            return embedder.embed(batch.canvas, batch.crop_params), None
+        canvas = torch.from_numpy(batch.canvas).to(device, non_blocking=True)
+        emb_dev = embedder.embed_crops(canvas, batch.crop_params)
+        stats_dev = None
+        if stats == "device":
+            with torch.inference_mode():
+                stats_dev = image_stats_batch(canvas, torch.from_numpy(batch.stat_params))
+        return emb_dev, stats_dev
+
+    futures = []
+    n_done = 0
+
+    def consume(batch, emb_dev, stats_dev):
+        nonlocal n_done
+        n = batch.n_valid
+        with timer.time("cpu_wait", n):
+            emb = emb_dev[:n].cpu().numpy()
+            if native is not None:
+                # each image's pixels back off its centered canvas
+                # (stat_params = [ox, oy, w, h, …]) through the masked path
+                imgs = []
+                for bi in range(n):
+                    ox, oy, w, h = (int(v) for v in batch.stat_params[bi, :4])
+                    imgs.append(batch.canvas[bi, oy: oy + h, ox: ox + w])
+                nat = native(imgs).cpu().numpy()
+                emb = np.concatenate([emb, nat[:, None, :]], axis=1)
+            stats_np = None if stats_dev is None else stats_dev[:n].cpu().numpy()
+        if stats == "exact":
+            with timer.time("exact_stats", n):
+                stats_np = _host_exact_stats(batch)
+        if store is not None:
+            with timer.time("store_write", n):
+                for bi, path in enumerate(batch.paths):
+                    store.write_rows(row_of[_uuid_of(path)], emb[bi: bi + 1],
+                                     None if stats_np is None else stats_np[bi: bi + 1])
+        if write_sidecars is not None:
+            futures.append(writer_pool.submit(write_sidecars, batch.paths, emb, stats_np))
+        n_done += n
+        if n_done and n_done % 1000 < loader.batch_size:
+            print(f"Processed {n_done}/{total} images")
+
+    pending: collections.deque = collections.deque()
+    batches = iter(loader)
+    try:
+        while True:
+            with timer.time("loader_wait"):
+                batch = next(batches, None)
+            if batch is None:
+                break
+            with timer.time("dispatch", batch.n_valid):
+                pending.append((batch, *dispatch(batch)))
+            if len(pending) > 1:
+                consume(*pending.popleft())
+        while pending:
+            consume(*pending.popleft())
+    finally:
+        batches.close()
+    with timer.time("sidecar_wait", n_done):
+        concurrent.futures.wait(futures)
+    # the .pt files are the interop contract: surface any failed write
+    write_errors = [f.exception() for f in futures if f.exception() is not None]
+    if write_errors:
+        raise RuntimeError(f"{len(write_errors)} sidecar write batches failed; "
+                           f"first error: {write_errors[0]!r}")
+    return n_done
 
 
 def _embed_one_model(root_dir, img_paths, model_name, cfg: EmbedConfig, device,
@@ -283,74 +388,15 @@ def _embed_one_model(root_dir, img_paths, model_name, cfg: EmbedConfig, device,
             write_sidecar(_sidecar_path(path), model_name, crop_embs, img_stats,
                           merge=not cfg.force_reencode)
 
-    device_stats = cfg.with_image_stats and not cfg.exact_stats
-
-    def dispatch(batch):
-        """Enqueue the batch's device work; returns device tensors (async on
-        the card)."""
-        if sharded is not None:
-            if encoder.static_quant:
-                # one calibration forward on the first batch, then a no-op
-                sharded.calibrate_static(batch.canvas, batch.crop_params)
-            if device_stats:
-                return sharded.embed(batch.canvas, batch.crop_params, batch.stat_params)
-            return sharded.embed(batch.canvas, batch.crop_params), None
-        canvas = torch.from_numpy(batch.canvas).to(device, non_blocking=True)
-        emb_dev = encoder.embed_crops(canvas, batch.crop_params)
-        stats_dev = None
-        if device_stats:
-            with torch.inference_mode():
-                stats_dev = image_stats_batch(canvas, torch.from_numpy(batch.stat_params))
-        return emb_dev, stats_dev
-
-    n_done = 0
-    writer_futures = []
     with ThreadPoolExecutor(max(2, cfg.num_workers // 2)) as writer_pool:
-
-        def consume(batch, emb_dev, stats_dev):
-            nonlocal n_done
-            with timer.time("device", batch.n_valid):
-                emb = emb_dev[: batch.n_valid].cpu().numpy()
-                if native_aspect:
-                    # each image's pixels back off its centered canvas
-                    # (stat_params = [ox, oy, w, h, …]) through the masked path
-                    imgs = []
-                    for bi in range(batch.n_valid):
-                        ox, oy, w, h = (int(v) for v in batch.stat_params[bi, :4])
-                        imgs.append(batch.canvas[bi, oy: oy + h, ox: ox + w])
-                    nat = encoder.encode_variable(imgs).cpu().numpy()
-                    emb = np.concatenate([emb, nat[:, None, :]], axis=1)
-                stats_np = None if stats_dev is None else stats_dev[: batch.n_valid].cpu().numpy()
-            if cfg.with_image_stats and cfg.exact_stats:
-                with timer.time("exact_stats", batch.n_valid):
-                    stats_np = _host_exact_stats(batch)
-            if store is not None:
-                with timer.time("store_write", batch.n_valid):
-                    for bi, path in enumerate(batch.paths):
-                        store.write_rows(row_of[_uuid_of(path)], emb[bi: bi + 1],
-                                         None if stats_np is None else stats_np[bi: bi + 1])
-            if cfg.write_sidecars:
-                writer_futures.append(
-                    writer_pool.submit(write_batch_sidecars, batch.paths, emb, stats_np))
-            n_done += batch.n_valid
-            if n_done and n_done % 1000 < cfg.batch_size:
-                print(f"Processed {n_done}/{len(todo)} images")
-
-        # depth-2 pipeline: dispatch batch i+1 before blocking on batch i's
-        # results, so transfer, compute and host-side writes overlap
-        pending: collections.deque = collections.deque()
-        for batch in loader:
-            pending.append((batch, *dispatch(batch)))
-            if len(pending) > 1:
-                consume(*pending.popleft())
-        while pending:
-            consume(*pending.popleft())
-
-    # the .pt files are the interop contract: surface any failed write
-    write_errors = [f.exception() for f in writer_futures if f.exception() is not None]
-    if write_errors:
-        raise RuntimeError(f"{len(write_errors)} sidecar write batches failed; "
-                           f"first error: {write_errors[0]!r}")
+        n_done = embed_batches(
+            sharded if sharded is not None else encoder, loader, store, writer_pool, timer,
+            device=device, row_of=row_of,
+            write_sidecars=write_batch_sidecars if cfg.write_sidecars else None,
+            stats=(None if not cfg.with_image_stats
+                   else "exact" if cfg.exact_stats else "device"),
+            native=encoder.encode_variable if native_aspect else None,
+            calibrate=encoder.static_quant, total=len(todo))
 
     # backfill store rows for already-embedded images from their sidecars
     for path in skipped if store is not None else []:
@@ -475,15 +521,17 @@ def main(argv=None):
 
 def _profiled(root_dir: str, cfg: EmbedConfig, profile_dir: str):
     """embed_dataset under torch.profiler (CPU activity, and CUDA activity
-    where the run is on the card), the trace written into ``profile_dir`` as
-    ``embed_trace.json`` (Chrome trace format; the JAX stage's
-    jax.profiler writes TensorBoard's format instead)."""
+    where the run is on the card), with the port's spans and layer ranges
+    marked as ``ctpu.<name>`` (``utils/timer.profiler_ranges``), the trace
+    written into ``profile_dir`` as ``embed_trace.json`` (Chrome trace
+    format; the JAX stage's jax.profiler writes TensorBoard's format
+    instead)."""
     from torch.profiler import ProfilerActivity, profile
 
     on_card = resolve_device(cfg.device).type == "cuda"
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if on_card else [])
     os.makedirs(profile_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with profiler_ranges(), profile(activities=activities) as prof:
         stores = embed_dataset(root_dir, cfg)
         if on_card:
             torch.cuda.synchronize()

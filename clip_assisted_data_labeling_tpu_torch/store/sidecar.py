@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from clip_assisted_data_labeling_tpu_torch.config import CROP_ALIASES
+from clip_assisted_data_labeling_tpu_torch.utils.timer import span
 
 _ALIASES_REVERSED = {v: k for k, v in CROP_ALIASES.items()}
 
@@ -29,25 +30,27 @@ def write_sidecar(
     img_stats: Mapping[str, float] | None = None,
     merge: bool = True,
 ) -> None:
-    """Write/merge one model's features into a ``.pt`` sidecar."""
-    final: dict = {}
-    if merge and os.path.exists(path):
-        try:
-            final = torch.load(path, map_location="cpu", weights_only=False)
-        except Exception:  # a torn or foreign file: start over, as the JAX package does
-            final = {}
-    model_dict: dict = {}
-    if img_stats:
-        for k, v in img_stats.items():
-            model_dict[k] = torch.tensor(float(v), dtype=torch.float32)
-    for crop, emb in crop_embeddings.items():
-        arr = np.asarray(emb, dtype=np.float32).reshape(1, -1)
-        model_dict[crop] = torch.from_numpy(arr.copy())
-    final[model_name] = model_dict
-    # atomic replace: a kill mid-save must not truncate the merge base
-    tmp = path + ".tmp"
-    torch.save(final, tmp)
-    os.replace(tmp, path)
+    """Write/merge one model's features into a ``.pt`` sidecar (a
+    ``sidecar_write`` span)."""
+    with span("sidecar_write", 1):
+        final: dict = {}
+        if merge and os.path.exists(path):
+            try:
+                final = torch.load(path, map_location="cpu", weights_only=False)
+            except Exception:  # a torn or foreign file: start over, as the JAX package does
+                final = {}
+        model_dict: dict = {}
+        if img_stats:
+            for k, v in img_stats.items():
+                model_dict[k] = torch.tensor(float(v), dtype=torch.float32)
+        for crop, emb in crop_embeddings.items():
+            arr = np.asarray(emb, dtype=np.float32).reshape(1, -1)
+            model_dict[crop] = torch.from_numpy(arr.copy())
+        final[model_name] = model_dict
+        # atomic replace: a kill mid-save must not truncate the merge base
+        tmp = path + ".tmp"
+        torch.save(final, tmp)
+        os.replace(tmp, path)
 
 
 def read_sidecar(path: str) -> dict:

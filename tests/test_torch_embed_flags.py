@@ -172,7 +172,10 @@ def test_profile_dir_writes_a_trace(tmp_path, rng):
     trace = tmp_path / "prof" / "embed_trace.json"
     with open(trace) as f:
         events = json.load(f)["traceEvents"]
-    assert any(e.get("name", "").startswith("aten::") for e in events)
+    names = {e.get("name", "") for e in events}
+    assert any(n.startswith("aten::") for n in names)
+    # the port's spans and layer ranges are on under --profile_dir
+    assert {"ctpu.loader_wait", "ctpu.forward", "ctpu.block"} <= names
 
 
 needs_toolchain = pytest.mark.skipif(
