@@ -3,7 +3,12 @@
     python3 chip_smoke.py
 
 Phases (any failure exits nonzero and prints no result line; each group
-starts with a line of the script's seconds so far):
+starts with a line of the script's seconds so far). Every path's launch
+counts include K9pre, q_matmul_pre's launches of K9's GEMM: four a layer on
+int8_static and hybrid ViT blocks (qkv, out, fc1, fc2), one on xla blocks
+(out), two a block on the conv towers' int8_static blocks, two a layer a
+model shard in int8_static TP (qkv and fc1); the phases below name the
+other kernels:
   1. print the card's name and power limit (nvidia-smi); no card → exit 2,
   2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel)
      and print each kernel's registers and stack frame (ptxas), by name and
@@ -45,6 +50,14 @@ starts with a line of the script's seconds so far):
   3b. K1's and K7's quant_out scales against their plain versions at S = 729,
      2048, 8192 and 24000 (one head of 128): within 2^-8, int8 within ±1 on
      at most 5e-3 of entries, with the share of tokens over 1e-5 printed,
+  3c. q_matmul_pre (int8_static's block products) on K9's GEMM against its
+     torch route at the four products of ViT-L-14-336 and SO400M-384 (M =
+     17, 577, 18464 and one forward of 256 crops), bit for bit, with the
+     times of both and of the GEMM on the scale expanded to [M] rows; then
+     both towers at full depth: q_matmul_pre's launches a forward (4 x
+     depth) and a forward of 256 crops on each route, the embeddings bit
+     for bit (printed as its own JSON line, each product's row with the
+     K9pre launches of its tower's main path, phases 5 and 8),
   4. write 32 synthetic PNGs of mixed sizes from a seed,
   5. run the port's embed CLI on them: ViT-L-14-336/openai, int8_static,
      batch 8, full width and depth (24 layers), random weights from the
@@ -185,8 +198,10 @@ starts with a line of the script's seconds so far):
      (bfloat16, the JAX warning); RN101, RN50x4, RN50x16 bfloat16; RN50x64
      int8_static;
      convnext_base_w int8_static (auto off: bfloat16); convnext_xxlarge_320
-     bfloat16 and int8_static. Phases 32-34 launch no kernel of the table:
-     every counter reads 0,
+     bfloat16 and int8_static. Phases 32-34 launch no kernel of the table
+     but K9pre (int8_static's 1x1 products on K9's GEMM through
+     q_matmul_pre): it reads two a block a forward where int8_static runs,
+     every other counter 0,
  35. (with phase 16, on its store) the train CLI with --debug_nans in a
      process of its own, 3 epochs: the checkpoint equal bit for bit to the
      flag-off run's; on a copy of the store with one feature row of NaN it
@@ -359,10 +374,14 @@ def int8_knobs(**env):
 
 def counters() -> dict:
     """(wrapper, attribute) of each launch counter by table number; K5's
-    launches with RoPE tables have a counter of their own besides K5's."""
+    launches with RoPE tables have a counter of their own besides K5's, and
+    K9pre counts ``q_matmul_pre``'s launches of K9's GEMM (int8_static's
+    block products)."""
+    from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import q_matmul_pre
+
     ks = kernels()
     return {**{k: (fn, "launches") for k, fn in ks.items()},
-            "K5+RoPE": (ks["K5"], "rope_launches")}
+            "K5+RoPE": (ks["K5"], "rope_launches"), "K9pre": (q_matmul_pre, "launches")}
 
 
 def reset_counts() -> None:
@@ -417,13 +436,18 @@ def device_ms(fn, reps: int = 20, tries: int = 5) -> float:
     or 14 of 20 calls, on the H100), so each trace idles ``TRACE_PAD_S``
     on the host before and after its work. Records still go missing there
     late in a long process (the sum alone with no kernel three times in a
-    row, or 19 sums of 20, on the H100), so the sum's kernels are named
-    once, from the first trace of the sum alone that holds any. A trace is
-    used only when the call's own kernels are whole: each appears a
-    multiple of ``reps`` times (a lost record of one breaks that), and each
-    eviction kernel at most once a call and at least ``EVICT_SLACK`` fewer
-    times (a lost eviction record holds none of the call's time). An
-    inconsistent trace is printed to stderr and taken again, at most
+    row, or 19 sums of 20, on the H100; in phase 3c the first call's sum
+    and GEMM, five traces in a row, with a pad of 50 or 250 ms), so the
+    sum's kernels are named once, from the first trace of the sum alone
+    that holds any, and each trace starts with a lead call (sum and call)
+    whose records may go missing. A trace is used only when the call's own
+    kernels are whole: each appears m times a call for the ``reps``
+    measured calls, and at most m times more for the lead (m = its count
+    // ``reps`` ≥ 1; a lost record of a measured call breaks that), and
+    each eviction kernel at most once a call and at least ``EVICT_SLACK``
+    fewer times than ``reps`` (a lost eviction record holds none of the
+    call's time). A call's time is each own kernel's mean record times its
+    m. An inconsistent trace is printed to stderr and taken again, at most
     ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -442,7 +466,7 @@ def device_ms(fn, reps: int = 20, tries: int = 5) -> float:
         torch.sum(flush, 1, out=sums)
 
     def timed():
-        for _ in range(reps):
+        for _ in range(reps + 1):  # the lead call, then reps
             evict()
             fn()
 
@@ -456,10 +480,10 @@ def device_ms(fn, reps: int = 20, tries: int = 5) -> float:
         got = counts(timed)
         seen = {k: e.count for k, e in got.items()}
         own = {k: c for k, c in seen.items() if k not in skip}
-        if (skip and own and all(reps * c - EVICT_SLACK <= seen.get(k, 0) <= reps * c
+        if (skip and own and all(reps * c - EVICT_SLACK <= seen.get(k, 0) <= (reps + 1) * c
                                  for k, c in skip.items())
-                and all(c % reps == 0 for c in own.values())):
-            total = sum(e.self_device_time_total for k, e in got.items() if k in own)
+                and all(reps <= c <= (reps + 1) * (c // reps) for c in own.values())):
+            total = sum(got[k].self_device_time_total / c * (c // reps) for k, c in own.items())
             break
         print(f"device_ms: trace {attempt} of {tries} is not whole: the eviction "
               f"alone {skip}, {reps} calls {seen}", file=sys.stderr, flush=True)
@@ -469,7 +493,7 @@ def device_ms(fn, reps: int = 20, tries: int = 5) -> float:
     del flush, sums
     if total <= 0:
         fail("torch.profiler recorded no device time for a phase-3 kernel")
-    return total / reps / 1e3
+    return total / 1e3
 
 
 def bound(flops: float, peak: float, nbytes: float, fma_peak: float | None = None) -> dict:
@@ -1347,6 +1371,155 @@ def check_standalone_attention(gen: torch.Generator) -> list[dict]:
     return rows
 
 
+# int8_static's four block products on the benchmarked towers, (K, N, output
+# type, residual in the epilogue): qkv, out, fc1, fc2
+STATIC_PRODUCTS = {
+    MODEL: ((1024, 3072, torch.bfloat16, False), (1024, 1024, torch.bfloat16, False),
+            (1024, 4096, torch.bfloat16, False), (4096, 1024, torch.bfloat16, True)),
+    SIGLIP: ((1152, 3456, torch.float32, False), (1152, 1152, torch.bfloat16, False),
+             (1152, 4304, torch.bfloat16, False), (4304, 1152, torch.bfloat16, True)),
+}
+CELL_CROPS = 256  # the benchmark's embed batch: 64 images x 4 crops
+
+
+def static_gemm() -> list[dict]:
+    """Phase 3c: ``q_matmul_pre`` (int8_static's block products) on K9's
+    GEMM with the dequant epilogue fused, against its torch route
+    (``torch._int_mm`` and ``_dequant_epilogue``'s passes), at the four
+    products of ViT-L-14-336 and SO400M-384 with a per-tensor x_scale on the
+    card, at M = 17 and 577 (host-bound: wrapper times only), 18464 and one
+    forward of the benchmark's batch (256 crops: 147,712 and 186,624 rows):
+    the bits equal, one launch a call, CUDA-event and device times of both,
+    and of the GEMM given the scale expanded to [M] rows on the card (K8's
+    form: one small launch more, no stride). Then each tower at full depth,
+    calibrated on the card: its launches a forward (4 x depth), and a
+    forward of the benchmark's batch on each route in this process (the
+    torch route put in ``models/vit``'s place of ``q_matmul_pre``),
+    bit-equal embeddings."""
+    import dataclasses
+
+    from clip_assisted_data_labeling_tpu_torch.models import vit
+    from clip_assisted_data_labeling_tpu_torch.models.clip_weights import module_from_params
+    from clip_assisted_data_labeling_tpu_torch.ops import quant_kernel
+    from clip_assisted_data_labeling_tpu_torch.ops.quant import (
+        _dequant_epilogue,
+        int_matmul,
+        match_k,
+        quantize_vit_params,
+        quantize_weight,
+    )
+
+    pre = quant_kernel.q_matmul_pre
+    records = []
+    g = torch.Generator(device="cuda").manual_seed(11)
+    for model, products in STATIC_PRODUCTS.items():
+        cfg = vit.resolve_config(model)
+        for m in (17, 577, 4 * BATCH * cfg.seq_len, CELL_CROPS * cfg.seq_len):
+            for k, n, out_dtype, with_res in products:
+                xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
+                                   dtype=torch.int16).to(torch.int8)
+                wq, ws = quantize_weight(torch.randn((k, n), generator=g, device="cuda")
+                                         * k ** -0.5)
+                wq_t = wq.t().contiguous()
+                b = 0.1 * torch.randn((n,), generator=g, device="cuda")
+                xs = torch.tensor(0.02, device="cuda")  # as a[i] * (1/127): 0-d on the card
+                res = (torch.randn((m, n), generator=g, device="cuda").to(torch.bfloat16)
+                       if with_res else None)
+
+                def k9():
+                    return pre(xq, xs, wq_t, ws, b, res, out_dtype)
+
+                def torch_route():
+                    return _dequant_epilogue(int_matmul(xq, wq_t), xs, ws, b, res, out_dtype)
+
+                def k9_rows():  # the scale expanded to [M] row scales first
+                    return quant_kernel._gemm_launch(
+                        "q_matmul_pre", xq, xs.reshape(1).expand(m).contiguous(), wq_t, ws, b,
+                        out_dtype, residual=res)
+
+                before = pre.launches
+                want = torch_route()
+                same = torch.equal(k9(), want) and torch.equal(k9_rows(), want)
+                if pre.launches != before + 1 or not same:
+                    fail(f"q_matmul_pre {model} [{m},{k}]x[{k},{n}]: launches "
+                         f"{pre.launches - before}, bit-identical {same}")
+                big = m >= 4 * BATCH * cfg.seq_len
+                out_bytes = torch.empty((), dtype=out_dtype).element_size()
+                row = {
+                    "name": "q_matmul_pre", "tower": model, "m": m, "k": k, "n": n,
+                    "out": str(out_dtype).split(".")[-1], "residual": with_res,
+                    "bit_identical": same, "k9_ms": time_ms(k9), "torch_ms": time_ms(torch_route),
+                    "k9_rows_ms": time_ms(k9_rows),
+                    "k9_device_ms": device_ms(k9) if big else None,
+                    "torch_device_ms": device_ms(torch_route) if big else None,
+                    "k9_rows_device_ms": device_ms(k9_rows) if big else None,
+                    **bound(2.0 * m * n * k, H100_INT8_OPS,
+                            m * k + n * k + m * n * (out_bytes + 2 * with_res) + 2 * n * 4),
+                }
+                records.append(row)
+                dev = (f" (device {row['k9_device_ms']:.4f} against {row['torch_device_ms']:.4f}, "
+                       f"[M] rows {row['k9_rows_device_ms']:.4f})" if big else "")
+                print(f"phase 3c q_matmul_pre {model} int8 [{m},{k}] x [{k},{n}] -> {row['out']}"
+                      f"{' + residual' if with_res else ''}: K9 {row['k9_ms']:.4f} ms, torch route "
+                      f"{row['torch_ms']:.4f} ms, K9 on [M] rows {row['k9_rows_ms']:.4f} ms{dev}; "
+                      f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); bit-identical",
+                      flush=True)
+                del xq, wq, wq_t, ws, b, res
+                torch.cuda.empty_cache()
+
+    def torch_pre(xq, x_scale, wq_t, w_scale, bias=None, residual=None,
+                  out_dtype=torch.bfloat16):  # q_matmul_pre's torch route, on the card
+        return _dequant_epilogue(int_matmul(match_k(xq, wq_t), wq_t), x_scale, w_scale, bias,
+                                 residual, out_dtype)
+
+    for model in STATIC_PRODUCTS:
+        cfg = vit.resolve_config(model)
+        wg = torch.Generator(device="cuda").manual_seed(12)
+        params = quantize_vit_params(vit.init_vit_params(cfg, wg, "cuda"))
+        tower = module_from_params(params, cfg, "cuda")
+        del params
+        images = torch.randn((CELL_CROPS, cfg.image_size, cfg.image_size, 3), generator=wg,
+                             device="cuda")
+        vit.attach_act_amax(tower, vit.vit_act_amax(tower, images[:4]),
+                            wire=vit.int8_wire_enabled(cfg))
+
+        def forward(n_crops):
+            with torch.inference_mode():
+                return vit.vit_encode_image(tower, images[:n_crops], torch.bfloat16)
+
+        before = pre.launches
+        forward(1)
+        torch.cuda.synchronize()
+        per_forward = pre.launches - before
+        if per_forward != 4 * cfg.layers:
+            fail(f"{model} int8_static: q_matmul_pre launches a forward {per_forward}, "
+                 f"expected {4 * cfg.layers}")
+        emb = forward(8)
+        k9_ms = time_ms(lambda: forward(CELL_CROPS), min_reps=3, min_s=1.0)
+        vit.q_matmul_pre = torch_pre
+        try:
+            emb_torch = forward(8)
+            torch_ms = time_ms(lambda: forward(CELL_CROPS), min_reps=3, min_s=1.0)
+        finally:
+            vit.q_matmul_pre = pre
+        same = torch.equal(emb, emb_torch)
+        rec = {"name": "q_matmul_pre_forward", "tower": model, "route": vit.block_route(
+                   tower.blocks[0], cfg), "launches_per_forward": per_forward,
+               "crops": CELL_CROPS, "k9_forward_ms": k9_ms, "torch_forward_ms": torch_ms,
+               "bit_identical": same}
+        records.append(rec)
+        print(f"phase 3c {model} int8_static ({rec['route']} blocks): q_matmul_pre "
+              f"{per_forward} launches a forward; "
+              f"{CELL_CROPS} crops a forward {k9_ms:.1f} ms on K9, {torch_ms:.1f} ms on the "
+              f"torch route ({torch_ms / k9_ms:.3f}x); embeddings bit-identical {same}",
+              flush=True)
+        if not same:
+            fail(f"{model} int8_static: the K9 and torch routes' embeddings differ")
+        del tower, images, emb, emb_torch
+        torch.cuda.empty_cache()
+    return records
+
+
 def profile_steady(model: str, root: str, calib: str, cfg, per_batch: dict,
                    dtype: str, model_path: str | None = None) -> None:
     """A main path's device work again, steady state: the encoder (with the
@@ -1566,8 +1739,8 @@ def dynamic_int8(root: str, cfg, l336: dict) -> tuple[dict, list[dict]]:
         for p in l336["pts"]:
             shutil.copy(p[:-3] + ".png", droot)
         with int8_knobs(CTPU_INT8_BLOCK="hybrid", CTPU_FUSED_QMATMUL="0"):
-            dyn = embed_and_check(droot, MODEL, cfg, {"K1": cfg.layers, "K6": 3 * cfg.layers},
-                                  dtype="int8")
+            dyn = embed_and_check(droot, MODEL, cfg, {"K1": cfg.layers, "K6": 3 * cfg.layers,
+                                                      "K9pre": 4 * cfg.layers}, dtype="int8")
         if [os.path.basename(p) for p in dyn["pts"]] != [os.path.basename(p)
                                                         for p in l336["pts"]]:
             fail("the dynamic-int8 run embedded other files than the int8_static run")
@@ -1578,7 +1751,7 @@ def dynamic_int8(root: str, cfg, l336: dict) -> tuple[dict, list[dict]]:
             fail(f"dynamic int8 and int8_static embeddings disagree (cosine min {cos.min()})")
         routes = []
         for block, fused_mm, want in (("xla-plain", "0", {"K1": cfg.layers}),
-                                      ("xla", "0", {"K1": cfg.layers}),
+                                      ("xla", "0", {"K1": cfg.layers, "K9pre": cfg.layers}),
                                       ("xla-plain", "1", {"K1": cfg.layers,
                                                           "K9": 4 * cfg.layers})):
             with int8_knobs(CTPU_INT8_BLOCK=block, CTPU_FUSED_QMATMUL=fused_mm):
@@ -1606,10 +1779,12 @@ def knob_routes(l336: dict, so400m: dict, cfg, scfg) -> list[dict]:
     runs = []
 
     for model, mcfg, default, env, want in (
-            (MODEL, cfg, l336, {"CTPU_LN_KERNEL": "0"}, {"K1": cfg.layers}),
-            (MODEL, cfg, l336, {"CTPU_INT8_WIRE": "1"}, {"K3": cfg.layers}),
+            (MODEL, cfg, l336, {"CTPU_LN_KERNEL": "0"},
+             {"K1": cfg.layers, "K9pre": 4 * cfg.layers}),
+            (MODEL, cfg, l336, {"CTPU_INT8_WIRE": "1"},
+             {"K3": cfg.layers, "K9pre": 4 * cfg.layers}),
             (SIGLIP, scfg, so400m, {"CTPU_INT8_WIRE": "0"},
-             {"K5": scfg.layers, "K2": 2 * scfg.layers})):
+             {"K5": scfg.layers, "K2": 2 * scfg.layers, "K9pre": 4 * scfg.layers})):
         names = [os.path.basename(p) for p in default["pts"]]
         with tempfile.TemporaryDirectory(prefix="chip_smoke_route_") as rroot, \
                 int8_knobs(**env):
@@ -1724,7 +1899,8 @@ def towers(root: str, l336: dict) -> dict:
 
     out = {}
     ecfg = resolve_config(EVA_L336)
-    eva = embed_and_check(root, EVA_L336, ecfg, {"K1": ecfg.layers, "K2": 3 * ecfg.layers})
+    eva = embed_and_check(root, EVA_L336, ecfg, {"K1": ecfg.layers, "K2": 3 * ecfg.layers,
+                                                 "K9pre": 4 * ecfg.layers})
     out["eva02l336"] = eva["launches"]
     lcfg = resolve_config(EVA_L)
     out["eva02l_f32"] = encoder_run(EVA_L, "float32", l336["pts"], None, lcfg,
@@ -1732,7 +1908,8 @@ def towers(root: str, l336: dict) -> dict:
                                     cpu_images=1)
     gcfg = resolve_config(PE_G)
     out["g14_static"] = encoder_run(PE_G, "int8_static", l336["pts"], None, gcfg,
-                                    {"K4": gcfg.layers, "K2": 2 * gcfg.layers}, timed=True)
+                                    {"K4": gcfg.layers, "K2": 2 * gcfg.layers,
+                                     "K9pre": 4 * gcfg.layers}, timed=True)
     for key, name, kernel, static_k2 in (("clipa_h336", CLIPA_H336, "K4", True),
                                          ("eva01g", EVA01_G, "K1", True),
                                          ("coca", COCA_L, "K1", True),
@@ -1740,7 +1917,8 @@ def towers(root: str, l336: dict) -> dict:
         cfg = resolve_config(name)
         bf = encoder_run(name, "bfloat16", l336["pts"], None, cfg, {kernel: cfg.layers},
                          timed=True)
-        want = {kernel: cfg.layers, **({"K2": 2 * cfg.layers} if static_k2 else {})}
+        want = {kernel: cfg.layers, "K9pre": 4 * cfg.layers,
+                **({"K2": 2 * cfg.layers} if static_k2 else {})}
         st = encoder_run(name, "int8_static", l336["pts"], None, cfg, want, timed=True)
         out[f"{key}_bf16"], out[f"{key}_static"] = bf, st
     for key, name in (("clipa_h", CLIPA_H), ("bigg_clipa", CLIPA_BIGG)):
@@ -1829,8 +2007,8 @@ def dynamic_int8_more(so400m: dict, pe: dict, scfg, pcfg) -> dict:
     out = {}
     with int8_knobs(CTPU_INT8_BLOCK="hybrid", CTPU_FUSED_QMATMUL="0"):
         out["so400m_hybrid"] = encoder_run(SIGLIP, "int8", so400m["pts"], so400m["side"], scfg,
-                                           {"K1": scfg.layers, "K6": 3 * scfg.layers},
-                                           timed=True)
+                                           {"K1": scfg.layers, "K6": 3 * scfg.layers,
+                                            "K9pre": 4 * scfg.layers}, timed=True)
         out["pe_hybrid"] = encoder_run(PE_L, "int8", pe["pts"], pe["side"], pcfg,
                                        {"K1": pcfg.layers}, timed=True)
     return out
@@ -2055,11 +2233,23 @@ def conv_cpu_check(model: str, dtype: str, cfg, pngs: list, emb: np.ndarray, lim
     return err
 
 
+def conv_static_products(cfg) -> int:
+    """``q_matmul_pre`` calls a forward of a conv tower in int8_static: two
+    1x1 products a block (a Bottleneck's conv1 and conv3, a ConvNeXt
+    block's fc1 and fc2)."""
+    from clip_assisted_data_labeling_tpu_torch.models.resnet import _block_widths
+
+    if hasattr(cfg, "depths"):
+        return 2 * sum(cfg.depths)
+    return 2 * len(list(_block_widths(cfg)))
+
+
 def conv_cli(root: str, model: str, cfg, calib_shapes: dict, cpu_images: int = BATCH) -> dict:
     """Phases 32-33: a conv tower in int8_static through the embed CLI on the
     32 PNGs at full width and depth, its weights (:func:`conv_params`) found
     by the CLI as ``<model>.npz`` in a ``--model_path`` directory (no kernel
-    of the table: every launch counter 0), its outputs and .calib.npz
+    of the table but K9pre, :func:`conv_static_products` a forward), its
+    outputs and .calib.npz
     (exactly ``calib_shapes``), steady state and profile, then the first
     ``cpu_images`` images of the store (the first batch) against the same
     encoder, weights and calibration on the CPU (1 - cosine ≤ 2e-3). Returns its record and
@@ -2070,8 +2260,8 @@ def conv_cli(root: str, model: str, cfg, calib_shapes: dict, cpu_images: int = B
     weights = tempfile.mkdtemp(prefix="chip_smoke_weights_")
     try:
         save_params_npz(os.path.join(weights, model.replace("/", "-") + ".npz"), params)
-        res = embed_and_check(root, model, cfg, {}, calib_shapes=calib_shapes,
-                              model_path=weights)
+        res = embed_and_check(root, model, cfg, {"K9pre": conv_static_products(cfg)},
+                              calib_shapes=calib_shapes, model_path=weights)
     finally:
         shutil.rmtree(weights, ignore_errors=True)
     calib = os.path.join(root, model.replace("/", "-") + ".calib.npz")
@@ -2086,9 +2276,10 @@ def conv_tower(model: str, dtype: str, pts: list, cfg, runs_as: str | None = Non
                note: str | None = None, cpu_limit: float | None = None) -> dict:
     """Phase 34: four images through the encoder in ``dtype`` at full width
     and depth on the weights of :func:`conv_params`, on the card: finite
-    unit embeddings, no launch of a kernel of
-    the table, the downgrade the JAX package makes (``runs_as``, the log
-    line containing ``note``), the steady ms of a forward of the 16 crops
+    unit embeddings, no launch of a kernel of the table but K9pre where
+    int8_static runs (:func:`conv_static_products`), the downgrade the JAX
+    package makes (``runs_as``, the log line containing ``note``), the
+    steady ms of a forward of the 16 crops
     (CUDA events), and with ``cpu_limit`` all four images against the same
     encoder on the CPU. Returns the record and the launch counts."""
     from clip_assisted_data_labeling_tpu_torch.data.loader import BatchedImageLoader
@@ -2108,9 +2299,11 @@ def conv_tower(model: str, dtype: str, pts: list, cfg, runs_as: str | None = Non
     reset_counts()
     emb = enc.embed_crops(batch.canvas, batch.crop_params)[: batch.n_valid].cpu().numpy()
     got = counts()
+    want = {k: conv_static_products(cfg) if k == "K9pre" and runs == "int8_static" else 0
+            for k in got}
     norms = np.linalg.norm(emb, axis=-1)
-    if any(got.values()) or not (np.isfinite(emb).all() and np.abs(norms - 1).max() < 1e-3):
-        fail(f"{model} {dtype}: launches {got}, norms {norms.min()}..{norms.max()}")
+    if got != want or not (np.isfinite(emb).all() and np.abs(norms - 1).max() < 1e-3):
+        fail(f"{model} {dtype}: launches {got} (want {want}), norms {norms.min()}..{norms.max()}")
     canvas = torch.from_numpy(batch.canvas).to("cuda")
     ms = time_ms(lambda: enc.embed_crops(canvas, batch.crop_params), min_reps=3, min_s=0.5)
     order = [pngs.index(p) for p in batch.paths]
@@ -2129,9 +2322,10 @@ def conv_tower(model: str, dtype: str, pts: list, cfg, runs_as: str | None = Non
 def conv_towers(root: str) -> tuple[list[dict], dict]:
     """Phases 32-34: the modified ResNets and ConvNeXt in stage 1, on random
     weights with damped residual branches (:func:`conv_params`).
-    Returns the records and each path's launch counts (all 0: the conv towers run
-    cuDNN convolutions and torch products, as the JAX package runs XLA's,
-    and int8_static's 1x1 products through ``torch._int_mm``).
+    Returns the records and each path's launch counts (K9pre alone: the conv
+    towers run cuDNN convolutions and torch products, as the JAX package runs
+    XLA's, and int8_static's 1x1 products on K9's GEMM through
+    ``q_matmul_pre``).
       32. the embed CLI, RN50x64 int8_static (auto on: final width 4096) at
           448 px and all 64 blocks: 64 s{s}b{b}_act_amax of (2,), steady
           state, profile, the first batch against the CPU,
@@ -3276,7 +3470,8 @@ def dp_embed(root: str, l336: dict) -> dict:
         wall = time.perf_counter() - t0
         got = counts()
         forwards = math.ceil(N_IMAGES / BATCH) * DP_DEVICES
-        want = {k: {"K1": cfg.layers, "K2": 2 * cfg.layers}.get(k, 0) * forwards for k in got}
+        want = {k: {"K1": cfg.layers, "K2": 2 * cfg.layers,
+                    "K9pre": 4 * cfg.layers}.get(k, 0) * forwards for k in got}
         side = read_sides(droot, MODEL, names)
         err = cos_err(side, l336["side"])
         diff = float(np.abs(side - l336["side"]).max())
@@ -3352,6 +3547,8 @@ def tensor_parallel(root: str, pts: list) -> tuple[dict, list[dict]]:
         torch.cuda.synchronize()
         c = counts()
         want = {k: 0 for k in c}
+        if static:  # qkv and fc1 column-parallel: a launch a model shard each
+            want["K9pre"] = 2 * 2 * cfg.layers
         if static and enc.wire:
             want["K3"] = 2 * cfg.layers
         else:
@@ -3984,12 +4181,17 @@ def dryrun_launches(n: int) -> dict:
     embed, ViT-Test/tiny's and EVA-Test-Wide's int8_static TP and the
     post-norm tower's data parallelism; K2 only in EVA-Test-Wide's lnk
     blocks, three times a layer (ln1, the attention sub-LN, ln2) in the
-    one-device forward and in each data row of the TP forward."""
+    one-device forward and in each data row of the TP forward; K9pre four
+    times a layer in each int8_static one-device forward and data-parallel
+    shard forward (the post-norm tower's), and in the TP forwards twice a
+    layer a (row, shard) pair (qkv and fc1)."""
     L = DRYRUN_LAYERS
+    pre = 4 * L * (1 + n)  # the post-norm tower: the one device and n shards
     if n >= 4 and n % 2 == 0:
         tp = 1 + n  # the one-device forward and the (n/2) x 2 shard forwards
-        return {"K1": L * (3 * tp + 1 + n), "K2": 3 * L * (1 + n // 2)}
-    return {"K1": 2 * L * (1 + n)}
+        return {"K1": L * (3 * tp + 1 + n), "K2": 3 * L * (1 + n // 2),
+                "K9pre": pre + 2 * 4 * L * (1 + n // 2)}  # ViT-Test/tiny and EVA-Test-Wide
+    return {"K1": 2 * L * (1 + n), "K9pre": pre}
 
 
 def dryrun_on_card() -> tuple[dict, dict]:
@@ -4192,6 +4394,9 @@ def main() -> None:
     rows += check_dryrun_kernels(torch.Generator(device="cuda").manual_seed(10))
     quant_out_long_sequences()
     torch.cuda.empty_cache()
+    elapsed(t_start, "3c")
+    # --- phase 3c: int8_static's products on K9's GEMM against the torch route
+    gemm_records = static_gemm()
 
     cfg, scfg = resolve_config(MODEL), resolve_config(SIGLIP)
     pcfg, gcfg = resolve_config(PE_L), resolve_config(PE_G)
@@ -4202,7 +4407,8 @@ def main() -> None:
         elapsed(t_start, "5-6")
         # --- phases 5-6: ViT-L-14-336 int8_static: K1 once and K2 twice a
         # layer; the calibration forward runs the XLA-style attention, no kernel
-        l336 = embed_and_check(root, MODEL, cfg, {"K1": cfg.layers, "K2": 2 * cfg.layers})
+        l336 = embed_and_check(root, MODEL, cfg, {"K1": cfg.layers, "K2": 2 * cfg.layers,
+                                                  "K9pre": 4 * cfg.layers})
         elapsed(t_start, "7")
         # --- phase 7: float32 paths on a few images: L-336 takes K4 (the JAX
         # package's grouped route for its shape), L-14 at 224 px K1
@@ -4219,7 +4425,8 @@ def main() -> None:
         elapsed(t_start, "8-9")
         # --- phases 8-9: ViT-SO400M-14-SigLIP-384 int8_static through the int8
         # attention wire (K3 a layer), then bfloat16 (K5 a layer)
-        so400m = embed_and_check(root, SIGLIP, scfg, {"K3": scfg.layers})
+        so400m = embed_and_check(root, SIGLIP, scfg, {"K3": scfg.layers,
+                                                      "K9pre": 4 * scfg.layers})
         bf16 = encoder_run(SIGLIP, "bfloat16", so400m["pts"], so400m["side"], scfg,
                            {"K5": scfg.layers}, timed=True)
         elapsed(t_start, "9a")
@@ -4231,7 +4438,8 @@ def main() -> None:
         elapsed(t_start, "10-11")
         # --- phases 10-11: PE-Core-L14-336 int8_static (K1 with RoPE once and
         # K2 twice a layer), then its bf16 (K1) and float32 (K4) paths
-        pe = embed_and_check(root, PE_L, pcfg, {"K1": pcfg.layers, "K2": 2 * pcfg.layers})
+        pe = embed_and_check(root, PE_L, pcfg, {"K1": pcfg.layers, "K2": 2 * pcfg.layers,
+                                                "K9pre": 4 * pcfg.layers})
         pe_bf16 = encoder_run(PE_L, "bfloat16", pe["pts"], pe["side"], pcfg,
                               {"K1": pcfg.layers}, timed=True)
         pe_f32 = encoder_run(PE_L, "float32", pe["pts"], pe["side"], pcfg, {"K4": pcfg.layers},
@@ -4259,7 +4467,8 @@ def main() -> None:
 
         elapsed(t_start, "32-34")
         # --- phases 32-34: the modified ResNets and ConvNeXt (cuDNN convolutions
-        # and torch products, as the JAX package runs XLA's: no kernel of the table)
+        # and torch products, as the JAX package runs XLA's; int8_static's 1x1
+        # products on q_matmul_pre's GEMM: K9pre, two a block)
         conv_records, conv_paths = conv_towers(root)
         tower_paths.update(conv_paths)
 
@@ -4334,6 +4543,10 @@ def main() -> None:
 
     rows = [dict(r, path=r["path"] and "/".join(r["path"]), launches=path_launches(r["path"]))
             for r in rows]
+    # phase 3c's rows with the K9pre launches of their tower's main path
+    main_path = {MODEL: "l336", SIGLIP: "so400m"}
+    gemm_records = [dict(r, main_path_launches=paths[main_path[r["tower"]]]["K9pre"])
+                    for r in gemm_records]
     check_no_jax()  # the CLI runs of every phase imported no JAX either
     print(json.dumps({"dedup": dedup_records}))
     print(json.dumps({"stages": stage_records}))
@@ -4343,6 +4556,7 @@ def main() -> None:
     print(json.dumps({"parallel": parallel_records}))
     print(json.dumps({"tools": tool_records}))
     print(json.dumps({"dryrun": dry}))
+    print(json.dumps({"static_gemm": gemm_records}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -22,6 +22,11 @@
 //       3. rowquant.cu with no layernorm and no activation over each [N]
 //          output row: int8 and amax * f32(1/127) row scales. No output
 //          tile owns a whole output row, as K1's quant_out (same pass).
+//   q_matmul_pre (int8_static's block products, and the int8 routes whose
+//       rows come quantized): q_block_linear_gemm alone, act 0, over int8
+//       rows quantized before it, with K9's epilogue and the residual; xs
+//       one per-tensor scale (xs_stride 0: xs[0] serves every row) or [M]
+//       row scales (xs_stride 1), ops/quant._dequant_epilogue's order.
 // That is the TPU kernels' arithmetic in their order. The int32 sums are
 // exact in any order, so the outputs do not depend on the schedule below.
 //
@@ -252,7 +257,7 @@ __device__ __forceinline__ float residual_at(const void* res, int res_dtype, siz
 // c0 = its column + 2·(lane % 4)); acc[j][2..3] row r0 + 8.
 template <typename TO, int ACT, bool RES, int BN>
 __device__ __forceinline__ void epilogue(const int (&acc)[BN / 8][4], int r0, int c0,
-                                         const float* __restrict__ xs,
+                                         const float* __restrict__ xs, int xs_stride,
                                          const float* __restrict__ ws,
                                          const float* __restrict__ bias, TO* __restrict__ out,
                                          int M, int N, const void* __restrict__ res,
@@ -262,7 +267,7 @@ __device__ __forceinline__ void epilogue(const int (&acc)[BN / 8][4], int r0, in
   for (int h = 0; h < 2; ++h) {
     const int row = r0 + 8 * h;
     if (row >= M) continue;
-    const float sx = xs[row];
+    const float sx = xs[row * xs_stride];
 #pragma unroll
     for (int j = 0; j < BN / 8; ++j) {
       const int col = c0 + 8 * j;
@@ -361,12 +366,13 @@ template <> __device__ __forceinline__ void store8<__nv_bfloat16>(__nv_bfloat16*
 template <typename TO, int ACT, bool RES, int BN>
 __device__ __forceinline__ void epilogue_vec(const int (&acc)[BN / 8][4], int r0, int n0,
                                              int lane,
-                                             const float* __restrict__ xs,
+                                             const float* __restrict__ xs, int xs_stride,
                                              const float* __restrict__ ws,
                                              const float* __restrict__ bias,
                                              TO* __restrict__ out, int M, int N,
                                              const void* __restrict__ res, int res_dtype) {
-  const float sx[2] = {r0 < M ? xs[r0] : 0.f, r0 + 8 < M ? xs[r0 + 8] : 0.f};
+  const float sx[2] = {r0 < M ? xs[r0 * xs_stride] : 0.f,
+                       r0 + 8 < M ? xs[(r0 + 8) * xs_stride] : 0.f};
 #pragma unroll
   for (int q = 0; q < BN / 32; ++q) {
     int a[2][4][2];
@@ -410,7 +416,7 @@ __device__ __forceinline__ void epilogue_vec(const int (&acc)[BN / 8][4], int r0
 template <typename TO, int ACT, bool RES, int BN>
 __global__ void __launch_bounds__(NTH, 1) q_gemm_wgmma_kernel(
     const __grid_constant__ CUtensorMap tmx, const __grid_constant__ CUtensorMap tmw,
-    const float* __restrict__ xs, const float* __restrict__ ws,
+    const float* __restrict__ xs, int xs_stride, const float* __restrict__ ws,
     const float* __restrict__ bias, TO* __restrict__ out, int M, int N, int K,
     const void* __restrict__ res, int res_dtype, bool vec) {
   constexpr int ST = ring_stages(BN), STAGE = stage_bytes(BN);
@@ -485,11 +491,11 @@ __global__ void __launch_bounds__(NTH, 1) q_gemm_wgmma_kernel(
     wgmma_settle(acc);
 
     if (vec)
-      epilogue_vec<TO, ACT, RES, BN>(acc, m0 + cw * 64 + warp4 * 16 + g, n0, lane, xs, ws,
-                                     bias, out, M, N, res, res_dtype);
+      epilogue_vec<TO, ACT, RES, BN>(acc, m0 + cw * 64 + warp4 * 16 + g, n0, lane, xs,
+                                     xs_stride, ws, bias, out, M, N, res, res_dtype);
     else
-      epilogue<TO, ACT, RES, BN>(acc, m0 + cw * 64 + warp4 * 16 + g, n0 + 2 * t, xs, ws, bias,
-                                 out, M, N, res, res_dtype);
+      epilogue<TO, ACT, RES, BN>(acc, m0 + cw * 64 + warp4 * 16 + g, n0 + 2 * t, xs, xs_stride,
+                                 ws, bias, out, M, N, res, res_dtype);
   }
 }
 
@@ -556,9 +562,9 @@ int pick_bn(int M, int N, int sms) {
 }
 
 template <typename TO, int ACT, bool RES, int BN>
-int launch(const void* xq, const void* wq, const void* xs, const void* ws, const void* bias,
-           void* out, int M, int N, int K, const void* res, int res_dtype, int sms,
-           cudaStream_t stream) {
+int launch(const void* xq, const void* wq, const void* xs, int xs_stride, const void* ws,
+           const void* bias, void* out, int M, int N, int K, const void* res, int res_dtype,
+           int sms, cudaStream_t stream) {
   CUtensorMap tmx, tmw;
   int err = encode_operand(&tmx, xq, M, K, BM);
   if (err == 0) err = encode_operand(&tmw, wq, N, K, BN);
@@ -574,7 +580,7 @@ int launch(const void* xq, const void* wq, const void* xs, const void* ws, const
   auto al16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   const bool vec = N % 8 == 0 && al16(ws) && al16(out) && (bias == nullptr || al16(bias)) &&
                    (res == nullptr || al16(res));
-  kernel<<<grid, NTH, smem, stream>>>(tmx, tmw, static_cast<const float*>(xs),
+  kernel<<<grid, NTH, smem, stream>>>(tmx, tmw, static_cast<const float*>(xs), xs_stride,
                                       static_cast<const float*>(ws),
                                       static_cast<const float*>(bias), static_cast<TO*>(out), M,
                                       N, K, res, res_dtype, vec);
@@ -582,52 +588,66 @@ int launch(const void* xq, const void* wq, const void* xs, const void* ws, const
 }
 
 template <typename TO, int ACT, bool RES>
-int launch_bn(const void* xq, const void* wq, const void* xs, const void* ws, const void* bias,
-              void* out, int M, int N, int K, const void* res, int res_dtype,
+int launch_bn(const void* xq, const void* wq, const void* xs, int xs_stride, const void* ws,
+              const void* bias, void* out, int M, int N, int K, const void* res, int res_dtype,
               cudaStream_t st) {
   const int sms = sm_count();
   if (sms < 1) return (int)cudaErrorInvalidDevice;
   if (pick_bn(M, N, sms) == 128)
-    return launch<TO, ACT, RES, 128>(xq, wq, xs, ws, bias, out, M, N, K, res, res_dtype, sms,
-                                     st);
-  return launch<TO, ACT, RES, 256>(xq, wq, xs, ws, bias, out, M, N, K, res, res_dtype, sms, st);
+    return launch<TO, ACT, RES, 128>(xq, wq, xs, xs_stride, ws, bias, out, M, N, K, res,
+                                     res_dtype, sms, st);
+  return launch<TO, ACT, RES, 256>(xq, wq, xs, xs_stride, ws, bias, out, M, N, K, res, res_dtype,
+                                   sms, st);
 }
 
 template <typename TO, bool RES>
-int launch_act(int act, const void* xq, const void* wq, const void* xs, const void* ws,
-               const void* bias, void* out, int M, int N, int K, const void* res,
+int launch_act(int act, const void* xq, const void* wq, const void* xs, int xs_stride,
+               const void* ws, const void* bias, void* out, int M, int N, int K, const void* res,
                int res_dtype, cudaStream_t st) {
   switch (act) {
-    case 0: return launch_bn<TO, 0, RES>(xq, wq, xs, ws, bias, out, M, N, K, res, res_dtype, st);
-    case 1: return launch_bn<TO, 1, RES>(xq, wq, xs, ws, bias, out, M, N, K, res, res_dtype, st);
-    case 2: return launch_bn<TO, 2, RES>(xq, wq, xs, ws, bias, out, M, N, K, res, res_dtype, st);
-    case 3: return launch_bn<TO, 3, RES>(xq, wq, xs, ws, bias, out, M, N, K, res, res_dtype, st);
+    case 0:
+      return launch_bn<TO, 0, RES>(xq, wq, xs, xs_stride, ws, bias, out, M, N, K, res, res_dtype,
+                                   st);
+    case 1:
+      return launch_bn<TO, 1, RES>(xq, wq, xs, xs_stride, ws, bias, out, M, N, K, res, res_dtype,
+                                   st);
+    case 2:
+      return launch_bn<TO, 2, RES>(xq, wq, xs, xs_stride, ws, bias, out, M, N, K, res, res_dtype,
+                                   st);
+    case 3:
+      return launch_bn<TO, 3, RES>(xq, wq, xs, xs_stride, ws, bias, out, M, N, K, res, res_dtype,
+                                   st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename TO>
-int launch_res(int act, const void* xq, const void* wq, const void* xs, const void* ws,
-               const void* bias, void* out, int M, int N, int K, const void* res,
+int launch_res(int act, const void* xq, const void* wq, const void* xs, int xs_stride,
+               const void* ws, const void* bias, void* out, int M, int N, int K, const void* res,
                int res_dtype, cudaStream_t st) {
   if (res != nullptr)
-    return launch_act<TO, true>(act, xq, wq, xs, ws, bias, out, M, N, K, res, res_dtype, st);
-  return launch_act<TO, false>(act, xq, wq, xs, ws, bias, out, M, N, K, nullptr, 0, st);
+    return launch_act<TO, true>(act, xq, wq, xs, xs_stride, ws, bias, out, M, N, K, res,
+                                res_dtype, st);
+  return launch_act<TO, false>(act, xq, wq, xs, xs_stride, ws, bias, out, M, N, K, nullptr, 0,
+                               st);
 }
 
 int launch_out(int out_dtype, int act, const void* xq, const void* wq, const void* xs,
-               const void* ws, const void* bias, void* out, int M, int N, int K,
+               int xs_stride, const void* ws, const void* bias, void* out, int M, int N, int K,
                const void* res, int res_dtype, void* stream) {
-  // TMA reads rows of K bytes: K % 16 == 0 and 16-byte aligned operands
+  // TMA reads rows of K bytes: K % 16 == 0 and 16-byte aligned operands; a
+  // row's scale at xs[row * xs_stride], one a row (1) or one for all (0)
   if (M < 1 || N < 1 || K < 1 || K % 16 != 0 || res_dtype < 0 || res_dtype > 1 ||
-      reinterpret_cast<uintptr_t>(xq) % 16 != 0 || reinterpret_cast<uintptr_t>(wq) % 16 != 0)
+      xs_stride < 0 || xs_stride > 1 || reinterpret_cast<uintptr_t>(xq) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(wq) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_dtype == 0)
-    return launch_res<float>(act, xq, wq, xs, ws, bias, out, M, N, K, res, res_dtype, st);
+    return launch_res<float>(act, xq, wq, xs, xs_stride, ws, bias, out, M, N, K, res, res_dtype,
+                             st);
   if (out_dtype == 1)
-    return launch_res<__nv_bfloat16>(act, xq, wq, xs, ws, bias, out, M, N, K, res, res_dtype,
-                                     st);
+    return launch_res<__nv_bfloat16>(act, xq, wq, xs, xs_stride, ws, bias, out, M, N, K, res,
+                                     res_dtype, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -635,17 +655,20 @@ int launch_out(int out_dtype, int act, const void* xq, const void* wq, const voi
 
 extern "C" {
 
-// The GEMM of K9 (act 0, res null) and K8. xq: int8 [M, K]; wq: int8 [N, K];
-// xs: float32 [M]; ws: float32 [N]; bias: float32 [N] or null; act (0 none,
+// The GEMM of K9 (act 0, res null), of K8, and of q_matmul_pre on the card
+// (act 0). xq: int8 [M, K]; wq: int8 [N, K]; xs: float32 row scales, row m's
+// at xs[m * xs_stride] (1: an [M] vector; 0: one per-tensor scale, read on
+// the card); ws: float32 [N]; bias: float32 [N] or null; act (0 none,
 // 1 quick_gelu, 2 gelu_tanh, 3 gelu) on the float32 y, then + res [M, N]
 // (null, or of res_dtype 0 = float32, 1 = bfloat16), then the cast to
 // out: [M, N] of out_dtype (0 = float32, 1 = bfloat16). K % 16 == 0 and
 // 16-byte aligned xq, wq. Returns cudaGetLastError() of the launch (or the
 // error of building a tensor map).
-int q_block_linear_gemm(const void* xq, const void* wq, const void* xs, const void* ws,
-                        const void* bias, const void* res, int res_dtype, void* out,
-                        int out_dtype, int act, int M, int N, int K, void* stream) {
-  return launch_out(out_dtype, act, xq, wq, xs, ws, bias, out, M, N, K, res, res_dtype, stream);
+int q_block_linear_gemm(const void* xq, const void* wq, const void* xs, int xs_stride,
+                        const void* ws, const void* bias, const void* res, int res_dtype,
+                        void* out, int out_dtype, int act, int M, int N, int K, void* stream) {
+  return launch_out(out_dtype, act, xq, wq, xs, xs_stride, ws, bias, out, M, N, K, res,
+                    res_dtype, stream);
 }
 
 }  // extern "C"

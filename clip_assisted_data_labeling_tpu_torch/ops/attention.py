@@ -306,12 +306,14 @@ def _launch_packed(what: str, lib_fn, qkv: torch.Tensor, heads: int, scale: floa
     out = torch.empty((b, s, w), dtype=out_dtype or qkv.dtype, device=qkv.device)
     qk = (torch.empty((b, s, 2 * w), dtype=qkv.dtype, device=qkv.device)
           if cos is not None and qkv.dtype == torch.bfloat16 else None)
-    err = lib_fn(
-        qkv.data_ptr(), out.data_ptr(), _DTYPE_CODE[qkv.dtype], b, s, s_real, w, heads,
-        float(scale), *(() if panel is None else (panel,)),
-        None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
-        None if qk is None else qk.data_ptr(), torch.cuda.current_stream(qkv.device).cuda_stream,
-    )
+    with torch.cuda.device(qkv.device):
+        err = lib_fn(
+            qkv.data_ptr(), out.data_ptr(), _DTYPE_CODE[qkv.dtype], b, s, s_real, w, heads,
+            float(scale), *(() if panel is None else (panel,)),
+            None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
+            None if qk is None else qk.data_ptr(),
+            torch.cuda.current_stream(qkv.device).cuda_stream,
+        )
     _cuda_build.check(err, what)
     return out
 
@@ -532,10 +534,11 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError("fused_attention: the bfloat16 kernel reads 16-byte vectors — head "
                          f"dim {d} must be a multiple of 8 and the data 16-byte aligned")
     out = torch.empty_like(q)
-    err = _lib().attention_unpacked(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype], b, h, s,
-        d, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
-    )
+    with torch.cuda.device(q.device):
+        err = _lib().attention_unpacked(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPE_CODE[q.dtype], b,
+            h, s, d, float(scale), torch.cuda.current_stream(q.device).cuda_stream,
+        )
     _cuda_build.check(err, "fused_attention")
     fused_attention.launches += 1
     return out
@@ -605,10 +608,11 @@ def fused_attention_packed_q8s(qkv_q: torch.Tensor, ch_scale: torch.Tensor, head
             f"{ch_scale.dtype} on {ch_scale.device}"
         )
     out = torch.empty((b, s, w), dtype=torch.int8, device=qkv_q.device)
-    err = _q8s_lib().packed_attention_q8s(
-        qkv_q.data_ptr(), ch_scale.data_ptr(), out.data_ptr(), b, s, s_real, w, heads,
-        torch.cuda.current_stream(qkv_q.device).cuda_stream,
-    )
+    with torch.cuda.device(qkv_q.device):
+        err = _q8s_lib().packed_attention_q8s(
+            qkv_q.data_ptr(), ch_scale.data_ptr(), out.data_ptr(), b, s, s_real, w, heads,
+            torch.cuda.current_stream(qkv_q.device).cuda_stream,
+        )
     _cuda_build.check(err, "packed_attention_q8s")
     fused_attention_packed_q8s.launches += 1
     return out
@@ -690,10 +694,11 @@ def fused_attention_packed_q8(qkv_q: torch.Tensor, qkv_scale: torch.Tensor, head
                          f"{out_dtype}")
     out = torch.empty((b, s, w), dtype=torch.float32 if quant_out else out_dtype,
                       device=qkv_q.device)
-    err = _q8_lib().packed_attention_q8(
-        qkv_q.data_ptr(), qkv_scale.data_ptr(), out.data_ptr(), _DTYPE_CODE[out.dtype], b, s,
-        s_real, w, heads, float(scale), torch.cuda.current_stream(qkv_q.device).cuda_stream,
-    )
+    with torch.cuda.device(qkv_q.device):
+        err = _q8_lib().packed_attention_q8(
+            qkv_q.data_ptr(), qkv_scale.data_ptr(), out.data_ptr(), _DTYPE_CODE[out.dtype], b,
+            s, s_real, w, heads, float(scale), torch.cuda.current_stream(qkv_q.device).cuda_stream,
+        )
     _cuda_build.check(err, "packed_attention_q8")
     if quant_out:
         q, sc = _rowquant_launch("fused_attention_packed_q8", out.view(b * s, w), None, None,

@@ -32,11 +32,17 @@ K9 and K8 needs K % 16 == 0 and 16-byte aligned int8 operands on the card
 (TMA reads their rows). K8 keeps the TPU kernel's two refusals
 (K % 128 with the layernorm, N % 128 with ``quant_out``) on every device.
 
-``q_matmul_pre`` was plain XLA in the JAX package and is plain PyTorch here:
-``torch._int_mm`` plus the float32 dequant epilogue.
+``q_matmul_pre`` (the int8 product over rows quantized before it: every
+int8_static block product, and the dynamic routes' products over K6's or
+K1's int8 rows) was plain XLA in the JAX package. Here it is ``torch._int_mm``
+plus the float32 dequant epilogue (``ops/quant._dequant_epilogue``) on the
+CPU, and on the card K9's GEMM alone with that epilogue fused: one launch,
+the per-tensor ``x_scale`` read from the card where it is one value, equal
+bit for bit to the CPU's arithmetic (the int32 sums are exact, and each
+float32 step is rounded once on both).
 
 Dispatch: a CPU tensor goes to the plain PyTorch version beside the kernel;
-a CUDA tensor launches the kernel or raises.
+a CUDA tensor launches the kernel on its own card or raises.
 """
 from __future__ import annotations
 
@@ -129,11 +135,12 @@ def rowquant_static(x: torch.Tensor, ln_scale: torch.Tensor, ln_bias: torch.Tens
     for name, t, n in (("ln_scale", ln_scale, k), ("ln_bias", ln_bias, k), ("amax", amax, 1)):
         _check_vec("rowquant_static", name, t, n, x.device)
     out = torch.empty((m, k), dtype=torch.int8, device=x.device)
-    err = _static_lib().rowquant_static(
-        x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), amax.data_ptr(),
-        out.data_ptr(), _DTYPE_CODE[x.dtype], m, k, float(ln_eps),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):
+        err = _static_lib().rowquant_static(
+            x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(), amax.data_ptr(),
+            out.data_ptr(), _DTYPE_CODE[x.dtype], m, k, float(ln_eps),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     _cuda_build.check(err, "rowquant_static")
     rowquant_static.launches += 1
     return out
@@ -206,12 +213,13 @@ def _rowquant_launch(what: str, x: torch.Tensor, ln_scale, ln_bias, act: str | N
         _check_vec(what, "ln_bias", ln_bias, k, x.device)
     q = torch.empty((m, k), dtype=torch.int8, device=x.device)
     scale = torch.empty((m, 1), dtype=torch.float32, device=x.device)
-    err = _row_lib().rowquant(
-        x.data_ptr(), None if ln_scale is None else ln_scale.data_ptr(),
-        None if ln_bias is None else ln_bias.data_ptr(), q.data_ptr(), scale.data_ptr(),
-        _DTYPE_CODE[x.dtype], _ACT_CODE[act], m, k, float(ln_eps),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    with torch.cuda.device(x.device):
+        err = _row_lib().rowquant(
+            x.data_ptr(), None if ln_scale is None else ln_scale.data_ptr(),
+            None if ln_bias is None else ln_bias.data_ptr(), q.data_ptr(), scale.data_ptr(),
+            _DTYPE_CODE[x.dtype], _ACT_CODE[act], m, k, float(ln_eps),
+            torch.cuda.current_stream(x.device).cuda_stream,
+        )
     _cuda_build.check(err, what)
     return q, scale
 
@@ -252,7 +260,7 @@ def _gemm_lib() -> ctypes.CDLL:
     lib = _cuda_build.load("q_linear_fused")
     if lib.q_block_linear_gemm.argtypes is None:
         lib.q_block_linear_gemm.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
@@ -295,20 +303,24 @@ def _check_gemm(what: str, x: torch.Tensor, wq_t: torch.Tensor, w_scale: torch.T
 
 def _gemm_launch(what: str, xq: torch.Tensor, xs: torch.Tensor, wq_t: torch.Tensor,
                  w_scale: torch.Tensor, bias: torch.Tensor | None, out_dtype,
-                 act: str | None = None, residual: torch.Tensor | None = None) -> torch.Tensor:
-    """The int8 GEMM of K9 and K8 on arguments :func:`_check_gemm` passed:
+                 act: str | None = None, residual: torch.Tensor | None = None,
+                 xs_stride: int = 1) -> torch.Tensor:
+    """The int8 GEMM of K9, K8 and ``q_matmul_pre``, on xq's card, on
+    arguments :func:`_check_gemm` (and :func:`_check_pre`) passed:
     ``act(((acc·xs)·w_scale) + bias) + residual`` in float32, cast to
-    ``out_dtype`` → [M, N]."""
+    ``out_dtype`` → [M, N]; row m's scale is ``xs``'s element m ·
+    ``xs_stride`` (1: one a row; 0: one for every row)."""
     m, n, k = xq.shape[0], wq_t.shape[0], xq.shape[1]
     out = torch.empty((m, n), dtype=out_dtype, device=xq.device)
-    err = _gemm_lib().q_block_linear_gemm(
-        xq.data_ptr(), wq_t.data_ptr(), xs.data_ptr(), w_scale.data_ptr(),
-        None if bias is None else bias.data_ptr(),
-        None if residual is None else residual.data_ptr(),
-        0 if residual is None else _DTYPE_CODE[residual.dtype], out.data_ptr(),
-        _DTYPE_CODE[out_dtype], _ACT_CODE[act], m, n, k,
-        torch.cuda.current_stream(xq.device).cuda_stream,
-    )
+    with torch.cuda.device(xq.device):
+        err = _gemm_lib().q_block_linear_gemm(
+            xq.data_ptr(), wq_t.data_ptr(), xs.data_ptr(), xs_stride, w_scale.data_ptr(),
+            None if bias is None else bias.data_ptr(),
+            None if residual is None else residual.data_ptr(),
+            0 if residual is None else _DTYPE_CODE[residual.dtype], out.data_ptr(),
+            _DTYPE_CODE[out_dtype], _ACT_CODE[act], m, n, k,
+            torch.cuda.current_stream(xq.device).cuda_stream,
+        )
     _cuda_build.check(err, what)
     return out
 
@@ -415,6 +427,33 @@ def q_block_linear(x: torch.Tensor, wq_t: torch.Tensor, w_scale: torch.Tensor,
 q_block_linear.launches = 0
 
 
+def _check_pre(xq: torch.Tensor, x_scale: torch.Tensor, wq_t: torch.Tensor,
+               w_scale: torch.Tensor, bias: torch.Tensor | None,
+               residual: torch.Tensor | None, out_dtype) -> int:
+    """The GEMM's conditions on a ``q_matmul_pre`` call whose ``xq`` is
+    already padded to the weight's K (``match_k``), checked before the
+    launch: ``xq`` a contiguous 16-byte aligned int8 [M, K] with M ≥ 1,
+    ``x_scale`` a float32 tensor on xq's device holding one per-tensor
+    value (0-d or one element) or contiguous [M, 1] row scales, the rest as
+    :func:`_check_gemm` wants them. Returns the stride of the row scales
+    (0: one for every row; 1: one a row)."""
+    what = "q_matmul_pre"
+    if (xq.dim() != 2 or xq.dtype != torch.int8 or not xq.is_contiguous()
+            or xq.data_ptr() % 16 or xq.shape[0] < 1):
+        raise ValueError(f"{what}: xq must be a contiguous 16-byte aligned int8 [M, K] tensor "
+                         f"with M >= 1, got {tuple(xq.shape)} {xq.dtype}")
+    _check_gemm(what, xq, wq_t, w_scale, bias, out_dtype, residual=residual)
+    if (not torch.is_tensor(x_scale) or x_scale.device != xq.device
+            or x_scale.dtype != torch.float32
+            or not (x_scale.numel() == 1 and x_scale.dim() <= 2
+                    or x_scale.shape == (xq.shape[0], 1) and x_scale.is_contiguous())):
+        got = (f"{tuple(x_scale.shape)} {x_scale.dtype} on {x_scale.device}"
+               if torch.is_tensor(x_scale) else type(x_scale).__name__)
+        raise ValueError(f"{what}: x_scale must be a float32 tensor on {xq.device} holding one "
+                         f"value or contiguous [{xq.shape[0]}, 1] row scales, got {got}")
+    return 0 if x_scale.numel() == 1 else 1
+
+
 def q_matmul_pre(
     xq: torch.Tensor,  # [M, K] int8
     x_scale: torch.Tensor,  # [M, 1] or scalar f32
@@ -426,6 +465,21 @@ def q_matmul_pre(
 ) -> torch.Tensor:
     """int8 × int8 → int32 product over pre-quantized activations, then the
     float32 epilogue ``acc·x_scale·w_scale (+bias)(+residual)`` and the cast
-    to ``out_dtype``. Pairs with :func:`rowquant_static`."""
-    acc = int_matmul(xq, wq_t)
-    return _dequant_epilogue(acc, x_scale, w_scale, bias, residual, out_dtype)
+    to ``out_dtype``. Pairs with :func:`rowquant_static`. On the CPU
+    ``torch._int_mm`` and ``_dequant_epilogue``; on the card one launch of
+    K9's GEMM with that epilogue fused (counted in ``launches``), the same
+    bits, on inputs :func:`_check_pre` passes (it raises on others)."""
+    if xq.device.type == "cpu":
+        return _dequant_epilogue(int_matmul(xq, wq_t), x_scale, w_scale, bias, residual,
+                                 out_dtype)
+    if not xq.is_cuda:
+        raise ValueError(f"q_matmul_pre: unsupported device {xq.device}")
+    xq = match_k(xq, wq_t)
+    stride = _check_pre(xq, x_scale, wq_t, w_scale, bias, residual, out_dtype)
+    out = _gemm_launch("q_matmul_pre", xq, x_scale, wq_t, w_scale, bias, out_dtype,
+                       residual=residual, xs_stride=stride)
+    q_matmul_pre.launches += 1
+    return out
+
+
+q_matmul_pre.launches = 0

@@ -23,11 +23,13 @@ from clip_assisted_data_labeling_tpu_torch.ops.attention import (
     fused_attention_packed_q8s_plain,
     fused_attention_plain,
 )
+from clip_assisted_data_labeling_tpu_torch.ops.quant import _dequant_epilogue, int_matmul
 from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import (
     q_block_linear,
     q_block_linear_plain,
     q_linear_fused,
     q_linear_fused_plain,
+    q_matmul_pre,
     rowquant,
     rowquant_plain,
     rowquant_static,
@@ -442,6 +444,76 @@ def test_q_linear_fused_refuses_bad_inputs(card):
         rowquant(x, act="relu")
 
 
+def _pre_operands(m, k, n, out_dtype, with_res, scale, device, seed):
+    """A ``q_matmul_pre`` call's operands on ``device``: int8 rows, a 0-d
+    (``scale`` "tensor") or [M, 1] ("rows") float32 x_scale, int8 weights
+    [N, K], float32 scales and bias, and a bf16 residual."""
+    rng = np.random.default_rng(seed)
+    xs = (torch.tensor(np.float32(rng.uniform(0.01, 0.05))) if scale == "tensor"
+          else torch.from_numpy(rng.uniform(0.01, 0.05, (m, 1)).astype(np.float32)))
+    res = (torch.from_numpy(rng.normal(0, 1, (m, n)).astype(np.float32)).to(torch.bfloat16)
+           if with_res else None)
+    ops = dict(xq=torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8)), x_scale=xs,
+               wq_t=torch.from_numpy(rng.integers(-127, 128, (n, k), dtype=np.int8)),
+               w_scale=torch.from_numpy(rng.uniform(1e-4, 1e-3, n).astype(np.float32)),
+               bias=torch.from_numpy(rng.normal(0, 0.1, n).astype(np.float32)), residual=res)
+    return {**{k_: None if v is None else v.to(device) for k_, v in ops.items()},
+            "out_dtype": out_dtype}
+
+
+def _torch_route(ops):
+    """``q_matmul_pre``'s torch route: ``torch._int_mm`` and the epilogue's passes."""
+    return _dequant_epilogue(int_matmul(ops["xq"], ops["wq_t"]), ops["x_scale"], ops["w_scale"],
+                             ops["bias"], ops["residual"], ops["out_dtype"])
+
+
+@pytest.mark.parametrize("scale", ["tensor", "rows"])
+@pytest.mark.parametrize("m", [18464, 577, 17])
+@pytest.mark.parametrize("k,n,out_dtype,with_res", [
+    # ViT-L-14-336 (lnk): qkv, out, fc1, fc2 with its residual
+    (1024, 3072, torch.bfloat16, False), (1024, 1024, torch.bfloat16, False),
+    (1024, 4096, torch.bfloat16, False), (4096, 1024, torch.bfloat16, True),
+    # SO400M-384 (wire): qkv to float32, out, fc1, fc2 with its residual
+    (1152, 3456, torch.float32, False), (1152, 1152, torch.bfloat16, False),
+    (1152, 4304, torch.bfloat16, False), (4304, 1152, torch.bfloat16, True),
+])
+def test_q_matmul_pre_gemm_bit_identical_to_torch_route(card, k, n, out_dtype, with_res, m,
+                                                        scale):
+    """``q_matmul_pre`` on K9's GEMM at the benchmarked towers' products
+    (M = 18464 rows, one image's 577 and a ragged 17), with a per-tensor
+    x_scale read on the card or [M, 1] row scales: one launch and the torch
+    route's bits."""
+    ops = _pre_operands(m, k, n, out_dtype, with_res, scale, card, seed=m + k + n)
+    before = q_matmul_pre.launches
+    got = q_matmul_pre(**ops)
+    torch.cuda.synchronize()
+    assert q_matmul_pre.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == (m, n)
+    assert torch.equal(got, _torch_route(ops))
+
+
+@pytest.mark.parametrize("change", ["k40", "float16_out", "x_scale_float64", "bias_bf16",
+                                    "x_scale_m"])
+def test_q_matmul_pre_refuses_what_the_gemm_does_not_take(card, change):
+    """On the card ``q_matmul_pre`` is K9's GEMM alone: an input the GEMM
+    does not take (K % 16, a float16 output, a float64 or [M] x_scale, a
+    bf16 bias) raises ValueError and launches nothing."""
+    ops = _pre_operands(577, 40 if change == "k40" else 1024, 1024, torch.bfloat16, True,
+                        "tensor", card, seed=5)
+    if change == "float16_out":
+        ops["out_dtype"] = torch.float16
+    elif change == "x_scale_float64":
+        ops["x_scale"] = ops["x_scale"].double()
+    elif change == "bias_bf16":
+        ops["bias"] = ops["bias"].to(torch.bfloat16)
+    elif change == "x_scale_m":
+        ops["x_scale"] = ops["x_scale"].reshape(1).expand(577).contiguous()
+    before = q_matmul_pre.launches
+    with pytest.raises(ValueError, match="q_matmul_pre"):
+        q_matmul_pre(**ops)
+    assert q_matmul_pre.launches == before
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,s,s_real,w,heads", [
     (2, 17, 17, 128, 2), (2, 50, 43, 128, 4), (2, 577, 577, 1024, 16),
@@ -797,8 +869,10 @@ def test_int8_static_knob_routes_two_layers_on_card_match_cpu(card, monkeypatch,
 @pytest.mark.parametrize("name", ["RN-Test/openai", "CNX-Test-mlp/x"])
 def test_conv_towers_on_card_match_cpu(card, name, dtype, limit):
     """The modified-ResNet and ConvNeXt towers on the card (cuDNN
-    convolutions with TF32 off, ``torch._int_mm``) against the same weights,
-    calibration and images on the CPU; no kernel of the table launches."""
+    convolutions with TF32 off; int8_static's 1x1 products on K9's GEMM
+    through ``q_matmul_pre``) against the same weights,
+    calibration and images on the CPU; no other kernel of the table
+    launches."""
     from clip_assisted_data_labeling_tpu_torch.models import vit
     from clip_assisted_data_labeling_tpu_torch.models.clip_weights import module_from_params
     from clip_assisted_data_labeling_tpu_torch.models.conv_tower import conv_family
@@ -820,7 +894,9 @@ def test_conv_towers_on_card_match_cpu(card, name, dtype, limit):
     kernels = (fused_attention_packed, fused_attention_packed_grouped, flash_attention_packed,
                rowquant, rowquant_static, q_linear_fused, fused_attention_packed_q8s)
     before = [fn.launches for fn in kernels]
+    pre = q_matmul_pre.launches
     got = fam.encode(gpu, images.to(card), tdtype).cpu().numpy()
     assert [fn.launches for fn in kernels] == before
+    assert (q_matmul_pre.launches > pre) == (dtype == "int8_static")
     ref = fam.encode(cpu, images, tdtype).numpy()
     assert 1.0 - np.min(np.sum(got * ref, axis=-1)) <= limit

@@ -28,11 +28,13 @@ import numpy as np
 import pytest
 import torch
 
-from clip_assisted_data_labeling_tpu_torch.ops.quant import _dequant_epilogue, int_matmul
+from clip_assisted_data_labeling_tpu_torch.ops.quant import _dequant_epilogue, int_matmul, match_k
 from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import (
     _row_act,
     q_block_linear_plain,
     q_linear_fused_plain,
+    _check_pre,
+    q_matmul_pre,
     rowquant_plain,
     rowquant_static_plain,
 )
@@ -151,11 +153,13 @@ def test_quad_transpose_gives_each_lane_eight_contiguous_columns():
     np.testing.assert_array_equal(b, want)
 
 
-def _epilogue_f32(acc, xs, ws, bias, act=None, residual=None):
+def _epilogue_f32(acc, xs, ws, bias, act=None, residual=None, xs_stride=1):
     """The kernel's epilogue, one float32 rounding a step (numpy float32
-    arithmetic contracts nothing): f32(acc)·xs[m], ·ws[n], + bias[n], then
-    the activation (torch's, as the plain version's) and + residual."""
-    y = acc.astype(np.float32) * xs.reshape(-1, 1)
+    arithmetic contracts nothing): f32(acc)·xs[m · xs_stride], ·ws[n],
+    + bias[n], then the activation (torch's, as the plain version's) and
+    + residual."""
+    sx = xs.reshape(-1)[np.arange(acc.shape[0]) * xs_stride]  # each row's one read
+    y = acc.astype(np.float32) * sx.reshape(-1, 1)
     y = y * ws.reshape(1, -1)
     if bias is not None:
         y = y + bias.reshape(1, -1)
@@ -205,6 +209,140 @@ def test_gemm_epilogue_order_with_activation_and_residual(act):
                                torch.from_numpy(bias), x_scale=torch.from_numpy(xs),
                                residual=res, act=act, out_dtype=torch.float32)
     assert torch.equal(got, ref)
+
+
+# q_matmul_pre on the card: the GEMM alone over int8_static's rows, with one
+# per-tensor x_scale (xs_stride 0) or [M, 1] row scales (1). The cells'
+# products at fewer rows: ViT-L-14-336's qkv, out, fc1 and fc2 (bf16 out, the
+# fc2 residual bf16), SO400M-384's qkv (float32 out), out, fc1 and fc2.
+PRE_PRODUCTS = [
+    (130, 1024, 3072, torch.bfloat16, False), (130, 1024, 1024, torch.bfloat16, False),
+    (129, 1024, 4096, torch.bfloat16, False), (129, 4096, 1024, torch.bfloat16, True),
+    (37, 1152, 3456, torch.float32, False), (17, 1152, 1152, torch.bfloat16, False),
+    (37, 1152, 4304, torch.bfloat16, False), (37, 4304, 1152, torch.bfloat16, True),
+]
+
+
+@pytest.mark.parametrize("scale", ["tensor", "rows"])
+@pytest.mark.parametrize("m,k,n,out_dtype,with_res", PRE_PRODUCTS)
+def test_gemm_epilogue_with_a_per_tensor_scale_matches_dequant_epilogue(m, k, n, out_dtype,
+                                                                        with_res, scale):
+    """The emulated sums and epilogue with the stride ``_check_pre``
+    gives (0 for a 0-d ``x_scale``, every row reading its one element; 1 for
+    [M, 1]) equal, bit for bit, ``_dequant_epilogue`` on ``int_matmul`` with
+    that ``x_scale`` and ``q_matmul_pre`` (its CPU route)."""
+    rng = np.random.default_rng(m + k + n)
+    xq = rng.integers(-127, 128, (m, k), dtype=np.int8)
+    wq = rng.integers(-127, 128, (n, k), dtype=np.int8)
+    ws = torch.from_numpy(rng.uniform(1e-4, 1e-3, n).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(0, 0.1, n).astype(np.float32))
+    xs = (torch.tensor(np.float32(rng.uniform(0.01, 0.05))) if scale == "tensor"
+          else torch.from_numpy(rng.uniform(0.01, 0.05, (m, 1)).astype(np.float32)))
+    res = (torch.from_numpy(rng.normal(0, 1, (m, n)).astype(np.float32)).to(torch.bfloat16)
+           if with_res else None)
+    t_xq, t_wq = torch.from_numpy(xq), torch.from_numpy(wq)
+    stride = _check_pre(t_xq, xs, t_wq, ws, bias, res, out_dtype)
+    assert stride == (0 if scale == "tensor" else 1)
+    acc, _ = _emulate_gemm(xq, wq)
+    got = torch.from_numpy(_epilogue_f32(acc, xs.numpy(), ws.numpy(), bias.numpy(),
+                                         residual=None if res is None else res.float().numpy(),
+                                         xs_stride=stride)).to(out_dtype)
+    ref = _dequant_epilogue(int_matmul(t_xq, t_wq), xs, ws, bias, res, out_dtype)
+    assert torch.equal(got, ref)
+    assert torch.equal(got, q_matmul_pre(t_xq, xs, t_wq, ws, bias, res, out_dtype))
+
+
+def _pre_operands(m=33, k=64, n=48):
+    """A q_matmul_pre call's operands that K9's GEMM takes (CPU tensors)."""
+    return dict(xq=torch.zeros((m, k), dtype=torch.int8), x_scale=torch.tensor(0.02),
+                wq_t=torch.zeros((n, k), dtype=torch.int8), w_scale=torch.ones(n),
+                bias=torch.zeros(n), residual=torch.zeros((m, n), dtype=torch.bfloat16),
+                out_dtype=torch.bfloat16)
+
+
+def _misaligned_int8(rows: int, cols: int) -> torch.Tensor:
+    """A contiguous int8 [rows, cols] view one byte past a 16-byte boundary."""
+    flat = torch.zeros(rows * cols + 16, dtype=torch.int8)
+    off = (-flat.data_ptr()) % 16 + 1
+    return flat[off:off + rows * cols].view(rows, cols)
+
+
+@pytest.mark.parametrize("change,want", [
+    ({}, 0),
+    ({"x_scale": torch.tensor([0.02])}, 0),
+    ({"x_scale": torch.tensor([[0.02]])}, 0),
+    ({"x_scale": torch.full((33, 1), 0.02)}, 1),
+    ({"bias": None, "residual": None}, 0),
+    ({"residual": torch.zeros((33, 48))}, 0),
+    ({"out_dtype": torch.float32}, 0),
+    # an [M] x_scale: a broadcast would read it along the columns
+    ({"x_scale": torch.full((33,), 0.02)}, None),
+    ({"x_scale": torch.full((33, 2), 0.02)[:, :1]}, None),   # [M, 1], not contiguous
+    ({"x_scale": torch.tensor(0.02, dtype=torch.float64)}, None),
+    ({"x_scale": 0.02}, None),                                # not a tensor
+    ({"x_scale": torch.tensor([[[0.02]]])}, None),            # would make the output 3-D
+    ({"xq": torch.zeros((33, 40), dtype=torch.int8),
+      "wq_t": torch.zeros((48, 40), dtype=torch.int8)}, None),  # K % 16
+    ({"xq": torch.zeros((33, 128), dtype=torch.int8)[:, :64]}, None),  # not contiguous
+    ({"xq": _misaligned_int8(33, 64)}, None),
+    ({"wq_t": _misaligned_int8(48, 64)}, None),
+    ({"xq": torch.zeros((0, 64), dtype=torch.int8), "residual": None}, None),
+    ({"xq": torch.zeros((33, 64), dtype=torch.uint8)}, None),
+    ({"wq_t": torch.zeros((48, 32), dtype=torch.int8)}, None),  # another K
+    ({"w_scale": torch.ones(48, dtype=torch.bfloat16)}, None),
+    ({"w_scale": torch.ones((1, 48))}, 0),                    # broadcasts as [N]
+    ({"w_scale": torch.ones(47)}, None),
+    ({"bias": torch.zeros(48, dtype=torch.bfloat16)}, None),
+    ({"bias": torch.zeros(47)}, None),
+    ({"residual": torch.zeros((33, 48), dtype=torch.float16)}, None),
+    ({"residual": torch.zeros((48, 33), dtype=torch.bfloat16).t()}, None),
+    ({"out_dtype": torch.float16}, None),
+    ({"w_scale": torch.ones(48, device="meta")}, None),       # another device
+    ({"x_scale": torch.tensor(0.02, device="meta")}, None),
+])
+def test_q_matmul_pre_route_is_a_function_of_the_operands(change, want):
+    """The card's checks, on CPU tensors: K9's GEMM takes the call (the
+    stride of the row scales) or ``q_matmul_pre`` raises (None), from the
+    operands' shapes, dtypes, layouts and devices alone."""
+    ops = {**_pre_operands(), **change}
+    if want is None:
+        with pytest.raises(ValueError, match="q_matmul_pre"):
+            _check_pre(**ops)
+    else:
+        assert _check_pre(**ops) == want
+
+
+@pytest.mark.parametrize("name,route", [("ViT-L-14-336/openai", "lnk"),
+                                        ("ViT-SO400M-14-SigLIP-384/webli", "wire")])
+def test_cell_towers_send_every_block_product_to_the_gemm(monkeypatch, name, route):
+    """One layer of each benchmarked int8_static tower at full width, on the
+    CPU: every ``q_matmul_pre`` call of a forward (the block's four
+    products) is one that K9's GEMM would take on the card, with one
+    per-tensor scale, so the card's forward launches 4 × depth and raises
+    on none."""
+    import dataclasses
+
+    from clip_assisted_data_labeling_tpu_torch.models import vit
+    from clip_assisted_data_labeling_tpu_torch.models.clip_weights import module_from_params
+    from clip_assisted_data_labeling_tpu_torch.ops.quant import quantize_vit_params
+
+    cfg = dataclasses.replace(vit.resolve_config(name), layers=1)
+    params = quantize_vit_params(vit.init_vit_params(cfg, torch.Generator().manual_seed(0)))
+    model = module_from_params(params, cfg)
+    images = torch.from_numpy(np.random.default_rng(1).normal(
+        0, 1, (1, cfg.image_size, cfg.image_size, 3)).astype(np.float32))
+    vit.attach_act_amax(model, vit.vit_act_amax(model, images), wire=vit.int8_wire_enabled(cfg))
+    assert vit.block_route(model.blocks[0], cfg) == route
+    strides = []
+
+    def spy(xq, x_scale, wq_t, w_scale, bias=None, residual=None, out_dtype=torch.bfloat16):
+        strides.append(_check_pre(match_k(xq, wq_t), x_scale, wq_t, w_scale, bias, residual,
+                                  out_dtype))
+        return q_matmul_pre(xq, x_scale, wq_t, w_scale, bias, residual, out_dtype)
+
+    monkeypatch.setattr(vit, "q_matmul_pre", spy)
+    vit.vit_encode_image(model, images, torch.bfloat16)
+    assert strides == [0] * 4 * cfg.layers
 
 
 # ---- K6: the row pass's layernorm sums -------------------------------------------
