@@ -58,6 +58,15 @@ other kernels:
      depth) and a forward of 256 crops on each route, the embeddings bit
      for bit (printed as its own JSON line, each product's row with the
      K9pre launches of its tower's main path, phases 5 and 8),
+  3d. K1 and K5 with per-sequence key lengths (``varlen_launches``) at the
+     embed-native cell's shapes, bf16 [64, 256, 3456] (K1) and [64, 1024,
+     3456] (K5), 16 heads of 72: once with the lengths png_pool's eight
+     sizes give on the 1024 canvas (247-256 and 1,008-1,024, eight rows of
+     each size in a seeded order), once with lengths drawn from 1..S; every
+     row against the plain version on the same lengths (within max(2e-2,
+     2^-7·|ref|) elementwise), zeros past each row's length, finite, one
+     launch and one varlen launch a call; timed beside the same launch
+     without lengths (printed as its own JSON line),
   4. write 32 synthetic PNGs of mixed sizes from a seed,
   5. run the port's embed CLI on them: ViT-L-14-336/openai, int8_static,
      batch 8, full width and depth (24 layers), random weights from the
@@ -171,8 +180,10 @@ other kernels:
      no K2); ViT-H-14-CLIPA and ViT-bigG-14-CLIPA in bfloat16 (K1 at d=80 and
      104), each timed,
  28. the embed CLI with --aspect native on ViT-SO400M-16-SigLIP2-naflex in
-     bfloat16 on 8 PNG copies: 5 crops a sidecar (K1 for the square crops),
-     two images' native-aspect rows against the CPU (1 - cosine ≤ 1e-3),
+     bfloat16 on 8 PNG copies at --max_patches 256 and 1024: 5 crops a
+     sidecar (K1 for the square crops; the native rows on K1, then K5, with
+     per-image key lengths), every native-aspect row against the same
+     route on the CPU (1 - cosine ≤ 1e-3),
  29. dynamic int8 with CTPU_INT8_BLOCK=hybrid on 4 images: SO400M-384 (K1
      quant_out, K6 three times a layer) and PE-Core-L14-336 (K1 with RoPE:
      a RoPE tower's blocks take the generic block), against int8_static,
@@ -374,14 +385,16 @@ def int8_knobs(**env):
 
 def counters() -> dict:
     """(wrapper, attribute) of each launch counter by table number; K5's
-    launches with RoPE tables have a counter of their own besides K5's, and
-    K9pre counts ``q_matmul_pre``'s launches of K9's GEMM (int8_static's
-    block products)."""
+    launches with RoPE tables have a counter of their own besides K5's, K1's
+    and K5's launches given per-sequence key lengths (naflex's native rows)
+    theirs, and K9pre counts ``q_matmul_pre``'s launches of K9's GEMM
+    (int8_static's block products)."""
     from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import q_matmul_pre
 
     ks = kernels()
     return {**{k: (fn, "launches") for k, fn in ks.items()},
-            "K5+RoPE": (ks["K5"], "rope_launches"), "K9pre": (q_matmul_pre, "launches")}
+            "K5+RoPE": (ks["K5"], "rope_launches"), "K1+VL": (ks["K1"], "varlen_launches"),
+            "K5+VL": (ks["K5"], "varlen_launches"), "K9pre": (q_matmul_pre, "launches")}
 
 
 def reset_counts() -> None:
@@ -1382,6 +1395,86 @@ STATIC_PRODUCTS = {
 CELL_CROPS = 256  # the benchmark's embed batch: 64 images x 4 crops
 
 
+# the embed-native cell's pool (png_pool's eight sizes, w x h) and canvas
+VARLEN_SIZES = ((512, 512), (768, 768), (1024, 1024), (832, 1216), (1216, 832),
+                (768, 1344), (1344, 768), (1536, 1536))
+VARLEN_CANVAS = 1024
+
+
+def varlen_attention() -> list[dict]:
+    """Phase 3d: K1 and K5 given per-sequence key lengths at the embed-native
+    cell's batch of 64 native rows, bf16 qkv [64, S, 3456] (SO400M/16: 16
+    heads of 72), S = 256 on K1 and 1024 on K5; the lengths are those the
+    cell's images get (each size fitted to the canvas, then
+    ``models/naflex.target_grid``; eight rows of each size in a seeded
+    order), then lengths drawn from 1..S, 1 and S among them (tiles and
+    panels skipped everywhere). Every row against the plain version given the same
+    lengths, zeros past each length, one launch and one varlen launch a
+    call, and the time beside the launch without lengths."""
+    from clip_assisted_data_labeling_tpu_torch.models.naflex import target_grid
+    from clip_assisted_data_labeling_tpu_torch.ops.attention import (
+        flash_attention_packed,
+        flash_attention_packed_plain,
+        fused_attention_packed,
+        fused_attention_packed_plain,
+    )
+
+    b, heads, d = 64, 16, 72
+    w = heads * d
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    order = torch.randperm(b, generator=torch.Generator().manual_seed(11)).tolist()
+    records = []
+    for kname, s, kernel, plain in (("K1", 256, fused_attention_packed,
+                                     fused_attention_packed_plain),
+                                    ("K5", 1024, flash_attention_packed,
+                                     flash_attention_packed_plain)):
+        cell = []
+        for iw, ih in VARLEN_SIZES:
+            scale = min(1.0, VARLEN_CANVAS / max(iw, ih))  # data/loader.fit_to_canvas
+            gh, gw = target_grid(max(1, int(ih * scale)), max(1, int(iw * scale)), 16, s)
+            cell += [gh * gw] * (b // len(VARLEN_SIZES))
+        spread = torch.randint(1, s + 1, (b,), generator=torch.Generator().manual_seed(s))
+        spread[:2] = torch.tensor([1, s])  # the ends: one key, and every key
+        qkv = torch.randn((b, s, 3 * w), generator=gen, device="cuda").to(torch.bfloat16)
+        for case, lens in (("cell", [cell[i] for i in order]), ("1..S", spread.tolist())):
+            lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+            reset_counts()
+            got = kernel(qkv, heads, d ** -0.5, lengths)
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in counts().items() if v}
+            if launched != {kname: 1, kname + "+VL": 1}:
+                fail(f"{kname} with lengths ({case}): launches {launched}")
+            ref = plain(qkv, heads, d ** -0.5, lengths).float()
+            got = got.float()
+            worst, worst_row, over = 0.0, 0, 0
+            for bi, n in enumerate(lens):
+                e = (got[bi, :n] - ref[bi, :n]).abs()
+                over += int((e > torch.clamp(2.0 ** -7 * ref[bi, :n].abs(), min=2e-2)).sum())
+                if e.max().item() > worst:
+                    worst, worst_row = e.max().item(), bi
+                if not bool(torch.isfinite(got[bi, :n]).all()) or bool(got[bi, n:].any()):
+                    fail(f"{kname} with lengths ({case}): row {bi} (length {n}) not finite "
+                         f"below its length or not zero past it")
+            if over:
+                fail(f"{kname} with lengths ({case}): {over} entries over max(2e-2, "
+                     f"2^-7·|ref|); worst {worst:.3g} in row {worst_row}")
+            rec = {"kernel": kname, "case": f"bf16 [{b},{s},{3 * w}] h={heads} lengths {case}",
+                   "lengths": [min(lens), max(lens), sum(lens)], "max_abs_err": worst,
+                   "worst_row": worst_row,
+                   "ms": time_ms(lambda: kernel(qkv, heads, d ** -0.5, lengths)),
+                   "padded_ms": time_ms(lambda: kernel(qkv, heads, d ** -0.5, None))}
+            records.append(rec)
+            print(f"phase 3d {kname} {rec['case']} ({min(lens)}-{max(lens)}): every row "
+                  f"within tolerance, max err {worst:.3g} (row {worst_row}), zeros past "
+                  f"each length; {rec['ms']:.3f} ms against {rec['padded_ms']:.3f} ms "
+                  f"without lengths", flush=True)
+            del got, ref
+        del qkv
+        torch.cuda.empty_cache()
+    reset_counts()
+    return records
+
+
 def static_gemm() -> list[dict]:
     """Phase 3c: ``q_matmul_pre`` (int8_static's block products) on K9's
     GEMM with the dequant epilogue fused, against its torch route
@@ -1829,7 +1922,7 @@ CLIPA_H336 = "ViT-H-14-CLIPA-336/datacomp1b"  # d=80; S=577 at width 1280 takes 
 CLIPA_H = "ViT-H-14-CLIPA/datacomp1b"  # d=80 at S=257: K1
 CLIPA_BIGG = "ViT-bigG-14-CLIPA/datacomp1b"  # d=104 (K1's DP=112 template)
 COCA_L = "coca_ViT-L-14/laion2b_s13b_b90k"
-NAFLEX = "ViT-SO400M-16-SigLIP2-naflex"  # S=256 square crops; native aspect on torch products
+NAFLEX = "ViT-SO400M-16-SigLIP2-naflex"  # S=256 square crops; native aspect on K1/K5 with lengths
 FLAG_MODEL = "ViT-B-32/openai"  # the flag runs' small tower (12 layers, S=50)
 
 
@@ -1931,22 +2024,44 @@ def towers(root: str, l336: dict) -> dict:
 def naflex_native(root: str) -> dict:
     """Phase 28: the embed CLI with ``--aspect native`` on ViT-SO400M-16-
     SigLIP2-naflex in bfloat16, on copies of 8 of the PNGs in a fresh
-    directory (one batch): the square crops through K1 (27 launches, S=256),
-    the native-aspect rows through the masked torch path (no kernel); each
-    sidecar holds 5 crops; the first two images' native-aspect rows within
-    the bf16 limit (1 − cosine ≤ 1e-3) of the same encoder on the CPU (the
-    weights made on the card as the CLI makes them, moved across). Returns
-    the launch counts."""
+    directory (one batch), at ``--max_patches`` 256 and 1024: the square
+    crops through K1 (27 launches, S=256), the native-aspect rows through
+    the block route with per-image key lengths (27 more: K1 at 256, K5 at
+    1024, each counted again as K1+VL or K5+VL); each sidecar holds 5
+    crops; every image's native-aspect row within the bf16 limit (1 −
+    cosine ≤ 1e-3) of the same route on the CPU's plain kernels (the weights
+    made on the card as the CLI makes them, moved across). Returns the
+    launch counts as paths 'naflex256' and 'naflex' (1024)."""
+    from clip_assisted_data_labeling_tpu_torch.models.vit import resolve_config
+
+    cfg = resolve_config(NAFLEX)
+    out = {}
+    for max_patches in (256, 1024):
+        route = "K1" if max_patches == cfg.seq_len else "K5"
+        want = {"K1": cfg.layers}
+        want[route] = want.get(route, 0) + cfg.layers
+        want[route + "+VL"] = cfg.layers
+        out["naflex" if max_patches == 1024 else f"naflex{max_patches}"] = naflex_native_at(
+            root, cfg, max_patches, want)
+    return out
+
+
+def naflex_native_at(root: str, cfg, max_patches: int, want_counts: dict) -> dict:
+    """Phase 28 at one ``--max_patches``; ``want_counts``: the launches
+    expected (every other counter 0)."""
     from clip_assisted_data_labeling_tpu_torch.data.loader import BatchedImageLoader
     from clip_assisted_data_labeling_tpu_torch.models.clip_weights import params_from_module
     from clip_assisted_data_labeling_tpu_torch.models.encoders import CLIPImageEncoder
-    from clip_assisted_data_labeling_tpu_torch.models.naflex import target_grid
-    from clip_assisted_data_labeling_tpu_torch.models.vit import resolve_config
+    from clip_assisted_data_labeling_tpu_torch.models.naflex import (
+        build_pos_weights,
+        naflex_encode,
+        preprocess_variable,
+        target_grid,
+    )
     from clip_assisted_data_labeling_tpu_torch.pipeline.embed import main as embed_main
     from clip_assisted_data_labeling_tpu_torch.store.columnar import EmbeddingStore
     from clip_assisted_data_labeling_tpu_torch.store.sidecar import read_sidecar
 
-    cfg = resolve_config(NAFLEX)
     pngs = sorted(glob.glob(os.path.join(root, "*.png")))[:BATCH]
     with tempfile.TemporaryDirectory(prefix="chip_smoke_naflex_") as nroot:
         for p in pngs:
@@ -1954,14 +2069,15 @@ def naflex_native(root: str) -> dict:
         reset_counts()
         t0 = time.perf_counter()
         embed_main(["--root_dir", nroot, "--models_to_use", NAFLEX, "--compute_dtype",
-                    "bfloat16", "--aspect", "native", "--batch_size", str(BATCH),
-                    "--num_workers", "4", "--device", "cuda"])
+                    "bfloat16", "--aspect", "native", "--max_patches", str(max_patches),
+                    "--batch_size", str(BATCH), "--num_workers", "4", "--device", "cuda"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         got = counts()
-        want = {k: {"K1": cfg.layers}.get(k, 0) for k in got}
+        want = {k: want_counts.get(k, 0) for k in got}
         if got != want:
-            fail(f"{NAFLEX} --aspect native: launches {got}, expected {want}")
+            fail(f"{NAFLEX} --aspect native --max_patches {max_patches}: launches {got}, "
+                 f"expected {want}")
         pts = sorted(glob.glob(os.path.join(nroot, "*.pt")))
         crops = [sorted(read_sidecar(p)[NAFLEX]) for p in pts]
         store = EmbeddingStore.open(nroot, NAFLEX)
@@ -1974,25 +2090,30 @@ def naflex_native(root: str) -> dict:
         params = {k: torch.from_numpy(v) for k, v in params_from_module(enc.model).items()}
         del enc
         cpu = CLIPImageEncoder(NAFLEX, params=params, compute_dtype="bfloat16", device="cpu")
-        batch = next(iter(BatchedImageLoader(sorted(glob.glob(os.path.join(nroot, "*.png")))[:2],
-                                             canvas_size=1024, out_size=cfg.image_size,
-                                             batch_size=2, num_workers=2)))
+        batch = next(iter(BatchedImageLoader(
+            sorted(glob.glob(os.path.join(nroot, "*.png"))), canvas_size=1024,
+            out_size=cfg.image_size, batch_size=len(pngs), num_workers=4)))
         imgs = []
         for bi in range(batch.n_valid):
             ox, oy, w, h = (int(v) for v in batch.stat_params[bi, :4])
             imgs.append(batch.canvas[bi, oy: oy + h, ox: ox + w])
         t1 = time.perf_counter()
-        ref = cpu.encode_variable(imgs).numpy()
+        prepped = [preprocess_variable(im, cfg, max_patches) for im in imgs]
+        grids = [g for _p, _m, g in prepped]
+        ref = naflex_encode(cpu.model, torch.from_numpy(np.stack([p for p, _m, _g in prepped])),
+                            torch.from_numpy(build_pos_weights(grids, max_patches, cfg.grid)),
+                            torch.from_numpy(np.stack([m for _p, m, _g in prepped])),
+                            torch.bfloat16).numpy()
         cpu_s = time.perf_counter() - t1
         nat = emb[[store.index_of(os.path.splitext(os.path.basename(p))[0])
                    for p in batch.paths], -1]
         err = float(1.0 - np.sum(nat * ref, axis=-1).min())
-        grids = [target_grid(im.shape[0], im.shape[1], cfg.patch_size, cfg.seq_len)
-                 for im in imgs]
-    print(f"phase 28 {NAFLEX} bf16 --aspect native: {len(pngs)} images x 5 crops in "
-          f"{wall:.2f} s (model init included); launches {got}; native-aspect rows of "
-          f"{len(imgs)} images (grids {grids}) against the CPU ({cpu_s:.1f} s): 1 - cosine "
-          f"max {err:.3g}", flush=True)
+        assert len(imgs) == len(pngs) and grids == [target_grid(im.shape[0], im.shape[1], cfg.patch_size, max_patches)
+                         for im in imgs]
+    print(f"phase 28 {NAFLEX} bf16 --aspect native --max_patches {max_patches}: {len(pngs)} "
+          f"images x 5 crops in {wall:.2f} s (model init included); launches {got}; "
+          f"native-aspect rows of {len(imgs)} images (grids {grids}) against the block route "
+          f"on the CPU ({cpu_s:.1f} s): 1 - cosine max {err:.3g}", flush=True)
     if not err <= 1e-3:
         fail(f"{NAFLEX} native-aspect rows disagree with the CPU (1 - cosine {err})")
     return got
@@ -4397,6 +4518,9 @@ def main() -> None:
     elapsed(t_start, "3c")
     # --- phase 3c: int8_static's products on K9's GEMM against the torch route
     gemm_records = static_gemm()
+    elapsed(t_start, "3d")
+    # --- phase 3d: K1 and K5 with per-sequence key lengths at the cell's shapes
+    varlen_records = varlen_attention()
 
     cfg, scfg = resolve_config(MODEL), resolve_config(SIGLIP)
     pcfg, gcfg = resolve_config(PE_L), resolve_config(PE_G)
@@ -4460,7 +4584,7 @@ def main() -> None:
         # --aspect native, dynamic int8 hybrid on SO400M and PE-L14, the embed
         # flags, the native decoder
         tower_paths = towers(root, l336)
-        tower_paths["naflex"] = naflex_native(root)
+        tower_paths.update(naflex_native(root))
         tower_paths.update(dynamic_int8_more(so400m, pe, scfg, pcfg))
         tower_paths["flags"] = embed_flags(root)
         decoder = native_decoder()
@@ -4557,6 +4681,7 @@ def main() -> None:
     print(json.dumps({"tools": tool_records}))
     print(json.dumps({"dryrun": dry}))
     print(json.dumps({"static_gemm": gemm_records}))
+    print(json.dumps({"varlen_attention": varlen_records}))
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

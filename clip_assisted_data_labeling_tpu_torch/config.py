@@ -63,6 +63,9 @@ class EmbedConfig:
     # "native" (naflex towers, bfloat16/float32): also embed each image at its
     # native aspect ratio, stored as a fifth pseudo-crop "native_aspect"
     aspect: str = "square"
+    # "native": the most patches of an image's grid (None: the tower's square
+    # grid, 256 at patch 16, HF's default)
+    max_patches: int | None = None
     device: str = "cuda"
     # the port's counterpart of jax_debug_nans: check each block's output and
     # the readout, and raise FloatingPointError at the first NaN

@@ -940,6 +940,18 @@ int launch_f32_3xtf32(Heads<float> io, int B, int S, int s_real, int heads, int 
 // or int8 (K3), clip(rint(o / sum), -127, 127). The epilogue divides by the
 // sum with PANELS (K5) or an int8 output (K3), as their TPU kernels do, and
 // multiplies by its reciprocal otherwise (K1, K4, K7, K10).
+//
+// Per-sequence key lengths (VL, the bf16 wire of K1 and K5: the naflex
+// towers' native-aspect rows, padded to one length): batch row b reads
+// n = min(kv_len[b], S) from device memory once a block and runs as if its
+// sequence were n tokens long (S = n, s_real = min(s_real, n)), so the key
+// chunks and K5's panels at or past n are never loaded or multiplied (a
+// panel past n would only have left m, l and the accumulator as they were),
+// a query tile wholly past n returns at once, and the rows past n are never
+// written: the wrapper allocates the output as zeros. The lengths' pointer
+// travels as the scales' first (the bf16 wire reads no scales), so the
+// kernel's parameters stay those of every fixed-length path, whose
+// instantiations (without VL) compile as before: no prologue, nothing read.
 
 constexpr int WG_Q = 128;   // query rows per block (2 warpgroups x 64)
 constexpr int WG_K = 64;    // keys per streamed chunk
@@ -1018,14 +1030,16 @@ __global__ void rope_prepass_kernel(const __nv_bfloat16* __restrict__ qkv,
 
 // q and k from `qk`'s pointers and strides (io's, or the pre-pass's scratch,
 // there already scaled and rotated: `prescaled`), v and the output from io's.
-// An int8 wire reads its scales from sc (K7 scales q by ts·scale).
-template <int DP, bool PANELS, int WIRE, typename TO>
+// An int8 wire reads its scales from sc (K7 scales q by ts·scale). VL: sc.q
+// is the per-sequence key lengths kv_len [B] (int32 on the device).
+template <int DP, bool PANELS, int WIRE, typename TO, bool VL = false>
 __global__ void __launch_bounds__(WG_NT, wgmma_min_blocks(DP)) exact_wgmma_kernel(
     Heads<WireT<WIRE>> qk, Heads<WireT<WIRE>> io, int S, int s_real, int d, float scale,
     int kp, bool prescaled, Scales sc) {
   using TI = WireT<WIRE>;
   constexpr bool Q8 = WIRE != WIRE_BF16;
   static_assert(!(Q8 && PANELS), "the int8 wires run without panels");
+  static_assert(!(VL && Q8), "per-sequence lengths run on the bf16 wire");
   constexpr int NV = DP / 8;                 // core matrices along a row
   constexpr int ST = wgmma_stages(WIRE);     // stages of the bf16 ring
   constexpr int STAGE = 2 * WG_K * DP;       // one stage: K rows, then V rows
@@ -1044,6 +1058,11 @@ __global__ void __launch_bounds__(WG_NT, wgmma_min_blocks(DP)) exact_wgmma_kerne
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, t = lane % 4;  // accumulator coordinates
   const int q0 = blockIdx.x * WG_Q, h = blockIdx.y;
+  if constexpr (VL) {  // this batch row as a sequence of its own length
+    S = min(max(reinterpret_cast<const int*>(sc.q)[blockIdx.z], 0), S);
+    s_real = min(s_real, S);
+    if (q0 >= S) return;
+  }
   const size_t src = blockIdx.z * qk.in_b + h * qk.in_h, qrs = qk.in_r, vrs = io.in_r;
   const TI* kb = qk.k + src;
   const TI* vb = io.v + blockIdx.z * io.in_b + h * io.in_h;
@@ -1320,16 +1339,16 @@ __global__ void __launch_bounds__(WG_NT, wgmma_min_blocks(DP)) exact_wgmma_kerne
   }
 }
 
-template <int DP, bool PANELS, int WIRE, typename TO>
+template <int DP, bool PANELS, int WIRE, typename TO, bool VL = false>
 int launch_wgmma(Heads<WireT<WIRE>> qk, Heads<WireT<WIRE>> io, int B, int S, int s_real,
                  int heads, int d, float scale, int kp, bool prescaled, Scales sc,
                  cudaStream_t stream) {
   const size_t smem = wgmma_smem_bytes<DP, WIRE>();
-  cudaError_t err = cudaFuncSetAttribute(exact_wgmma_kernel<DP, PANELS, WIRE, TO>,
+  cudaError_t err = cudaFuncSetAttribute(exact_wgmma_kernel<DP, PANELS, WIRE, TO, VL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((S + WG_Q - 1) / WG_Q, heads, B);
-  exact_wgmma_kernel<DP, PANELS, WIRE, TO><<<grid, WG_NT, smem, stream>>>(
+  exact_wgmma_kernel<DP, PANELS, WIRE, TO, VL><<<grid, WG_NT, smem, stream>>>(
       qk, io, S, s_real, d, scale, kp, prescaled, sc);
   return (int)cudaGetLastError();
 }
@@ -1340,11 +1359,14 @@ int launch_wgmma(Heads<WireT<WIRE>> qk, Heads<WireT<WIRE>> io, int B, int S, int
 // pre-pass first writes q·T(scale) and k rotated into scratch, a [B, S, 2w]
 // bf16 buffer the caller allocates, and the kernel reads q and k there.
 // With PANELS, the softmax is rescaled at the ends of kp-key panels (K5);
-// without, kp is not read. TO: the output type (bf16 or float32).
-template <bool PANELS, typename TO = __nv_bfloat16>
+// without, kp is not read. TO: the output type (bf16 or float32). VL: the
+// per-sequence key lengths kv_len [B] (int32 on the device), the output
+// zeroed by the caller.
+template <bool PANELS, typename TO = __nv_bfloat16, bool VL = false>
 int launch_bf16_wgmma(Heads<__nv_bfloat16> io, int B, int S, int s_real, int heads, int d,
                       float scale, const void* cos, const void* sin, void* scratch,
-                      cudaStream_t stream, int kp = 0) {
+                      cudaStream_t stream, int kp = 0, const int* kv_len = nullptr) {
+  if (VL && kv_len == nullptr) return (int)cudaErrorInvalidValue;
   if (d % 8 != 0) return (int)cudaErrorInvalidValue;
   if (cos != nullptr && (d % 16 != 0 || scratch == nullptr)) return (int)cudaErrorInvalidValue;
   Heads<__nv_bfloat16> qk = io;
@@ -1363,21 +1385,21 @@ int launch_bf16_wgmma(Heads<__nv_bfloat16> io, int B, int S, int s_real, int hea
     qk.in_r = 2 * (size_t)w;
   }
   const bool pre = cos != nullptr;
-  const Scales none{nullptr, nullptr, nullptr};
+  const Scales sc{reinterpret_cast<const float*>(kv_len), nullptr, nullptr};  // VL: the lengths
   if (d <= 64)
-    return launch_wgmma<64, PANELS, WIRE_BF16, TO>(qk, io, B, S, s_real, heads, d, scale, kp,
-                                                    pre, none, stream);
+    return launch_wgmma<64, PANELS, WIRE_BF16, TO, VL>(qk, io, B, S, s_real, heads, d,
+                                                       scale, kp, pre, sc, stream);
   if (d <= 80)
-    return launch_wgmma<80, PANELS, WIRE_BF16, TO>(qk, io, B, S, s_real, heads, d, scale, kp,
-                                                    pre, none, stream);
+    return launch_wgmma<80, PANELS, WIRE_BF16, TO, VL>(qk, io, B, S, s_real, heads, d,
+                                                       scale, kp, pre, sc, stream);
   if (d <= 96)
-    return launch_wgmma<96, PANELS, WIRE_BF16, TO>(qk, io, B, S, s_real, heads, d, scale, kp,
-                                                    pre, none, stream);
+    return launch_wgmma<96, PANELS, WIRE_BF16, TO, VL>(qk, io, B, S, s_real, heads, d,
+                                                       scale, kp, pre, sc, stream);
   if (d <= 112)
-    return launch_wgmma<112, PANELS, WIRE_BF16, TO>(qk, io, B, S, s_real, heads, d, scale, kp,
-                                                     pre, none, stream);
-  return launch_wgmma<128, PANELS, WIRE_BF16, TO>(qk, io, B, S, s_real, heads, d, scale, kp,
-                                                   pre, none, stream);
+    return launch_wgmma<112, PANELS, WIRE_BF16, TO, VL>(qk, io, B, S, s_real, heads, d,
+                                                        scale, kp, pre, sc, stream);
+  return launch_wgmma<128, PANELS, WIRE_BF16, TO, VL>(qk, io, B, S, s_real, heads, d,
+                                                      scale, kp, pre, sc, stream);
 }
 
 // An int8 wire (K3: WIRE_Q8_CHANNEL, K7: WIRE_Q8_TOKEN) on the packed int8

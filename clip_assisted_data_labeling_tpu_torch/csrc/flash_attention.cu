@@ -105,4 +105,22 @@ int flash_attention(const void* qkv, void* out, int dtype, int B, int S, int s_r
   return (int)cudaErrorInvalidValue;
 }
 
+// K5 with per-sequence key lengths: kv_len [B] int32 on the device (the
+// naflex towers' native-aspect rows, padded to S); batch row b attends to
+// its keys [0, min(kv_len[b], s_real)), the panels wholly past that length
+// are skipped, and only its query rows below its length are written: out
+// must hold zeros. bfloat16 only (dtype 1), the other arguments as
+// flash_attention's. Returns cudaGetLastError() of the launch.
+int flash_attention_varlen(const void* qkv, void* out, int dtype, int B, int S, int s_real,
+                           int w, int heads, float scale, int kp, const void* cos,
+                           const void* sin, void* scratch, const int* kv_len, void* stream) {
+  if (dtype != 1 || kv_len == nullptr || heads <= 0 || w % heads != 0 || w / heads > DMAX ||
+      s_real < 1 || s_real > S || kp < 1 || (cos == nullptr) != (sin == nullptr) ||
+      (cos != nullptr && (w / heads) % 2 != 0))
+    return (int)cudaErrorInvalidValue;
+  return launch_bf16_wgmma<true, __nv_bfloat16, true>(
+      packed_heads<__nv_bfloat16>(qkv, out, S, w, w / heads), B, S, s_real, heads, w / heads,
+      scale, cos, sin, scratch, static_cast<cudaStream_t>(stream), kp, kv_len);
+}
+
 }  // extern "C"

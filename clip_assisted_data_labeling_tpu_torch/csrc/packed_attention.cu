@@ -133,6 +133,23 @@ int packed_attention_f32out(const void* qkv, void* out, int dtype, int B, int S,
                                         static_cast<cudaStream_t>(stream));
 }
 
+// K1 with per-sequence key lengths: kv_len [B] int32 on the device (the
+// naflex towers' native-aspect rows, padded to S); batch row b attends to
+// its keys [0, min(kv_len[b], s_real)), and only its query rows below its
+// length are written: out must hold zeros. bfloat16 only (dtype 1), the
+// other arguments as packed_attention's. Returns cudaGetLastError() of the
+// launch.
+int packed_attention_varlen(const void* qkv, void* out, int dtype, int B, int S, int s_real,
+                            int w, int heads, float scale, const void* cos, const void* sin,
+                            void* scratch, const int* kv_len, void* stream) {
+  if (dtype != 1 || kv_len == nullptr || bad_args(w, heads, S, s_real, cos, sin))
+    return (int)cudaErrorInvalidValue;
+  const int d = w / heads;
+  return launch_bf16_wgmma<false, __nv_bfloat16, true>(
+      packed_heads<__nv_bfloat16>(qkv, out, S, w, d), B, S, s_real, heads, d, scale, cos, sin,
+      scratch, static_cast<cudaStream_t>(stream), 0, kv_len);
+}
+
 // K10: q, k, v, out each [B, H, S, d] contiguous of dtype (0 = float32,
 // 1 = bfloat16); every key is real (s_real = S), no RoPE. Returns
 // cudaGetLastError() of the launch.

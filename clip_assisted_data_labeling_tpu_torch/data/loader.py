@@ -17,6 +17,11 @@
     partial batch is zero-padded with ``n_valid`` marking real rows.
   * Canvas buckets: a batch of small images ships on a small canvas; files
     are sorted by size so batches are size-homogeneous.
+  * ``native``: a function of each image's pixels as they lie on its canvas
+    (after the pre-downscale), run in the decode workers (span
+    ``naflex_prep``, one an image): the embed stage's ``--aspect native``
+    passes ``models/naflex.preprocess_variable``, and each batch carries the
+    patches, masks and grids it returns.
 """
 from __future__ import annotations
 
@@ -77,6 +82,9 @@ class Batch:
     stat_params: np.ndarray  # [B, 8] float32
     paths: list[str]  # length n_valid
     n_valid: int
+    # with the loader's ``native``: (patches [n_valid, N, p²·3] float32, masks
+    # [n_valid, N] float32, grids [(gh, gw)] of the n_valid images)
+    native: tuple | None = None
 
 
 def decode_rgb(path: str) -> np.ndarray:
@@ -160,9 +168,11 @@ class BatchedImageLoader:
         bucketed: bool = False,
         sort_by_size: bool = False,
         use_native: bool = True,
+        native=None,
     ):
         self.image_paths = list(image_paths)
         self.use_native = use_native
+        self.native = native
         # files decoded so far, by decoder: 'native' or decoder_name()'s
         self.decoders: collections.Counter = collections.Counter()
         self.canvas_size = canvas_size + (canvas_size % 2)
@@ -256,7 +266,20 @@ class BatchedImageLoader:
             crop_params[fill] = make_crop_params(w, h, cb, self.out_size, self.crop_names)
             stat_params[fill] = make_stat_params(w, h, cb)
             paths.append(path)
-        return Batch(canvas, crop_params, stat_params, paths, len(paths))
+        native = None
+        if self.native is not None and paths:
+            # each image's pixels back off its centered canvas (stat_params =
+            # [ox, oy, w, h, …]), prepared in the decode workers
+            prepped = list(pool.map(self._prepare, [
+                canvas[i, oy: oy + h, ox: ox + w]
+                for i, (ox, oy, w, h) in enumerate(stat_params[:len(paths), :4].astype(int))]))
+            patches, masks, grids = zip(*prepped)
+            native = (np.stack(patches), np.stack(masks), list(grids))
+        return Batch(canvas, crop_params, stat_params, paths, len(paths), native)
+
+    def _prepare(self, img: np.ndarray):
+        with span("naflex_prep", 1):
+            return self.native(img)
 
     def __iter__(self):
         q: queue.Queue = queue.Queue(maxsize=self.prefetch_batches)

@@ -11,8 +11,11 @@ A ``CLIPImageEncoder`` owns the config and the tower module and exposes:
   * ``img_resolution`` — drives the fused preprocess output size,
   * ``embed_crops(canvas, crop_params)`` — uint8 canvases → 4-crop
     preprocess → tower → [B, n_crops, D] embeddings on the device,
-  * ``encode_variable(images)`` — a naflex tower's native-aspect path
-    (``models/naflex.py``), float32 or bfloat16 only.
+  * ``encode_variable(images, max_patches)`` — a naflex tower's
+    native-aspect path (``models/naflex.py``), float32 or bfloat16 only;
+    ``encode_patches`` takes the same images already prepared
+    (``models/naflex.preprocess_variable``, as the loader's workers do for
+    the embed stage's ``--aspect native``).
 
 Modes: ``float32`` and ``bfloat16`` (strict parity), ``int8`` (W8A8 with
 dynamic per-row activation scales: quantized weights, bf16 compute, no
@@ -171,6 +174,15 @@ def check_calibration(amax: dict, cfg, path: str, model_name: str = "") -> None:
             f"({cfg.layers}, 4)/({cfg.layers}, {3 * cfg.width}) — wrong model's file "
             "(delete it or pass --calibration)"
         )
+
+
+def _to_device(array: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array on ``device``; to the card by way of a pinned copy, an
+    asynchronous upload (a pageable one waits for the card's queue)."""
+    t = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == "cuda":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
 
 
 class CLIPImageEncoder:
@@ -383,12 +395,41 @@ class CLIPImageEncoder:
             emb = encode(self.model, flat, self.compute_dtype, debug_nans=self.debug_nans)
         return emb.reshape(b, n, -1)
 
-    def encode_variable(self, images: list) -> torch.Tensor:
+    def encode_variable(self, images: list, max_patches: int | None = None) -> torch.Tensor:
         """A naflex tower's native-aspect path: [H, W, 3] uint8 arrays →
         [B, width] float32 unit embeddings on the device, each image on its
-        own aspect-preserving patch grid (``models/naflex.py``). The square
-        crops never need it: ``embed_crops`` fills the whole positional
-        grid."""
+        own aspect-preserving patch grid of at most ``max_patches`` patches
+        (``models/naflex.py``; None: the tower's square grid, 256 patches at
+        patch 16, HF's default). The square crops never need it:
+        ``embed_crops`` fills the whole positional grid."""
+        from clip_assisted_data_labeling_tpu_torch.models.naflex import preprocess_variable
+
+        self._check_variable()
+        n_max = max_patches or self.cfg.seq_len
+        prepped = [preprocess_variable(np.asarray(im), self.cfg, n_max) for im in images]
+        return self.encode_patches(np.stack([p for p, _, _ in prepped]),
+                                   np.stack([m for _, m, _ in prepped]),
+                                   [s for _, _, s in prepped])
+
+    def encode_patches(self, patches: np.ndarray, masks: np.ndarray, grids) -> torch.Tensor:
+        """``encode_variable`` on images already prepared: patches [B, N_max,
+        p²·3], masks [B, N_max] and grids [(gh, gw), …] as
+        ``models/naflex.preprocess_variable`` makes them → [B, width] float32
+        unit embeddings on the device (asynchronous on the card: the arrays
+        go up from pinned copies, so the upload does not wait for the card's
+        queue to drain, and the position weights are made there)."""
+        from clip_assisted_data_labeling_tpu_torch.models.naflex import (
+            naflex_encode,
+            pos_weights_on,
+        )
+
+        self._check_variable()
+        pos_w = pos_weights_on(list(grids), patches.shape[1], self.cfg.grid, self.device)
+        patches, masks = (_to_device(a, self.device) for a in (patches, masks))
+        return naflex_encode(self.model, patches, pos_w, masks, self.compute_dtype,
+                             debug_nans=self.debug_nans)
+
+    def _check_variable(self) -> None:
         if not getattr(self.cfg, "naflex", False):
             raise ValueError(f"{self.model_name} is not a naflex tower; use embed_crops")
         if self.quantized:
@@ -397,20 +438,6 @@ class CLIPImageEncoder:
                 "encoder with compute_dtype='bfloat16' (the square-crop path does support "
                 "the int8 modes)"
             )
-        from clip_assisted_data_labeling_tpu_torch.models.naflex import (
-            build_pos_weights,
-            naflex_encode,
-            preprocess_variable,
-        )
-
-        n_max = self.cfg.seq_len
-        prepped = [preprocess_variable(np.asarray(im), self.cfg, n_max) for im in images]
-        patches = torch.from_numpy(np.stack([p for p, _, _ in prepped])).to(self.device)
-        masks = torch.from_numpy(np.stack([m for _, m, _ in prepped])).to(self.device)
-        pos_w = torch.from_numpy(build_pos_weights([s for _, _, s in prepped], n_max,
-                                                   self.cfg.grid)).to(self.device)
-        return naflex_encode(self.model, patches, pos_w, masks, self.compute_dtype,
-                             debug_nans=self.debug_nans)
 
 
 def create_encoder(model_name: str, model_path: str | None = None, **kw) -> CLIPImageEncoder:

@@ -7,11 +7,17 @@ shapes; the learned 16×16 positional grid is bilinearly resized
 (antialiased) to each image's (gh, gw) patch grid; the encoder and the MAP
 head attend only over real patches.
 
-  * each image's positional interpolation is a host-made ``[N_max, 256]``
-    resize-weight matrix (geometry only, cached per (gh, gw)), applied as one
+  * each image's positional interpolation is a ``[N_max, 256]`` resize-weight
+    matrix (geometry only, made on the host and cached per (gh, gw);
+    ``pos_weights_on`` assembles a batch's on the device), applied as one
     batched product against the 256-row table,
-  * padding is an additive key mask on torch products (the masked attention
-    is XLA in the JAX package, not a Pallas kernel),
+  * each block is the bfloat16 (or float32) block route that
+    ``models/vit.vit_encode_image`` runs (``_block_generic``: ln, the qkv
+    product, ``ops/attention.packed_attention_auto``, out, fc1 with
+    gelu_tanh, fc2), the attention given the batch's per-image key lengths:
+    K1 or K5 with lengths on the card (no [B, h, N, N] score tensor is
+    made), their plain versions on the CPU. The MAP head's probe (one query
+    row) is a masked torch product,
   * the labeling pipeline's 4 square crops fill the whole 16×16 grid, so they
     run the standard ``models/vit.vit_encode_image``; only native-aspect
     inputs (``CLIPImageEncoder.encode_variable``, the embed stage's
@@ -34,9 +40,11 @@ from clip_assisted_data_labeling_tpu_torch.models.vit import (
     VisionTransformer,
     VitConfig,
     _act,
+    _block_generic,
     _check_nans,
     _layernorm,
 )
+from clip_assisted_data_labeling_tpu_torch.utils.timer import layer
 
 try:  # optional: the card's machine promises no PIL
     from PIL import Image
@@ -85,13 +93,27 @@ def pos_resize_weights(grid_h: int, grid_w: int, grid: int = 16) -> np.ndarray:
     return np.einsum("ri,cj->rcij", wy, wx).reshape(grid_h * grid_w, grid * grid)
 
 
-def build_pos_weights(shapes, max_patches: int, grid: int = 16) -> np.ndarray:
-    """Per-image spatial shapes [(gh, gw), …] → [B, max_patches, grid²];
-    padded rows are zero (their tokens are masked out of every attention)."""
-    out = np.zeros((len(shapes), max_patches, grid * grid), dtype=np.float32)
+@functools.lru_cache(maxsize=256)
+def _pos_rows_on(grid_h: int, grid_w: int, grid: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(pos_resize_weights(grid_h, grid_w, grid)).to(device)
+
+
+def pos_weights_on(shapes, max_patches: int, grid: int, device) -> torch.Tensor:
+    """Per-image spatial shapes [(gh, gw), …] → [B, max_patches, grid²] on
+    ``device``; padded rows are zero (their tokens are masked out of every
+    attention). Each grid's weights go to the device once (cached by grid
+    and device), so no host array is filled or uploaded a batch."""
+    device = torch.device(device)
+    out = torch.zeros((len(shapes), max_patches, grid * grid), device=device)
     for i, (gh, gw) in enumerate(shapes):
-        out[i, : gh * gw] = pos_resize_weights(gh, gw, grid)
+        out[i, : gh * gw] = _pos_rows_on(gh, gw, grid, device)
     return out
+
+
+def build_pos_weights(shapes, max_patches: int, grid: int = 16) -> np.ndarray:
+    """:func:`pos_weights_on` on the host, as an array (the JAX package's
+    ``build_pos_weights``)."""
+    return pos_weights_on(shapes, max_patches, grid, "cpu").numpy()
 
 
 # PIL's resampling precision for 8-bit images (libImaging/Resample.c)
@@ -153,48 +175,33 @@ def _bilinear_resize(img_u8: np.ndarray, width: int, height: int) -> np.ndarray:
     return pil_bilinear_resize(img_u8, width, height)
 
 
+@functools.lru_cache(maxsize=16)
+def _normalize_table(mean: tuple, std: tuple) -> np.ndarray:
+    """[256, 3] float32: each uint8 value of each channel normalized as
+    :func:`preprocess_variable` states it (x / 255 in float32, then (x −
+    mean) / std in float64, rounded to float32), so a lookup gives the
+    formula's bits."""
+    x = np.arange(256, dtype=np.float32)[:, None] / 255.0
+    return ((x - np.asarray(mean)) / np.asarray(std)).astype(np.float32)
+
+
 def preprocess_variable(img_u8: np.ndarray, cfg: VitConfig, max_patches: int = 256):
     """One [H, W, 3] uint8 image → (patches [max_patches, p²·3] float32, mask
     [max_patches] float32, (grid_h, grid_w)): the aspect-preserving bilinear
-    resize (HF Siglip2ImageProcessor's default, PIL's filter), normalize,
-    row-major patchify, zero padding."""
+    resize (HF Siglip2ImageProcessor's default, PIL's filter), normalize
+    (``(x / 255 − mean) / std``, by a table of the 256 values a channel can
+    take), row-major patchify, zero padding."""
     p = cfg.patch_size
     gh, gw = target_grid(img_u8.shape[0], img_u8.shape[1], p, max_patches)
-    x = _bilinear_resize(np.ascontiguousarray(img_u8), gw * p, gh * p).astype(np.float32) / 255.0
-    x = (x - np.asarray(cfg.norm_mean)) / np.asarray(cfg.norm_std)
-    x = x.reshape(gh, p, gw, p, 3).transpose(0, 2, 1, 3, 4)
+    x = _bilinear_resize(np.ascontiguousarray(img_u8), gw * p, gh * p)
     n = gh * gw
+    x = x.reshape(gh, p, gw, p, 3).transpose(0, 2, 1, 3, 4).reshape(n, p * p * 3)
     out = np.zeros((max_patches, p * p * 3), dtype=np.float32)
-    out[:n] = x.reshape(n, p * p * 3)
+    out[:n] = _normalize_table(tuple(cfg.norm_mean), tuple(cfg.norm_std))[
+        x, np.arange(p * p * 3) % 3]
     mask = np.zeros((max_patches,), dtype=np.float32)
     mask[:n] = 1.0
     return out, mask, (gh, gw)
-
-
-def _masked_attention(qkv: torch.Tensor, key_bias: torch.Tensor, heads: int,
-                      scale: float) -> torch.Tensor:
-    """Attention over the packed qkv [B, S, 3w] with an additive key bias
-    [B, 1, 1, S]: float32 scores from qkv's dtype, float32 softmax,
-    probabilities cast to v's dtype before P·V."""
-    B, S, w3 = qkv.shape
-    w = w3 // 3
-    q, k, v = (t.reshape(B, S, heads, w // heads).permute(0, 2, 1, 3)
-               for t in qkv.split(w, dim=-1))
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    probs = torch.softmax(scores + key_bias, dim=-1).to(v.dtype)
-    return torch.matmul(probs, v).permute(0, 2, 1, 3).reshape(B, S, w)
-
-
-def _masked_block(x: torch.Tensor, blk, key_bias: torch.Tensor, cfg: VitConfig) -> torch.Tensor:
-    """Pre-LN block with the masked attention, in float32 or bfloat16."""
-    dt = x.dtype
-    y = _layernorm(x, blk.ln1_scale, blk.ln1_bias, cfg.ln_eps)
-    qkv = y @ blk.qkv_kernel.to(dt) + blk.qkv_bias.to(dt)
-    attn = _masked_attention(qkv, key_bias, cfg.heads, cfg.head_dim ** -0.5)
-    x = x + (attn @ blk.out_kernel.to(dt) + blk.out_bias.to(dt))
-    y = _layernorm(x, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
-    y = _act(y @ blk.fc1_kernel.to(dt) + blk.fc1_bias.to(dt), cfg.act)
-    return x + (y @ blk.fc2_kernel.to(dt) + blk.fc2_bias.to(dt))
 
 
 def _masked_map_pool(x: torch.Tensor, model: VisionTransformer,
@@ -225,23 +232,27 @@ def naflex_encode(model: VisionTransformer, patches: torch.Tensor, pos_weights: 
                   debug_nans: bool = False) -> torch.Tensor:
     """The variable-aspect SigLIP2 forward: patches [B, N_max, p²·3]
     (pre-patchified, normalized), pos_weights [B, N_max, grid²], mask
-    [B, N_max] (1 = a real patch) on the model's device → [B, width]
-    float32 embeddings, L2-normalized. ``debug_nans`` as in
-    ``models/vit.vit_encode_image``."""
+    [B, N_max] (1 = a real patch; each image's real patches come first) on
+    the model's device → [B, width] float32 embeddings, L2-normalized.
+    ``debug_nans`` as in ``models/vit.vit_encode_image``. The forward is
+    the layer range ``native``."""
     cfg, dt = model.cfg, compute_dtype
-    x = patches.to(dt) @ model.patch_kernel.to(dt)
-    if cfg.patch_bias:
-        x = x + model.patch_bias.to(dt)
-    pos = torch.einsum("bnm,mw->bnw", pos_weights.to(torch.float32),
-                       model.pos_emb.to(torch.float32))
-    x = x + pos.to(dt)
-    key_bias = (1.0 - mask.to(torch.float32))[:, None, None, :] * -1e30
-    for i, blk in enumerate(model.blocks):
-        x = _masked_block(x, blk, key_bias, cfg)
-        if debug_nans:
-            _check_nans(x, f"the output of block {i} (of {cfg.layers})")
-    x = _layernorm(x, model.ln_post_scale, model.ln_post_bias, cfg.ln_eps)
-    emb = _masked_map_pool(x, model, key_bias).to(torch.float32)
+    with layer("native"):
+        x = patches.to(dt) @ model.patch_kernel.to(dt)
+        if cfg.patch_bias:
+            x = x + model.patch_bias.to(dt)
+        pos = torch.einsum("bnm,mw->bnw", pos_weights.to(torch.float32),
+                           model.pos_emb.to(torch.float32))
+        x = x + pos.to(dt)
+        key_bias = (1.0 - mask.to(torch.float32))[:, None, None, :] * -1e30
+        lengths = mask.sum(dim=-1).to(torch.int32)
+        for i, blk in enumerate(model.blocks):
+            with layer("block"):
+                x = _block_generic(x, blk, cfg, s_real=lengths)
+            if debug_nans:
+                _check_nans(x, f"the output of block {i} (of {cfg.layers})")
+        x = _layernorm(x, model.ln_post_scale, model.ln_post_bias, cfg.ln_eps)
+        emb = _masked_map_pool(x, model, key_bias).to(torch.float32)
     if debug_nans:
         _check_nans(emb, "the map readout")
     if normalize:

@@ -692,7 +692,7 @@ def _swiglu_hidden(h, blk: VitBlock, cfg: VitConfig):
     return _layernorm(_silu(h1) * h2, blk.ffn_ln_scale, blk.ffn_ln_bias, cfg.ln_eps)
 
 
-def _block_generic(x, blk: VitBlock, cfg: VitConfig, rope=None):
+def _block_generic(x, blk: VitBlock, cfg: VitConfig, rope=None, s_real=None):
     """One block in float32 or bfloat16, in dynamic int8 (quantized weights,
     bf16 compute, every matmul a dynamic ``q_matmul``) or in int8_static with
     static scales (each matmul's input quantized with its calibrated
@@ -703,7 +703,9 @@ def _block_generic(x, blk: VitBlock, cfg: VitConfig, rope=None):
     before the residual adds; no fc2 residual epilogue); EVA02's attention
     sub-LN and its SwiGLU MLP, whose two matmuls quantize dynamically even in
     int8_static, as in the JAX package. The other residual adds run outside
-    the matmuls, in x's dtype, and int8 blocks take the tanh gelu."""
+    the matmuls, in x's dtype, and int8 blocks take the tanh gelu.
+    ``s_real``: the attention's per-sequence key lengths [B] (the naflex
+    towers' native-aspect rows, ``models/naflex.naflex_encode``), or None."""
     a = blk.act_amax if blk.static else None
     post = cfg.block_norm == "post"
     with layer("ln"):
@@ -712,7 +714,7 @@ def _block_generic(x, blk: VitBlock, cfg: VitConfig, rope=None):
         qkv = _linear(y, blk, "qkv_kernel", act_amax=None if a is None else a[0])
     with layer("attention"):
         attn = packed_attention_auto(qkv, heads=cfg.heads, scale=cfg.head_dim ** -0.5,
-                                     rope=rope)
+                                     s_real=s_real, rope=rope)
         if cfg.attn_inner_ln:
             attn = _layernorm(attn, blk.attn_ln_scale, blk.attn_ln_bias, cfg.ln_eps)
     with layer("out"):

@@ -52,6 +52,18 @@ counterpart here, and ``_wholescore_group`` stays TPU-only. Tokens stay
 unpadded in the port (the kernels mask keys at or beyond ``s_real`` and the
 ragged last tile), so the RoPE tables have exactly S rows.
 
+Per-sequence lengths. ``s_real`` is an int (every sequence's keys end there)
+or an int32 tensor [B] on the qkv's device (the naflex towers' native-aspect
+rows, padded to one length): sequence b attends to its keys [0, s_real[b]),
+and its query rows at or past s_real[b] come out as zeros. In bfloat16 K1 and
+K5 take the lengths in the kernel (``packed_attention_varlen``,
+``flash_attention_varlen``; each wrapper counts those launches in
+``varlen_launches``), skipping the key chunks, K5's panels and the query
+tiles past a sequence's end, into an output allocated as zeros; in float32
+the wrappers launch once a sequence with its length as ``s_real``.
+:func:`packed_attention_auto` sends the grouped route's lengths to K1, which
+computes K4's function.
+
 RoPE (PE towers): ``rope = (cos, sin)``, each ``[S, d/2]`` float32, pairs the
 features (i, i + d/2) of every head (``models/vit._rope2d_tables``). K1 and
 K4 scale q in the input dtype and then rotate it, and rotate k unscaled, with
@@ -168,13 +180,14 @@ def attention_route(s: int, width: int, heads: int, itemsize: int) -> str:
 
 
 def packed_attention_auto(qkv: torch.Tensor, heads: int, scale: float,
-                          s_real: int | None = None, rope=None) -> torch.Tensor:
+                          s_real: int | torch.Tensor | None = None, rope=None) -> torch.Tensor:
     """The attention of every float block and of the int8_static lnk and
     static blocks: K1, K4 or K5 by :func:`attention_route`. ``rope``:
-    (cos, sin) tables [S, d/2] or None."""
+    (cos, sin) tables [S, d/2] or None. ``s_real``: an int, or per-sequence
+    lengths [B] (the grouped route's then go to K1, the same function)."""
     b, s, w3 = qkv.shape
     route = attention_route(s, w3 // 3, heads, qkv.element_size())
-    if route == "packed":
+    if route == "packed" or (route == "grouped" and torch.is_tensor(s_real)):
         return fused_attention_packed(qkv, heads, scale, s_real, rope)
     if route == "grouped":
         return fused_attention_packed_grouped(qkv, heads, scale, s_real, rope)
@@ -199,8 +212,16 @@ def _check_packed(what: str, qkv: torch.Tensor, heads: int, s_real: int, dtypes)
             f"{what} wants a contiguous [B, S, 3w] tensor of {sorted(map(str, dtypes))}, "
             f"got {tuple(qkv.shape)} {qkv.dtype} contiguous={qkv.is_contiguous()}"
         )
-    s, w3 = qkv.shape[1:]
+    b, s, w3 = qkv.shape
     w = w3 // 3
+    if torch.is_tensor(s_real):  # per-sequence lengths: values stay on the device
+        if (s_real.dtype != torch.int32 or tuple(s_real.shape) != (b,)
+                or s_real.device != qkv.device or not s_real.is_contiguous()):
+            raise ValueError(
+                f"{what}: per-sequence lengths must be a contiguous int32 [{b}] tensor on "
+                f"{qkv.device}, got {tuple(s_real.shape)} {s_real.dtype} on {s_real.device}"
+            )
+        s_real = s
     if w3 % 3 or w % heads or w // heads > 128 or not 1 <= s_real <= s:
         raise ValueError(
             f"{what}: bad shape {tuple(qkv.shape)} for {heads} heads, "
@@ -264,36 +285,58 @@ def _exact_softmax_f32(qkv: torch.Tensor, heads: int, scale: float, s_real: int 
     return _merge_heads(_exact_heads_f32(*_split_heads(qkv, heads), scale, s_real, cos, sin))
 
 
+def _key_mask(s_real: torch.Tensor, s: int) -> torch.Tensor:
+    """[B, 1, 1, S]: True at the keys (or query rows) at or past each
+    sequence's length."""
+    return (torch.arange(s, device=s_real.device)[None, :] >= s_real.long()[:, None])[:, None, None]
+
+
+def _zero_past(out: torch.Tensor, s_real) -> torch.Tensor:
+    """[B, h, S, d] head outputs with the query rows past each sequence's
+    length set to zeros (an int ``s_real`` leaves them)."""
+    if not torch.is_tensor(s_real):
+        return out
+    return out.masked_fill(_key_mask(s_real, out.shape[2]).transpose(-1, -2), 0.0)
+
+
 def _exact_heads_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float,
-                     s_real: int | None, cos=None, sin=None) -> torch.Tensor:
+                     s_real, cos=None, sin=None) -> torch.Tensor:
     """The exact two-pass softmax on [B, h, S, d] heads, to float32 outputs
     (see :func:`_exact_softmax_plain`); ``cos``, ``sin`` in q's dtype or
-    None."""
+    None; ``s_real`` an int, None or per-sequence lengths [B]."""
     s = q.shape[2]
     s_real = s if s_real is None else s_real
     q = q * torch.tensor(scale, dtype=q.dtype, device=q.device)
     if cos is not None:
         q, k = _rot_half(q, cos, sin), _rot_half(k, cos, sin)
     scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    if s_real < s:
+    if torch.is_tensor(s_real):
+        scores = scores.masked_fill(_key_mask(s_real, s), float("-inf"))
+    elif s_real < s:
         scores[..., s_real:] = float("-inf")
     m = scores.amax(dim=-1, keepdim=True)
     probs = torch.exp(scores - m)
     inv_norm = 1.0 / probs.sum(dim=-1, keepdim=True)
-    return torch.matmul(probs.to(v.dtype).float(), v.float()) * inv_norm
+    return _zero_past(torch.matmul(probs.to(v.dtype).float(), v.float()) * inv_norm, s_real)
 
 
 def _launch_packed(what: str, lib_fn, qkv: torch.Tensor, heads: int, scale: float,
-                   s_real: int | None, rope, out_dtype=None,
-                   panel: int | None = None) -> torch.Tensor:
+                   s_real, rope, out_dtype=None, panel: int | None = None) -> torch.Tensor:
     """Check the inputs of K1, K4 or K5 and launch its C entry on the current
     stream; returns the [B, S, w] output (of ``out_dtype``, by default the
     input's). ``panel`` (K5): the keys per k panel, passed after the scale.
     Every entry takes one more pointer after the RoPE tables, to a [B, S, 2w]
-    tensor for its bf16 RoPE pre-pass, or null where it runs none."""
+    tensor for its bf16 RoPE pre-pass, or null where it runs none. With
+    per-sequence lengths ``s_real`` [B], ``lib_fn`` is a varlen entry, which
+    takes S as its ``s_real`` and the lengths' pointer after the scratch."""
     b, s, w3 = qkv.shape
     s_real = s if s_real is None else s_real
     _check_packed(what, qkv, heads, s_real, _DTYPE_CODE)
+    lengths = s_real if torch.is_tensor(s_real) else None
+    if lengths is not None:
+        if qkv.dtype != torch.bfloat16:
+            raise ValueError(f"{what}: per-sequence lengths run on the bfloat16 kernel only")
+        s_real = s
     w = w3 // 3
     d = w // heads
     if qkv.dtype == torch.bfloat16 and (d % 8 or qkv.data_ptr() % 16
@@ -303,7 +346,9 @@ def _launch_packed(what: str, lib_fn, qkv: torch.Tensor, heads: int, scale: floa
             "multiple of 8 (of 16 with RoPE) and the data 16-byte aligned"
         )
     cos, sin = _rope_tables(what, qkv, heads, rope)
-    out = torch.empty((b, s, w), dtype=out_dtype or qkv.dtype, device=qkv.device)
+    # a varlen kernel writes only the rows below each sequence's length
+    alloc = torch.empty if lengths is None else torch.zeros
+    out = alloc((b, s, w), dtype=out_dtype or qkv.dtype, device=qkv.device)
     qk = (torch.empty((b, s, 2 * w), dtype=qkv.dtype, device=qkv.device)
           if cos is not None and qkv.dtype == torch.bfloat16 else None)
     with torch.cuda.device(qkv.device):
@@ -312,16 +357,29 @@ def _launch_packed(what: str, lib_fn, qkv: torch.Tensor, heads: int, scale: floa
             float(scale), *(() if panel is None else (panel,)),
             None if cos is None else cos.data_ptr(), None if sin is None else sin.data_ptr(),
             None if qk is None else qk.data_ptr(),
+            *(() if lengths is None else (lengths.data_ptr(),)),
             torch.cuda.current_stream(qkv.device).cuda_stream,
         )
     _cuda_build.check(err, what)
     return out
 
 
+def _per_sequence(launch, qkv: torch.Tensor, lengths: torch.Tensor, rope) -> torch.Tensor:
+    """A float32 qkv with per-sequence lengths on the card: ``launch(qkv_b,
+    s_real, rope)`` once a sequence, its length as ``s_real`` (one read of the
+    lengths to the host), the rows past it zeroed, as the plain version."""
+    out = torch.empty(qkv.shape[:2] + (qkv.shape[2] // 3,), dtype=qkv.dtype, device=qkv.device)
+    for bi, n in enumerate(lengths.tolist()):
+        out[bi: bi + 1] = launch(qkv[bi: bi + 1], n, rope)
+        out[bi, n:] = 0
+    return out
+
+
 # ---- K1: exact two-pass softmax, whole score row per tile ----------------------
 
 def fused_attention_packed_plain(qkv: torch.Tensor, heads: int, scale: float,
-                                 s_real: int | None = None, rope=None, quant_out: bool = False):
+                                 s_real: int | torch.Tensor | None = None, rope=None,
+                                 quant_out: bool = False):
     """K1's arithmetic in plain PyTorch (see :func:`_exact_softmax_plain`).
     With ``quant_out``, the TPU kernel's epilogue (attention.py:1018-1024):
     each token's float32 head outputs over all heads, ``amax = max(max|o|,
@@ -336,10 +394,12 @@ def fused_attention_packed_plain(qkv: torch.Tensor, heads: int, scale: float,
 
 
 # the packed entries of K1 and K4: qkv, out, dtype, B, S, s_real, w, heads,
-# scale, cos, sin, scratch, stream (K5 adds its panel after the scale)
+# scale, cos, sin, scratch, stream (K5 adds its panel after the scale; the
+# varlen entries the lengths' pointer before the stream)
 _ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
              ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+_VARLEN_ARGTYPES = _ARGTYPES[:-1] + [ctypes.c_void_p, ctypes.c_void_p]
 
 
 def _lib() -> ctypes.CDLL:
@@ -348,6 +408,8 @@ def _lib() -> ctypes.CDLL:
         for fn in (lib.packed_attention, lib.packed_attention_f32out):
             fn.argtypes = _ARGTYPES
             fn.restype = ctypes.c_int
+        lib.packed_attention_varlen.argtypes = _VARLEN_ARGTYPES
+        lib.packed_attention_varlen.restype = ctypes.c_int
         lib.attention_unpacked.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
@@ -358,23 +420,37 @@ def _lib() -> ctypes.CDLL:
 
 
 def fused_attention_packed(qkv: torch.Tensor, heads: int, scale: float,
-                           s_real: int | None = None, rope=None, quant_out: bool = False):
+                           s_real: int | torch.Tensor | None = None, rope=None,
+                           quant_out: bool = False):
     """Multi-head attention on the packed qkv tensor [B, S, 3w] → [B, S, w],
     or with ``quant_out`` → (int8 [B, S, w], float32 [B, S, 1] per-token
     scales).
 
     ``s_real``: keys at or beyond it are masked out of the softmax (rows
-    there compute values nothing should read). ``rope``: (cos, sin) tables
-    [S, d/2] rotating q and k inside the kernel, or None. ``quant_out``: the
-    kernel writes its float32 head outputs and K6's quantize pass (no
-    layernorm, no activation) turns each [w] token row into int8 and a scale;
-    the call counts as one K1 launch and no K6 launch."""
+    there compute values nothing should read); or per-sequence lengths, an
+    int32 tensor [B] (the module docstring), without ``quant_out``.
+    ``rope``: (cos, sin) tables [S, d/2] rotating q and k inside the kernel,
+    or None. ``quant_out``: the kernel writes its float32 head outputs and
+    K6's quantize pass (no layernorm, no activation) turns each [w] token row
+    into int8 and a scale; the call counts as one K1 launch and no K6
+    launch."""
     if qkv.device.type == "cpu":
         return fused_attention_packed_plain(qkv, heads, scale, s_real, rope, quant_out)
     if not qkv.is_cuda:
         raise ValueError(f"fused_attention_packed: unsupported device {qkv.device}")
     lib = _lib()
-    if quant_out:
+    varlen = torch.is_tensor(s_real)
+    if varlen and quant_out:
+        raise ValueError("fused_attention_packed: quant_out takes no per-sequence lengths")
+    if varlen and qkv.dtype == torch.float32:
+        _check_packed("fused_attention_packed", qkv, heads, s_real, _DTYPE_CODE)
+        return _per_sequence(lambda x, n, r: fused_attention_packed(x, heads, scale, n, r),
+                             qkv, s_real, rope)
+    if varlen:
+        out = _launch_packed("fused_attention_packed", lib.packed_attention_varlen, qkv, heads,
+                             scale, s_real, rope)
+        fused_attention_packed.varlen_launches += 1
+    elif quant_out:
         b, s, w3 = qkv.shape
         out32 = _launch_packed("fused_attention_packed", lib.packed_attention_f32out, qkv,
                                heads, scale, s_real, rope, out_dtype=torch.float32)
@@ -389,6 +465,7 @@ def fused_attention_packed(qkv: torch.Tensor, heads: int, scale: float,
 
 
 fused_attention_packed.launches = 0
+fused_attention_packed.varlen_launches = 0  # those of the launches with per-sequence lengths
 
 
 # ---- K4: exact two-pass softmax, keys streamed (the head-grouped route) ---------
@@ -420,6 +497,9 @@ def fused_attention_packed_grouped(qkv: torch.Tensor, heads: int, scale: float,
         return fused_attention_packed_grouped_plain(qkv, heads, scale, s_real, rope)
     if not qkv.is_cuda:
         raise ValueError(f"fused_attention_packed_grouped: unsupported device {qkv.device}")
+    if torch.is_tensor(s_real):
+        raise ValueError("fused_attention_packed_grouped: per-sequence lengths run on K1 "
+                         "(fused_attention_packed), which computes the same function")
     out = _launch_packed("fused_attention_packed_grouped",
                          _grouped_lib().packed_attention_grouped, qkv, heads, scale, s_real,
                          rope)
@@ -433,7 +513,8 @@ fused_attention_packed_grouped.launches = 0
 # ---- K5: online softmax over k panels ---------------------------------------
 
 def flash_attention_packed_plain(qkv: torch.Tensor, heads: int, scale: float,
-                                 s_real: int | None = None, rope=None) -> torch.Tensor:
+                                 s_real: int | torch.Tensor | None = None,
+                                 rope=None) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch (the JAX ``_flash_kernel``,
     attention.py:441-511): q·scale in the input dtype (the scale itself cast
     to it first), then, with ``rope``, q rotated and k rotated unscaled with
@@ -441,7 +522,8 @@ def flash_attention_packed_plain(qkv: torch.Tensor, heads: int, scale: float,
     rows); per k panel of :func:`flash_panel` keys
     ``m' = max(m, rowmax(s))``, ``α = exp(m − m')``, ``p = exp(s − m')``,
     ``l = l·α + Σp`` over the unrounded float32 p,
-    ``acc = acc·α + T(p)·v``; at the end ``acc / l``."""
+    ``acc = acc·α + T(p)·v``; at the end ``acc / l``. Per-sequence lengths
+    ``s_real`` [B] mask each sequence's keys and zero its rows past them."""
     s = qkv.shape[1]
     s_real = s if s_real is None else s_real
     q, k, v = _split_heads(qkv, heads)
@@ -458,7 +540,9 @@ def flash_attention_packed_plain(qkv: torch.Tensor, heads: int, scale: float,
     for p0 in range(0, s, panel):
         p1 = min(p0 + panel, s)
         sc = torch.matmul(qf, k[:, :, p0:p1].float().transpose(-1, -2))
-        if s_real < p1:
+        if torch.is_tensor(s_real):
+            sc = sc.masked_fill(_key_mask(s_real - p0, p1 - p0), float("-inf"))
+        elif s_real < p1:
             sc[..., max(s_real - p0, 0):] = float("-inf")
         m_new = torch.maximum(m, sc.amax(dim=-1, keepdim=True))
         alpha = torch.exp(m - m_new)
@@ -466,7 +550,7 @@ def flash_attention_packed_plain(qkv: torch.Tensor, heads: int, scale: float,
         l = l * alpha + p.sum(dim=-1, keepdim=True)
         acc = acc * alpha + torch.matmul(p.to(v.dtype).float(), v[:, :, p0:p1].float())
         m = m_new
-    return _merge_heads((acc / l).to(qkv.dtype))
+    return _merge_heads(_zero_past(acc / l, s_real).to(qkv.dtype))
 
 
 def _flash_lib() -> ctypes.CDLL:
@@ -474,21 +558,34 @@ def _flash_lib() -> ctypes.CDLL:
     if lib.flash_attention.argtypes is None:
         lib.flash_attention.argtypes = _ARGTYPES[:9] + [ctypes.c_int] + _ARGTYPES[9:]
         lib.flash_attention.restype = ctypes.c_int
+        lib.flash_attention_varlen.argtypes = (_VARLEN_ARGTYPES[:9] + [ctypes.c_int]
+                                               + _VARLEN_ARGTYPES[9:])
+        lib.flash_attention_varlen.restype = ctypes.c_int
     return lib
 
 
 def flash_attention_packed(qkv: torch.Tensor, heads: int, scale: float,
-                           s_real: int | None = None, rope=None) -> torch.Tensor:
+                           s_real: int | torch.Tensor | None = None, rope=None) -> torch.Tensor:
     """Online-softmax attention on the packed qkv tensor [B, S, 3w] → [B, S, w],
     rescaling at the JAX flash kernel's k-panel boundaries. ``rope``: (cos,
-    sin) tables [S, d/2] rotating q and k inside the kernel, or None."""
+    sin) tables [S, d/2] rotating q and k inside the kernel, or None.
+    ``s_real``: an int, or per-sequence lengths [B] (the module docstring)."""
     if qkv.device.type == "cpu":
         return flash_attention_packed_plain(qkv, heads, scale, s_real, rope)
     if not qkv.is_cuda:
         raise ValueError(f"flash_attention_packed: unsupported device {qkv.device}")
-    out = _launch_packed("flash_attention_packed", _flash_lib().flash_attention, qkv, heads,
-                         scale, s_real, rope, panel=flash_panel(qkv.shape[1]))
+    varlen = torch.is_tensor(s_real)
+    if varlen and qkv.dtype == torch.float32:
+        _check_packed("flash_attention_packed", qkv, heads, s_real, _DTYPE_CODE)
+        return _per_sequence(lambda x, n, r: flash_attention_packed(x, heads, scale, n, r),
+                             qkv, s_real, rope)
+    lib = _flash_lib()
+    out = _launch_packed("flash_attention_packed",
+                         lib.flash_attention_varlen if varlen else lib.flash_attention, qkv,
+                         heads, scale, s_real, rope, panel=flash_panel(qkv.shape[1]))
     flash_attention_packed.launches += 1
+    if varlen:
+        flash_attention_packed.varlen_launches += 1
     if rope is not None:
         flash_attention_packed.rope_launches += 1
     return out
@@ -496,6 +593,7 @@ def flash_attention_packed(qkv: torch.Tensor, heads: int, scale: float,
 
 flash_attention_packed.launches = 0
 flash_attention_packed.rope_launches = 0  # those of the launches with RoPE tables
+flash_attention_packed.varlen_launches = 0  # those with per-sequence lengths
 
 
 # ---- K10: K1's arithmetic on unpacked [B, h, S, d] q, k, v --------------------

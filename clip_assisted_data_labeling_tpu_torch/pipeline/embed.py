@@ -15,7 +15,11 @@ the tower's width (1152 for ViT-SO400M-14-SigLIP-384).
 
 CLI: the JAX stage's flags plus ``--device`` (default ``cuda``; ``cpu`` for
 the CPU). ``--aspect native`` (naflex towers) adds a fifth pseudo-crop
-``native_aspect`` (int8 modes run bfloat16 then); ``--exact_stats``
+``native_aspect`` (int8 modes run bfloat16 then): each image on its own
+aspect-preserving patch grid of at most ``--max_patches`` patches (default:
+the tower's square grid, 256 at patch 16, as HF's processor), prepared in
+the loader's decode workers and run on the attention kernels with per-image
+key lengths; ``--exact_stats``
 computes the stats on the host with cv2 from each file at its original
 resolution; ``--profile_dir`` writes a torch.profiler trace (CPU and CUDA
 activity, Chrome trace format) of the run, the port's spans and layer ranges
@@ -38,6 +42,7 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures
+import functools
 import logging
 import os
 import random
@@ -186,52 +191,51 @@ def embed_batches(embedder, loader: BatchedImageLoader, store: EmbeddingStore | 
     emb, stats)`` runs on ``writer_pool`` once a batch, where given; the loop
     ends once every such write has, and raises if one failed. ``stats``:
     'device' (on the card), 'exact' (the host's cv2 from each file) or None.
-    ``native(images)``: a fifth pseudo-crop's [B, D] embeddings from each
-    image's pixels (``--aspect native``), or None. ``total``: the images
-    expected, for the progress lines.
+    ``native(patches, masks, grids)``: a fifth pseudo-crop's [n, D]
+    embeddings on the device from the batch's ``native`` (the loader's
+    workers prepared each image; ``CLIPImageEncoder.encode_patches``,
+    ``--aspect native``), or None. ``total``: the images expected, for the
+    progress lines.
 
     ``timer``'s stages: ``loader_wait`` (the next batch from the loader),
-    ``dispatch`` (the upload and the device work enqueued), ``cpu_wait`` (the
-    read back, which waits for the device; with ``native``, its forward too),
-    ``exact_stats``, ``store_write`` and ``sidecar_wait`` (the wait on the
-    sidecar writes at the end)."""
+    ``dispatch`` (the uploads and the device work enqueued, the native
+    forward's too), ``cpu_wait`` (the read back, which waits for the
+    device), ``exact_stats``, ``store_write`` and ``sidecar_wait`` (the wait
+    on the sidecar writes at the end)."""
     sharded = not isinstance(embedder, CLIPImageEncoder)
 
     def dispatch(batch):
         """Enqueue the batch's device work; returns device tensors (async on
-        the card)."""
+        the card): the crops' embeddings, the stats (or None) and the native
+        rows (or None)."""
         if sharded:
             if calibrate:
                 # one calibration forward on the first batch, then a no-op
                 embedder.calibrate_static(batch.canvas, batch.crop_params)
             if stats == "device":
-                return embedder.embed(batch.canvas, batch.crop_params, batch.stat_params)
-            return embedder.embed(batch.canvas, batch.crop_params), None
-        canvas = torch.from_numpy(batch.canvas).to(device, non_blocking=True)
-        emb_dev = embedder.embed_crops(canvas, batch.crop_params)
-        stats_dev = None
-        if stats == "device":
-            with torch.inference_mode():
-                stats_dev = image_stats_batch(canvas, torch.from_numpy(batch.stat_params))
-        return emb_dev, stats_dev
+                emb_dev, stats_dev = embedder.embed(batch.canvas, batch.crop_params,
+                                                    batch.stat_params)
+            else:
+                emb_dev, stats_dev = embedder.embed(batch.canvas, batch.crop_params), None
+        else:
+            canvas = torch.from_numpy(batch.canvas).to(device, non_blocking=True)
+            emb_dev = embedder.embed_crops(canvas, batch.crop_params)
+            stats_dev = None
+            if stats == "device":
+                with torch.inference_mode():
+                    stats_dev = image_stats_batch(canvas, torch.from_numpy(batch.stat_params))
+        return emb_dev, stats_dev, None if native is None else native(*batch.native)
 
     futures = []
     n_done = 0
 
-    def consume(batch, emb_dev, stats_dev):
+    def consume(batch, emb_dev, stats_dev, nat_dev):
         nonlocal n_done
         n = batch.n_valid
         with timer.time("cpu_wait", n):
             emb = emb_dev[:n].cpu().numpy()
-            if native is not None:
-                # each image's pixels back off its centered canvas
-                # (stat_params = [ox, oy, w, h, …]) through the masked path
-                imgs = []
-                for bi in range(n):
-                    ox, oy, w, h = (int(v) for v in batch.stat_params[bi, :4])
-                    imgs.append(batch.canvas[bi, oy: oy + h, ox: ox + w])
-                nat = native(imgs).cpu().numpy()
-                emb = np.concatenate([emb, nat[:, None, :]], axis=1)
+            if nat_dev is not None:
+                emb = np.concatenate([emb, nat_dev.cpu().numpy()[:, None, :]], axis=1)
             stats_np = None if stats_dev is None else stats_dev[:n].cpu().numpy()
         if stats == "exact":
             with timer.time("exact_stats", n):
@@ -271,6 +275,16 @@ def embed_batches(embedder, loader: BatchedImageLoader, store: EmbeddingStore | 
         raise RuntimeError(f"{len(write_errors)} sidecar write batches failed; "
                            f"first error: {write_errors[0]!r}")
     return n_done
+
+
+def native_prep(tower_cfg, max_patches: int | None = None):
+    """What the loader's workers run on each image for ``--aspect native``:
+    ``models/naflex.preprocess_variable`` at ``max_patches`` (None: the
+    tower's square grid)."""
+    from clip_assisted_data_labeling_tpu_torch.models.naflex import preprocess_variable
+
+    return functools.partial(preprocess_variable, cfg=tower_cfg,
+                             max_patches=max_patches or tower_cfg.seq_len)
 
 
 def _embed_one_model(root_dir, img_paths, model_name, cfg: EmbedConfig, device,
@@ -378,6 +392,7 @@ def _embed_one_model(root_dir, img_paths, model_name, cfg: EmbedConfig, device,
         todo, canvas_size=cfg.canvas_size, out_size=encoder.img_resolution,
         batch_size=batch_size, num_workers=cfg.num_workers,
         crop_names=cfg.crop_names, bucketed=True, sort_by_size=True,
+        native=native_prep(encoder.cfg, cfg.max_patches) if native_aspect else None,
     )
 
     def write_batch_sidecars(paths, emb_np, stats_arr):
@@ -395,7 +410,7 @@ def _embed_one_model(root_dir, img_paths, model_name, cfg: EmbedConfig, device,
             write_sidecars=write_batch_sidecars if cfg.write_sidecars else None,
             stats=(None if not cfg.with_image_stats
                    else "exact" if cfg.exact_stats else "device"),
-            native=encoder.encode_variable if native_aspect else None,
+            native=encoder.encode_patches if native_aspect else None,
             calibrate=encoder.static_quant, total=len(todo))
 
     # backfill store rows for already-embedded images from their sidecars
@@ -480,6 +495,11 @@ def main(argv=None):
                         "each image at its native aspect ratio through the masked "
                         "variable-patch-grid path, stored as a fifth pseudo-crop "
                         "'native_aspect'")
+    parser.add_argument("--max_patches", type=int, default=None,
+                        help="--aspect native: the most patches of an image's native-aspect "
+                        "grid (default: the tower's square grid, 256 at patch 16, as HF's "
+                        "Siglip2ImageProcessor); each image keeps its aspect on a grid of at "
+                        "most this many patches")
     parser.add_argument("--calibration", type=str, default="auto",
                         help="int8_static activation-scale persistence: 'auto' "
                         "(default) pins scales to <root_dir>/<model>.calib.npz; "
@@ -507,6 +527,7 @@ def main(argv=None):
         write_sidecars=not args.no_sidecars,
         calibration=args.calibration,
         aspect=args.aspect,
+        max_patches=args.max_patches,
         device=args.device,
         debug_nans=args.debug_nans,
     )

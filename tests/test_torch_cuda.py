@@ -900,3 +900,117 @@ def test_conv_towers_on_card_match_cpu(card, name, dtype, limit):
     assert (q_matmul_pre.launches > pre) == (dtype == "int8_static")
     ref = fam.encode(cpu, images, tdtype).numpy()
     assert 1.0 - np.min(np.sum(got * ref, axis=-1)) <= limit
+
+
+# ---- per-sequence key lengths (the naflex towers' native-aspect rows) ----------
+
+_VARLEN_KERNELS = {"K1": (fused_attention_packed, fused_attention_packed_plain),
+                   "K5": (flash_attention_packed, flash_attention_packed_plain)}
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K5"])
+@pytest.mark.parametrize("s,w,heads,lengths", [
+    (256, 1152, 16, [256, 1, 200, 129]),     # SO400M/16's crops' length, d = 72
+    (1024, 1152, 16, [1024, 1014, 1008, 300, 65]),  # the cell's native rows; K5 skips panels
+    (577, 1024, 16, [577, 64, 63, 500]),     # d = 64, chunk edges
+    (130, 256, 2, [130, 128, 7]),            # d = 128, a 2-row last query tile
+])
+def test_varlen_kernel_matches_plain(card, kernel, s, w, heads, lengths):
+    """K1 and K5 in bfloat16 given per-sequence lengths: equal to their plain
+    versions with the same lengths, zeros (and no NaN) past each length, one
+    launch counted in ``launches`` and in ``varlen_launches``."""
+    fn, plain = _VARLEN_KERNELS[kernel]
+    b = len(lengths)
+    qkv = _normal((b, s, 3 * w), seed=s + b).to(card, torch.bfloat16)
+    kv_len = torch.tensor(lengths, dtype=torch.int32, device=card)
+    before = (fn.launches, fn.varlen_launches)
+    got = fn(qkv, heads, (w // heads) ** -0.5, kv_len)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.varlen_launches) == (before[0] + 1, before[1] + 1)
+    assert not torch.isnan(got).any()
+    ref = plain(qkv, heads, (w // heads) ** -0.5, kv_len)
+    err = (got.float() - ref.float()).abs().max().item()
+    assert err <= TOL[torch.bfloat16], f"max abs err {err}"
+    for bi, n in enumerate(lengths):
+        assert torch.count_nonzero(got[bi, n:]).item() == 0
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K5"])
+def test_varlen_kernel_equals_each_sequence_alone(card, kernel):
+    """A sequence's rows given its length in a batch equal, bit for bit, the
+    same kernel without lengths on that sequence alone with s_real = its
+    length (the chunks and panels the lengths skip add exact zeros there);
+    and lengths that are all S equal the launch without them, bit for bit."""
+    fn, _plain = _VARLEN_KERNELS[kernel]
+    s, w, heads, lengths = 1024, 1152, 16, [1024, 1014, 1008, 700, 300]
+    qkv = _normal((len(lengths), s, 3 * w), seed=23).to(card, torch.bfloat16)
+    scale = (w // heads) ** -0.5
+    got = fn(qkv, heads, scale, torch.tensor(lengths, dtype=torch.int32, device=card))
+    for bi, n in enumerate(lengths):
+        alone = fn(qkv[bi: bi + 1].contiguous(), heads, scale, n)
+        assert torch.equal(got[bi, :n], alone[0, :n]), (bi, n)
+    full = fn(qkv, heads, scale, torch.full((len(lengths),), s, dtype=torch.int32, device=card))
+    assert torch.equal(full, fn(qkv, heads, scale))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K5"])
+def test_varlen_float32_runs_each_sequence(card, kernel):
+    """float32 with per-sequence lengths: one launch a sequence at its length
+    (no varlen launch), equal to the plain version with the lengths."""
+    fn, plain = _VARLEN_KERNELS[kernel]
+    lengths = [257, 100, 3]
+    qkv = _normal((3, 257, 3 * 256), seed=5).to(card)
+    kv_len = torch.tensor(lengths, dtype=torch.int32, device=card)
+    before = (fn.launches, fn.varlen_launches)
+    got = fn(qkv, 2, 128 ** -0.5, kv_len)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.varlen_launches) == (before[0] + 3, before[1])
+    err = (got - plain(qkv, 2, 128 ** -0.5, kv_len)).abs().max().item()
+    assert err <= TOL[torch.float32], f"max abs err {err}"
+
+
+def test_varlen_wrappers_refuse_bad_lengths(card):
+    qkv = _normal((2, 64, 3 * 128), seed=1).to(card, torch.bfloat16)
+    for bad in (torch.tensor([64, 3], dtype=torch.int64, device=card),
+                torch.tensor([64], dtype=torch.int32, device=card),
+                torch.tensor([64, 3], dtype=torch.int32)):
+        with pytest.raises(ValueError):
+            fused_attention_packed(qkv, 2, 0.125, bad)
+        with pytest.raises(ValueError):
+            flash_attention_packed(qkv, 2, 0.125, bad)
+    kv_len = torch.tensor([64, 3], dtype=torch.int32, device=card)
+    with pytest.raises(ValueError):
+        fused_attention_packed(qkv, 2, 0.125, kv_len, quant_out=True)
+    with pytest.raises(ValueError):
+        fused_attention_packed_grouped(qkv, 2, 0.125, kv_len)
+
+
+def test_naflex_native_rows_on_the_kernels(card):
+    """The native-aspect forward on the card runs its blocks on K1 with
+    per-image lengths (the tiny tower's S routes to K1), one varlen launch
+    a layer, and agrees with the same route on the CPU's plain kernels."""
+    from clip_assisted_data_labeling_tpu_torch.models.encoders import CLIPImageEncoder
+
+    rng = np.random.default_rng(3)
+    imgs = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+            for h, w in ((40, 40), (48, 72), (30, 90))]
+    enc = CLIPImageEncoder("SigLIP2-Naflex-Test/tiny", compute_dtype="float32", device="cuda")
+    before = fused_attention_packed.varlen_launches
+    got = enc.encode_variable(imgs, max_patches=64).cpu()
+    torch.cuda.synchronize()
+    assert fused_attention_packed.varlen_launches == before  # float32: one launch a sequence
+    from clip_assisted_data_labeling_tpu_torch.models.clip_weights import params_from_module
+
+    params = {k: torch.from_numpy(v) for k, v in params_from_module(enc.model).items()}
+    cpu = CLIPImageEncoder("SigLIP2-Naflex-Test/tiny", params=params, compute_dtype="float32",
+                           device="cpu")
+    ref = cpu.encode_variable(imgs, max_patches=64)
+    assert (1.0 - (got * ref).sum(-1)).max().item() <= 1e-5
+    bf = CLIPImageEncoder("SigLIP2-Naflex-Test/tiny", params=params, compute_dtype="bfloat16",
+                          device="cuda")
+    before = fused_attention_packed.varlen_launches
+    got16 = bf.encode_variable(imgs, max_patches=64).cpu()
+    torch.cuda.synchronize()
+    assert fused_attention_packed.varlen_launches == before + bf.cfg.layers
+    assert (1.0 - (got16 * ref).sum(-1)).max().item() <= 2e-3

@@ -1,8 +1,9 @@
 """The port's SigLIP2 naflex path against the JAX package's: the grid
 solver, the positional resize weights, the host preprocess (PIL's bilinear
 where PIL is installed, the port's own fixed-point copy of it where it is
-not — held against PIL pixel for pixel), the masked variable-aspect forward
-at several aspects in one ragged batch (float32 and bfloat16), the square
+not — held against PIL pixel for pixel), the variable-aspect forward (the
+port's block route with per-image key lengths, the JAX package's masked
+blocks) at several aspects in one ragged batch (float32 and bfloat16), the square
 path equal to the fixed path, and the encoder's ``encode_variable`` on
 uint8 images against the JAX encoder's on the same weights."""
 import jax.numpy as jnp

@@ -71,8 +71,11 @@ def test_exact_totals_from_many_threads():
     t0 = time.perf_counter()
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)  # switch threads as often as the interpreter can
+    # every worker alive at once, so no thread reuses another's ident
+    started = threading.Barrier(n_threads)
     try:
         def work():
+            started.wait(timeout=60)
             with timer.span("worker"):
                 for _ in range(per_thread):
                     with stages.time("stage", 1):
