@@ -4,8 +4,12 @@
 
 Phases (any failure exits nonzero and prints no result line; each group
 starts with a line of the script's seconds so far). Every path's launch
-counts include K9pre, q_matmul_pre's launches of K9's GEMM: four a layer on
-int8_static and hybrid ViT blocks (qkv, out, fc1, fc2), one on xla blocks
+counts include K9pre, q_matmul_pre's launches of K9's GEMM, and K9q8,
+q_matmul_pre_act_q8's (fc1 with the MLP's hidden made int8 in its
+epilogue): K9pre three a layer and K9q8 one on the int8_static ViT blocks
+whose MLP is fc1 → quick_gelu or gelu → fc2 with a bf16 hidden (qkv, out,
+fc2; fc1), K9pre four a layer on the other int8_static blocks (swiglu,
+post-norm) and on hybrid blocks (qkv, out, fc1, fc2), one on xla blocks
 (out), two a block on the conv towers' int8_static blocks, two a layer a
 model shard in int8_static TP (qkv and fc1); the phases below name the
 other kernels:
@@ -53,11 +57,17 @@ other kernels:
   3c. q_matmul_pre (int8_static's block products) on K9's GEMM against its
      torch route at the four products of ViT-L-14-336 and SO400M-384 (M =
      17, 577, 18464 and one forward of 256 crops), bit for bit, with the
-     times of both and of the GEMM on the scale expanded to [M] rows; then
-     both towers at full depth: q_matmul_pre's launches a forward (4 x
-     depth) and a forward of 256 crops on each route, the embeddings bit
-     for bit (printed as its own JSON line, each product's row with the
-     K9pre launches of its tower's main path, phases 5 and 8),
+     times of both and of the GEMM on the scale expanded to [M] rows; fc1
+     with its int8 hidden (q_matmul_pre_act_q8: quick_gelu on L-336,
+     gelu_tanh on SO400M) against the chain it replaces (K9's bf16 fc1,
+     the bf16 activation, quant_static) at M = 577 and one forward of 256
+     crops (147,712 and 186,624 rows), bit for bit, one launch a call, the
+     times and device times of both and the bound; then both towers at
+     full depth: the launches a forward (K9pre 3 x depth, K9q8 depth) and
+     a forward of 256 crops on each route (the chain with K9's GEMM, and
+     every product on the torch route), the embeddings bit for bit
+     (printed as its own JSON line, each product's row with the K9pre
+     launches of its tower's main path, phases 5 and 8),
   3d. K1 and K5 with per-sequence key lengths (``varlen_launches``) at the
      embed-native cell's shapes, bf16 [64, 256, 3456] (K1) and [64, 1024,
      3456] (K5), 16 heads of 72: once with the lengths png_pool's eight
@@ -387,14 +397,27 @@ def counters() -> dict:
     """(wrapper, attribute) of each launch counter by table number; K5's
     launches with RoPE tables have a counter of their own besides K5's, K1's
     and K5's launches given per-sequence key lengths (naflex's native rows)
-    theirs, and K9pre counts ``q_matmul_pre``'s launches of K9's GEMM
-    (int8_static's block products)."""
-    from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import q_matmul_pre
+    theirs, K9pre counts ``q_matmul_pre``'s launches of K9's GEMM
+    (int8_static's block products) and K9q8 ``q_matmul_pre_act_q8``'s (fc1
+    with the MLP's int8 hidden in its epilogue)."""
+    from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import (
+        q_matmul_pre,
+        q_matmul_pre_act_q8,
+    )
 
     ks = kernels()
     return {**{k: (fn, "launches") for k, fn in ks.items()},
             "K5+RoPE": (ks["K5"], "rope_launches"), "K1+VL": (ks["K1"], "varlen_launches"),
-            "K5+VL": (ks["K5"], "varlen_launches"), "K9pre": (q_matmul_pre, "launches")}
+            "K5+VL": (ks["K5"], "varlen_launches"), "K9pre": (q_matmul_pre, "launches"),
+            "K9q8": (q_matmul_pre_act_q8, "launches")}
+
+
+def static_mlp(layers: int, hidden_q8: bool = True) -> dict:
+    """An int8_static ViT's launches of K9's GEMM a forward: where its MLP
+    keeps the hidden in int8 (fc1 → quick_gelu or gelu → fc2, a bf16 hidden
+    16 divides) K9pre three times a layer (qkv, out, fc2) and K9q8 once
+    (fc1); else (swiglu, post-norm) K9pre four times."""
+    return {"K9pre": 3 * layers, "K9q8": layers} if hidden_q8 else {"K9pre": 4 * layers}
 
 
 def reset_counts() -> None:
@@ -1484,11 +1507,16 @@ def static_gemm() -> list[dict]:
     forward of the benchmark's batch (256 crops: 147,712 and 186,624 rows):
     the bits equal, one launch a call, CUDA-event and device times of both,
     and of the GEMM given the scale expanded to [M] rows on the card (K8's
-    form: one small launch more, no stride). Then each tower at full depth,
-    calibrated on the card: its launches a forward (4 x depth), and a
-    forward of the benchmark's batch on each route in this process (the
-    torch route put in ``models/vit``'s place of ``q_matmul_pre``),
-    bit-equal embeddings."""
+    form: one small launch more, no stride). Then fc1 with its int8 hidden
+    (``q_matmul_pre_act_q8``) against the chain it replaced, at M = 577
+    and the benchmark's batch: the bits equal, one launch a call, times,
+    device times and the bound. Then each tower at full depth, calibrated
+    on the card: its launches a forward (``q_matmul_pre`` 3 x depth,
+    ``q_matmul_pre_act_q8`` depth), and a forward of the benchmark's batch
+    on each route in this process (the chain: ``models/vit._hidden_q8_act``
+    put out of the way, K9's GEMM for every product; the torch route: the
+    chain with ``_int_mm`` and the epilogue's passes in ``q_matmul_pre``'s
+    place), bit-equal embeddings."""
     import dataclasses
 
     from clip_assisted_data_labeling_tpu_torch.models import vit
@@ -1498,6 +1526,7 @@ def static_gemm() -> list[dict]:
         _dequant_epilogue,
         int_matmul,
         match_k,
+        quant_static,
         quantize_vit_params,
         quantize_weight,
     )
@@ -1560,6 +1589,55 @@ def static_gemm() -> list[dict]:
                 del xq, wq, wq_t, ws, b, res
                 torch.cuda.empty_cache()
 
+    hidden = quant_kernel.q_matmul_pre_act_q8
+    for model, products in STATIC_PRODUCTS.items():
+        cfg = vit.resolve_config(model)
+        k, n = products[2][:2]  # fc1
+        act = "quick_gelu" if cfg.act == "quick_gelu" else "gelu_tanh"
+        for m in (577, CELL_CROPS * cfg.seq_len):
+            xq = torch.randint(-127, 128, (m, k), generator=g, device="cuda",
+                               dtype=torch.int16).to(torch.int8)
+            wq, ws = quantize_weight(torch.randn((k, n), generator=g, device="cuda") * k ** -0.5)
+            wq_t = wq.t().contiguous()
+            b = 0.1 * torch.randn((n,), generator=g, device="cuda")
+            xs = torch.tensor(0.02, device="cuda")
+
+            def chain_h():  # the chain's fc1: K9's bf16 product, then the bf16 activation
+                return vit._act(pre(xq, xs, wq_t, ws, b), act, quantized=True)
+
+            # fc2's calibrated amax stands a little under the hidden's max
+            amax = (0.9 * chain_h().float().abs().max()).reshape(1)
+
+            def fused():
+                return hidden(xq, xs, wq_t, ws, b, act, amax)
+
+            def chain():
+                return quant_static(chain_h(), amax)
+
+            before = hidden.launches
+            got = fused()
+            same = torch.equal(got, chain())
+            if hidden.launches != before + 1 or not same:
+                fail(f"q_matmul_pre_act_q8 {model} [{m},{k}]x[{k},{n}] {act}: launches "
+                     f"{hidden.launches - before}, bit-identical {same}")
+            big = m > 577
+            row = {
+                "name": "q_matmul_pre_act_q8", "tower": model, "m": m, "k": k, "n": n,
+                "act": act, "bit_identical": same, "fused_ms": time_ms(fused),
+                "chain_ms": time_ms(chain), "fused_device_ms": device_ms(fused) if big else None,
+                "chain_device_ms": device_ms(chain) if big else None,
+                **bound(2.0 * m * n * k, H100_INT8_OPS, m * k + n * k + m * n + 2 * n * 4),
+            }
+            records.append(row)
+            dev = (f" (device {row['fused_device_ms']:.4f} against {row['chain_device_ms']:.4f})"
+                   if big else "")
+            print(f"phase 3c q_matmul_pre_act_q8 {model} int8 [{m},{k}] x [{k},{n}] {act} -> "
+                  f"int8: fused {row['fused_ms']:.4f} ms, chain (K9 bf16 + {act} + "
+                  f"quant_static) {row['chain_ms']:.4f} ms{dev}; bound {row['bound_ms']:.4f} "
+                  f"ms ({row['bound_by']}); bit-identical", flush=True)
+            del xq, wq, wq_t, ws, b, got
+            torch.cuda.empty_cache()
+
     def torch_pre(xq, x_scale, wq_t, w_scale, bias=None, residual=None,
                   out_dtype=torch.bfloat16):  # q_matmul_pre's torch route, on the card
         return _dequant_epilogue(int_matmul(match_k(xq, wq_t), wq_t), x_scale, w_scale, bias,
@@ -1580,34 +1658,40 @@ def static_gemm() -> list[dict]:
             with torch.inference_mode():
                 return vit.vit_encode_image(tower, images[:n_crops], torch.bfloat16)
 
-        before = pre.launches
+        before = pre.launches, hidden.launches
         forward(1)
         torch.cuda.synchronize()
-        per_forward = pre.launches - before
-        if per_forward != 4 * cfg.layers:
-            fail(f"{model} int8_static: q_matmul_pre launches a forward {per_forward}, "
-                 f"expected {4 * cfg.layers}")
+        per_forward = pre.launches - before[0], hidden.launches - before[1]
+        if per_forward != (3 * cfg.layers, cfg.layers):
+            fail(f"{model} int8_static: q_matmul_pre and q_matmul_pre_act_q8 launches a "
+                 f"forward {per_forward}, expected {(3 * cfg.layers, cfg.layers)}")
         emb = forward(8)
         k9_ms = time_ms(lambda: forward(CELL_CROPS), min_reps=3, min_s=1.0)
-        vit.q_matmul_pre = torch_pre
+        hidden_q8_act = vit._hidden_q8_act
+        vit._hidden_q8_act = lambda *a: None  # the chain, every product on K9's GEMM
         try:
+            emb_chain = forward(8)
+            chain_ms = time_ms(lambda: forward(CELL_CROPS), min_reps=3, min_s=1.0)
+            vit.q_matmul_pre = torch_pre
             emb_torch = forward(8)
             torch_ms = time_ms(lambda: forward(CELL_CROPS), min_reps=3, min_s=1.0)
         finally:
-            vit.q_matmul_pre = pre
-        same = torch.equal(emb, emb_torch)
+            vit.q_matmul_pre, vit._hidden_q8_act = pre, hidden_q8_act
+        same = torch.equal(emb, emb_chain) and torch.equal(emb, emb_torch)
         rec = {"name": "q_matmul_pre_forward", "tower": model, "route": vit.block_route(
-                   tower.blocks[0], cfg), "launches_per_forward": per_forward,
-               "crops": CELL_CROPS, "k9_forward_ms": k9_ms, "torch_forward_ms": torch_ms,
-               "bit_identical": same}
+                   tower.blocks[0], cfg), "launches_per_forward": per_forward[0],
+               "hidden_q8_launches_per_forward": per_forward[1], "crops": CELL_CROPS,
+               "k9_forward_ms": k9_ms, "chain_forward_ms": chain_ms,
+               "torch_forward_ms": torch_ms, "bit_identical": same}
         records.append(rec)
         print(f"phase 3c {model} int8_static ({rec['route']} blocks): q_matmul_pre "
-              f"{per_forward} launches a forward; "
-              f"{CELL_CROPS} crops a forward {k9_ms:.1f} ms on K9, {torch_ms:.1f} ms on the "
-              f"torch route ({torch_ms / k9_ms:.3f}x); embeddings bit-identical {same}",
-              flush=True)
+              f"{per_forward[0]} and q_matmul_pre_act_q8 {per_forward[1]} launches a forward; "
+              f"{CELL_CROPS} crops a forward {k9_ms:.1f} ms with the int8 hidden, "
+              f"{chain_ms:.1f} ms on the chain ({chain_ms / k9_ms:.3f}x), {torch_ms:.1f} ms on "
+              f"the torch route; embeddings bit-identical {same}", flush=True)
         if not same:
-            fail(f"{model} int8_static: the K9 and torch routes' embeddings differ")
+            fail(f"{model} int8_static: the int8-hidden, chain and torch routes' embeddings "
+                 f"differ")
         del tower, images, emb, emb_torch
         torch.cuda.empty_cache()
     return records
@@ -1873,11 +1957,11 @@ def knob_routes(l336: dict, so400m: dict, cfg, scfg) -> list[dict]:
 
     for model, mcfg, default, env, want in (
             (MODEL, cfg, l336, {"CTPU_LN_KERNEL": "0"},
-             {"K1": cfg.layers, "K9pre": 4 * cfg.layers}),
+             {"K1": cfg.layers, **static_mlp(cfg.layers)}),
             (MODEL, cfg, l336, {"CTPU_INT8_WIRE": "1"},
-             {"K3": cfg.layers, "K9pre": 4 * cfg.layers}),
+             {"K3": cfg.layers, **static_mlp(cfg.layers)}),
             (SIGLIP, scfg, so400m, {"CTPU_INT8_WIRE": "0"},
-             {"K5": scfg.layers, "K2": 2 * scfg.layers, "K9pre": 4 * scfg.layers})):
+             {"K5": scfg.layers, "K2": 2 * scfg.layers, **static_mlp(scfg.layers)})):
         names = [os.path.basename(p) for p in default["pts"]]
         with tempfile.TemporaryDirectory(prefix="chip_smoke_route_") as rroot, \
                 int8_knobs(**env):
@@ -2002,7 +2086,7 @@ def towers(root: str, l336: dict) -> dict:
     gcfg = resolve_config(PE_G)
     out["g14_static"] = encoder_run(PE_G, "int8_static", l336["pts"], None, gcfg,
                                     {"K4": gcfg.layers, "K2": 2 * gcfg.layers,
-                                     "K9pre": 4 * gcfg.layers}, timed=True)
+                                     **static_mlp(gcfg.layers)}, timed=True)
     for key, name, kernel, static_k2 in (("clipa_h336", CLIPA_H336, "K4", True),
                                          ("eva01g", EVA01_G, "K1", True),
                                          ("coca", COCA_L, "K1", True),
@@ -2010,7 +2094,7 @@ def towers(root: str, l336: dict) -> dict:
         cfg = resolve_config(name)
         bf = encoder_run(name, "bfloat16", l336["pts"], None, cfg, {kernel: cfg.layers},
                          timed=True)
-        want = {kernel: cfg.layers, "K9pre": 4 * cfg.layers,
+        want = {kernel: cfg.layers, **static_mlp(cfg.layers, cfg.block_norm != "post"),
                 **({"K2": 2 * cfg.layers} if static_k2 else {})}
         st = encoder_run(name, "int8_static", l336["pts"], None, cfg, want, timed=True)
         out[f"{key}_bf16"], out[f"{key}_static"] = bf, st
@@ -3592,7 +3676,7 @@ def dp_embed(root: str, l336: dict) -> dict:
         got = counts()
         forwards = math.ceil(N_IMAGES / BATCH) * DP_DEVICES
         want = {k: {"K1": cfg.layers, "K2": 2 * cfg.layers,
-                    "K9pre": 4 * cfg.layers}.get(k, 0) * forwards for k in got}
+                    **static_mlp(cfg.layers)}.get(k, 0) * forwards for k in got}
         side = read_sides(droot, MODEL, names)
         err = cos_err(side, l336["side"])
         diff = float(np.abs(side - l336["side"]).max())
@@ -4532,7 +4616,7 @@ def main() -> None:
         # --- phases 5-6: ViT-L-14-336 int8_static: K1 once and K2 twice a
         # layer; the calibration forward runs the XLA-style attention, no kernel
         l336 = embed_and_check(root, MODEL, cfg, {"K1": cfg.layers, "K2": 2 * cfg.layers,
-                                                  "K9pre": 4 * cfg.layers})
+                                                  **static_mlp(cfg.layers)})
         elapsed(t_start, "7")
         # --- phase 7: float32 paths on a few images: L-336 takes K4 (the JAX
         # package's grouped route for its shape), L-14 at 224 px K1
@@ -4550,7 +4634,7 @@ def main() -> None:
         # --- phases 8-9: ViT-SO400M-14-SigLIP-384 int8_static through the int8
         # attention wire (K3 a layer), then bfloat16 (K5 a layer)
         so400m = embed_and_check(root, SIGLIP, scfg, {"K3": scfg.layers,
-                                                      "K9pre": 4 * scfg.layers})
+                                                      **static_mlp(scfg.layers)})
         bf16 = encoder_run(SIGLIP, "bfloat16", so400m["pts"], so400m["side"], scfg,
                            {"K5": scfg.layers}, timed=True)
         elapsed(t_start, "9a")
@@ -4563,7 +4647,7 @@ def main() -> None:
         # --- phases 10-11: PE-Core-L14-336 int8_static (K1 with RoPE once and
         # K2 twice a layer), then its bf16 (K1) and float32 (K4) paths
         pe = embed_and_check(root, PE_L, pcfg, {"K1": pcfg.layers, "K2": 2 * pcfg.layers,
-                                                "K9pre": 4 * pcfg.layers})
+                                                **static_mlp(pcfg.layers)})
         pe_bf16 = encoder_run(PE_L, "bfloat16", pe["pts"], pe["side"], pcfg,
                               {"K1": pcfg.layers}, timed=True)
         pe_f32 = encoder_run(PE_L, "float32", pe["pts"], pe["side"], pcfg, {"K4": pcfg.layers},

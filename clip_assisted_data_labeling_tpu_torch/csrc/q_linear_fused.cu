@@ -27,6 +27,13 @@
 //       rows quantized before it, with K9's epilogue and the residual; xs
 //       one per-tensor scale (xs_stride 0: xs[0] serves every row) or [M]
 //       row scales (xs_stride 1), ops/quant._dequant_epilogue's order.
+//   q_matmul_pre_act_q8 (int8_static's fc1, whose output only fc2 reads):
+//       q_gemm_hidden_q8, the same GEMM and epilogue to the bf16 value fc1
+//       wrote before; then what the chain ran on that bf16 value on its way
+//       into fc2 (the bf16 activation, quant_static under fc2's calibrated
+//       amax) is read from a table of all 65,536 bf16 values' results, built
+//       by those torch operations on the card, and written as int8 [M, N]
+//       (hidden_q8).
 // That is the TPU kernels' arithmetic in their order. The int32 sums are
 // exact in any order, so the outputs do not depend on the schedule below.
 //
@@ -246,6 +253,27 @@ template <> __device__ __forceinline__ __nv_bfloat16 cast_out<__nv_bfloat16>(flo
   return __float2bfloat16_rn(v);
 }
 
+template <> __device__ __forceinline__ void store2<int8_t>(int8_t* p, float a, float b) {
+  *reinterpret_cast<char2*>(p) = make_char2((signed char)a, (signed char)b);
+}
+template <> __device__ __forceinline__ int8_t cast_out<int8_t>(float v) { return (int8_t)v; }
+
+// ---- the int8 hidden of int8_static's MLP (TO int8_t) ------------------------
+//
+// The epilogue's float32 y rounded to bf16 is the value fc1 wrote before; its
+// 16 bits index the table in res's slot: 65,536 int8, for each bf16 value v
+// what fc2 read for it, quant_static(act(v)) (ops/quant_kernel._hidden_table).
+// The activation's steps, each rounded to bf16 with the precise expf and
+// tanhf, run once a call over the table in torch's own kernels; computed here
+// in registers they cost 2.3 ms (quick_gelu) and 3.9 ms (gelu_tanh) a
+// 147,712- or 186,624-row fc1 more than the gather, on an H100 80GB HBM3.
+__device__ __forceinline__ float hidden_q8(float y, const void* table) {
+  const unsigned short bits = __bfloat16_as_ushort(__float2bfloat16_rn(y));
+  return (float)__ldg(static_cast<const signed char*>(table) + bits);
+}
+
+template <typename TO> constexpr bool kQ8 = std::is_same<TO, int8_t>::value;
+
 // The residual [M, N] of K8's epilogue, float32 (res_dtype 0) or bfloat16 (1).
 __device__ __forceinline__ float residual_at(const void* res, int res_dtype, size_t i) {
   return res_dtype == 0 ? static_cast<const float*>(res)[i]
@@ -254,7 +282,8 @@ __device__ __forceinline__ float residual_at(const void* res, int res_dtype, siz
 
 // The epilogue of one consumer's 64 x BN sums: acc[j][0..1] are row r0,
 // columns c0 + 8j and c0 + 8j + 1 (r0 = the tile's row + 16·warp + lane / 4,
-// c0 = its column + 2·(lane % 4)); acc[j][2..3] row r0 + 8.
+// c0 = its column + 2·(lane % 4)); acc[j][2..3] row r0 + 8. With TO int8_t,
+// res is hidden_q8's table (ACT 0, RES false).
 template <typename TO, int ACT, bool RES, int BN>
 __device__ __forceinline__ void epilogue(const int (&acc)[BN / 8][4], int r0, int c0,
                                          const float* __restrict__ xs, int xs_stride,
@@ -278,8 +307,12 @@ __device__ __forceinline__ void epilogue(const int (&acc)[BN / 8][4], int r0, in
         const int c = min(col + e, N - 1);
         float v = __fmul_rn(__fmul_rn((float)acc[j][2 * h + e], sx), __ldg(ws + c));
         if (bias != nullptr) v = __fadd_rn(v, __ldg(bias + c));
-        v = act_f32<ACT>(v);
-        if (RES) v = __fadd_rn(v, residual_at(res, res_dtype, (size_t)row * N + c));
+        if constexpr (kQ8<TO>) {
+          v = hidden_q8(v, res);
+        } else {
+          v = act_f32<ACT>(v);
+          if (RES) v = __fadd_rn(v, residual_at(res, res_dtype, (size_t)row * N + c));
+        }
         y[e] = v;
       }
       TO* o = out + (size_t)row * N + col;
@@ -358,11 +391,22 @@ template <> __device__ __forceinline__ void store8<__nv_bfloat16>(__nv_bfloat16*
   *reinterpret_cast<uint4*>(p) = u;
 }
 
+template <> __device__ __forceinline__ void store8<int8_t>(int8_t* p, const float (&y)[8]) {
+  uint32_t w[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    w[j] = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[j] |= (uint32_t)(uint8_t)(int8_t)y[4 * j + i] << (8 * i);
+  }
+  *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+}
+
 // The epilogue with 16-byte accesses, where N % 8 == 0 and the vectors are
 // 16-byte aligned: for each group of four j, the quad's transpose gives lane
 // t columns n0 + 32q + 8t .. + 7 of rows r0 and r0 + 8; it reads their 8
-// column scales and biases once for both rows and writes 8 outputs a store.
-// The arithmetic of each element is epilogue()'s.
+// column scales and biases once for both rows and writes 8 outputs a store
+// (8 bytes with TO int8_t). The arithmetic of each element is epilogue()'s.
 template <typename TO, int ACT, bool RES, int BN>
 __device__ __forceinline__ void epilogue_vec(const int (&acc)[BN / 8][4], int r0, int n0,
                                              int lane,
@@ -398,8 +442,12 @@ __device__ __forceinline__ void epilogue_vec(const int (&acc)[BN / 8][4], int r0
       for (int i = 0; i < 8; ++i) {
         float v = __fmul_rn(__fmul_rn((float)a[h][i / 2][i % 2], sx[h]), w[i]);
         if (bias != nullptr) v = __fadd_rn(v, b[i]);
-        v = act_f32<ACT>(v);
-        if (RES) v = __fadd_rn(v, r[i]);
+        if constexpr (kQ8<TO>) {
+          v = hidden_q8(v, res);
+        } else {
+          v = act_f32<ACT>(v);
+          if (RES) v = __fadd_rn(v, r[i]);
+        }
         y[i] = v;
       }
       store8<TO>(out + (size_t)row * N + col, y);
@@ -409,7 +457,9 @@ __device__ __forceinline__ void epilogue_vec(const int (&acc)[BN / 8][4], int r0
 
 // ACT (0 none, 1 quick_gelu, 2 gelu_tanh, 3 gelu) and RES (a residual is
 // added) are template parameters: K9 is the <TO, 0, false, BN>
-// instantiation, with no code for either. (A run-time switch on the
+// instantiation, with no code for either; the int8 hidden is <int8_t, 0,
+// false, BN>, its table in res's slot (no parameter more: one had moved
+// other instantiations' spills). (A run-time switch on the
 // activation in the unrolled epilogue of the first, mma.sync design measured
 // 0.638 ms against 0.398 for K9 at M = 18464, 1024→3072, on an H100 80GB
 // HBM3 at 700 W.)
@@ -579,7 +629,7 @@ int launch(const void* xq, const void* wq, const void* xs, int xs_stride, const 
   // 16-byte epilogue accesses: 8 columns a lane, each vector aligned
   auto al16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
   const bool vec = N % 8 == 0 && al16(ws) && al16(out) && (bias == nullptr || al16(bias)) &&
-                   (res == nullptr || al16(res));
+                   (!RES || al16(res));
   kernel<<<grid, NTH, smem, stream>>>(tmx, tmw, static_cast<const float*>(xs), xs_stride,
                                       static_cast<const float*>(ws),
                                       static_cast<const float*>(bias), static_cast<TO*>(out), M,
@@ -632,14 +682,17 @@ int launch_res(int act, const void* xq, const void* wq, const void* xs, int xs_s
                                st);
 }
 
+// TMA reads rows of K bytes: K % 16 == 0 and 16-byte aligned operands; a
+// row's scale at xs[row * xs_stride], one a row (1) or one for all (0)
+bool gemm_refuses(const void* xq, const void* wq, int xs_stride, int M, int N, int K) {
+  return M < 1 || N < 1 || K < 1 || K % 16 != 0 || xs_stride < 0 || xs_stride > 1 ||
+         reinterpret_cast<uintptr_t>(xq) % 16 != 0 || reinterpret_cast<uintptr_t>(wq) % 16 != 0;
+}
+
 int launch_out(int out_dtype, int act, const void* xq, const void* wq, const void* xs,
                int xs_stride, const void* ws, const void* bias, void* out, int M, int N, int K,
                const void* res, int res_dtype, void* stream) {
-  // TMA reads rows of K bytes: K % 16 == 0 and 16-byte aligned operands; a
-  // row's scale at xs[row * xs_stride], one a row (1) or one for all (0)
-  if (M < 1 || N < 1 || K < 1 || K % 16 != 0 || res_dtype < 0 || res_dtype > 1 ||
-      xs_stride < 0 || xs_stride > 1 || reinterpret_cast<uintptr_t>(xq) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(wq) % 16 != 0)
+  if (gemm_refuses(xq, wq, xs_stride, M, N, K) || res_dtype < 0 || res_dtype > 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (out_dtype == 0)
@@ -649,6 +702,16 @@ int launch_out(int out_dtype, int act, const void* xq, const void* wq, const voi
     return launch_res<__nv_bfloat16>(act, xq, wq, xs, xs_stride, ws, bias, out, M, N, K, res,
                                      res_dtype, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// int8 out: the table in the residual's slot
+int launch_hidden_q8(const void* xq, const void* wq, const void* xs, int xs_stride,
+                     const void* ws, const void* bias, const void* table, void* out, int M,
+                     int N, int K, void* stream) {
+  if (gemm_refuses(xq, wq, xs_stride, M, N, K) || table == nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch_bn<int8_t, 0, false>(xq, wq, xs, xs_stride, ws, bias, out, M, N, K, table, 0,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -669,6 +732,16 @@ int q_block_linear_gemm(const void* xq, const void* wq, const void* xs, int xs_s
                         void* out, int out_dtype, int act, int M, int N, int K, void* stream) {
   return launch_out(out_dtype, act, xq, wq, xs, xs_stride, ws, bias, out, M, N, K, res,
                     res_dtype, stream);
+}
+
+// int8_static's fc1 with its int8 hidden (ops/quant_kernel.q_matmul_pre_act_q8):
+// q_block_linear_gemm's GEMM and epilogue (act 0, no residual) to the bf16
+// value, whose 16 bits index table (int8 [65536] on the card) for the int8
+// written to out [M, N]. The other operands as q_block_linear_gemm's.
+int q_gemm_hidden_q8(const void* xq, const void* wq, const void* xs, int xs_stride, const void* ws,
+                     const void* bias, const void* table, void* out, int M, int N, int K,
+                     void* stream) {
+  return launch_hidden_q8(xq, wq, xs, xs_stride, ws, bias, table, out, M, N, K, stream);
 }
 
 }  // extern "C"

@@ -80,7 +80,7 @@ from clip_assisted_data_labeling_tpu_torch.models.convnext import (
 )
 from clip_assisted_data_labeling_tpu_torch.models.resnet import _RN_ARCHS, RNConfig, resolve_rn_config
 from clip_assisted_data_labeling_tpu_torch.ops import knobs
-from clip_assisted_data_labeling_tpu_torch.ops.activations import gelu_tanh
+from clip_assisted_data_labeling_tpu_torch.ops.activations import gelu_tanh, quick_gelu, sigmoid_xla
 from clip_assisted_data_labeling_tpu_torch.ops.attention import (
     _rot_half,
     attention_xla,
@@ -94,6 +94,7 @@ from clip_assisted_data_labeling_tpu_torch.ops.attention import (
 from clip_assisted_data_labeling_tpu_torch.ops.quant import q_matmul, quant_static
 from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import (
     q_matmul_pre,
+    q_matmul_pre_act_q8,
     rowquant,
     rowquant_static,
 )
@@ -638,23 +639,14 @@ def _layernorm(x, scale, bias, eps):
     return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
 
 
-def _sigmoid_xla(z):
-    """The sigmoid as XLA expands it: 1 / (1 + exp(-z)), each step rounded
-    to z's dtype (in bf16 torch.sigmoid's single rounding differs on ~1/3 of
-    elements)."""
-    return 1.0 / (1.0 + torch.exp(-z))
-
-
 def _silu(x):
     """EVA02's swiglu gate x·sigmoid(x) (``jax.nn.silu``)."""
-    return x * _sigmoid_xla(x)
+    return x * sigmoid_xla(x)
 
 
 def _act(x, kind: str, quantized: bool = False):
     if kind == "quick_gelu":
-        # OpenAI CLIP's x * sigmoid(1.702 x) in x's dtype
-        z = torch.tensor(1.702, dtype=x.dtype, device=x.device) * x
-        return x * _sigmoid_xla(z)
+        return quick_gelu(x)
     if kind == "gelu_tanh" or quantized:
         # int8 paths take the tanh form of gelu: its <=1e-3 absolute error is
         # far below the int8 step the output suffers next
@@ -685,6 +677,35 @@ def _linear(x, blk: VitBlock, name: str, residual=None, act_amax=None):
     return y if residual is None else residual + y
 
 
+def _hidden_q8_act(blk: VitBlock, cfg: VitConfig, dtype) -> str | None:
+    """The activation of an int8_static block's MLP that keeps its hidden
+    in int8 (:func:`_mlp_q8`), as ``_act(..., quantized=True)`` picks it;
+    None where the block keeps the chain: the swiglu MLP, a float32 hidden,
+    and a hidden whose width 16 does not divide (fc2 would read it through
+    ``match_k``'s pad)."""
+    if cfg.mlp_type == "swiglu" or dtype != torch.bfloat16 or blk.fc1_kernel.shape[0] % 16:
+        return None
+    return "quick_gelu" if cfg.act == "quick_gelu" else "gelu_tanh"
+
+
+def _mlp_q8(y, blk: VitBlock, act: str, residual):
+    """fc1 → activation → fc2 of an int8_static block with the hidden in
+    int8: y (or its int8 rows under ``a[2]``) through fc1, whose epilogue
+    writes what the chain's bf16 activation and fc2's static quantize give
+    for each value (``q_matmul_pre_act_q8``), then fc2 under
+    ``a[3]·(1/127)``, the x_scale ``_linear`` computes, with the residual
+    in its epilogue → bf16 of residual's shape: the chain's bits."""
+    a = blk.act_amax
+    with layer("fc1"):
+        yq = y if y.dtype == torch.int8 else quant_static(y, a[2])
+        gq = q_matmul_pre_act_q8(yq.reshape(-1, yq.shape[-1]), a[2] * (1.0 / 127.0),
+                                 blk.fc1_kernel, blk.fc1_kernel_scale, blk.fc1_bias, act, a[3:4])
+    with layer("fc2"):
+        out = q_matmul_pre(gq, a[3] * (1.0 / 127.0), blk.fc2_kernel, blk.fc2_kernel_scale,
+                           blk.fc2_bias, residual=residual.reshape(gq.shape[0], -1))
+    return out.reshape(residual.shape)
+
+
 def _swiglu_hidden(h, blk: VitBlock, cfg: VitConfig):
     """EVA02's gate on the packed fc1 output: silu(h1) ⊙ h2, then the ffn
     sub-LN (JAX models/vit.py:1179-1185)."""
@@ -702,8 +723,10 @@ def _block_generic(x, blk: VitBlock, cfg: VitConfig, rope=None, s_real=None):
     pre-LN, or EVA02-E's post-norm (ln1 and ln2 on the sublayer outputs
     before the residual adds; no fc2 residual epilogue); EVA02's attention
     sub-LN and its SwiGLU MLP, whose two matmuls quantize dynamically even in
-    int8_static, as in the JAX package. The other residual adds run outside
-    the matmuls, in x's dtype, and int8 blocks take the tanh gelu.
+    int8_static, as in the JAX package; a pre-LN int8_static MLP with a bf16
+    hidden keeps that hidden in int8 (:func:`_mlp_q8`). The other residual
+    adds run outside the matmuls, in x's dtype, and int8 blocks take the
+    tanh gelu.
     ``s_real``: the attention's per-sequence key lengths [B] (the naflex
     towers' native-aspect rows, ``models/naflex.naflex_encode``), or None."""
     a = blk.act_amax if blk.static else None
@@ -724,6 +747,9 @@ def _block_generic(x, blk: VitBlock, cfg: VitConfig, rope=None, s_real=None):
         x = x + attn_out
     with layer("ln"):
         y = x if post else _layernorm(x, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
+    act = None if a is None or post else _hidden_q8_act(blk, cfg, y.dtype)
+    if act is not None:
+        return _mlp_q8(y, blk, act, x)
     if cfg.mlp_type == "swiglu":
         with layer("fc1"):
             g = _swiglu_hidden(_linear(y, blk, "fc1_kernel"), blk, cfg)
@@ -800,11 +826,12 @@ def _block_int8_fused(x, blk: VitBlock, cfg: VitConfig):
 def _block_int8_static_lnk(x, blk: VitBlock, cfg: VitConfig, rope=None):
     """int8_static block: layernorm + static quantize in one kernel (K2) for
     ln1 and ln2, int8 matmuls with float32 epilogues, packed attention (K1, K4
-    or K5, RoPE inside it) on the bfloat16 qkv, tanh-gelu. EVA02's attention
-    sub-LN is K2 too, with a[1] (calibrated after the LN); its swiglu hidden
-    (ragged: 2730 for EVA02-L) takes the plain layernorm, then the static
-    quantize inside fc2. Same op order and residual placement as the JAX
-    package's ``_block_int8_static_lnk`` (models/vit.py:968-1023)."""
+    or K5, RoPE inside it) on the bfloat16 qkv, tanh-gelu, the MLP's hidden
+    in int8 (:func:`_mlp_q8`). EVA02's attention sub-LN is K2 too, with a[1]
+    (calibrated after the LN); its swiglu hidden (ragged: 2730 for EVA02-L)
+    takes the plain layernorm, then the static quantize inside fc2. Same op
+    order and residual placement as the JAX package's
+    ``_block_int8_static_lnk`` (models/vit.py:968-1023)."""
     B, S, w = x.shape
     a = blk.act_amax
     inv127 = 1.0 / 127.0
@@ -827,6 +854,9 @@ def _block_int8_static_lnk(x, blk: VitBlock, cfg: VitConfig, rope=None):
             x2 = x2 + _linear(attn, blk, "out_kernel", act_amax=a[1])
     with layer("ln"):
         hq = rowquant_static(x2, blk.ln2_scale, blk.ln2_bias, a[2:3], ln_eps=cfg.ln_eps)
+    act = _hidden_q8_act(blk, cfg, torch.bfloat16)
+    if act is not None:
+        return _mlp_q8(hq, blk, act, x2).reshape(B, S, w)
     with layer("fc1"):
         h = q_matmul_pre(hq, a[2] * inv127, blk.fc1_kernel, blk.fc1_kernel_scale,
                          blk.fc1_bias)
@@ -845,7 +875,8 @@ def _block_int8_static_wire(x, blk: VitBlock, cfg: VitConfig):
     float32 output quantized per channel with ``qkv_amax``; K3 on the int8
     qkv, every scale folded into its channel scales (q: × the attention
     scale, v: × 127/attn_out_amax, so K3's output is int8 under a[1]);
-    fc1 → tanh-gelu → fc2 with the residual in fc2's epilogue."""
+    fc1 → tanh-gelu → fc2 with the residual in fc2's epilogue, the hidden in
+    int8 where it is bf16 (:func:`_mlp_q8`)."""
     B, S, w = x.shape
     a, qa = blk.act_amax, blk.qkv_amax
     inv127 = 1.0 / 127.0
@@ -867,6 +898,9 @@ def _block_int8_static_wire(x, blk: VitBlock, cfg: VitConfig):
                              out_dtype=x.dtype).reshape(B, S, w)
     with layer("ln"):
         y = _layernorm(x, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
+    act = _hidden_q8_act(blk, cfg, y.dtype)
+    if act is not None:
+        return _mlp_q8(y, blk, act, x)
     with layer("fc1"):
         g = _act(_linear(y, blk, "fc1_kernel", act_amax=a[2]), cfg.act, quantized=True)
     with layer("fc2"):

@@ -1,6 +1,7 @@
 """Activations with the JAX package's roundings, shared by the ViT blocks
-(``models/vit._act``) and the plain version of the row-quantize kernel K6
-(``ops/quant_kernel.rowquant_plain``)."""
+(``models/vit._act``), the plain version of the row-quantize kernel K6
+(``ops/quant_kernel.rowquant_plain``) and that of int8_static's fc1 with its
+int8 hidden (``ops/quant_kernel.q_matmul_pre_act_q8``)."""
 from __future__ import annotations
 
 import numpy as np
@@ -20,3 +21,16 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
     inner = c(SQRT_2_OVER_PI) * (x + c(0.044715) * (x * x * x))
     return x * (c(0.5) * (c(1.0) + torch.tanh(inner)))
+
+
+def sigmoid_xla(z: torch.Tensor) -> torch.Tensor:
+    """The sigmoid as XLA expands it: 1 / (1 + exp(-z)), each step rounded
+    to z's dtype (in bf16 torch.sigmoid's single rounding differs on ~1/3 of
+    elements)."""
+    return 1.0 / (1.0 + torch.exp(-z))
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    """OpenAI CLIP's x · sigmoid(1.702 x) in x's dtype, the constant cast to
+    it, each step rounded."""
+    return x * sigmoid_xla(torch.tensor(1.702, dtype=x.dtype, device=x.device) * x)

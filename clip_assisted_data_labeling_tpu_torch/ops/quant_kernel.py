@@ -41,22 +41,31 @@ the per-tensor ``x_scale`` read from the card where it is one value, equal
 bit for bit to the CPU's arithmetic (the int32 sums are exact, and each
 float32 step is rounded once on both).
 
+``q_matmul_pre_act_q8`` (int8_static's fc1, whose output fc2 alone reads)
+was plain XLA too: ``q_matmul_pre``'s bf16 output, the activation in bf16 and
+fc2's static quantize. On the CPU it is that chain; on the card one launch
+of K9's GEMM whose epilogue rounds each value to the bf16 fc1 wrote before
+and reads the chain's int8 for it from a table of all 65,536 bf16 values,
+which the chain's own torch operations fill on the card: the same bits.
+
 Dispatch: a CPU tensor goes to the plain PyTorch version beside the kernel;
 a CUDA tensor launches the kernel on its own card or raises.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from clip_assisted_data_labeling_tpu_torch.ops import _cuda_build
-from clip_assisted_data_labeling_tpu_torch.ops.activations import gelu_tanh
+from clip_assisted_data_labeling_tpu_torch.ops.activations import gelu_tanh, quick_gelu
 from clip_assisted_data_labeling_tpu_torch.ops.quant import (
     _dequant_epilogue,
     _num,
     int_matmul,
     match_k,
+    quant_static,
 )
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -265,6 +274,13 @@ def _gemm_lib() -> ctypes.CDLL:
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ]
         lib.q_block_linear_gemm.restype = ctypes.c_int
+    if lib.q_gemm_hidden_q8.argtypes is None:
+        lib.q_gemm_hidden_q8.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_void_p,
+        ]
+        lib.q_gemm_hidden_q8.restype = ctypes.c_int
     return lib
 
 
@@ -429,7 +445,7 @@ q_block_linear.launches = 0
 
 def _check_pre(xq: torch.Tensor, x_scale: torch.Tensor, wq_t: torch.Tensor,
                w_scale: torch.Tensor, bias: torch.Tensor | None,
-               residual: torch.Tensor | None, out_dtype) -> int:
+               residual: torch.Tensor | None, out_dtype, what: str = "q_matmul_pre") -> int:
     """The GEMM's conditions on a ``q_matmul_pre`` call whose ``xq`` is
     already padded to the weight's K (``match_k``), checked before the
     launch: ``xq`` a contiguous 16-byte aligned int8 [M, K] with M ≥ 1,
@@ -437,7 +453,6 @@ def _check_pre(xq: torch.Tensor, x_scale: torch.Tensor, wq_t: torch.Tensor,
     value (0-d or one element) or contiguous [M, 1] row scales, the rest as
     :func:`_check_gemm` wants them. Returns the stride of the row scales
     (0: one for every row; 1: one a row)."""
-    what = "q_matmul_pre"
     if (xq.dim() != 2 or xq.dtype != torch.int8 or not xq.is_contiguous()
             or xq.data_ptr() % 16 or xq.shape[0] < 1):
         raise ValueError(f"{what}: xq must be a contiguous 16-byte aligned int8 [M, K] tensor "
@@ -483,3 +498,90 @@ def q_matmul_pre(
 
 
 q_matmul_pre.launches = 0
+
+
+# ---- int8_static's fc1 with its int8 hidden -----------------------------------
+
+_HIDDEN_ACTS = {"quick_gelu": quick_gelu, "gelu_tanh": gelu_tanh}
+
+
+def q_matmul_pre_act_q8_plain(xq: torch.Tensor, x_scale: torch.Tensor, wq_t: torch.Tensor,
+                              w_scale: torch.Tensor, bias: torch.Tensor | None, act: str,
+                              out_amax: torch.Tensor) -> torch.Tensor:
+    """The chain the kernel replaces, on any device: ``q_matmul_pre``'s
+    torch route to bf16, the activation in bf16 (each step rounded:
+    ``ops/activations``), then ``quant_static`` under ``out_amax``."""
+    h = _dequant_epilogue(int_matmul(xq, wq_t), x_scale, w_scale, bias, None, torch.bfloat16)
+    return quant_static(_HIDDEN_ACTS[act](h), out_amax)
+
+
+@functools.lru_cache(maxsize=None)
+def _act_table(act: str, device: torch.device) -> torch.Tensor:
+    """bf16 [65536] on ``device``: entry i is the activation of the bf16
+    value whose bits are i (it depends on ``act`` and the device alone, so
+    a process computes it once)."""
+    every = torch.arange(2 ** 16, dtype=torch.int32, device=device)
+    return _HIDDEN_ACTS[act](every.to(torch.int16).view(torch.bfloat16))
+
+
+def _hidden_table(act: str, out_amax: torch.Tensor) -> torch.Tensor:
+    """int8 [65536] on out_amax's device: entry i is the chain's int8 for the
+    bf16 value whose bits are i, ``quant_static(act(v), out_amax)``, computed
+    by those torch operations (elementwise, so each entry is the chain's
+    value for v wherever it stands); the quantize runs each call (fc2's amax
+    is the block's)."""
+    return quant_static(_act_table(act, out_amax.device), out_amax)
+
+
+def _check_hidden_q8(xq: torch.Tensor, x_scale: torch.Tensor, wq_t: torch.Tensor,
+                     w_scale: torch.Tensor, bias: torch.Tensor | None, act: str,
+                     out_amax: torch.Tensor) -> int:
+    """The kernel's conditions on a call whose ``xq`` is padded to the
+    weight's K: :func:`_check_pre`'s for a bf16 product with no residual,
+    N % 16 == 0 (fc2 then reads the rows without ``match_k``'s pad), ``act``
+    quick_gelu or gelu_tanh, ``out_amax`` one float32 value on xq's device.
+    Returns the stride of the row scales."""
+    what = "q_matmul_pre_act_q8"
+    stride = _check_pre(xq, x_scale, wq_t, w_scale, bias, None, torch.bfloat16, what)
+    if wq_t.shape[0] % 16 or act not in _HIDDEN_ACTS:
+        raise ValueError(f"{what}: N={wq_t.shape[0]} must be a multiple of 16 and act one of "
+                         f"{sorted(_HIDDEN_ACTS)} (got {act!r})")
+    if (not torch.is_tensor(out_amax) or out_amax.device != xq.device
+            or out_amax.dtype != torch.float32 or out_amax.numel() != 1):
+        raise ValueError(f"{what}: out_amax must be one float32 value on {xq.device}")
+    return stride
+
+
+def q_matmul_pre_act_q8(xq: torch.Tensor, x_scale: torch.Tensor, wq_t: torch.Tensor,
+                        w_scale: torch.Tensor, bias: torch.Tensor | None, act: str,
+                        out_amax: torch.Tensor) -> torch.Tensor:
+    """int8_static's fc1 with its int8 hidden: int8 [M, K] rows with their
+    per-tensor (or [M, 1]) ``x_scale``, wq_t [N, K] int8, w_scale and bias
+    [N] float32, ``act`` quick_gelu or gelu_tanh, ``out_amax`` fc2's
+    calibrated input amax (one float32 value) → the int8 [M, N] fc2 takes
+    under ``out_amax · (1/127)``. On the CPU :func:`q_matmul_pre_act_q8_plain`;
+    on the card :func:`_hidden_table`'s few 65,536-entry passes and one
+    launch of K9's GEMM that reads it in its epilogue (counted in
+    ``launches``), the same bits, on inputs :func:`_check_hidden_q8` passes
+    (it raises on others)."""
+    if xq.device.type == "cpu":
+        return q_matmul_pre_act_q8_plain(xq, x_scale, wq_t, w_scale, bias, act, out_amax)
+    if not xq.is_cuda:
+        raise ValueError(f"q_matmul_pre_act_q8: unsupported device {xq.device}")
+    xq = match_k(xq, wq_t)
+    stride = _check_hidden_q8(xq, x_scale, wq_t, w_scale, bias, act, out_amax)
+    table = _hidden_table(act, out_amax)
+    m, n, k = xq.shape[0], wq_t.shape[0], xq.shape[1]
+    out = torch.empty((m, n), dtype=torch.int8, device=xq.device)
+    with torch.cuda.device(xq.device):
+        err = _gemm_lib().q_gemm_hidden_q8(
+            xq.data_ptr(), wq_t.data_ptr(), x_scale.data_ptr(), stride, w_scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), table.data_ptr(), out.data_ptr(), m, n, k,
+            torch.cuda.current_stream(xq.device).cuda_stream,
+        )
+    _cuda_build.check(err, "q_matmul_pre_act_q8")
+    q_matmul_pre_act_q8.launches += 1
+    return out
+
+
+q_matmul_pre_act_q8.launches = 0

@@ -23,13 +23,19 @@ from clip_assisted_data_labeling_tpu_torch.ops.attention import (
     fused_attention_packed_q8s_plain,
     fused_attention_plain,
 )
-from clip_assisted_data_labeling_tpu_torch.ops.quant import _dequant_epilogue, int_matmul
+from clip_assisted_data_labeling_tpu_torch.ops.quant import (
+    _dequant_epilogue,
+    int_matmul,
+    quant_static,
+)
 from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import (
     q_block_linear,
     q_block_linear_plain,
     q_linear_fused,
     q_linear_fused_plain,
     q_matmul_pre,
+    q_matmul_pre_act_q8,
+    q_matmul_pre_act_q8_plain,
     rowquant,
     rowquant_plain,
     rowquant_static,
@@ -512,6 +518,117 @@ def test_q_matmul_pre_refuses_what_the_gemm_does_not_take(card, change):
     with pytest.raises(ValueError, match="q_matmul_pre"):
         q_matmul_pre(**ops)
     assert q_matmul_pre.launches == before
+
+
+def _chain_hidden(xq, x_scale, wq_t, w_scale, bias, act, out_amax):
+    """The chain ``q_matmul_pre_act_q8`` replaces, on the card: ``q_matmul_pre``'s
+    bf16 product (K9's GEMM), ``models/vit._act`` with quantized=True,
+    ``quant_static`` under fc2's amax."""
+    from clip_assisted_data_labeling_tpu_torch.models.vit import _act
+
+    h = q_matmul_pre(xq, x_scale, wq_t, w_scale, bias)
+    return quant_static(_act(h, act, quantized=True), out_amax)
+
+
+@pytest.mark.parametrize("amax", [3.0, 1e-3, 0.0])
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu_tanh"])
+@pytest.mark.parametrize("m", [1, 17, 130])
+def test_hidden_q8_on_every_bf16_bit_identical_to_the_chain(card, m, act, amax):
+    """With xq all zeros the bias sets every fc1 output: a bias row of every
+    finite bf16 value, so the epilogue gathers every entry of its table
+    that the chain can reach, with an amax that clamps little, one that
+    clamps most (1e-3) and 0 (the 1e-8 floor): one launch, the int8 of
+    ``quant_static(_act(h))`` on the card bit for bit."""
+    finite = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16).view(
+        torch.bfloat16)
+    bias = finite[torch.isfinite(finite)].float().to(card)
+    n, k = bias.numel(), 64
+    rng = np.random.default_rng(m)
+    ops = dict(xq=torch.zeros((m, k), dtype=torch.int8, device=card),
+               x_scale=torch.tensor(0.02, device=card),
+               wq_t=torch.from_numpy(rng.integers(-127, 128, (n, k), dtype=np.int8)).to(card),
+               w_scale=torch.from_numpy(rng.uniform(1e-4, 1e-3, n).astype(np.float32)).to(card),
+               bias=bias)
+    out_amax = torch.tensor([amax], device=card)
+    assert torch.equal(q_matmul_pre(**ops).float()[-1], bias)  # h is the bias row
+    before = q_matmul_pre_act_q8.launches
+    got = q_matmul_pre_act_q8(**ops, act=act, out_amax=out_amax)
+    torch.cuda.synchronize()
+    assert q_matmul_pre_act_q8.launches == before + 1
+    assert got.dtype == torch.int8 and got.shape == (m, n)
+    assert torch.equal(got, _chain_hidden(**ops, act=act, out_amax=out_amax))
+
+
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu_tanh"])
+@pytest.mark.parametrize("m,scale", [(18464, "tensor"), (577, "tensor"), (37, "tensor"),
+                                     (2309, "rows")])
+@pytest.mark.parametrize("k,n", [(1024, 4096), (1152, 4304)])
+def test_hidden_q8_at_the_towers_fc1_bit_identical_to_the_chain(card, k, n, m, scale, act):
+    """fc1 at ViT-L-14-336's (1024 → 4096) and SO400M-384's (1152 → 4304)
+    shapes on random int8 rows, M ragged, with fc2's amax a little under
+    the hidden's max (a few entries clamp): one launch, the chain's bits on
+    the card, and those of the plain version (the chain on ``_int_mm``)."""
+    ops = _pre_operands(m, k, n, torch.bfloat16, False, scale, card, seed=m + k + n)
+    del ops["residual"], ops["out_dtype"]
+    from clip_assisted_data_labeling_tpu_torch.models.vit import _act
+
+    g = _act(q_matmul_pre(**ops), act, quantized=True)
+    out_amax = (0.9 * g.float().abs().max()).reshape(1)
+    before = q_matmul_pre_act_q8.launches
+    got = q_matmul_pre_act_q8(**ops, act=act, out_amax=out_amax)
+    torch.cuda.synchronize()
+    assert q_matmul_pre_act_q8.launches == before + 1
+    want = _chain_hidden(**ops, act=act, out_amax=out_amax)
+    assert (want.abs() == 127).any() and torch.equal(got, want)
+    assert torch.equal(got, q_matmul_pre_act_q8_plain(**ops, act=act, out_amax=out_amax))
+
+
+@pytest.mark.parametrize("change", ["n40", "act_gelu", "amax_two", "amax_float64", "k40"])
+def test_hidden_q8_refuses_what_the_kernel_does_not_take(card, change):
+    """On the card ``q_matmul_pre_act_q8`` is the kernel alone: N % 16, the
+    erf gelu, an ``out_amax`` of two values or of float64, K % 16 raise
+    ValueError and launch nothing (no fallback to the chain)."""
+    k, n = (40 if change == "k40" else 1024), (40 if change == "n40" else 1024)
+    ops = _pre_operands(577, k, n, torch.bfloat16, False, "tensor", card, seed=6)
+    del ops["residual"], ops["out_dtype"]
+    ops["act"] = "gelu" if change == "act_gelu" else "gelu_tanh"
+    ops["out_amax"] = {"amax_two": torch.tensor([2.0, 3.0], device=card),
+                       "amax_float64": torch.tensor([2.0], dtype=torch.float64, device=card)
+                       }.get(change, torch.tensor([2.0], device=card))
+    before = q_matmul_pre_act_q8.launches
+    with pytest.raises(ValueError, match="q_matmul_pre_act_q8"):
+        q_matmul_pre_act_q8(**ops)
+    assert q_matmul_pre_act_q8.launches == before
+
+
+@pytest.mark.parametrize("name", ["ViT-L-14-336/openai", "ViT-SO400M-14-SigLIP-384/webli"])
+def test_int8_static_towers_with_the_int8_hidden_bit_identical_to_the_chain(card, monkeypatch,
+                                                                            name):
+    """ViT-L-14-336 (lnk, quick_gelu) and SO400M-384 (the wire, gelu_tanh)
+    int8_static cut to 2 layers at full width on the card: the MLP's hidden
+    goes through ``q_matmul_pre_act_q8`` once a layer and the other products
+    through ``q_matmul_pre`` three times, and the embeddings equal, bit for
+    bit, the forward with the chain put back (``_hidden_q8_act`` None)."""
+    import dataclasses
+
+    from clip_assisted_data_labeling_tpu_torch.models import vit
+    from clip_assisted_data_labeling_tpu_torch.models.clip_weights import module_from_params
+    from clip_assisted_data_labeling_tpu_torch.ops.quant import quantize_vit_params
+
+    cfg = dataclasses.replace(vit.resolve_config(name), layers=2)
+    params = quantize_vit_params(vit.init_vit_params(cfg, torch.Generator().manual_seed(0)))
+    images = _normal((4, cfg.image_size, cfg.image_size, 3), seed=8).to(card)
+    gpu = module_from_params(params, cfg, card)
+    wire = vit.int8_wire_enabled(cfg)
+    vit.attach_act_amax(gpu, vit.vit_act_amax(gpu, images), wire=wire)
+    assert vit.block_route(gpu.blocks[0], cfg) == ("wire" if wire else "lnk")
+    before = q_matmul_pre.launches, q_matmul_pre_act_q8.launches
+    got = vit.vit_encode_image(gpu, images, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert (q_matmul_pre.launches - before[0],
+            q_matmul_pre_act_q8.launches - before[1]) == (3 * cfg.layers, cfg.layers)
+    monkeypatch.setattr(vit, "_hidden_q8_act", lambda *a: None)
+    assert torch.equal(got, vit.vit_encode_image(gpu, images, torch.bfloat16))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

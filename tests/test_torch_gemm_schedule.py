@@ -28,13 +28,22 @@ import numpy as np
 import pytest
 import torch
 
-from clip_assisted_data_labeling_tpu_torch.ops.quant import _dequant_epilogue, int_matmul, match_k
+from clip_assisted_data_labeling_tpu_torch.ops.quant import (
+    _dequant_epilogue,
+    int_matmul,
+    match_k,
+    quant_static,
+)
+from clip_assisted_data_labeling_tpu_torch.ops.activations import SQRT_2_OVER_PI, gelu_tanh, quick_gelu
 from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import (
     _row_act,
     q_block_linear_plain,
     q_linear_fused_plain,
+    _check_hidden_q8,
     _check_pre,
+    _hidden_table,
     q_matmul_pre,
+    q_matmul_pre_act_q8,
     rowquant_plain,
     rowquant_static_plain,
 )
@@ -316,10 +325,10 @@ def test_q_matmul_pre_route_is_a_function_of_the_operands(change, want):
                                         ("ViT-SO400M-14-SigLIP-384/webli", "wire")])
 def test_cell_towers_send_every_block_product_to_the_gemm(monkeypatch, name, route):
     """One layer of each benchmarked int8_static tower at full width, on the
-    CPU: every ``q_matmul_pre`` call of a forward (the block's four
-    products) is one that K9's GEMM would take on the card, with one
-    per-tensor scale, so the card's forward launches 4 × depth and raises
-    on none."""
+    CPU: every ``q_matmul_pre`` call of a forward (qkv, out, fc2) and every
+    ``q_matmul_pre_act_q8`` call (fc1 with its int8 hidden) is one that K9's
+    GEMM would take on the card, with one per-tensor scale, so the card's
+    forward launches 3 × depth and depth and raises on none."""
     import dataclasses
 
     from clip_assisted_data_labeling_tpu_torch.models import vit
@@ -340,9 +349,235 @@ def test_cell_towers_send_every_block_product_to_the_gemm(monkeypatch, name, rou
                                   out_dtype))
         return q_matmul_pre(xq, x_scale, wq_t, w_scale, bias, residual, out_dtype)
 
+    hidden = []
+
+    def hidden_spy(xq, x_scale, wq_t, w_scale, bias, act, out_amax):
+        hidden.append(_check_hidden_q8(match_k(xq, wq_t), x_scale, wq_t, w_scale, bias, act,
+                                       out_amax))
+        return q_matmul_pre_act_q8(xq, x_scale, wq_t, w_scale, bias, act, out_amax)
+
     monkeypatch.setattr(vit, "q_matmul_pre", spy)
+    monkeypatch.setattr(vit, "q_matmul_pre_act_q8", hidden_spy)
     vit.vit_encode_image(model, images, torch.bfloat16)
-    assert strides == [0] * 4 * cfg.layers
+    assert strides == [0] * 3 * cfg.layers
+    assert hidden == [0] * cfg.layers
+
+
+# ---- int8_static's fc1 with its int8 hidden: q_gemm_hidden_q8's epilogue ----------
+
+FINITE_BF16 = (lambda v: v[torch.isfinite(v)])(
+    torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(torch.int16).view(torch.bfloat16))
+HIDDEN_ACTS = {"quick_gelu": quick_gelu, "gelu_tanh": gelu_tanh}
+
+
+def _bf16r(v: torch.Tensor) -> torch.Tensor:
+    return v.to(torch.bfloat16).float()
+
+
+def _act_steps(x: torch.Tensor, act: str) -> torch.Tensor:
+    """The chain's activation as float32 steps on float32 x holding bf16
+    values, each rounded to bf16 after it, the constants bf16, the
+    transcendentals torch's float32 ``exp`` and ``tanh``, the division
+    IEEE's: what each entry of the kernel's table holds before the
+    quantize (and what an epilogue computing it in registers would run)."""
+    def c(v):
+        return torch.tensor(v, dtype=torch.bfloat16).item()
+
+    one = torch.ones_like(x)
+    if act == "quick_gelu":
+        z = _bf16r(c(1.702) * x)
+        sig = _bf16r(one / _bf16r(1.0 + _bf16r(torch.exp(-z))))
+        return _bf16r(x * sig)
+    x3 = _bf16r(_bf16r(x * x) * x)
+    u = _bf16r(x + _bf16r(c(0.044715) * x3))
+    t = _bf16r(torch.tanh(_bf16r(c(SQRT_2_OVER_PI) * u)))
+    return _bf16r(x * _bf16r(0.5 * _bf16r(1.0 + t)))
+
+
+def test_finite_bf16_sweep_holds_every_value():
+    assert FINITE_BF16.numel() == 2 ** 16 - 2 ** 8
+    assert torch.unique(FINITE_BF16.view(torch.int16)).numel() == FINITE_BF16.numel()
+
+
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu_tanh"])
+def test_hidden_activation_is_float32_steps_rounded_to_bf16_on_every_bf16(act):
+    """The chain fc1's bf16 output ran through (``models/vit._act`` with
+    quantized=True) is float32 steps each rounded to bf16, bit for bit, sign
+    of zero included, on every finite bf16 value."""
+    got = _act_steps(FINITE_BF16.float(), act).to(torch.bfloat16)
+    assert torch.equal(got.view(torch.int16), HIDDEN_ACTS[act](FINITE_BF16).view(torch.int16))
+
+
+def _table_gather(y: np.ndarray, table: torch.Tensor) -> np.ndarray:
+    """The kernel's ``hidden_q8`` on the epilogue's float32 y: the bits of
+    bf16(y) index the table."""
+    bits = torch.from_numpy(y).to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+    return table.numpy()[bits.astype(np.int64)]
+
+
+@pytest.mark.parametrize("amax", [3.0, 1e-3, 0.0])
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu_tanh"])
+def test_hidden_table_holds_the_chain_for_every_bf16(act, amax):
+    """``_hidden_table``: entry i is ``quant_static(act(v), amax)`` for the
+    bf16 value v whose bits are i, as the chain computes it on a tensor of
+    another shape and order (the values in reverse, [255, 256]), with an
+    amax that clamps little, one that clamps most (1e-3) and 0 (the 1e-8
+    floor)."""
+    table = _hidden_table(act, torch.tensor([amax]))
+    assert table.dtype == torch.int8 and table.shape == (2 ** 16,)
+    vals = FINITE_BF16.flip(0).reshape(255, 256)
+    chain = quant_static(HIDDEN_ACTS[act](vals), torch.tensor(amax))
+    got = _table_gather(vals.float().numpy(), table)
+    np.testing.assert_array_equal(got, chain.numpy())
+
+
+@pytest.mark.parametrize("amax", [3.0, 1e-3, 0.0])
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu_tanh"])
+def test_hidden_epilogue_on_every_bf16_matches_the_chain(act, amax):
+    """With xq all zeros the bias sets every fc1 output: a bias row of every
+    finite bf16 value, through the emulated epilogue and the table's
+    gather, equals ``q_matmul_pre_act_q8`` (its plain chain: ``q_matmul_pre``'s
+    bf16, the activation, ``quant_static``) bit for bit."""
+    n, k = FINITE_BF16.numel(), 16
+    xq = np.zeros((2, k), np.int8)
+    wq = np.ones((n, k), np.int8)
+    ws = np.full(n, 1e-3, np.float32)
+    bias = FINITE_BF16.float().numpy()
+    xs = np.float32(0.02)
+    acc = xq.astype(np.int64) @ wq.astype(np.int64).T
+    out_amax = torch.tensor([amax], dtype=torch.float32)
+    got = _table_gather(_epilogue_f32(acc, np.array([xs]), ws, bias, xs_stride=0),
+                        _hidden_table(act, out_amax))
+    ref = q_matmul_pre_act_q8(torch.from_numpy(xq), torch.tensor(xs), torch.from_numpy(wq),
+                              torch.from_numpy(ws), torch.from_numpy(bias), act, out_amax)
+    np.testing.assert_array_equal(got, ref.numpy())
+
+
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu_tanh"])
+@pytest.mark.parametrize("m,k,n", [(130, 128, 256), (37, 1152, 4304), (17, 64, 48)])
+def test_hidden_epilogue_on_the_emulated_gemm_matches_the_chain(m, k, n, act):
+    """Random int8 rows through the emulated schedule and epilogue, then the
+    table's gather: the bits of the chain it replaces (``q_matmul_pre``, the
+    bf16 activation, ``quant_static``), which fc2 then reads."""
+    rng = np.random.default_rng(m + k + n)
+    xq = rng.integers(-127, 128, (m, k), dtype=np.int8)
+    wq = rng.integers(-127, 128, (n, k), dtype=np.int8)
+    ws = rng.uniform(1e-4, 1e-3, n).astype(np.float32)
+    bias = rng.normal(0, 0.5, n).astype(np.float32)
+    xs = np.float32(0.02)
+    t = {k_: torch.from_numpy(v) for k_, v in (("xq", xq), ("wq", wq), ("ws", ws), ("b", bias))}
+    g = HIDDEN_ACTS[act](q_matmul_pre(t["xq"], torch.tensor(xs), t["wq"], t["ws"], t["b"]))
+    amax = (0.9 * g.float().abs().max()).reshape(1)  # a few entries clamp
+    chain = quant_static(g, amax)
+    assert (chain.abs() == 127).any()
+    acc, _ = _emulate_gemm(xq, wq)
+    got = _table_gather(_epilogue_f32(acc, np.array([xs]), ws, bias, xs_stride=0),
+                        _hidden_table(act, amax))
+    np.testing.assert_array_equal(got, chain.numpy())
+    ref = q_matmul_pre_act_q8(t["xq"], torch.tensor(xs), t["wq"], t["ws"], t["b"], act, amax)
+    assert torch.equal(ref, chain)
+
+
+def _hidden_operands(m=33, k=64, n=48):
+    """A q_matmul_pre_act_q8 call's operands that the kernel takes (CPU tensors)."""
+    return dict(xq=torch.zeros((m, k), dtype=torch.int8), x_scale=torch.tensor(0.02),
+                wq_t=torch.zeros((n, k), dtype=torch.int8), w_scale=torch.ones(n),
+                bias=torch.zeros(n), act="gelu_tanh", out_amax=torch.tensor([2.0]))
+
+
+@pytest.mark.parametrize("change,want", [
+    ({}, 0),
+    ({"act": "quick_gelu"}, 0),
+    ({"x_scale": torch.full((33, 1), 0.02)}, 1),
+    ({"bias": None}, 0),
+    ({"out_amax": torch.tensor(2.0)}, 0),                     # 0-d: one value
+    ({"act": "gelu"}, None),                                   # the erf gelu: no instantiation
+    ({"act": None}, None),
+    ({"wq_t": torch.zeros((40, 64), dtype=torch.int8), "w_scale": torch.ones(40),
+      "bias": torch.zeros(40)}, None),                         # N % 16: fc2 would pad
+    ({"out_amax": torch.tensor([2.0, 3.0])}, None),
+    ({"out_amax": torch.tensor([2.0], dtype=torch.float64)}, None),
+    ({"out_amax": 2.0}, None),                                 # not a tensor
+    ({"out_amax": torch.tensor([2.0], device="meta")}, None),  # another device
+    ({"x_scale": torch.full((33,), 0.02)}, None),
+    ({"xq": _misaligned_int8(33, 64)}, None),
+    ({"xq": torch.zeros((33, 40), dtype=torch.int8),
+      "wq_t": torch.zeros((48, 40), dtype=torch.int8)}, None),  # K % 16
+    ({"w_scale": torch.ones(48, dtype=torch.bfloat16)}, None),
+])
+def test_hidden_q8_route_is_a_function_of_the_operands(change, want):
+    """The card's checks, on CPU tensors: the kernel takes the call (the
+    stride of the row scales) or ``q_matmul_pre_act_q8`` raises (None), from
+    the operands alone; a CUDA tensor never falls back to the chain."""
+    ops = {**_hidden_operands(), **change}
+    if want is None:
+        with pytest.raises(ValueError, match="q_matmul_pre_act_q8"):
+            _check_hidden_q8(**ops)
+    else:
+        assert _check_hidden_q8(**ops) == want
+
+
+def _static_tower(name: str, wire: bool = False, **replace):
+    """A calibrated int8_static tower of ``name`` (its config with
+    ``replace``), and two images, on the CPU."""
+    import dataclasses
+
+    from clip_assisted_data_labeling_tpu_torch.models import vit
+    from clip_assisted_data_labeling_tpu_torch.models.clip_weights import module_from_params
+    from clip_assisted_data_labeling_tpu_torch.ops.quant import quantize_vit_params
+
+    cfg = dataclasses.replace(vit.resolve_config(name), **replace)
+    params = quantize_vit_params(vit.init_vit_params(cfg, torch.Generator().manual_seed(0)))
+    model = module_from_params(params, cfg)
+    images = torch.from_numpy(np.random.default_rng(2).normal(
+        0, 1, (2, cfg.image_size, cfg.image_size, 3)).astype(np.float32))
+    vit.attach_act_amax(model, vit.vit_act_amax(model, images), wire=wire)
+    return cfg, model, images
+
+
+@pytest.mark.parametrize("name,wire,replace,route,dtype,takes", [
+    ("ViT-Test/tiny", False, {"width": 128}, "lnk", torch.bfloat16, True),        # quick_gelu
+    ("PE-Test/tiny", False, {"width": 128}, "lnk", torch.bfloat16, True),         # gelu, RoPE
+    ("SigLIP-Test/tiny", True, {}, "wire", torch.bfloat16, True),                 # gelu_tanh
+    ("ViT-Test/tiny", False, {}, "static", torch.bfloat16, True),
+    ("SigLIP-Test/tiny", False, {}, "static", torch.bfloat16, True),
+    ("EVA-Test-Wide/tiny", False, {}, "lnk", torch.bfloat16, False),              # swiglu
+    ("EVA-Test/tiny", False, {}, "static", torch.bfloat16, False),                # swiglu
+    ("EVA-Test-Post/tiny", False, {}, "static", torch.bfloat16, False),           # post-norm
+    ("ViT-Test/tiny", False, {"width": 128, "mlp_hidden": 200}, "lnk", torch.bfloat16, False),
+    ("ViT-Test/tiny", False, {"mlp_hidden": 72}, "static", torch.bfloat16, False),
+    ("SigLIP-Test/tiny", True, {}, "wire", torch.float32, False),                 # f32 hidden
+    ("ViT-Test/tiny", False, {}, "static", torch.float32, False),
+])
+def test_int8_static_mlp_takes_the_int8_hidden(monkeypatch, name, wire, replace, route, dtype,
+                                               takes):
+    """Which int8_static blocks keep the MLP hidden in int8, on the CPU: the
+    lnk, wire and static blocks whose MLP is fc1 → quick_gelu or gelu → fc2
+    with a bf16 hidden 16 divides call ``q_matmul_pre_act_q8`` once a layer
+    and ``q_matmul_pre`` three times; swiglu, post-norm, ragged and float32
+    hiddens keep the chain. Either way the embeddings equal the chain's
+    (``_hidden_q8_act`` forced to None) bit for bit."""
+    from clip_assisted_data_labeling_tpu_torch.models import vit
+
+    cfg, model, images = _static_tower(name, wire, **replace)
+    rope = vit._rope_on(cfg, torch.device("cpu")) if cfg.use_rope2d else None
+    assert vit.block_route(model.blocks[0], cfg, rope) == route
+    calls = {"pre": 0, "hidden": 0}
+
+    def count(key, fn):
+        def spy(*args, **kw):
+            calls[key] += 1
+            return fn(*args, **kw)
+        return spy
+
+    monkeypatch.setattr(vit, "q_matmul_pre", count("pre", q_matmul_pre))
+    monkeypatch.setattr(vit, "q_matmul_pre_act_q8", count("hidden", q_matmul_pre_act_q8))
+    emb = vit.vit_encode_image(model, images, dtype)
+    assert calls["hidden"] == (cfg.layers if takes else 0)
+    if takes:
+        assert calls["pre"] == 3 * cfg.layers
+    monkeypatch.setattr(vit, "_hidden_q8_act", lambda *a: None)
+    assert torch.equal(emb, vit.vit_encode_image(model, images, dtype))
 
 
 # ---- K6: the row pass's layernorm sums -------------------------------------------
