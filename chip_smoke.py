@@ -3707,7 +3707,10 @@ def tensor_parallel(root: str, pts: list) -> tuple[dict, list[dict]]:
     (``torch.equal``) where every shard's route is the single device's, else
     within 1 − cosine 2e-3 (the routes printed); ViT-L-14-336 bfloat16 (K1
     at 8 heads a shard) within 1 − cosine 1e-3. The TP forward's counters
-    are exact; each forward's steady ms beside the single device's."""
+    are exact: each shard runs the single device's block code, so L-336's
+    fc1 keeps its int8 hidden on K9q8 (a shard's 2048 columns) and
+    SO400M's (2152, which 16 does not divide) takes K9pre and the chain;
+    each forward's steady ms beside the single device's."""
     from clip_assisted_data_labeling_tpu_torch.data.loader import BatchedImageLoader
     from clip_assisted_data_labeling_tpu_torch.models.encoders import CLIPImageEncoder
     from clip_assisted_data_labeling_tpu_torch.models.vit import vit_encode_image
@@ -3752,8 +3755,10 @@ def tensor_parallel(root: str, pts: list) -> tuple[dict, list[dict]]:
         torch.cuda.synchronize()
         c = counts()
         want = {k: 0 for k in c}
-        if static:  # qkv and fc1 column-parallel: a launch a model shard each
-            want["K9pre"] = 2 * 2 * cfg.layers
+        if static:  # qkv and fc1 column-parallel: a launch a model shard each, fc1
+            # on K9q8 where the shard's hidden stays int8 (16 divides its width)
+            want["K9pre"] = 2 * cfg.layers
+            want["K9q8" if cfg.mlp_dim // 2 % 16 == 0 else "K9pre"] += 2 * cfg.layers
         if static and enc.wire:
             want["K3"] = 2 * cfg.layers
         else:

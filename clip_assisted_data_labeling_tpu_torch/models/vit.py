@@ -584,12 +584,20 @@ class VitBlock(nn.Module):
     stored ``[out, in]`` (the layout ``torch._int_mm`` takes) beside their
     per-output-channel ``*_scale``; ``act_amax`` [4] is attached by
     :func:`attach_act_amax` and selects the int8_static path, and a
-    per-channel ``qkv_amax`` [3w] beside it selects the int8 attention wire."""
+    per-channel ``qkv_amax`` [3w] beside it selects the int8 attention wire.
+
+    A block is its own one-shard set, the form the block bodies take (the
+    tensor-parallel set is ``parallel/tp.TPShards``): ``shards`` the blocks
+    a shard (the first holds the replicated leaves), ``col`` a product on the
+    replicated input → one output a shard, ``row`` a product over the
+    shards' input slices → one output, ``full`` a function of the full
+    width over the slices. Here each is one :func:`_linear` or one call."""
 
     def __init__(self, tensors: dict[str, torch.Tensor]):
         super().__init__()
         for name, t in tensors.items():
             self.register_buffer(name, t)
+        self.shards = (self,)
 
     @property
     def quantized(self) -> bool:
@@ -602,6 +610,15 @@ class VitBlock(nn.Module):
     @property
     def wire(self) -> bool:
         return hasattr(self, "qkv_amax")
+
+    def col(self, x, name: str, amax=None, out_dtype=None, act=None) -> list[torch.Tensor]:
+        return [_linear(x, self, name, None, amax, out_dtype, act)]
+
+    def row(self, parts, name: str, amax=None, residual=None, out_dtype=None) -> torch.Tensor:
+        return _linear(parts[0], self, name, residual, amax, out_dtype)
+
+    def full(self, parts, fn) -> list[torch.Tensor]:
+        return [fn(parts[0])]
 
 
 class VisionTransformer(nn.Module):
@@ -654,21 +671,29 @@ def _act(x, kind: str, quantized: bool = False):
     return F.gelu(x, approximate="none")
 
 
-def _linear(x, blk: VitBlock, name: str, residual=None, act_amax=None):
+def _linear(x, blk: VitBlock, name: str, residual=None, act_amax=None, out_dtype=None,
+            act=None):
     """Block matmul: float (x @ W + b in x's dtype) or, for a quantized block,
-    W8A8 — with a calibrated per-tensor ``act_amax`` the static quantize,
-    then the int8 product over it with ``act_amax·(1/127)`` as the row scale
-    and the residual inside the float32 epilogue (JAX ``_linear``,
-    models/vit.py:841-861); without it dynamic per-row (dynamic int8, and the
-    calibration forward)."""
+    W8A8 — with a calibrated per-tensor ``act_amax`` the static quantize
+    (none where x is int8 rows already under it), then the int8 product over
+    it with ``act_amax·(1/127)`` as the row scale and the residual inside the
+    float32 epilogue (JAX ``_linear``, models/vit.py:841-861), out in
+    ``out_dtype`` (by default x's, bfloat16 for int8 rows), or with ``act``
+    fc1's int8 hidden (:func:`_mlp_q8`); without it dynamic per-row (dynamic
+    int8, and the calibration forward)."""
     bias = getattr(blk, name.replace("_kernel", "_bias"))
     if blk.quantized and act_amax is not None:
-        wq_t = getattr(blk, name)
+        wq_t, w_scale = getattr(blk, name), getattr(blk, name + "_scale")
         lead, n = x.shape[:-1], wq_t.shape[0]
-        xq = quant_static(x, act_amax).reshape(-1, x.shape[-1])
-        res = None if residual is None else residual.reshape(-1, n)
-        y = q_matmul_pre(xq, act_amax * (1.0 / 127.0), wq_t, getattr(blk, name + "_scale"),
-                         bias, residual=res, out_dtype=x.dtype)
+        xq = (x if x.dtype == torch.int8 else quant_static(x, act_amax)).reshape(-1, x.shape[-1])
+        x_scale = act_amax * (1.0 / 127.0)
+        if act is not None:
+            y = q_matmul_pre_act_q8(xq, x_scale, wq_t, w_scale, bias, act, blk.act_amax[3:4])
+        else:
+            if out_dtype is None:
+                out_dtype = torch.bfloat16 if x.dtype == torch.int8 else x.dtype
+            res = None if residual is None else residual.reshape(-1, n)
+            y = q_matmul_pre(xq, x_scale, wq_t, w_scale, bias, residual=res, out_dtype=out_dtype)
         return y.reshape(lead + (n,))
     if blk.quantized:
         return q_matmul(x, getattr(blk, name), getattr(blk, name + "_scale"), bias,
@@ -689,82 +714,89 @@ def _hidden_q8_act(blk: VitBlock, cfg: VitConfig, dtype) -> str | None:
 
 
 def _mlp_q8(y, blk: VitBlock, act: str, residual):
-    """fc1 → activation → fc2 of an int8_static block with the hidden in
-    int8: y (or its int8 rows under ``a[2]``) through fc1, whose epilogue
-    writes what the chain's bf16 activation and fc2's static quantize give
-    for each value (``q_matmul_pre_act_q8``), then fc2 under
-    ``a[3]·(1/127)``, the x_scale ``_linear`` computes, with the residual
-    in its epilogue → bf16 of residual's shape: the chain's bits."""
-    a = blk.act_amax
+    """fc1 → activation → fc2 of an int8_static block (or its shards) with
+    the hidden in int8: y (or its int8 rows under ``a[2]``) through fc1,
+    whose epilogue writes what the chain's bf16 activation and fc2's static
+    quantize give for each value (``q_matmul_pre_act_q8``), then fc2 under
+    ``a[3]`` with the residual in its epilogue → bf16 of residual's shape:
+    the chain's bits."""
+    a = blk.shards[0].act_amax
     with layer("fc1"):
-        yq = y if y.dtype == torch.int8 else quant_static(y, a[2])
-        gq = q_matmul_pre_act_q8(yq.reshape(-1, yq.shape[-1]), a[2] * (1.0 / 127.0),
-                                 blk.fc1_kernel, blk.fc1_kernel_scale, blk.fc1_bias, act, a[3:4])
+        gq = blk.col(y, "fc1_kernel", a[2], act=act)
     with layer("fc2"):
-        out = q_matmul_pre(gq, a[3] * (1.0 / 127.0), blk.fc2_kernel, blk.fc2_kernel_scale,
-                           blk.fc2_bias, residual=residual.reshape(gq.shape[0], -1))
-    return out.reshape(residual.shape)
+        return blk.row(gq, "fc2_kernel", a[3], residual=residual)
 
 
 def _swiglu_hidden(h, blk: VitBlock, cfg: VitConfig):
-    """EVA02's gate on the packed fc1 output: silu(h1) ⊙ h2, then the ffn
-    sub-LN (JAX models/vit.py:1179-1185)."""
-    h1, h2 = h.chunk(2, dim=-1)
-    return _layernorm(_silu(h1) * h2, blk.ffn_ln_scale, blk.ffn_ln_bias, cfg.ln_eps)
+    """EVA02's gate on each shard's packed fc1 output: silu(h1) ⊙ h2, then
+    the ffn sub-LN over the full hidden width (JAX models/vit.py:1179-1185)."""
+    b = blk.shards[0]
+    gates = [_silu(h1) * h2 for h1, h2 in (t.chunk(2, dim=-1) for t in h)]
+    return blk.full(gates, lambda g: _layernorm(g, b.ffn_ln_scale, b.ffn_ln_bias, cfg.ln_eps))
 
 
-def _block_generic(x, blk: VitBlock, cfg: VitConfig, rope=None, s_real=None):
-    """One block in float32 or bfloat16, in dynamic int8 (quantized weights,
-    bf16 compute, every matmul a dynamic ``q_matmul``) or in int8_static with
-    static scales (each matmul's input quantized with its calibrated
-    ``act_amax``, the fc2 residual inside its epilogue), with the packed
-    attention kernel the JAX package's routing picks (K1, K4 or K5), RoPE
-    inside it, as the JAX package's generic block (models/vit.py:1124-1196):
-    pre-LN, or EVA02-E's post-norm (ln1 and ln2 on the sublayer outputs
-    before the residual adds; no fc2 residual epilogue); EVA02's attention
-    sub-LN and its SwiGLU MLP, whose two matmuls quantize dynamically even in
-    int8_static, as in the JAX package; a pre-LN int8_static MLP with a bf16
-    hidden keeps that hidden in int8 (:func:`_mlp_q8`). The other residual
-    adds run outside the matmuls, in x's dtype, and int8 blocks take the
-    tanh gelu.
+def _attention(qkv, blk: VitBlock, cfg: VitConfig, ropes, s_real=None):
+    """The packed attention (K1, K4 or K5 by the shard's shape, RoPE inside
+    it) of each shard at its heads: ``ropes`` the (cos, sin) tables on each
+    shard's device, or None."""
+    heads = cfg.heads // len(blk.shards)
+    return [packed_attention_auto(t, heads=heads, scale=cfg.head_dim ** -0.5, s_real=s_real,
+                                  rope=ropes and ropes[j]) for j, t in enumerate(qkv)]
+
+
+def _block_generic(x, blk: VitBlock, cfg: VitConfig, ropes=None, s_real=None):
+    """One block (``blk``: the block, or its shards) in float32 or bfloat16,
+    in dynamic int8 (quantized weights, bf16 compute, every matmul a dynamic
+    ``q_matmul``) or in int8_static with static scales (each matmul's input
+    quantized with its calibrated ``act_amax``, the fc2 residual inside its
+    epilogue), with the packed attention kernel the JAX package's routing
+    picks (K1, K4 or K5), RoPE inside it, as the JAX package's generic block
+    (models/vit.py:1124-1196): pre-LN, or EVA02-E's post-norm (ln1 and ln2
+    on the sublayer outputs before the residual adds; no fc2 residual
+    epilogue); EVA02's attention sub-LN and its SwiGLU MLP, whose two
+    matmuls quantize dynamically even in int8_static, as in the JAX package;
+    a pre-LN int8_static MLP with a bf16 hidden keeps that hidden in int8
+    (:func:`_mlp_q8`). The other residual adds run outside the matmuls, in
+    x's dtype, and int8 blocks take the tanh gelu.
     ``s_real``: the attention's per-sequence key lengths [B] (the naflex
     towers' native-aspect rows, ``models/naflex.naflex_encode``), or None."""
-    a = blk.act_amax if blk.static else None
+    b = blk.shards[0]
+    a = b.act_amax if b.static else None
     post = cfg.block_norm == "post"
     with layer("ln"):
-        y = x if post else _layernorm(x, blk.ln1_scale, blk.ln1_bias, cfg.ln_eps)
+        y = x if post else _layernorm(x, b.ln1_scale, b.ln1_bias, cfg.ln_eps)
     with layer("qkv"):
-        qkv = _linear(y, blk, "qkv_kernel", act_amax=None if a is None else a[0])
+        qkv = blk.col(y, "qkv_kernel", None if a is None else a[0])
     with layer("attention"):
-        attn = packed_attention_auto(qkv, heads=cfg.heads, scale=cfg.head_dim ** -0.5,
-                                     s_real=s_real, rope=rope)
+        attn = _attention(qkv, blk, cfg, ropes, s_real)
         if cfg.attn_inner_ln:
-            attn = _layernorm(attn, blk.attn_ln_scale, blk.attn_ln_bias, cfg.ln_eps)
+            attn = blk.full(attn, lambda t: _layernorm(t, b.attn_ln_scale, b.attn_ln_bias,
+                                                       cfg.ln_eps))
     with layer("out"):
-        attn_out = _linear(attn, blk, "out_kernel", act_amax=None if a is None else a[1])
+        attn_out = blk.row(attn, "out_kernel", None if a is None else a[1])
         if post:
-            attn_out = _layernorm(attn_out, blk.ln1_scale, blk.ln1_bias, cfg.ln_eps)
+            attn_out = _layernorm(attn_out, b.ln1_scale, b.ln1_bias, cfg.ln_eps)
         x = x + attn_out
     with layer("ln"):
-        y = x if post else _layernorm(x, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
-    act = None if a is None or post else _hidden_q8_act(blk, cfg, y.dtype)
+        y = x if post else _layernorm(x, b.ln2_scale, b.ln2_bias, cfg.ln_eps)
+    act = None if a is None or post else _hidden_q8_act(b, cfg, y.dtype)
     if act is not None:
         return _mlp_q8(y, blk, act, x)
     if cfg.mlp_type == "swiglu":
         with layer("fc1"):
-            g = _swiglu_hidden(_linear(y, blk, "fc1_kernel"), blk, cfg)
+            g = _swiglu_hidden(blk.col(y, "fc1_kernel"), blk, cfg)
         with layer("fc2"):
-            return x + _linear(g, blk, "fc2_kernel")
+            return x + blk.row(g, "fc2_kernel")
     with layer("fc1"):
-        y = _act(_linear(y, blk, "fc1_kernel", act_amax=None if a is None else a[2]), cfg.act,
-                 quantized=blk.quantized)
+        g = [_act(t, cfg.act, quantized=b.quantized)
+             for t in blk.col(y, "fc1_kernel", None if a is None else a[2])]
     with layer("fc2"):
         if post:
-            mlp_out = _linear(y, blk, "fc2_kernel", act_amax=None if a is None else a[3])
-            return x + _layernorm(mlp_out, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
+            mlp_out = blk.row(g, "fc2_kernel", None if a is None else a[3])
+            return x + _layernorm(mlp_out, b.ln2_scale, b.ln2_bias, cfg.ln_eps)
         if a is not None:
-            return _linear(y, blk, "fc2_kernel", residual=x, act_amax=a[3])
-        return x + _linear(y, blk, "fc2_kernel")
+            return blk.row(g, "fc2_kernel", a[3], residual=x)
+        return x + blk.row(g, "fc2_kernel")
 
 
 def _block_int8_xla(x, blk: VitBlock, cfg: VitConfig):
@@ -823,88 +855,87 @@ def _block_int8_fused(x, blk: VitBlock, cfg: VitConfig):
     return x2.reshape(B, S, w)
 
 
-def _block_int8_static_lnk(x, blk: VitBlock, cfg: VitConfig, rope=None):
-    """int8_static block: layernorm + static quantize in one kernel (K2) for
-    ln1 and ln2, int8 matmuls with float32 epilogues, packed attention (K1, K4
-    or K5, RoPE inside it) on the bfloat16 qkv, tanh-gelu, the MLP's hidden
-    in int8 (:func:`_mlp_q8`). EVA02's attention sub-LN is K2 too, with a[1]
+def _block_int8_static_lnk(x, blk: VitBlock, cfg: VitConfig, ropes=None):
+    """int8_static block (``blk``: the block, or its shards): layernorm +
+    static quantize in one kernel (K2) for ln1 and ln2 on the replicated
+    stream, int8 matmuls with float32 epilogues, packed attention (K1, K4 or
+    K5, RoPE inside it) on the bfloat16 qkv, tanh-gelu, the MLP's hidden in
+    int8 (:func:`_mlp_q8`). EVA02's attention sub-LN is K2 too, with a[1]
     (calibrated after the LN); its swiglu hidden (ragged: 2730 for EVA02-L)
     takes the plain layernorm, then the static quantize inside fc2. Same op
     order and residual placement as the JAX package's
     ``_block_int8_static_lnk`` (models/vit.py:968-1023)."""
     B, S, w = x.shape
-    a = blk.act_amax
-    inv127 = 1.0 / 127.0
+    b = blk.shards[0]
+    a = b.act_amax
     x2 = x.reshape(B * S, w)
     with layer("ln"):
-        xq = rowquant_static(x2, blk.ln1_scale, blk.ln1_bias, a[0:1], ln_eps=cfg.ln_eps)
+        xq = rowquant_static(x2, b.ln1_scale, b.ln1_bias, a[0:1], ln_eps=cfg.ln_eps)
     with layer("qkv"):
-        qkv = q_matmul_pre(xq, a[0] * inv127, blk.qkv_kernel, blk.qkv_kernel_scale,
-                           blk.qkv_bias)
+        qkv = blk.col(xq, "qkv_kernel", a[0])
     with layer("attention"):
-        attn = packed_attention_auto(qkv.reshape(B, S, 3 * w), heads=cfg.heads,
-                                     scale=cfg.head_dim ** -0.5, rope=rope).reshape(B * S, w)
+        attn = [t.reshape(B * S, -1) for t in _attention(
+            [t.reshape(B, S, -1) for t in qkv], blk, cfg, ropes)]
     with layer("out"):
         if cfg.attn_inner_ln:
-            attn_q = rowquant_static(attn, blk.attn_ln_scale, blk.attn_ln_bias, a[1:2],
-                                     ln_eps=cfg.ln_eps)
-            x2 = x2 + q_matmul_pre(attn_q, a[1] * inv127, blk.out_kernel,
-                                   blk.out_kernel_scale, blk.out_bias, out_dtype=x.dtype)
+            attn_q = blk.full(attn, lambda t: rowquant_static(
+                t, b.attn_ln_scale, b.attn_ln_bias, a[1:2], ln_eps=cfg.ln_eps))
+            x2 = x2 + blk.row(attn_q, "out_kernel", a[1], out_dtype=x.dtype)
         else:
-            x2 = x2 + _linear(attn, blk, "out_kernel", act_amax=a[1])
+            x2 = x2 + blk.row(attn, "out_kernel", a[1])
     with layer("ln"):
-        hq = rowquant_static(x2, blk.ln2_scale, blk.ln2_bias, a[2:3], ln_eps=cfg.ln_eps)
-    act = _hidden_q8_act(blk, cfg, torch.bfloat16)
+        hq = rowquant_static(x2, b.ln2_scale, b.ln2_bias, a[2:3], ln_eps=cfg.ln_eps)
+    act = _hidden_q8_act(b, cfg, torch.bfloat16)
     if act is not None:
         return _mlp_q8(hq, blk, act, x2).reshape(B, S, w)
     with layer("fc1"):
-        h = q_matmul_pre(hq, a[2] * inv127, blk.fc1_kernel, blk.fc1_kernel_scale,
-                         blk.fc1_bias)
+        h = blk.col(hq, "fc1_kernel", a[2])
         if cfg.mlp_type == "swiglu":
             g = _swiglu_hidden(h, blk, cfg)
         else:
-            g = _act(h, cfg.act, quantized=True)
+            g = [_act(t, cfg.act, quantized=True) for t in h]
     with layer("fc2"):
-        return _linear(g, blk, "fc2_kernel", residual=x2, act_amax=a[3]).reshape(B, S, w)
+        return blk.row(g, "fc2_kernel", a[3], residual=x2).reshape(B, S, w)
 
 
 def _block_int8_static_wire(x, blk: VitBlock, cfg: VitConfig):
-    """int8_static block with the int8 attention wire (JAX
-    ``_block_int8_static_wire``, models/vit.py:920): ln1 and ln2 as the plain
-    layernorm in x's dtype then the static quantize; the qkv projection's
-    float32 output quantized per channel with ``qkv_amax``; K3 on the int8
-    qkv, every scale folded into its channel scales (q: × the attention
-    scale, v: × 127/attn_out_amax, so K3's output is int8 under a[1]);
-    fc1 → tanh-gelu → fc2 with the residual in fc2's epilogue, the hidden in
-    int8 where it is bf16 (:func:`_mlp_q8`)."""
-    B, S, w = x.shape
-    a, qa = blk.act_amax, blk.qkv_amax
-    inv127 = 1.0 / 127.0
+    """int8_static block (``blk``: the block, or its shards) with the int8
+    attention wire (JAX ``_block_int8_static_wire``, models/vit.py:920): ln1
+    and ln2 as the plain layernorm in x's dtype then the static quantize;
+    each shard's qkv projection's float32 output quantized per channel with
+    its ``qkv_amax``; K3 on the int8 qkv at the shard's heads, every scale
+    folded into its channel scales (q: × the attention scale, v: ×
+    127/attn_out_amax, so K3's output is int8 under a[1]); fc1 → tanh-gelu
+    → fc2 with the residual in fc2's epilogue, the hidden in int8 where it
+    is bf16 (:func:`_mlp_q8`)."""
+    b = blk.shards[0]
+    a = b.act_amax
+    heads = cfg.heads // len(blk.shards)
     with layer("ln"):
-        y = _layernorm(x, blk.ln1_scale, blk.ln1_bias, cfg.ln_eps)
-        yq = quant_static(y, a[0]).reshape(B * S, w)
+        y = _layernorm(x, b.ln1_scale, b.ln1_bias, cfg.ln_eps)
+        yq = quant_static(y, a[0])
     with layer("qkv"):
-        qkv_f = q_matmul_pre(yq, a[0] * inv127, blk.qkv_kernel, blk.qkv_kernel_scale,
-                             blk.qkv_bias, out_dtype=torch.float32)
-        qkv_q = quant_static(qkv_f, qa).reshape(B, S, 3 * w)
+        qkv_q = [quant_static(t, s.qkv_amax) for t, s in zip(
+            blk.col(yq, "qkv_kernel", a[0], out_dtype=torch.float32), blk.shards)]
     with layer("attention"):
-        # in float32 as in the JAX package; qa[2w:] / a[1] is one tensor division
-        cs = torch.cat([qa[:w] * (inv127 * cfg.head_dim ** -0.5), qa[w:2 * w] * inv127,
-                        qa[2 * w:] / a[1]])
-        attn_q = fused_attention_packed_q8s(qkv_q, cs, heads=cfg.heads)
+        attn_q = []
+        for t, s in zip(qkv_q, blk.shards):
+            qa, wl = s.qkv_amax, t.shape[-1] // 3
+            # in float32 as in the JAX package; qa[2wl:] / a[1] is one tensor division
+            cs = torch.cat([qa[:wl] * ((1.0 / 127.0) * cfg.head_dim ** -0.5),
+                            qa[wl:2 * wl] * (1.0 / 127.0), qa[2 * wl:] / s.act_amax[1]])
+            attn_q.append(fused_attention_packed_q8s(t, cs, heads=heads))
     with layer("out"):
-        x = x + q_matmul_pre(attn_q.reshape(B * S, w), a[1] * inv127, blk.out_kernel,
-                             blk.out_kernel_scale, blk.out_bias,
-                             out_dtype=x.dtype).reshape(B, S, w)
+        x = x + blk.row(attn_q, "out_kernel", a[1], out_dtype=x.dtype)
     with layer("ln"):
-        y = _layernorm(x, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
-    act = _hidden_q8_act(blk, cfg, y.dtype)
+        y = _layernorm(x, b.ln2_scale, b.ln2_bias, cfg.ln_eps)
+    act = _hidden_q8_act(b, cfg, y.dtype)
     if act is not None:
         return _mlp_q8(y, blk, act, x)
     with layer("fc1"):
-        g = _act(_linear(y, blk, "fc1_kernel", act_amax=a[2]), cfg.act, quantized=True)
+        g = [_act(t, cfg.act, quantized=True) for t in blk.col(y, "fc1_kernel", a[2])]
     with layer("fc2"):
-        return _linear(g, blk, "fc2_kernel", residual=x, act_amax=a[3])
+        return blk.row(g, "fc2_kernel", a[3], residual=x)
 
 
 def _int8_block_mode() -> str:
@@ -915,34 +946,39 @@ def _int8_block_mode() -> str:
 
 
 def block_route(blk: VitBlock, cfg: VitConfig, rope=None) -> str:
-    """Which block implementation runs, in the order of the JAX package's
-    ``_block`` (models/vit.py:1087-1123):
+    """Which block implementation runs for a block or its ``model`` shards
+    (``rope``: None, or anything else for a RoPE tower), in the order of the
+    JAX package's ``_block`` (models/vit.py:1087-1123), and gated as the JAX
+    TP gates a shard's:
       * 'wire': int8_static with the wire's ``qkv_amax`` attached, no RoPE
         (K3 has no rotation), no EVA02 block (swiglu or attention sub-LN),
-        and S tokens the wire kernel's gate takes (``packed_q8s_fits``; the
-        JAX package asks it at its padded length, which gives the same
-        answer),
-      * 'lnk': int8_static under ``CTPU_LN_KERNEL`` (default on) at a width
-        that 128 divides,
+        and S tokens the wire kernel's gate takes at the shard's width and
+        heads (``packed_q8s_fits``; the JAX package asks it at its padded
+        length, which gives the same answer),
+      * 'lnk': int8_static under ``CTPU_LN_KERNEL`` (default on) at a full
+        width that 128 divides,
       * 'static': every other int8_static block, and every post-norm one
         (EVA02-E) — the generic block with static scales,
-      * 'hybrid': dynamic int8 under ``CTPU_INT8_BLOCK=hybrid``, only where
-        the width is a multiple of 128 (else generic),
-      * 'xla': dynamic int8 under ``CTPU_INT8_BLOCK=xla``, any width,
-      * 'generic': float, dynamic int8 by default, and the dynamic-int8
-        blocks of every RoPE, EVA02 or post-norm tower."""
+      * 'hybrid': dynamic int8 on one shard under ``CTPU_INT8_BLOCK=hybrid``,
+        only where the width is a multiple of 128 (else generic),
+      * 'xla': dynamic int8 on one shard under ``CTPU_INT8_BLOCK=xla``, any
+        width,
+      * 'generic': float, dynamic int8 by default and on several shards, and
+        the dynamic-int8 blocks of every RoPE, EVA02 or post-norm tower."""
+    n = len(blk.shards)
+    b = blk.shards[0]
     eva = cfg.mlp_type == "swiglu" or cfg.attn_inner_ln
     post = cfg.block_norm == "post"
-    if blk.static:
+    if b.static:
         if post:
             return "static"
-        if (blk.wire and rope is None and not eva
-                and packed_q8s_fits(cfg.seq_len, cfg.width, cfg.heads)):
+        if (b.wire and rope is None and not eva
+                and packed_q8s_fits(cfg.seq_len, cfg.width // n, cfg.heads // n)):
             return "wire"
         if knobs.LN_KERNEL and cfg.width % 128 == 0:
             return "lnk"
         return "static"
-    if blk.quantized and rope is None and not eva and not post:
+    if n == 1 and b.quantized and rope is None and not eva and not post:
         mode = _int8_block_mode()
         if mode == "hybrid" and cfg.width % 128 == 0:
             return "hybrid"
@@ -951,20 +987,21 @@ def block_route(blk: VitBlock, cfg: VitConfig, rope=None) -> str:
     return "generic"
 
 
-def _block(x, blk: VitBlock, cfg: VitConfig, rope=None):
-    """One block, by :func:`block_route`. ``rope``: the (cos, sin) tables of
-    a RoPE tower, or None."""
-    route = block_route(blk, cfg, rope)
+def _block(x, blk: VitBlock, cfg: VitConfig, ropes=None):
+    """One block, or its ``model`` shards (``parallel/tp.encode_rows``), by
+    :func:`block_route`. ``ropes``: the (cos, sin) tables of a RoPE tower on
+    each shard's device, or None."""
+    route = block_route(blk, cfg, ropes)
     with layer("block"):
         if route == "wire":
             return _block_int8_static_wire(x, blk, cfg)
         if route == "lnk":
-            return _block_int8_static_lnk(x, blk, cfg, rope)
+            return _block_int8_static_lnk(x, blk, cfg, ropes)
         if route == "hybrid":
             return _block_int8_fused(x, blk, cfg)
         if route == "xla":
             return _block_int8_xla(x, blk, cfg)
-        return _block_generic(x, blk, cfg, rope)
+        return _block_generic(x, blk, cfg, ropes)
 
 
 @functools.lru_cache(maxsize=8)
@@ -1152,8 +1189,9 @@ def vit_encode_image(model: VisionTransformer, images: torch.Tensor,
     block (0-based) — off, it costs nothing."""
     cfg = model.cfg
     x, rope = _stem(model, images, compute_dtype)
+    ropes = None if rope is None else (rope,)
     for i, blk in enumerate(model.blocks):
-        x = _block(x, blk, cfg, rope)
+        x = _block(x, blk, cfg, ropes)
         if debug_nans:
             _check_nans(x, f"the output of block {i} (of {cfg.layers})")
     return _readout(x, model, compute_dtype, normalize, debug_nans)
@@ -1201,7 +1239,7 @@ def vit_act_amax(model: VisionTransformer, images: torch.Tensor,
         y = x if post else _layernorm(x, blk.ln2_scale, blk.ln2_bias, cfg.ln_eps)
         s_fc1 = y.to(torch.float32).abs().amax()
         if cfg.mlp_type == "swiglu":
-            g = _swiglu_hidden(_linear(y, blk, "fc1_kernel"), blk, cfg)
+            g = _swiglu_hidden([_linear(y, blk, "fc1_kernel")], blk, cfg)[0]
         else:
             g = _act(_linear(y, blk, "fc1_kernel"), cfg.act, quantized=quantized)
         s_act = g.to(torch.float32).abs().amax()

@@ -301,6 +301,94 @@ def _extract_chunk(wire: _Wire, hit_rows: torch.Tensor, hit_s: torch.Tensor | No
     return run_v, run_i
 
 
+class _HostPass:
+    """The host side of a dedup pass, shared by :func:`find_duplicate_pairs`
+    and the ring (``parallel/dedup_sharded``): the wire check and the scan
+    threshold, the rows to upload (:meth:`prepare`), the hit panels
+    (:meth:`hit_panel`), and pass 2's chunks with their host recheck and the
+    result (:meth:`extract`)."""
+
+    def __init__(self, n: int, threshold: float, sim_type: str, wire: str, max_per_row: int,
+                 timer: StageTimer | None):
+        if wire not in ("int8", "fp16"):
+            raise ValueError(f"wire must be 'int8' or 'fp16', got {wire!r}")
+        self.n, self.threshold, self.max_per_row = n, threshold, max_per_row
+        self.euclidean = sim_type == "euclidean"
+        self.int8 = wire == "int8"
+        self.timer = timer or StageTimer()
+        # the scan over-captures by the wire's error bound so the exact recheck
+        # can only REMOVE false positives, never miss a pair
+        self.scan_threshold = wire_scan_threshold(
+            threshold, self.euclidean, INT8_SLACK if self.int8 else FP16_SLACK)
+
+    def prepare(self, embeddings: np.ndarray, n_pad: int):
+        """The wire's host rows [n_pad, D'] (int8 or float16; the width padded
+        with zero columns to a multiple of 8, torch._int_mm's shapes: zeros
+        change no dot product and no row's scale) and the int8 rows' scales
+        (None for fp16), timed as ``normalize`` (with the row pad) and
+        ``quantize_rows`` (with the width pad). The normalized rows stay for
+        the recheck."""
+        with self.timer.time("normalize", self.n):
+            normed = normalize_rows(embeddings)
+            if n_pad != self.n:
+                normed = np.pad(normed, ((0, n_pad - self.n), (0, 0)))
+        self.normed, self.n_pad = normed, n_pad
+        self.pad_d = -normed.shape[1] % 8
+        with self.timer.time("quantize_rows", self.n):
+            if self.int8:
+                self.q, self.s_row = quantize_rows_int8(normed)
+                return self.widen(self.q), self.s_row
+            return self.widen(normed.astype(np.float16)), None
+
+    def widen(self, a: np.ndarray) -> np.ndarray:
+        return np.pad(a, ((0, 0), (0, self.pad_d))) if self.pad_d else a
+
+    def hit_panel(self, hit: np.ndarray):
+        """The hit rows' padded panel in the wire's format (width padded),
+        their int8 scales (None for fp16) and their global indices."""
+        if self.int8:
+            panel, hit_s, gidx = build_hit_panel_q(hit, self.q, self.s_row, self.n_pad)
+        else:
+            panel, gidx = build_hit_panel(hit, self.normed, self.n_pad, dtype=np.float16)
+            hit_s = None
+        return self.widen(panel), hit_s, gidx
+
+    def extract(self, counts: np.ndarray, b: int, topk, chunk_size=None) -> DedupResult:
+        """Pass 2 from pass 1's per-row ``counts`` [n_pad]: the hit rows in
+        chunks of ``chunk_size(b, k)`` (:func:`extract_chunk_size` by
+        default), ``topk(hit chunk, k)`` → the host's (values, global columns)
+        [len(chunk), k] of each (timed as ``topk``), then the host filter and
+        float32 recheck (``recheck``); all within ``extract``."""
+        hit = np.nonzero(counts > 0)[0]
+        if hit.size == 0:
+            return empty_result()
+        # pass 1's counts bound each row's match count from above, so the
+        # capacity escalates itself to fit the worst row; hit rows go in
+        # chunks that keep every buffer within EXTRACT_BUDGET_ELEMS; each
+        # row's top-k is independent of the chunking
+        warn_if_degenerate(counts, self.n, self.threshold, self.scan_threshold)
+        k = min(_required_k(counts, self.max_per_row), self.n_pad)
+        chunk = (chunk_size or extract_chunk_size)(b, k)
+        rows_l, cols_l, metrics_l = [], [], []
+        with self.timer.time("extract", len(hit)):
+            for c0 in range(0, len(hit), chunk):
+                hc = hit[c0:c0 + chunk]
+                with self.timer.time("topk", len(hc)):
+                    v, j = topk(hc, k)
+                with self.timer.time("recheck", len(hc)):
+                    r, c, m = filter_and_recheck(v, j, hc, self.normed, self.scan_threshold,
+                                                 self.threshold, self.euclidean)
+                rows_l.append(r)
+                cols_l.append(c)
+                metrics_l.append(m)
+        return DedupResult(
+            rows=np.concatenate(rows_l),
+            cols=np.concatenate(cols_l),
+            metrics=np.concatenate(metrics_l),
+            overflow_rows=np.nonzero(counts > self.max_per_row)[0].astype(np.int64),
+        )
+
+
 def find_duplicate_pairs(
     embeddings: np.ndarray,
     threshold: float = 0.96,
@@ -327,86 +415,33 @@ def find_duplicate_pairs(
     panels, their uploads, the device top-k and its read back; ``recheck``:
     the host float32 recheck). Peak device memory is O(row_block² + N·D).
     """
-    if wire not in ("int8", "fp16"):
-        raise ValueError(f"wire must be 'int8' or 'fp16', got {wire!r}")
-    dev = resolve_device(device)
-    timer = timer or StageTimer()
-    euclidean = sim_type == "euclidean"
     n = len(embeddings)
+    host = _HostPass(n, threshold, sim_type, wire, max_per_row, timer)
+    dev = resolve_device(device)
     if n < 2:
         return empty_result()
-    int8_wire = wire == "int8"
-    # the scan over-captures by the wire's error bound so the exact recheck
-    # can only REMOVE false positives, never miss a pair
-    scan_threshold = wire_scan_threshold(
-        threshold, euclidean, INT8_SLACK if int8_wire else FP16_SLACK)
+    timer = host.timer
 
     with timer.time("prepare", n):
-        # panels of a multiple of 8 rows, and the width padded with zero
-        # columns to a multiple of 8 (torch._int_mm's shapes; zeros change no
-        # dot product and no row's scale)
+        # panels of a multiple of 8 rows (torch._int_mm's shapes)
         b = -(-min(row_block, max(128, n)) // 8) * 8
         n_panels = -(-n // b)
-        n_pad = n_panels * b
-        with timer.time("normalize", n):
-            normed = normalize_rows(embeddings)
-            if n_pad != n:
-                normed = np.pad(normed, ((0, n_pad - n), (0, 0)))
-        pad_d = -normed.shape[1] % 8
-
-        def widen(a: np.ndarray) -> np.ndarray:
-            return np.pad(a, ((0, 0), (0, pad_d))) if pad_d else a
-
-        with timer.time("quantize_rows", n):
-            if int8_wire:
-                q, s_row = quantize_rows_int8(normed)
-                rows, scales = widen(q), s_row
-            else:
-                rows, scales = widen(normed.astype(np.float16)), None
+        rows, scales = host.prepare(embeddings, n_panels * b)
         with timer.time("upload", n):
-            wired = _Wire(rows, scales, dev, euclidean)
+            wired = _Wire(rows, scales, dev, host.euclidean)
         del rows  # the host copy of the wire is not needed past the upload
+
+    def topk(hc: np.ndarray, k: int):
+        panel, hit_s, gidx = host.hit_panel(hc)
+        v, j = _extract_chunk(wired, torch.from_numpy(panel).to(dev),
+                              None if hit_s is None else torch.from_numpy(hit_s).to(dev),
+                              torch.from_numpy(gidx).to(dev), b, n_panels, n, k)
+        return v[: len(hc)].cpu().numpy(), j[: len(hc)].cpu().numpy()
+
     with torch.inference_mode():
         with timer.time("scan", n):
-            counts = _scan_counts(wired, b, n_panels, n, scan_threshold)
-        hit = np.nonzero(counts > 0)[0]
-        if hit.size == 0:
-            return empty_result()
-
-        # pass 2: pass 1's counts bound each row's match count from above, so
-        # the capacity escalates itself to fit the worst row; hit rows go in
-        # chunks that keep every buffer within EXTRACT_BUDGET_ELEMS; each
-        # row's top-k is independent of the chunking
-        warn_if_degenerate(counts, n, threshold, scan_threshold)
-        k = min(_required_k(counts, max_per_row), n_pad)
-        chunk = extract_chunk_size(b, k)
-        rows_l, cols_l, metrics_l = [], [], []
-        with timer.time("extract", len(hit)):
-            for c0 in range(0, len(hit), chunk):
-                hc = hit[c0:c0 + chunk]
-                with timer.time("topk", len(hc)):
-                    if int8_wire:
-                        panel, hit_s, gidx = build_hit_panel_q(hc, q, s_row, n_pad)
-                        hit_s = torch.from_numpy(hit_s).to(dev)
-                    else:
-                        panel, gidx = build_hit_panel(hc, normed, n_pad, dtype=np.float16)
-                        hit_s = None
-                    panel = torch.from_numpy(widen(panel)).to(dev)
-                    v, j = _extract_chunk(wired, panel, hit_s, torch.from_numpy(gidx).to(dev),
-                                          b, n_panels, n, k)
-                    v, j = v[: len(hc)].cpu().numpy(), j[: len(hc)].cpu().numpy()
-                with timer.time("recheck", len(hc)):
-                    r, c, m = filter_and_recheck(v, j, hc, normed, scan_threshold, threshold,
-                                                 euclidean)
-                rows_l.append(r)
-                cols_l.append(c)
-                metrics_l.append(m)
-    return DedupResult(
-        rows=np.concatenate(rows_l),
-        cols=np.concatenate(cols_l),
-        metrics=np.concatenate(metrics_l),
-        overflow_rows=np.nonzero(counts > max_per_row)[0].astype(np.int64),
-    )
+            counts = _scan_counts(wired, b, n_panels, n, host.scan_threshold)
+        return host.extract(counts, b, topk)
 
 
 def cosine_similarity_matrix(a: np.ndarray, b: np.ndarray,

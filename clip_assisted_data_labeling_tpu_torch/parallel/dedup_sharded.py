@@ -26,22 +26,13 @@ import numpy as np
 import torch
 
 from clip_assisted_data_labeling_tpu_torch.ops.similarity import (
-    FP16_SLACK,
-    INT8_SLACK,
     DedupResult,
     _extract_chunk,
-    _required_k,
+    _HostPass,
     _Wire,
-    build_hit_panel,
-    build_hit_panel_q,
     empty_result,
     extract_chunk_size,
-    filter_and_recheck,
-    normalize_rows,
-    quantize_rows_int8,
     tile_metric,
-    warn_if_degenerate,
-    wire_scan_threshold,
 )
 from clip_assisted_data_labeling_tpu_torch.parallel.mesh import (
     Mesh,
@@ -96,55 +87,56 @@ def find_duplicate_pairs_sharded(
     ``quantize_rows`` and ``upload``, as the single-device path's),
     ``counts`` (the ring) and ``extract`` (within it ``topk``: the panels,
     the shards' top-k and the host merge; ``recheck``)."""
-    if wire not in ("int8", "fp16"):
-        raise ValueError(f"wire must be 'int8' or 'fp16', got {wire!r}")
+    n = len(embeddings)
+    host = _HostPass(n, threshold, sim_type, wire, max_per_row, timer)
+    timer, int8 = host.timer, host.int8
     if mesh is None:
         from clip_assisted_data_labeling_tpu_torch.parallel.mesh import get_mesh
 
         mesh = get_mesh(axis=axis)
-    timer = timer or StageTimer()
     devs = mesh.local_devices(axis)
     n_local = len(devs)
     n_devices = mesh.shape[axis]
     first = mesh.process_index * n_local  # global index of this process's first shard
-    n = len(embeddings)
-    euclidean = sim_type == "euclidean"
-    int8_wire = wire == "int8"
     if n < 2:  # the single-device path's contract for degenerate input
         return empty_result()
-    scan_threshold = wire_scan_threshold(
-        threshold, euclidean, INT8_SLACK if int8_wire else FP16_SLACK)
 
     with timer.time("prepare", n):
         # shards of m rows, m a multiple of the tile b (a multiple of 8, at
-        # least 128 rows: torch._int_mm's shapes on the card), the width
-        # padded with zero columns to a multiple of 8
+        # least 128 rows: torch._int_mm's shapes on the card)
         m0 = -(-n // n_devices)
         b = -(-min(row_block, max(128, m0)) // 8) * 8
         m = -(-m0 // b) * b
-        n_pad = m * n_devices
-        with timer.time("normalize", n):
-            normed_f32 = np.pad(normalize_rows(embeddings), ((0, n_pad - n), (0, 0)))
-        pad_d = -normed_f32.shape[1] % 8
-
-        def widen(a: np.ndarray) -> np.ndarray:
-            return np.pad(a, ((0, 0), (0, pad_d))) if pad_d else a
-
-        with timer.time("quantize_rows", n):
-            if int8_wire:
-                q8, s_row = quantize_rows_int8(normed_f32)
-                wide = widen(q8)
-            else:
-                normed16 = normed_f32.astype(np.float16)
-                wide = widen(normed16)
+        rows, scales = host.prepare(embeddings, m * n_devices)
         with timer.time("upload", n):
             panels = []
             for i, dev in enumerate(devs):
                 g = first + i
-                x = torch.from_numpy(wide[g * m:(g + 1) * m]).to(dev)
-                s = torch.from_numpy(s_row[g * m:(g + 1) * m]).to(dev) if int8_wire else None
-                panels.append((x, s) if int8_wire else (x,))
+                x = torch.from_numpy(rows[g * m:(g + 1) * m]).to(dev)
+                s = torch.from_numpy(scales[g * m:(g + 1) * m]).to(dev) if int8 else None
+                panels.append((x, s) if int8 else (x,))
+        del rows
         resident = list(panels)
+
+    def topk(hc: np.ndarray, k: int):
+        """Each shard's top-k against its own resident panel, merged on the
+        host: [d, H, k] → [H, d·k] → the k largest."""
+        panel, hit_s, gidx = host.hit_panel(hc)
+        parts_v, parts_j = [], []
+        for i, (wired, dev) in enumerate(zip(wires, devs)):
+            v, j = _extract_chunk(
+                wired, torch.from_numpy(panel).to(dev),
+                None if hit_s is None else torch.from_numpy(hit_s).to(dev),
+                torch.from_numpy(gidx).to(dev), b, m // b, n, k, offset=(first + i) * m)
+            parts_v.append(v.cpu().numpy())
+            parts_j.append(j.cpu().numpy())
+        h_pad = len(panel)
+        v = process_allgather(mesh, np.stack(parts_v))
+        j = process_allgather(mesh, np.stack(parts_j))
+        v = v.transpose(1, 0, 2).reshape(h_pad, -1)[: len(hc)]
+        j = j.transpose(1, 0, 2).reshape(h_pad, -1)[: len(hc)]
+        order = np.argsort(-v, axis=1)[:, :k]
+        return np.take_along_axis(v, order, axis=1), np.take_along_axis(j, order, axis=1)
 
     with torch.inference_mode():
         with timer.time("counts", n):
@@ -153,62 +145,11 @@ def find_duplicate_pairs_sharded(
                 for i, (own, col) in enumerate(zip(resident, panels)):
                     src = (first + i - step) % n_devices
                     counts_dev[i] += _panel_counts(
-                        own[0], own[1] if int8_wire else None, col[0],
-                        col[1] if int8_wire else None, (first + i) * m, src * m, n, b,
-                        scan_threshold, euclidean)
+                        own[0], own[1] if int8 else None, col[0], col[1] if int8 else None,
+                        (first + i) * m, src * m, n, b, host.scan_threshold, host.euclidean)
                 if step < n_devices - 1:
                     panels = ring_shift(mesh, panels)
             counts = process_allgather(mesh, np.concatenate([c.cpu().numpy() for c in counts_dev]))
-        hit = np.nonzero(counts > 0)[0]
-        if hit.size == 0:
-            return empty_result()
-
-        # pass 2: the capacity escalates to fit the worst exact count, and
-        # the hit rows go in chunks that bound every buffer (the single-device
-        # contract, ops/similarity)
-        warn_if_degenerate(counts, n, threshold, scan_threshold)
-        k = min(_required_k(counts, max_per_row), n_pad)
-        chunk = extract_chunk_size(b, k)
-        wires = [_Wire(p[0], p[1] if int8_wire else None, d, euclidean)
+        wires = [_Wire(p[0], p[1] if int8 else None, d, host.euclidean)
                  for p, d in zip(resident, devs)]
-        rows_l, cols_l, metrics_l = [], [], []
-        with timer.time("extract", len(hit)):
-            for c0 in range(0, len(hit), chunk):
-                hc = hit[c0:c0 + chunk]
-                with timer.time("topk", len(hc)):
-                    if int8_wire:
-                        panel, hit_s, gidx = build_hit_panel_q(hc, q8, s_row, n_pad)
-                    else:
-                        panel, gidx = build_hit_panel(hc, normed16, n_pad, dtype=np.float16)
-                        hit_s = None
-                    panel = widen(panel)
-                    parts_v, parts_j = [], []
-                    for i, (wired, dev) in enumerate(zip(wires, devs)):
-                        v, j = _extract_chunk(
-                            wired, torch.from_numpy(panel).to(dev),
-                            None if hit_s is None else torch.from_numpy(hit_s).to(dev),
-                            torch.from_numpy(gidx).to(dev), b, m // b, n, k,
-                            offset=(first + i) * m)
-                        parts_v.append(v.cpu().numpy())
-                        parts_j.append(j.cpu().numpy())
-                    # merge the d per-shard top-k lists: [d, H, k] → [H, d·k]
-                    h_pad = len(panel)
-                    v = process_allgather(mesh, np.stack(parts_v))
-                    j = process_allgather(mesh, np.stack(parts_j))
-                    v = v.transpose(1, 0, 2).reshape(h_pad, -1)[: len(hc)]
-                    j = j.transpose(1, 0, 2).reshape(h_pad, -1)[: len(hc)]
-                    order = np.argsort(-v, axis=1)[:, :k]
-                    v = np.take_along_axis(v, order, axis=1)
-                    j = np.take_along_axis(j, order, axis=1)
-                with timer.time("recheck", len(hc)):
-                    r, c, mets = filter_and_recheck(v, j, hc, normed_f32, scan_threshold,
-                                                    threshold, euclidean)
-                rows_l.append(r)
-                cols_l.append(c)
-                metrics_l.append(mets)
-    return DedupResult(
-        rows=np.concatenate(rows_l),
-        cols=np.concatenate(cols_l),
-        metrics=np.concatenate(metrics_l),
-        overflow_rows=np.nonzero(counts > max_per_row)[0].astype(np.int64),
-    )
+        return host.extract(counts, b, topk, extract_chunk_size)

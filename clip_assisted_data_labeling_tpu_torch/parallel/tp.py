@@ -17,19 +17,19 @@ packed ``[q|k|v]`` columns so that each shard's contiguous slice is a packed
 ``[q_j|k_j|v_j]`` of its own heads (and EVA02's swiglu fc1 columns as
 ``[w1_j|w2_j]``).
 
-The JAX package leaves the float and dynamic-int8 forwards to GSPMD; here
-:func:`vit_encode_tp` writes that dataflow out: column products are
-shard-local, attention runs at ``heads/m`` heads (``packed_attention_auto``
-routes at the local shape), the row-parallel partials are summed in float32
-and then bias and residual are added, and EVA02's sub-LNs gather the full
-width first (gather → the replicated layernorm → each shard's slice). In
-dynamic int8 every block is the generic one (``CTPU_INT8_BLOCK`` and
-``CTPU_FUSED_QMATMUL`` pick nothing here: K6's row amax spans the full
-width): a column product's input rows are quantized once over the full
-width, and a row-parallel input's row scale is the maximum (``pmax``) of the
-shards' row amax, so the int32 partials sum to the single device's exactly.
-The replicated work (stem, layernorms, readout) runs once a data row, on
-the row's first device, and its outputs are copied to the shards.
+The forward runs the single device's block code (``models/vit._block``:
+its route, its three block bodies) on each layer's :class:`TPShards`, which
+supplies the products over the shards: column products shard-local on the
+input quantized once over the full width, attention at ``heads/m`` heads
+(routed at the local shape), row-parallel partials summed — int32 before one
+dequant epilogue (exact in any order, so an int8 forward is the single
+device's bits where the routes agree), float32 for float — and EVA02's
+sub-LNs over the gathered full width. In dynamic int8 every block is the
+generic one (``CTPU_INT8_BLOCK`` and ``CTPU_FUSED_QMATMUL`` pick nothing
+here: K6's row amax spans the full width), and a row-parallel input's row
+scale is the maximum (``pmax``) of the shards' row amax. The replicated
+work (stem, layernorms, readout) runs once a data row, on the row's first
+device, and its outputs are copied to the shards.
 
 Conv towers have no ``blocks``: on a 2-D mesh their params are replicated
 and they run data-parallel (``parallel/embed_sharded.py``), as in the JAX
@@ -47,21 +47,19 @@ from clip_assisted_data_labeling_tpu_torch.models.vit import (
     VisionTransformer,
     VitBlock,
     VitConfig,
-    _act,
-    _layernorm,
+    _block,
+    _linear,
     _readout,
     _rope_on,
-    _silu,
     _stem,
 )
-from clip_assisted_data_labeling_tpu_torch.ops.attention import packed_attention_auto
 from clip_assisted_data_labeling_tpu_torch.ops.quant import (
     _dequant_epilogue,
     int_matmul,
     quant_rows,
     quant_static,
 )
-from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import q_matmul_pre
+from clip_assisted_data_labeling_tpu_torch.ops.quant_kernel import q_matmul_pre, q_matmul_pre_act_q8
 from clip_assisted_data_labeling_tpu_torch.parallel.mesh import Mesh, all_gather, pmax, psum
 
 # The split axis of each params["blocks"] leaf (leading axis = depth), as
@@ -107,9 +105,10 @@ def shard_leaf(name: str, leaf: np.ndarray, n_model: int, j: int) -> np.ndarray:
 class TPModel:
     """A tower placed on a 2-D mesh: per data row, the replicated stem and
     readout (a ``VisionTransformer`` without blocks, on the row's first
-    device) and one list of ``VitBlock``s a ``model`` shard (each on its
-    device, holding its slices). Shards on a repeated device are distinct
-    modules; rows on the same devices share them."""
+    device), one list of ``VitBlock``s a ``model`` shard (each on its
+    device, holding its slices) and each layer's :class:`TPShards` over
+    them. Shards on a repeated device are distinct modules; rows on the
+    same devices share them."""
 
     def __init__(self, cfg: VitConfig, mesh: Mesh, tops: list[VisionTransformer],
                  shards: list[list[list[VitBlock]]]):
@@ -118,6 +117,12 @@ class TPModel:
         self.tops = tops  # [data row]
         self.shards = shards  # [data row][model index][layer]
         self.n_model = mesh.shape["model"]
+        self.layers = []  # [data row][layer]
+        for row in shards:
+            ropes = ([_rope_on(cfg, blks[0].ln1_scale.device) for blks in row]
+                     if cfg.use_rope2d else None)
+            self.layers.append([TPShards([blks[i] for blks in row], ropes)
+                                for i in range(cfg.layers)])
 
     @property
     def heads_local(self) -> int:
@@ -176,7 +181,7 @@ def apply_tp_sharding(model, mesh: Mesh) -> TPModel:
     return place_tp(params, model.cfg, mesh)
 
 
-# ---- the dataflow of one block over the model shards -------------------------------
+# ---- the products of one block over the model shards -------------------------------
 
 def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """a [M, K] @ w [K, N] with float32 sums and a float32 output."""
@@ -185,133 +190,114 @@ def _mm_f32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return a.to(torch.float32) @ w.to(torch.float32)
 
 
-def col_linear(y, blks: list[VitBlock], name: str, out_dtype, quantized: bool,
-               rows=None) -> list[torch.Tensor]:
-    """A column-parallel product on the replicated input y [..., w] (on the
-    row's first device): each shard's output columns on its device. Float:
-    ``y @ W_j + b_j`` in y's dtype, as the single device's ``_linear``;
-    quantized: y's rows quantized once over the full width (dynamic, or
-    ``rows`` = (int8 rows, scale) from the caller's static quantize), then
-    ``q_matmul_pre`` a shard."""
-    lead = y.shape[:-1]
-    if quantized and rows is None:
-        rows = quant_rows(y.reshape(-1, y.shape[-1]))
-    outs = []
-    for blk in blks:
-        dev = blk.ln1_scale.device
-        w = getattr(blk, name)
-        bias = getattr(blk, name.replace("_kernel", "_bias"))
-        if quantized:
-            xq, xs = rows
-            out = q_matmul_pre(xq.to(dev), xs.to(dev), w, getattr(blk, name + "_scale"), bias,
-                               out_dtype=out_dtype)
+class TPShards:
+    """One layer's block over a data row's ``model`` shards: the shard set
+    that ``models/vit``'s block bodies take (a ``VitBlock`` is the one-card
+    set). ``shards``: one VitBlock a shard on its device (the first's
+    replicated leaves are read); ``ropes``: the RoPE tables on each shard's
+    device, or None."""
+
+    def __init__(self, shards: list[VitBlock], ropes=None):
+        self.shards = shards
+        self.ropes = ropes
+
+    def col(self, x, name: str, amax=None, out_dtype=None, act=None) -> list[torch.Tensor]:
+        """A column-parallel product on the replicated input x [..., w] (on
+        the row's first device): each shard's output columns on its device.
+        Float: ``x @ W_j + b_j`` in x's dtype, as the single device's
+        ``_linear``; quantized: x's rows quantized once over the full width
+        (static under ``amax``, none where x is int8 rows already under it,
+        else dynamic), then ``q_matmul_pre`` a shard, or with ``act``
+        ``q_matmul_pre_act_q8`` (fc1's int8 hidden under the shard's a[3])."""
+        if not self.shards[0].quantized:
+            return [_linear(x.to(s.ln1_scale.device), s, name) for s in self.shards]
+        lead, x2 = x.shape[:-1], x.reshape(-1, x.shape[-1])
+        if amax is None:
+            xq, xs = quant_rows(x2)
+        else:
+            xq = x2 if x.dtype == torch.int8 else quant_static(x2, amax)
+            xs = amax * (1.0 / 127.0)
+        if out_dtype is None:
+            out_dtype = torch.bfloat16 if x.dtype == torch.int8 else x.dtype
+        outs = []
+        for s in self.shards:
+            dev, w = s.ln1_scale.device, getattr(s, name)
+            args = (xq.to(dev), xs.to(dev), w, getattr(s, name + "_scale"),
+                    getattr(s, name.replace("_kernel", "_bias")))
+            out = (q_matmul_pre_act_q8(*args, act, s.act_amax[3:4]) if act is not None
+                   else q_matmul_pre(*args, out_dtype=out_dtype))
             outs.append(out.reshape(lead + (w.shape[0],)))
+        return outs
+
+    def row(self, parts: list[torch.Tensor], name: str, amax=None, residual=None,
+            out_dtype=None) -> torch.Tensor:
+        """A row-parallel product of the shards' input slices ``parts``
+        [..., k_j] → its output on the first shard's device, in
+        ``out_dtype`` (by default the parts' float dtype, bfloat16 for int8
+        parts). Float: the float32 partials summed, then the bias (and
+        ``residual``) and the cast. Quantized: each slice quantized under
+        ``amax`` (none where the parts are int8 already: K3's output, a K2
+        sub-LN's rows, the int8 hidden), or dynamically with the row scale
+        of the ``pmax`` of the slices' row amax; the int32 partials summed
+        (exact in any order) before one dequant epilogue, as the single
+        device's ``q_matmul``/``q_matmul_pre``."""
+        b0 = self.shards[0]
+        dev0 = b0.ln1_scale.device
+        lead = parts[0].shape[:-1]
+        if out_dtype is None:
+            out_dtype = torch.bfloat16 if parts[0].dtype == torch.int8 else parts[0].dtype
+        flat = [p.reshape(-1, p.shape[-1]) for p in parts]
+        bias = getattr(b0, name.replace("_kernel", "_bias"))
+        res = None if residual is None else residual.reshape(-1, residual.shape[-1])
+        if not b0.quantized:
+            acc = psum([_mm_f32(p, getattr(s, name)) for p, s in zip(flat, self.shards)], dev0)
+            acc += bias.to(torch.float32)
+            if res is not None:
+                acc += res
+            out = acc.to(out_dtype)
         else:
-            yd = y.to(dev)
-            outs.append(yd @ w.to(yd.dtype) + bias.to(yd.dtype))
-    return outs
+            if amax is None:
+                row_amax = pmax([p.to(torch.float32).abs().amax(dim=-1, keepdim=True)
+                                 for p in flat], dev0)
+                quantized = [quant_rows(p, row_amax.to(p.device)) for p in flat]
+                qs, x_scale = [q for q, _ in quantized], quantized[0][1]
+            else:
+                x_scale = amax * (1.0 / 127.0)
+                qs = (flat if parts[0].dtype == torch.int8
+                      else [quant_static(p, amax.to(p.device)) for p in flat])
+            acc = psum([int_matmul(q, getattr(s, name)) for q, s in zip(qs, self.shards)], dev0)
+            out = _dequant_epilogue(acc, x_scale, getattr(b0, name + "_scale"), bias, res,
+                                    out_dtype)
+        return out.reshape(lead + (out.shape[-1],))
 
-
-def row_linear(parts: list[torch.Tensor], blks: list[VitBlock], name: str, mode: str,
-               act_amax=None, residual=None) -> torch.Tensor:
-    """A row-parallel product of the shards' input slices ``parts`` [..., k_j]
-    → its output on the first shard's device, in the parts' dtype (as the
-    single device's ``_linear`` returns its input's): ``mode`` 'float' sums the
-    float32 partials, then adds the bias (and ``residual``) and casts;
-    'dynamic' quantizes each slice with the row scale of the ``pmax`` of the
-    slices' row amax, 'static' with the calibrated ``act_amax``; the int32
-    partials are summed (exact in any order) and one dequant epilogue
-    follows, as the single device's ``q_matmul``/``q_matmul_pre``."""
-    dev0 = blks[0].ln1_scale.device
-    lead, out_dtype = parts[0].shape[:-1], parts[0].dtype
-    flat = [p.reshape(-1, p.shape[-1]) for p in parts]
-    w_scale = getattr(blks[0], name + "_scale", None)
-    bias = getattr(blks[0], name.replace("_kernel", "_bias"))
-    res = None if residual is None else residual.reshape(-1, residual.shape[-1])
-    if mode == "float":
-        acc = psum([_mm_f32(p, getattr(b, name)) for p, b in zip(flat, blks)], dev0)
-        acc += bias.to(torch.float32)
-        if res is not None:
-            acc += res
-        out = acc.to(out_dtype)
-    else:
-        if mode == "dynamic":
-            amax = pmax([p.to(torch.float32).abs().amax(dim=-1, keepdim=True) for p in flat], dev0)
-            quantized = [quant_rows(p, amax.to(p.device)) for p in flat]
-            qs, x_scale = [q for q, _ in quantized], quantized[0][1]
-        else:
-            x_scale = act_amax * (1.0 / 127.0)
-            qs = [quant_static(p, act_amax.to(p.device)) for p in flat]
-        acc = psum([int_matmul(q, getattr(b, name)) for q, b in zip(qs, blks)], dev0)
-        out = _dequant_epilogue(acc, x_scale, w_scale, bias, res, out_dtype)
-    return out.reshape(lead + (out.shape[-1],))
-
-
-def gather_slices(parts: list[torch.Tensor], blks: list[VitBlock], fn) -> list[torch.Tensor]:
-    """EVA02's full-width sub-LNs on a sharded activation: the slices
-    gathered on the first shard's device (each shard's columns are a
-    contiguous slice in natural order), ``fn`` on the full width there (the
-    same op on the same values as the single device), then each shard's
-    slice of the result back on its device."""
-    dev0 = blks[0].ln1_scale.device
-    full = fn(all_gather(parts, dev0))
-    widths = np.cumsum([0] + [p.shape[-1] for p in parts])
-    return [full[..., widths[j]: widths[j + 1]].contiguous().to(b.ln1_scale.device)
-            for j, b in enumerate(blks)]
-
-
-def _block_tp(x, blks: list[VitBlock], cfg: VitConfig, heads_local: int, ropes):
-    """One float or dynamic-int8 block over the model shards: the single
-    device's generic block (``models/vit._block_generic``) with its products
-    split (pre-LN, or EVA02-E's post-norm; EVA02's sub-LNs and SwiGLU)."""
-    quant = blks[0].quantized
-    mode = "dynamic" if quant else "float"
-    post = cfg.block_norm == "post"
-    b0 = blks[0]
-    y = x if post else _layernorm(x, b0.ln1_scale, b0.ln1_bias, cfg.ln_eps)
-    qkv = col_linear(y, blks, "qkv_kernel", y.dtype, quant)
-    attn = [packed_attention_auto(q, heads=heads_local, scale=cfg.head_dim ** -0.5, rope=r)
-            for q, r in zip(qkv, ropes)]
-    if cfg.attn_inner_ln:
-        attn = gather_slices(attn, blks, lambda a: _layernorm(
-            a, b0.attn_ln_scale, b0.attn_ln_bias, cfg.ln_eps))
-    attn_out = row_linear(attn, blks, "out_kernel", mode)
-    if post:
-        attn_out = _layernorm(attn_out, b0.ln1_scale, b0.ln1_bias, cfg.ln_eps)
-    x = x + attn_out
-    y = x if post else _layernorm(x, b0.ln2_scale, b0.ln2_bias, cfg.ln_eps)
-    h = col_linear(y, blks, "fc1_kernel", y.dtype, quant)
-    if cfg.mlp_type == "swiglu":
-        gates = [_silu(h1) * h2 for h1, h2 in (t.chunk(2, dim=-1) for t in h)]
-        g = gather_slices(gates, blks, lambda a: _layernorm(
-            a, b0.ffn_ln_scale, b0.ffn_ln_bias, cfg.ln_eps))
-    else:
-        g = [_act(t, cfg.act, quantized=quant) for t in h]
-    mlp_out = row_linear(g, blks, "fc2_kernel", mode)
-    if post:
-        mlp_out = _layernorm(mlp_out, b0.ln2_scale, b0.ln2_bias, cfg.ln_eps)
-    return x + mlp_out
+    def full(self, parts: list[torch.Tensor], fn) -> list[torch.Tensor]:
+        """A full-width function (EVA02's sub-LNs) on a sharded activation:
+        the slices gathered on the first shard's device (each shard's
+        columns are a contiguous slice in natural order), ``fn`` on the full
+        width there (the same op on the same values as the single device),
+        then each shard's slice of the result back on its device."""
+        full = fn(all_gather(parts, self.shards[0].ln1_scale.device))
+        widths = np.cumsum([0] + [p.shape[-1] for p in parts])
+        return [full[..., widths[j]: widths[j + 1]].contiguous().to(s.ln1_scale.device)
+                for j, s in enumerate(self.shards)]
 
 
 @torch.inference_mode()
-def encode_rows(tpm: TPModel, images: torch.Tensor, compute_dtype, normalize: bool,
-                block_fn) -> torch.Tensor:
+def encode_rows(tpm: TPModel, images: torch.Tensor, compute_dtype,
+                normalize: bool) -> torch.Tensor:
     """The tower over a 2-D mesh: the images split over the data rows; per
-    row the replicated stem, ``block_fn(x, shard blocks, cfg, heads_local,
-    ropes)`` a layer and the replicated readout; the embeddings gathered on
+    row the replicated stem, ``models/vit._block`` on each layer's
+    :class:`TPShards` and the replicated readout; the embeddings gathered on
     the mesh's first device."""
     cfg = tpm.cfg
     n_rows = len(tpm.tops)
     if images.shape[0] % n_rows:
         raise ValueError(f"batch {images.shape[0]} must divide over {n_rows} data rows")
     outs = []
-    for top, row, part in zip(tpm.tops, tpm.shards, images.chunk(n_rows)):
-        dev0 = top.ln_post_scale.device
-        x, _ = _stem(top, part.to(dev0), compute_dtype)
-        ropes = [(_rope_on(cfg, blks[0].ln1_scale.device) if cfg.use_rope2d else None)
-                 for blks in row]
-        for layer in range(cfg.layers):
-            x = block_fn(x, [blks[layer] for blks in row], cfg, tpm.heads_local, ropes)
+    for top, layers, part in zip(tpm.tops, tpm.layers, images.chunk(n_rows)):
+        x, _ = _stem(top, part.to(top.ln_post_scale.device), compute_dtype)
+        for blk in layers:
+            x = _block(x, blk, cfg, blk.ropes)
         outs.append(_readout(x, top, compute_dtype, normalize))
     first = tpm.tops[0].ln_post_scale.device
     return torch.cat([o.to(first) for o in outs])
@@ -322,4 +308,4 @@ def vit_encode_tp(tpm: TPModel, images: torch.Tensor, compute_dtype=torch.bfloat
     """Tensor-parallel float32, bfloat16 or dynamic-int8 forward → [B,
     embed_dim] float32 on the mesh's first device (the dataflow of the
     module docstring)."""
-    return encode_rows(tpm, images, compute_dtype, normalize, _block_tp)
+    return encode_rows(tpm, images, compute_dtype, normalize)

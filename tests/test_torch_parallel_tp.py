@@ -33,6 +33,7 @@ from clip_assisted_data_labeling_tpu_torch.models.clip_weights import (
     module_from_params,
 )
 from clip_assisted_data_labeling_tpu_torch.models.encoders import CLIPImageEncoder
+from clip_assisted_data_labeling_tpu_torch.ops import knobs as tknobs
 from clip_assisted_data_labeling_tpu_torch.parallel import mesh as tmesh
 from clip_assisted_data_labeling_tpu_torch.parallel import tp as ttp
 from clip_assisted_data_labeling_tpu_torch.parallel import tp_static as ttps
@@ -135,6 +136,25 @@ def test_tp_static_int8_wire(rng, monkeypatch):
         jtps.place_tp_static(sparams, mesh, cfg), jnp.asarray(x), cfg, mesh,
         compute_dtype=jnp.float32, fused_attention=True))
     assert _cos_err(single.numpy(), ref) <= 2e-3
+
+
+def test_tp_static_hidden_q8_on_each_shard(rng, monkeypatch):
+    """In bfloat16 each shard's MLP keeps its hidden in int8 (the single
+    device's block code on the shards): ViT-Test/tiny takes the static route
+    at width 64, and a shard's fc1 width 128 is a multiple of 16, so
+    ``q_matmul_pre_act_q8`` runs once for each (data row, shard, layer);
+    the output stays the single device's bits."""
+    cfg, sparams, model, x = _static("ViT-Test/tiny", rng)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    single = tvit.vit_encode_image(model, xt, torch.bfloat16)
+    tpm = ttps.place_tp_static(model, mesh_2d(2, 2), model.cfg)
+    calls = []
+    real = ttp.q_matmul_pre_act_q8
+    monkeypatch.setattr(ttp, "q_matmul_pre_act_q8",
+                        lambda *a, **k: calls.append(a[2].shape) or real(*a, **k))
+    got = ttps.vit_encode_tp_static(tpm, xt, torch.bfloat16)
+    assert calls == [(model.cfg.mlp_dim // 2, model.cfg.width)] * (2 * 2 * model.cfg.layers)
+    assert torch.equal(got, single)
 
 
 def test_reorder_and_shards_match_jax(rng):
@@ -250,7 +270,7 @@ def test_tp_float_matches_jax_and_single(name, rng):
             assert _cos_err(got, ref) <= 1e-3 and _cos_err(e2e, one) <= 1e-3
 
 
-def test_tp_dynamic_int8(rng):
+def test_tp_dynamic_int8(rng, monkeypatch):
     """Dynamic int8 over the model shards: within the int8 budget of the JAX
     2-D run, and bit for bit the port's single-device generic block (the row
     scale of a row-parallel input is the pmax of the shards' row amax)."""
@@ -266,6 +286,17 @@ def test_tp_dynamic_int8(rng):
                                                                               crop_params)
     assert torch.equal(got, one)
     assert _cos_err(got.numpy(), ref) <= 2e-3
+    # the single device's other dynamic-int8 blocks are one-shard routes: the
+    # TP forward runs the generic block under either, the same bits
+    for mode in ("hybrid", "xla"):
+        try:
+            monkeypatch.setenv("CTPU_INT8_BLOCK", mode)
+            tknobs.reload()
+            assert torch.equal(ShardedEmbedder(qparams, tcfg, mesh_2d(4, 2)).embed(
+                canvases, crop_params), one)
+        finally:
+            monkeypatch.undo()
+            tknobs.reload()
     # EVA02 has no dynamic-int8 block: the encoder runs it in bfloat16
     enc = CLIPImageEncoder("EVA-Test/tiny", compute_dtype="int8", device="cpu")
     assert not enc.quantized and enc.compute_dtype == torch.bfloat16
